@@ -1,0 +1,200 @@
+"""CLI of the PyTorch port: ``separate`` and ``serve``.
+
+Run as ``python -m speech_separation_tpu_torch.cli.main <subcommand>``. The
+subcommands and flags are those of the JAX package's ``sepsep separate`` and
+``sepsep serve`` (speech_separation_tpu/cli/main.py), without
+``--data-parallel`` and ``--streaming-model``, which are not ported yet, and
+with ``--device`` (default ``cuda``; without a card the command fails).
+Models are reference ``.mdl`` state dicts (``sepsep export-model``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import time
+
+
+def read_model_config(path: str) -> dict:
+    """key=value-per-line model config."""
+    kwargs = {}
+    if path:
+        with open(path) as f:
+            for line in f:
+                line = line.rstrip("\n")
+                if line and "=" in line:
+                    k, _, v = line.partition("=")
+                    kwargs[k] = v
+    return kwargs
+
+
+def _pipeline(args):
+    from ..dsp.stft import STFTConfig
+    from ..eval.pipeline import SeparationPipeline
+    cfg = STFTConfig(n_fft=args.fft_dim, hop=args.step_size,
+                     sample_rate=args.sample_rate)
+    return SeparationPipeline(args.model,
+                              model_kwargs=read_model_config(args.model_config),
+                              stft_cfg=cfg, batch_size=args.batch_size,
+                              num_spk=args.num_spk or None, device=args.device)
+
+
+def _separate_via_server(args):
+    """Hand the work to a running ``serve`` process: no model load here."""
+    from ..eval.serve import request
+    # the server's own model/STFT/batch configuration wins; say so instead
+    # of silently producing output with other parameters
+    ignored = [(f, v) for f, v, d in (
+        ("--model-config", args.model_config, ""),
+        ("--batch-size", args.batch_size, 16),
+        ("--fft-dim", args.fft_dim, 512),
+        ("--step-size", args.step_size, 128),
+        ("--sample-rate", args.sample_rate, 8000),
+        ("--device", args.device, "cuda"),
+    ) if v != d]
+    if ignored:
+        print("note: --server forwards only wavs/out_dir/num_spk/long-form; "
+              "the server's own configuration wins over: "
+              + ", ".join(f"{f}={v}" for f, v in ignored))
+    payload = {"wavs": [os.path.abspath(w) for w in args.wavs],
+               "out_dir": os.path.abspath(args.out_dir)}
+    if args.num_spk:
+        payload["num_spk"] = args.num_spk
+    if args.long_form:
+        payload.update(long_form=True, window_sec=args.window_sec,
+                       overlap_sec=args.overlap_sec)
+    # the server takes seconds to load and bind: wait for the socket
+    deadline = time.monotonic() + args.server_wait
+    waited = False
+    while True:
+        try:
+            reply = request(args.server, payload)
+            break
+        except (FileNotFoundError, ConnectionRefusedError) as e:
+            if time.monotonic() >= deadline:
+                raise SystemExit(f"no server at {args.server} after "
+                                 f"{args.server_wait:.0f}s ({e})")
+            if not waited:
+                print(f"waiting for server at {args.server} ...", flush=True)
+                waited = True
+            time.sleep(0.5)
+    print(json.dumps(reply))
+    if not reply.get("ok"):
+        raise SystemExit(1)
+
+
+def cmd_separate(args):
+    """Waveforms in, separated waveforms out (the serving path)."""
+    if args.server:
+        _separate_via_server(args)
+        return
+    from ..utils.audio import (limit_peak, load_wav, separated_track_paths,
+                               wav_num_samples, write_wav_int16)
+    pipe = _pipeline(args)
+    sr = pipe.stft_cfg.sample_rate
+    os.makedirs(args.out_dir, exist_ok=True)
+
+    def write(path, ests):
+        for out_path, est in zip(
+                separated_track_paths(args.out_dir, path, len(ests)),
+                limit_peak(ests)):
+            write_wav_int16(out_path, sr, est)
+
+    if args.long_form:
+        for path in args.wavs:
+            x, _ = load_wav(path, sr=sr)
+            write(path, pipe.separate_long(x, window_sec=args.window_sec,
+                                           overlap_sec=args.overlap_sec))
+    else:
+        # audio loads batch by batch, ordered by wav-header lengths
+        lengths = [wav_num_samples(p) for p in args.wavs]
+        loader = lambda i: load_wav(args.wavs[i], sr=sr)[0]
+        for i, ests in pipe.separate_stream(loader, lengths):
+            write(args.wavs[i], ests)
+    print(f"separated {len(args.wavs)} files -> {args.out_dir}")
+
+
+def cmd_serve(args):
+    """Resident separation server on a Unix socket (newline-JSON protocol,
+    eval/serve.py)."""
+    from ..eval.serve import SeparationServer
+    pipe = _pipeline(args)
+    server = SeparationServer(pipe, args.socket_path, coalesce=args.coalesce)
+
+    # SIGTERM and Ctrl-C go through the clean shutdown: in-flight requests
+    # drain and the socket file is removed
+    def _stop(signum, _frame):
+        print(f"signal {signal.Signals(signum).name}: shutting down", flush=True)
+        server.shutdown()
+
+    signal.signal(signal.SIGTERM, _stop)
+    signal.signal(signal.SIGINT, _stop)
+    if args.warmup_sec:
+        try:
+            secs = [float(s) for s in args.warmup_sec.split(",") if s.strip()]
+        except ValueError:
+            raise SystemExit(f"--warmup-sec expects comma-separated seconds "
+                             f"(got {args.warmup_sec!r})")
+        n = server.warmup(secs)
+        print(f"warmup: {n} shape buckets run", flush=True)
+    print(f"serving {args.model} on {args.socket_path} ({pipe.device})", flush=True)
+    server.serve_forever()
+
+
+def _add_model(p):
+    p.add_argument("--model-config", default="")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--num-spk", type=int, default=0)
+    p.add_argument("--fft-dim", type=int, default=512)
+    p.add_argument("--step-size", type=int, default=128)
+    p.add_argument("--sample-rate", type=int, default=8000)
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain PyTorch versions "
+                        "of the kernels")
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(prog="speech_separation_tpu_torch",
+                                 description=__doc__)
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("separate", help="waveform->waveforms separation")
+    p.add_argument("model")
+    p.add_argument("out_dir")
+    p.add_argument("wavs", nargs="+")
+    _add_model(p)
+    p.add_argument("--long-form", action="store_true",
+                   help="window + permutation-align + crossfade (for "
+                        "minutes-long recordings)")
+    p.add_argument("--window-sec", type=float, default=8.0)
+    p.add_argument("--overlap-sec", type=float, default=1.0)
+    p.add_argument("--server", default="",
+                   help="socket of a running `serve` process: send the "
+                        "request there instead of loading the model")
+    p.add_argument("--server-wait", type=float, default=60.0,
+                   help="seconds to wait for the server socket to appear")
+    p.set_defaults(fn=cmd_separate)
+
+    p = sub.add_parser("serve", help="resident separation server (warm model "
+                                     "on a Unix socket; JSON-line protocol)")
+    p.add_argument("model")
+    p.add_argument("socket_path")
+    _add_model(p)
+    p.add_argument("--coalesce", type=int, default=32,
+                   help="max queued requests merged into one device batch")
+    p.add_argument("--warmup-sec", default="",
+                   help="comma-separated audio lengths (seconds) to run "
+                        "once at startup, e.g. '4,8'")
+    p.set_defaults(fn=cmd_serve)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

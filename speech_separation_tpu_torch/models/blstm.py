@@ -1,0 +1,111 @@
+"""Bidirectional multi-layer LSTM (inference forward) in PyTorch.
+
+The counterpart of speech_separation_tpu/models/blstm.py:
+
+- the input projection x @ W_ih + b of all steps is one product hoisted out
+  of the recurrence; the recurrence of both directions runs in one call of
+  ops/lstm_kernel.lstm_seq_infer (the hand-written kernel on CUDA, its plain
+  version on the CPU), for either compute dtype;
+- variable lengths follow packed-sequence semantics by masking: at padded
+  steps the carry passes through and the output is zero. The reverse
+  direction runs on the time-flipped input with a suffix mask, so each
+  row's padding is consumed first with the state still h0, then its frames
+  in true reverse order;
+- gate order (i, f, g, o); the initial state is the caller's (the reference
+  draws it from N(0, 1) per batch, kept by ``random_hidden``).
+
+Parameters carry torch.nn.LSTM's names (``weight_ih_l0``, ``..._reverse``)
+so a reference ``.mdl`` state dict loads as it is. The two biases are
+summed in f32 at use, as the JAX package stores them summed.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..ops.lstm_kernel import lstm_seq_infer
+
+
+def random_hidden(generator: torch.Generator, num_layers: int, batch: int,
+                  hidden: int):
+    """Reference quirk: initial (h0, c0) ~ N(0, 1) per batch, drawn from
+    ``generator`` on its device. Shapes: (num_layers, 2, B, H) each."""
+    shape = (num_layers, 2, batch, hidden)
+    h0 = torch.randn(shape, generator=generator, device=generator.device)
+    c0 = torch.randn(shape, generator=generator, device=generator.device)
+    return h0, c0
+
+
+class BLSTM(nn.Module):
+    """Multi-layer bidirectional LSTM with the BLSTM layout of the JAX
+    package: outputs (B, T, 2H), forward direction first."""
+
+    def __init__(self, input_dim: int, hidden: int, num_layers: int = 2):
+        super().__init__()
+        self.input_dim, self.hidden, self.num_layers = input_dim, hidden, num_layers
+        for layer in range(num_layers):
+            in_dim = input_dim if layer == 0 else 2 * hidden
+            for sfx in ("", "_reverse"):
+                self.register_parameter(f"weight_ih_l{layer}{sfx}",
+                                        nn.Parameter(torch.empty(4 * hidden, in_dim)))
+                self.register_parameter(f"weight_hh_l{layer}{sfx}",
+                                        nn.Parameter(torch.empty(4 * hidden, hidden)))
+                self.register_parameter(f"bias_ih_l{layer}{sfx}",
+                                        nn.Parameter(torch.empty(4 * hidden)))
+                self.register_parameter(f"bias_hh_l{layer}{sfx}",
+                                        nn.Parameter(torch.empty(4 * hidden)))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """torch.nn.LSTM's default init: U(-k, k), k = 1/sqrt(hidden)."""
+        k = 1.0 / math.sqrt(self.hidden)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.uniform_(-k, k, generator=generator)
+
+    def _direction(self, layer: int, sfx: str):
+        g = lambda n: getattr(self, f"{n}_l{layer}{sfx}")
+        return g("weight_ih"), g("weight_hh"), g("bias_ih") + g("bias_hh")
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, h0: torch.Tensor,
+                c0: torch.Tensor, compute_dtype: torch.dtype = torch.float32):
+        """x: (B, T, in) float32, zero past each row's length; lengths: (B,)
+        int; h0, c0: (num_layers, 2, B, H), direction 0 = forward.
+
+        Returns (out (B, T, 2H) with zeros at padded steps,
+        (h_n, c_n) each (num_layers, 2, B, H))."""
+        out = x
+        h_finals, c_finals = [], []
+        for layer in range(self.num_layers):
+            wf_ih, wf_hh, bf = self._direction(layer, "")
+            wb_ih, wb_hh, bb = self._direction(layer, "_reverse")
+            out_c = out.to(compute_dtype)
+            x_rev = torch.flip(out_c, dims=(1,))
+            if compute_dtype == torch.bfloat16:
+                # the JAX bf16 path: a direction-batched product of bf16
+                # inputs with f32 accumulation, ROUNDED to bf16, then the
+                # bf16 bias added in bf16 (a second rounding)
+                x_pair = torch.stack([out_c, x_rev]).float()             # (2, B, T, F)
+                w_pair = torch.stack([wf_ih.t(), wb_ih.t()]).to(compute_dtype).float()
+                b_pair = torch.stack([bf, bb]).to(compute_dtype)         # (2, 4H)
+                xw = torch.matmul(x_pair, w_pair[:, None]).to(compute_dtype)
+                xw = xw + b_pair[:, None, None, :]
+            else:
+                xw = torch.stack([torch.matmul(out_c, wf_ih.t()) + bf,
+                                  torch.matmul(x_rev, wb_ih.t()) + bb])
+            xw = xw.permute(2, 0, 1, 3).contiguous()                      # (T, 2, B, 4H)
+            w_hh = torch.stack([wf_hh.t(), wb_hh.t()]).to(compute_dtype).contiguous()
+            ys, h_last, c_last = lstm_seq_infer(
+                xw, w_hh, h0[layer].contiguous(), c0[layer].contiguous(), lengths,
+                suffix_dirs=(False, True))
+            y_fwd = ys[:, 0].transpose(0, 1)
+            # outputs at suffix-masked steps are zero, so flipping back
+            # leaves zeros past each row's length
+            y_bwd = torch.flip(ys[:, 1].transpose(0, 1), dims=(1,))
+            out = torch.cat([y_fwd, y_bwd], dim=-1)
+            h_finals.append(h_last)
+            c_finals.append(c_last)
+        return out, (torch.stack(h_finals), torch.stack(c_finals))

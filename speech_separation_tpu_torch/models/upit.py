@@ -1,0 +1,128 @@
+"""uPIT architecture (eval forward): BLSTM mask estimation.
+
+The counterpart of speech_separation_tpu/models/upit.py:
+
+  model:  bidirectional LSTM (num_layers x hidden per direction) over the
+          mixture magnitude spectra -> BatchNorm1d(2*hidden) on the padded
+          output (padding frames included in the statistics) -> Linear(
+          2*hidden -> feat_dim*num_spk) -> sigmoid, giving num_spk masks
+          stacked along the frequency axis.
+  infer:  the same forward in eval mode; source s is the feat_dim-sized
+          slice [s*feat_dim : (s+1)*feat_dim] of the output.
+
+The initial LSTM state is drawn from N(0, 1) per batch (a reference quirk);
+``zero_init_hidden=True`` gives the deterministic variant. The training
+objective (the permutation-min loss) belongs to the training slice.
+
+Parameter names follow the reference ``.mdl`` state dict: ``blstm.*``
+(torch.nn.LSTM names), ``bn.*`` (BatchNorm1d) and ``lin.*`` (Linear).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from .blstm import BLSTM, random_hidden
+from ..ops.batchnorm import BatchNorm
+from ..ops.mxu import head_dot
+
+NAME = "uPIT"
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    feat_dim: int = 257
+    num_spk: int = 2
+    hidden: int = 600
+    num_layers: int = 2
+    zero_init_hidden: bool = False
+    # product input dtype: "bfloat16" rounds the inputs of the products to
+    # bf16 (f32 accumulation; gate/cell math stays f32); "float32" is the
+    # bit-faithful default
+    compute_dtype: str = "float32"
+
+    @classmethod
+    def from_kwargs(cls, **kwargs):
+        """Accept the reference's key=value model-config strings."""
+        return cls(**_coerce_kwargs(cls, kwargs))
+
+    @property
+    def input_dim(self) -> int:
+        return self.feat_dim
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+
+def _coerce_kwargs(cls, kwargs: dict) -> dict:
+    """Coerce the reference's all-string key=value config values onto the
+    dataclass field types; unknown keys are dropped."""
+    fields = {f.name: str(f.type) for f in dataclasses.fields(cls)}
+    clean = {}
+    for k, v in kwargs.items():
+        if k not in fields:
+            continue
+        t = fields[k]
+        if "bool" in t:
+            clean[k] = str(v).lower() in ("1", "true", "yes")
+        elif "int" in t:
+            clean[k] = int(v)
+        else:
+            clean[k] = str(v)
+    return clean
+
+
+class UPIT(nn.Module):
+    """BLSTM -> padded BN -> linear -> sigmoid."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.cfg = cfg
+        out_dim = 2 * cfg.hidden
+        self.blstm = BLSTM(cfg.input_dim, cfg.hidden, cfg.num_layers)
+        self.bn = BatchNorm(out_dim)
+        self.lin = nn.Linear(out_dim, cfg.feat_dim * cfg.num_spk)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """The JAX package's init: BLSTM as torch.nn.LSTM, the head
+        U(-1/sqrt(2H), 1/sqrt(2H)), BN at identity."""
+        self.blstm.reset_parameters(generator)
+        kb = 1.0 / math.sqrt(2 * self.cfg.hidden)
+        with torch.no_grad():
+            self.lin.weight.uniform_(-kb, kb, generator=generator)
+            self.lin.bias.uniform_(-kb, kb, generator=generator)
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor,
+                row_mask: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        """x: (B, T, feat_dim) magnitudes; returns masks
+        (B, T, feat_dim * num_spk)."""
+        dt = self.cfg.torch_dtype
+        y, _ = self.blstm(x, lengths, h0, c0, compute_dtype=dt)
+        y = self.bn(y, row_mask, train)
+        y = head_dot(y, self.lin.weight.t(), dt) + self.lin.bias
+        return torch.sigmoid(y)
+
+
+def initial_state(cfg: Config, batch: int, generator: torch.Generator,
+                  device: torch.device):
+    """(h0, c0) for one batch: zeros, or the reference's N(0, 1) draw."""
+    if cfg.zero_init_hidden:
+        shape = (cfg.num_layers, 2, batch, cfg.hidden)
+        zeros = torch.zeros(shape, dtype=torch.float32, device=device)
+        return zeros, zeros
+    return random_hidden(generator, cfg.num_layers, batch, cfg.hidden)
+
+
+@torch.inference_mode()
+def infer_masks(model: UPIT, batch: dict, generator: torch.Generator) -> torch.Tensor:
+    """Eval-mode masks (B, T, feat_dim*num_spk) for a batch dict with
+    ``mix`` (B, T, F), ``lengths`` (B,) and ``row_mask`` (B,)."""
+    mix = batch["mix"]
+    h0, c0 = initial_state(model.cfg, mix.shape[0], generator, mix.device)
+    return model(mix, batch["lengths"], batch["row_mask"], h0, c0, train=False)

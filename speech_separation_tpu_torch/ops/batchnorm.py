@@ -1,0 +1,68 @@
+"""Batch normalization with the reference's padded-statistics semantics.
+
+The counterpart of speech_separation_tpu/ops/batchnorm.py. The reference
+applies ``nn.BatchNorm1d(1200)`` to the *padded* BLSTM output, so padding
+frames (exact zeros) count in the batch statistics; that is reproduced here.
+``row_mask`` excludes shape-padding dummy rows from the statistics.
+
+torch semantics: normalization uses the biased variance, the running
+variance update the unbiased one (n/(n-1)); running = (1 - momentum) *
+running + momentum * stat with momentum 0.1; eval mode normalizes with the
+running statistics.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def batchnorm_apply(params: dict, state: dict, x: torch.Tensor,
+                    row_mask: torch.Tensor, train: bool,
+                    momentum: float = 0.1, eps: float = 1e-5):
+    """Normalize x (B, T, C) over (batch, time) per channel.
+
+    params: {"gamma", "beta"}; state: {"mean", "var"}; row_mask: (B,) float,
+    1.0 for real rows (all their T positions count, padding included), 0.0
+    for dummy rows. Returns (y, new_state)."""
+    B, T, C = x.shape
+    if train:
+        rm = row_mask[:, None, None]
+        n = torch.sum(row_mask) * T
+        mean = torch.sum(x * rm, dim=(0, 1)) / n
+        var = torch.sum(torch.square(x - mean) * rm, dim=(0, 1)) / n
+        new_state = {
+            "mean": (1.0 - momentum) * state["mean"] + momentum * mean,
+            "var": (1.0 - momentum) * state["var"] + momentum * var * n / (n - 1.0),
+        }
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    y = (x - mean) / torch.sqrt(var + eps)
+    return y * params["gamma"] + params["beta"], new_state
+
+
+class BatchNorm(nn.Module):
+    """Holds the parameters under the names of ``nn.BatchNorm1d`` (weight,
+    bias, running_mean, running_var, num_batches_tracked), so a reference
+    state dict loads as it is."""
+
+    def __init__(self, num_channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+        self.register_buffer("running_mean", torch.zeros(num_channels))
+        self.register_buffer("running_var", torch.ones(num_channels))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor, row_mask: torch.Tensor, train: bool = False):
+        y, new_state = batchnorm_apply(
+            {"gamma": self.weight, "beta": self.bias},
+            {"mean": self.running_mean, "var": self.running_var},
+            x, row_mask, train)
+        if train:
+            with torch.no_grad():
+                self.running_mean.copy_(new_state["mean"])
+                self.running_var.copy_(new_state["var"])
+                self.num_batches_tracked += 1
+        return y

@@ -1,0 +1,74 @@
+"""Weights across the two packages: shape inference on reference state
+dicts, and the JAX parameter pytree as a state dict of the port.
+
+The layout rule is the one of speech_separation_tpu/utils/import_torch.py
+(a copy, not an import):
+- ``blstm.weight_ih_l{i}[_reverse]`` (4H, in) <-> ``w_ih`` (in, 4H), transposed;
+- ``blstm.weight_hh_l{i}[_reverse]`` (4H, H)  <-> ``w_hh`` (H, 4H), transposed;
+- the JAX package stores the two torch LSTM biases summed as ``b``: the sum
+  goes to ``bias_ih`` and ``bias_hh`` is zero (torch adds them, so every
+  forward is unchanged);
+- ``lin.weight`` (out, 2H) <-> ``lin.w`` transposed, ``lin.bias`` <-> ``lin.b``;
+- ``bn.weight/bias`` <-> gamma/beta, ``bn.running_mean/var`` <-> state['bn'].
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def infer_model_info(sd: dict) -> dict:
+    """Infer {arch, feat_dim, num_spk, hidden, num_layers} from the shapes
+    of a reference SepDNN state dict (values: numpy arrays or tensors)."""
+    if "blstm.weight_ih_l0" not in sd or "lin.weight" not in sd:
+        raise ValueError("not a reference SepDNN state dict "
+                         "(expected blstm.*/lin.*/bn.* keys)")
+    w0 = sd["blstm.weight_ih_l0"]
+    if w0.shape[0] % 4:
+        raise ValueError(f"weight_ih_l0 first dim {w0.shape[0]} is not 4*H "
+                         "(unexpected gate layout)")
+    hidden = w0.shape[0] // 4
+    input_dim = w0.shape[1]
+    num_layers = len([k for k in sd
+                      if k.startswith("blstm.weight_ih_l")
+                      and not k.endswith("_reverse")])
+    if "blstm.weight_ih_l0_reverse" not in sd:
+        raise ValueError("state dict is not bidirectional")
+    lin_out = sd["lin.weight"].shape[0]
+    if input_dim == 2 * lin_out:
+        # RSH: input = concat(mix, attention) of dim 2F, one mask of dim F
+        return {"arch": "RSH", "feat_dim": lin_out, "num_spk": None,
+                "hidden": hidden, "num_layers": num_layers}
+    if lin_out % input_dim == 0:
+        return {"arch": "uPIT", "feat_dim": input_dim,
+                "num_spk": lin_out // input_dim,
+                "hidden": hidden, "num_layers": num_layers}
+    raise ValueError(f"cannot infer arch from shapes: input_dim={input_dim}, "
+                     f"lin_out={lin_out}")
+
+
+def state_dict_from_jax(params_np, state_np) -> dict[str, torch.Tensor]:
+    """The JAX package's uPIT/RSH (params, state) pytree, as numpy arrays,
+    turned into the port's state dict of float32 tensors."""
+    blstm = params_np["blstm"]
+    if isinstance(blstm, dict):  # msgpack checkpoint layout: keys "0".."N-1"
+        blstm = [blstm[k] for k in sorted(blstm, key=int)]
+    f32 = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    tT = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).T))
+    sd = {}
+    for li, directions in enumerate(blstm):
+        for direction, sfx in (("fwd", ""), ("bwd", "_reverse")):
+            d = directions[direction]
+            sd[f"blstm.weight_ih_l{li}{sfx}"] = tT(d["w_ih"])
+            sd[f"blstm.weight_hh_l{li}{sfx}"] = tT(d["w_hh"])
+            sd[f"blstm.bias_ih_l{li}{sfx}"] = f32(d["b"])
+            sd[f"blstm.bias_hh_l{li}{sfx}"] = torch.zeros_like(f32(d["b"]))
+    sd["bn.weight"] = f32(params_np["bn"]["gamma"])
+    sd["bn.bias"] = f32(params_np["bn"]["beta"])
+    sd["bn.running_mean"] = f32(state_np["bn"]["mean"])
+    sd["bn.running_var"] = f32(state_np["bn"]["var"])
+    sd["bn.num_batches_tracked"] = torch.tensor(1, dtype=torch.long)
+    sd["lin.weight"] = tT(params_np["lin"]["w"])
+    sd["lin.bias"] = f32(params_np["lin"]["b"])
+    return sd

@@ -33,3 +33,7 @@ jax.config.update("jax_platforms", "cpu")
 from speech_separation_tpu.utils.compile_cache import enable_compilation_cache
 
 enable_compilation_cache()
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips without one")

@@ -1,0 +1,72 @@
+"""The PyTorch port stands alone: none of its modules, and not
+chip_smoke.py, imports JAX or the JAX package, and its entry points run on
+CUDA unless the caller asks for the CPU."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import speech_separation_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(speech_separation_tpu_torch.__file__)
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages([PKG], "speech_separation_tpu_torch."))
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [n for n in sys.modules if n == 'speech_separation_tpu'\n"
+        "       or n.startswith('speech_separation_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in files:
+        for name in _imported_roots(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "optax",
+                               "speech_separation_tpu"), (path, name)
+
+
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from speech_separation_tpu_torch.eval.infer import resolve_device
+    from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SeparationPipeline(str(tmp_path / "missing.mdl"))
+    assert resolve_device("cpu").type == "cpu"

@@ -1,24 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero without the final line:
 1. device report (nvidia-smi name and power limit, torch device name);
-2. build every kernel of the path from csrc/ with nvcc for sm_90a, one nvcc
+2. build every kernel of the paths from csrc/ with nvcc for sm_90a, one nvcc
    per source, all at once;
-3. each kernel against its plain PyTorch version on the card, at the
-   serving shapes (an 8 s bucket of 16 rows: T=513 frames, 2x600 BLSTM) and
-   at a small ragged shape, with the kernel's time, the plain version's
-   time, one PyTorch library call's time (a yardstick the port never calls)
-   and the least time the card could take (bound_ms);
+3. each kernel against its plain PyTorch version on the card, with the
+   kernel's time, the plain version's time, one PyTorch library call's time
+   (a yardstick the port never calls) and the least time the card could
+   take (bound_ms): the serving kernels (LSTM inference, STFT) at the
+   serving shapes (an 8 s bucket of 16 rows: T=513 frames, 2x600 BLSTM),
+   the training kernels (LSTM training forward and backward) at the
+   training shape (T=384, B=100, H=600), all also at a small ragged shape;
+   and the differentiable recurrence's gradients against autograd through
+   the plain forward;
 4. serve: a 2x600 bf16 uPIT with weights from a seed, saved as a reference
    .mdl, behind the port's SeparationServer on a Unix socket; one request,
    then two concurrent ones, then a ping; every output wav is checked, and
    one request's tracks are held against the same pipeline on the CPU
    (plain versions) by SNR. Kernel launch counts are zeroed just before
    the requests and read just after;
-5. one JSON line with every kernel and its numbers, then
+5. train: the port's train() on a synthetic npz corpus made from the seed
+   (120 training and 40 CV utterances of 4.5-6 s, so every batch pads to
+   T=384), 2x600 bf16 uPIT at B=100 with the reference's N(0, 1) initial
+   state, 5 epochs (10 steps, CV at epoch 5); losses, files, launch counts
+   (zeroed just before, read just after), and final.mdl separating a wav on
+   the card;
+6. one training step (loss and every gradient) on the card against the
+   same step on the CPU (plain versions), same weights and initial state;
+7. one JSON line with every kernel and its numbers, then
    {"ok": true, "device": {...}} as the last line.
 """
 
@@ -45,6 +58,16 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor
 # 1.1e-6 relative; served tracks 72.4 dB against the CPU plain path.
 TOL = {"lstm_bf16": 2e-3, "lstm_f32": 1e-5, "stft_rel": 1e-5}
 MIN_SNR_DB = 50.0
+# The training kernels (K3 forward, K4 backward) against their plain
+# versions, and lstm_seq's gradients against autograd through the plain
+# forward, as max |error| / max(1, max |reference|); the card-against-CPU
+# training step by relative L2 error (loss, worst gradient). Set from the
+# card's first readings (NVIDIA H100 80GB HBM3, 700 W) with about ten times
+# room: K3 bf16 3.9e-3 (one bf16 step of a saved value), f32 2.4e-6; K4 bf16
+# 1.9e-3, f32 1.4e-6; gradients bf16 6.4e-3, f32 6.7e-6; step loss 1.5e-7,
+# gradients 3.7e-3.
+TRAIN_TOL = {"fwd_bf16": 4e-2, "fwd_f32": 2e-5, "bwd_bf16": 2e-2, "bwd_f32": 1.5e-5,
+             "grad_bf16": 6e-2, "grad_f32": 7e-5, "step_loss": 1.5e-6, "step_grad": 4e-2}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -186,6 +209,137 @@ def check_stft(fails: Failures) -> dict:
     return out
 
 
+def scaled_err(got, ref) -> float:
+    """max |got - ref| / max(1, max |ref|), over tensors of one output."""
+    ref = ref.float()
+    return float((got.float() - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def rel_l2(got, ref) -> float:
+    ref = ref.float().cpu()
+    return float((got.float().cpu() - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def check_lstm_train(fails: Failures) -> dict:
+    """K3 (training forward) and K4 (backward) against their plain versions,
+    on the same saves and cotangents, at a small ragged shape and at the
+    training shape; lstm_seq's gradients against autograd through the
+    plain forward at the training shape."""
+    from speech_separation_tpu_torch.ops.lstm_kernel import (
+        lstm_seq, lstm_seq_bwd, lstm_seq_bwd_plain, lstm_seq_fwd, lstm_seq_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    sfx = (False, True)
+    names_f = ("ys", "cs", "gates", "h_last", "c_last")
+    names_b = ("dxw", "dh0", "dc0")
+
+    def cotangents(cs, c0):
+        return (torch.randn(cs.shape, generator=gen, device="cuda").to(cs.dtype),
+                torch.randn(c0.shape, generator=gen, device="cuda"),
+                torch.randn(c0.shape, generator=gen, device="cuda"))
+
+    def compare(args, dtype, label):
+        got = lstm_seq_fwd(*args, save_dtype=dtype, suffix_dirs=sfx)
+        ref = lstm_seq_fwd_plain(*args, save_dtype=dtype, suffix_dirs=sfx)
+        err_f = max(scaled_err(g, r) for g, r in zip(got, ref))
+        _, w, _, c0, lens = args
+        bargs = (w, c0, lens, ref[1], ref[2], *cotangents(ref[1], c0))
+        got_b = lstm_seq_bwd(*bargs, save_dtype=dtype, suffix_dirs=sfx)
+        ref_b = lstm_seq_bwd_plain(*bargs, save_dtype=dtype, suffix_dirs=sfx)
+        torch.cuda.synchronize()
+        err_b = max(scaled_err(g, r) for g, r in zip(got_b, ref_b))
+        key = "bf16" if dtype == torch.bfloat16 else "f32"
+        fails.check(err_f <= TRAIN_TOL["fwd_" + key],
+                    f"lstm_fwd {label} {dtype} ({', '.join(names_f)}): "
+                    f"max_abs_err {err_f:.3e} <= {TRAIN_TOL['fwd_' + key]}")
+        fails.check(err_b <= TRAIN_TOL["bwd_" + key],
+                    f"lstm_bwd {label} {dtype} ({', '.join(names_b)}): "
+                    f"max_abs_err {err_b:.3e} <= {TRAIN_TOL['bwd_' + key]}")
+        return err_f, err_b, got, bargs, got_b
+
+    for dtype in (torch.bfloat16, torch.float32):
+        compare(lstm_inputs(9, 20, 40, dtype, [9, 1, 4, 9, 7] * 4, gen), dtype,
+                "small ragged")
+
+    T, B, H = 384, 100, 600
+    rng = np.random.default_rng(SEED + 2)
+    lengths = [T, 1] + rng.integers(1, T + 1, size=B - 2).tolist()
+    valid_steps = 2 * sum(lengths)                # both directions
+    flops = valid_steps * 2 * H * 4 * H           # one (1, H) x (H, 4H) per step and row
+    out = {"fwd": {}, "bwd": {}, "grad": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = lstm_inputs(T, B, H, dtype, lengths, gen)
+        err_f, err_b, got, bargs, got_b = compare(args, dtype, f"T={T} B={B} H={H}")
+        ms_f = cuda_ms(lambda: lstm_seq_fwd(*args, save_dtype=dtype, suffix_dirs=sfx), 5)
+        plain_f = cuda_ms(lambda: lstm_seq_fwd_plain(*args, save_dtype=dtype,
+                                                     suffix_dirs=sfx), 1, warmup=0)
+        ms_b = cuda_ms(lambda: lstm_seq_bwd(*bargs, save_dtype=dtype, suffix_dirs=sfx), 5)
+        plain_b = cuda_ms(lambda: lstm_seq_bwd_plain(*bargs, save_dtype=dtype,
+                                                     suffix_dirs=sfx), 1, warmup=0)
+        # cuDNN's bidirectional LSTM over the layer-2 input (2H) at the same T
+        # and B, in training: its forward against K3, its backward against K4
+        # (yardsticks only: they also do the input projection and its
+        # gradient)
+        lstm = torch.nn.LSTM(2 * H, H, bidirectional=True).to("cuda", dtype)
+        lstm.flatten_parameters()
+        x = torch.randn((T, B, 2 * H), generator=gen, device="cuda").to(dtype)
+        x.requires_grad_(True)
+        lib_f = cuda_ms(lambda: lstm(x), 5)
+        y, _ = lstm(x)
+        gy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+        lib_b = 0.0
+        for i in range(6):
+            y, _ = lstm(x)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            y.backward(gy)
+            e1.record()
+            e1.synchronize()
+            lib_b += e0.elapsed_time(e1) if i else 0.0   # the first is a warm-up
+        lib_b /= 5
+        del lstm, x, y, gy
+        b_f = bound_ms(nbytes(*args, *got), flops, dtype)
+        b_b = bound_ms(nbytes(*bargs, *got_b), flops, dtype)
+        out["fwd"][dtype] = {"max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f,
+                             "bound_ms": b_f[0], "bound_by": b_f[1], "library_ms": lib_f}
+        out["bwd"][dtype] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
+                             "bound_ms": b_b[0], "bound_by": b_b[1], "library_ms": lib_b}
+        print(f"  lstm_fwd {dtype}: {ms_f:.3f} ms (plain {plain_f:.1f}, cuDNN fwd "
+              f"{lib_f:.3f}, bound {b_f[0]:.4f} by {b_f[1]})", flush=True)
+        print(f"  lstm_bwd {dtype}: {ms_b:.3f} ms (plain {plain_b:.1f}, cuDNN bwd "
+              f"{lib_b:.3f}, bound {b_b[0]:.4f} by {b_b[1]})", flush=True)
+        del got, bargs, got_b
+
+        # the differentiable recurrence: K3 forward, K4 backward and dW_hh
+        # outside, against autograd through the plain forward
+        xw, w, h0, c0, lens = args
+        cot = torch.randn((T, 2, B, H), generator=gen, device="cuda")
+
+        def grads(fn):
+            ts = [t.detach().clone().requires_grad_(True) for t in (xw, w, h0, c0)]
+            ys, h_last, c_last = fn(ts)
+            (torch.sum(ys.float() * cot) + torch.sum(torch.sin(h_last))
+             + 0.1 * torch.sum(c_last ** 2)).backward()
+            return [t.grad for t in ts]
+
+        def plain(ts):
+            ys, _, _, h_last, c_last = lstm_seq_fwd_plain(*ts, lens, dtype, sfx)
+            return ys, h_last, c_last
+
+        got_g = grads(lambda ts: lstm_seq(*ts, lens, dtype, sfx))
+        ref_g = grads(plain)
+        key = "grad_" + ("bf16" if dtype == torch.bfloat16 else "f32")
+        errs = {n: scaled_err(g, r) for n, g, r in
+                zip(("dxw", "dw_hh", "dh0", "dc0"), got_g, ref_g)}
+        out["grad"][dtype] = errs
+        fails.check(max(errs.values()) <= TRAIN_TOL[key],
+                    f"lstm_seq gradients {dtype} vs autograd through the plain "
+                    f"forward: {', '.join(f'{n} {e:.3e}' for n, e in errs.items())} "
+                    f"<= {TRAIN_TOL[key]}")
+        del args, got_g, ref_g
+        torch.cuda.empty_cache()
+    return out
+
+
 # -------------------------------------------------------------------- serve
 
 def mixture(n: int, rng) -> np.ndarray:
@@ -307,13 +461,159 @@ def serve_phase(fails: Failures, counters) -> dict:
             "wall_ms": wall_ms}
 
 
+# -------------------------------------------------------------------- train
+
+def sources(n: int, rng) -> tuple[np.ndarray, np.ndarray]:
+    """Two synthetic speakers: a harmonic tone with vibrato, bursts of noise."""
+    t = np.arange(n) / 8000.0
+    f0 = rng.uniform(120, 250) + 30 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / 8000.0
+    s1 = 0.3 * sum(np.sin(k * phase) / k for k in range(1, 6))
+    noise = np.convolve(rng.standard_normal(n), np.ones(4) / 4, mode="same")
+    s2 = 0.3 * noise * (np.sin(2 * np.pi * rng.uniform(0.8, 2.0) * t) > 0)
+    return s1.astype(np.float32), s2.astype(np.float32)
+
+
+def magnitude(x: np.ndarray, n_fft: int = 512, hop: int = 128) -> np.ndarray:
+    """(n_fft/2+1, 1 + len/hop) STFT magnitude of a centered, reflect-padded
+    signal with a Hann window: the reference's feature layout."""
+    xp = np.pad(x, n_fft // 2, mode="reflect")
+    frames = np.lib.stride_tricks.sliding_window_view(xp, n_fft)[::hop]
+    spec = np.fft.rfft(frames * np.hanning(n_fft + 1)[:-1], axis=-1)
+    return np.abs(spec).T.astype(np.float32)
+
+
+def write_corpus(root: str, n: int, rng, prefix: str) -> tuple[str, np.ndarray]:
+    """A data dir of n npz feature files (mix, s1, s2 magnitudes) of 4.5-6 s
+    utterances at 8 kHz; returns the dir and the first mixture waveform."""
+    os.makedirs(root)
+    lines, first = [], None
+    for i in range(n):
+        s1, s2 = sources(int(8000 * rng.uniform(4.5, 6.0)), rng)
+        utt = f"{prefix}{i:04d}"
+        path = os.path.join(root, utt + ".npz")
+        np.savez(path, mix=magnitude(s1 + s2), s1=magnitude(s1), s2=magnitude(s2))
+        lines.append(f"{utt} {path}\n")
+        if first is None:
+            first = s1 + s2
+    with open(os.path.join(root, "feats_train.scp"), "w") as f:
+        f.writelines(lines)
+    return root, first
+
+
+def train_phase(fails: Failures, counters) -> dict:
+    """Phase 5: 2x600 bf16 uPIT trained through train() on the card."""
+    from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
+
+    work = os.path.join(REPO, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 3)
+    t0 = time.monotonic()
+    tr, _ = write_corpus(os.path.join(work, "tr"), 120, rng, "tr")
+    cv, wav = write_corpus(os.path.join(work, "cv"), 40, rng, "cv")
+    print(f"  corpus: {time.monotonic() - t0:.1f} s", flush=True)
+    exp = os.path.join(work, "exp")
+    cfg = TrainLoopConfig(batch_size=100, num_epochs=5, time_pad_multiple=128, seed=SEED)
+
+    for c in counters:
+        c.launches = 0
+    res = train(tr, exp, cfg, cv_data_dir=cv, model_kwargs={"compute_dtype": "bfloat16"},
+                device="cuda", log=lambda m: print("  " + m, flush=True))
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+
+    losses = [loss for _, loss in res["epoch_losses"]]
+    fails.check(len(losses) == 5 and all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"epoch losses finite and falling: {losses}")
+    fails.check(len(res["cv_losses"]) == 1 and np.isfinite(res["cv_losses"][0][1]),
+                f"cv loss at epoch 5: {res['cv_losses']}")
+    for rel in ("train_stats/train_loss.txt", "train_stats/cv_loss.txt",
+                "intermediate_models/init.mdl", "intermediate_models/005.mdl", "final.mdl"):
+        fails.check(os.path.isfile(os.path.join(exp, rel)), f"{rel} written")
+    steps = res["steps"]
+    fails.check(len(steps) == 10, f"{len(steps)} training steps")
+    for name in ("lstm_seq_fwd", "lstm_seq_bwd"):
+        fails.check(launches[name] == 20, f"{name} launched {launches[name]} times "
+                                          "while training (2 layers x 10 steps)")
+    fails.check(launches["lstm_seq_infer"] > 0,
+                f"lstm_seq_infer launched {launches['lstm_seq_infer']} times in the CV pass")
+    # each epoch is one full batch and one of 20 real rows padded to B=100:
+    # ms/step of the full batches alone, and real rows over all later steps
+    full = [m for m, n in steps[1:] if n == cfg.batch_size]
+    part = [m for m, n in steps[1:] if n < cfg.batch_size]
+    ms = [m for m, _ in steps[1:]]
+    ms_per_step = float(np.mean(full))
+    utts_per_s = sum(n for _, n in steps[1:]) / (sum(ms) / 1e3)
+    print(f"  full-batch steps after the first: {ms_per_step:.2f} ms/step (min "
+          f"{min(full):.2f}, max {max(full):.2f}; {len(full)} steps); 20-row steps "
+          f"{np.mean(part):.2f} ms/step; real rows over all steps after the first: "
+          f"{utts_per_s:.1f} utts/s; first step {steps[0][0]:.1f} ms", flush=True)
+
+    pipe = SeparationPipeline(os.path.join(exp, "final.mdl"),
+                              model_kwargs={"compute_dtype": "bfloat16"}, device="cuda")
+    tracks = pipe.separate([wav])[0]
+    fails.check(len(tracks) == 2 and all(np.all(np.isfinite(t)) for t in tracks),
+                "final.mdl separates a wav on the card into finite tracks")
+    return {"launches": launches, "ms_per_step": ms_per_step, "utts_per_s": utts_per_s,
+            "epoch_losses": losses, "cv_loss": res["cv_losses"], "train_dir": tr}
+
+
+def step_phase(fails: Failures, train_dir: str) -> dict:
+    """Phase 6: one training step, card against CPU, 2x600 bf16 on 8 rows of
+    the training corpus, same weights and initial state."""
+    import copy
+
+    from speech_separation_tpu_torch.models import upit
+    from speech_separation_tpu_torch.train.data import (BatchPlan, FeatureDataset,
+                                                        make_device_batch)
+    from speech_separation_tpu_torch.utils.weights import fold_lstm_biases
+
+    ds = FeatureDataset(train_dir)
+    batch = make_device_batch([ds.load(i) for i in range(8)],
+                              BatchPlan(batch_size=8, time_pad_multiple=128))
+    cfg = upit.Config(compute_dtype="bfloat16")
+    model = upit.UPIT(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(SEED + 4))
+    fold_lstm_biases(model.blstm)
+    rng = np.random.default_rng(SEED + 4)
+    state = [torch.from_numpy(rng.standard_normal((2, 2, 8, 600)).astype(np.float32))
+             for _ in range(2)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        b = {k: torch.from_numpy(batch[k]).to(dev) for k in
+             ("mix", "sources", "lengths", "row_mask")}
+        t0 = time.monotonic()
+        loss, _ = upit.contract_loss(m, b, *(s.to(dev) for s in state), train=True)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        print(f"  {dev} step: {(time.monotonic() - t0) * 1e3:.0f} ms, loss {loss.item():.6f}",
+              flush=True)
+        out[dev] = (loss.detach(), {n: p.grad for n, p in m.named_parameters()
+                                    if p.grad is not None})
+    loss_err = rel_l2(out["cuda"][0], out["cpu"][0])
+    grad_err = {n: rel_l2(g, out["cpu"][1][n]) for n, g in out["cuda"][1].items()}
+    worst = max(grad_err, key=grad_err.get)
+    fails.check(loss_err <= TRAIN_TOL["step_loss"],
+                f"step loss card vs CPU: rel err {loss_err:.3e} <= {TRAIN_TOL['step_loss']}")
+    fails.check(len(grad_err) == 16 and grad_err[worst] <= TRAIN_TOL["step_grad"],
+                f"step gradients card vs CPU ({len(grad_err)} parameters): worst {worst} "
+                f"rel err {grad_err[worst]:.3e} <= {TRAIN_TOL['step_grad']}")
+    print("  gradient rel errs: " + ", ".join(f"{n} {e:.2e}" for n, e in grad_err.items()),
+          flush=True)
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     from speech_separation_tpu_torch.ops import _build
-    from speech_separation_tpu_torch.ops.lstm_kernel import lstm_seq_infer
+    from speech_separation_tpu_torch.ops.lstm_kernel import (lstm_seq_bwd, lstm_seq_fwd,
+                                                             lstm_seq_infer)
     from speech_separation_tpu_torch.ops.stft_kernel import stft
 
     t_start = time.monotonic()
@@ -333,7 +633,7 @@ def main() -> int:
 
     print("== 2. build", flush=True)
     t0 = time.monotonic()
-    _build.build(["lstm_infer", "stft"])
+    _build.build(["lstm_fwd", "lstm_bwd", "stft"])
     print(f"  nvcc (parallel): {time.monotonic() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -343,12 +643,20 @@ def main() -> int:
     print("== 3. kernels against their plain versions", flush=True)
     lstm = check_lstm(fails)
     stft_nums = check_stft(fails)
+    lstm_train = check_lstm_train(fails)
 
     print("== 4. serve (2x600 uPIT, bf16)", flush=True)
     served = serve_phase(fails, [lstm_seq_infer, stft])
-    launches = served["launches"]
+    launches = dict(served["launches"])
     for name, n in launches.items():
         fails.check(n > 0, f"{name} launched {n} times while serving")
+
+    print("== 5. train (2x600 uPIT, bf16, B=100)", flush=True)
+    trained = train_phase(fails, [lstm_seq_fwd, lstm_seq_bwd, lstm_seq_infer])
+    launches.update({k: trained["launches"][k] for k in ("lstm_seq_fwd", "lstm_seq_bwd")})
+
+    print("== 6. one training step, card against CPU", flush=True)
+    step = step_phase(fails, trained["train_dir"])
 
     def row(name, route, source, replaces, nums, extra):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -357,14 +665,23 @@ def main() -> int:
                 **extra}
 
     kernels = [
-        row("lstm_seq_infer", "cuda", "speech_separation_tpu_torch/csrc/lstm_infer.cu",
+        row("lstm_seq_infer", "cuda", "speech_separation_tpu_torch/csrc/lstm_fwd.cu",
             "speech_separation_tpu/ops/lstm_pallas.py:288", lstm[torch.bfloat16],
             {"dtype": "bfloat16", "float32": lstm[torch.float32]}),
         row("stft", "cuda", "speech_separation_tpu_torch/csrc/stft.cu",
             "speech_separation_tpu/ops/stft_pallas.py:77", stft_nums[False],
             {"magnitude": stft_nums[True]}),
+        row("lstm_seq_fwd", "cuda", "speech_separation_tpu_torch/csrc/lstm_fwd.cu",
+            "speech_separation_tpu/ops/lstm_pallas.py:175", lstm_train["fwd"][torch.bfloat16],
+            {"dtype": "bfloat16", "float32": lstm_train["fwd"][torch.float32]}),
+        row("lstm_seq_bwd", "cuda", "speech_separation_tpu_torch/csrc/lstm_bwd.cu",
+            "speech_separation_tpu/ops/lstm_pallas.py:400", lstm_train["bwd"][torch.bfloat16],
+            {"dtype": "bfloat16", "float32": lstm_train["bwd"][torch.float32]}),
     ]
     print(f"  serve: {served}", flush=True)
+    print(f"  train: {({k: v for k, v in trained.items() if k != 'train_dir'})}", flush=True)
+    print(f"  lstm_seq gradients: {lstm_train['grad']}", flush=True)
+    print(f"  card vs CPU step: {step}", flush=True)
     print(f"  total {time.monotonic() - t_start:.1f} s", flush=True)
     if fails:
         print("chip_smoke FAILED:\n  " + "\n  ".join(fails), file=sys.stderr)

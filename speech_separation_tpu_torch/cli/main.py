@@ -1,11 +1,15 @@
-"""CLI of the PyTorch port: ``separate`` and ``serve``.
+"""CLI of the PyTorch port: ``train``, ``separate`` and ``serve``.
 
 Run as ``python -m speech_separation_tpu_torch.cli.main <subcommand>``. The
-subcommands and flags are those of the JAX package's ``sepsep separate`` and
-``sepsep serve`` (speech_separation_tpu/cli/main.py), without
-``--data-parallel`` and ``--streaming-model``, which are not ported yet, and
+subcommands and flags are those of the JAX package's ``sepsep train``,
+``sepsep separate`` and ``sepsep serve`` (speech_separation_tpu/cli/main.py),
+without what is not ported yet (``train``: ``--reference-batching``,
+``--profile-dir``, ``--train-copy-location``, ``--on-device-features`` and
+the hang watchdog; ``--no-plots`` is accepted and plots are not drawn;
+``separate``/``serve``: ``--data-parallel`` and ``--streaming-model``), and
 with ``--device`` (default ``cuda``; without a card the command fails).
-Models are reference ``.mdl`` state dicts (``sepsep export-model``).
+Models are reference ``.mdl`` state dicts: ``train`` writes them, and
+``sepsep export-model`` turns the JAX package's checkpoints into them.
 """
 
 from __future__ import annotations
@@ -143,6 +147,28 @@ def cmd_serve(args):
     server.serve_forever()
 
 
+def cmd_train(args):
+    """Train a separation model on npz features (``feats_train.scp``)."""
+    from ..train.loop import TrainLoopConfig, train_with_restarts
+    loop_cfg = TrainLoopConfig(
+        arch=args.arch, batch_size=args.batch_size, num_epochs=args.num_epochs,
+        learning_rate=args.learning_rate, grad_clip=args.grad_clip,
+        lr_decay=args.lr_decay, start_epoch=args.start_epoch, seed=args.seed,
+        time_pad_multiple=args.time_pad_multiple,
+        bucket_by_length=args.bucket_by_length,
+        reference_resume=args.reference_resume)
+    train_with_restarts(args.data_dir, args.exp_dir, loop_cfg,
+                        max_restarts=args.max_restarts, cv_data_dir=args.cv_data_dir,
+                        model_kwargs=read_model_config(args.model_config),
+                        device=args.device)
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain PyTorch versions "
+                        "of the kernels")
+
+
 def _add_model(p):
     p.add_argument("--model-config", default="")
     p.add_argument("--batch-size", type=int, default=16)
@@ -150,15 +176,41 @@ def _add_model(p):
     p.add_argument("--fft-dim", type=int, default=512)
     p.add_argument("--step-size", type=int, default=128)
     p.add_argument("--sample-rate", type=int, default=8000)
-    p.add_argument("--device", default="cuda",
-                   help="torch device; 'cpu' runs the plain PyTorch versions "
-                        "of the kernels")
+    _add_device(p)
 
 
 def build_parser():
     ap = argparse.ArgumentParser(prog="speech_separation_tpu_torch",
                                  description=__doc__)
     sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("train", help="train a separation model")
+    p.add_argument("arch")
+    p.add_argument("data_dir")
+    p.add_argument("exp_dir")
+    p.add_argument("--cv-data-dir", default="")
+    p.add_argument("--model-config", default="")
+    p.add_argument("--batch-size", type=int, default=100)
+    p.add_argument("--start-epoch", type=int, default=0)
+    p.add_argument("--num-epochs", type=int, default=200)
+    p.add_argument("--learning-rate", type=float, default=1e-3)
+    p.add_argument("--grad-clip", type=float, default=0.25,
+                   help="global-norm gradient clip (the reference's 0.25)")
+    p.add_argument("--lr-decay", type=float, default=1.0,
+                   help="per-epoch multiplicative lr decay (1.0 = constant)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--time-pad-multiple", type=int, default=128)
+    p.add_argument("--bucket-by-length", action="store_true")
+    p.add_argument("--reference-resume", action="store_true",
+                   help="drop optimizer state on resume, like the reference")
+    p.add_argument("--max-restarts", type=int, default=2,
+                   help="resume from the newest checkpoint after a crash, up "
+                        "to N times")
+    p.add_argument("--no-plots", action="store_true",
+                   help="accepted for the JAX package's command lines; the "
+                        "port draws no plots yet")
+    _add_device(p)
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("separate", help="waveform->waveforms separation")
     p.add_argument("model")

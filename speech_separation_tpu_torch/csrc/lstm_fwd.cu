@@ -1,14 +1,26 @@
-// LSTM inference recurrence for Hopper: all T steps of both directions of
-// one BLSTM layer in one cooperative launch.
+// LSTM forward recurrence for Hopper: all T steps of both directions of one
+// BLSTM layer in one cooperative launch. One source, two instances chosen at
+// compile time, so the two cannot drift:
 //
-// Replaces speech_separation_tpu/ops/lstm_pallas.py::lstm_seq_infer (the
-// Pallas kernel _fwd_infer_kernel). Same contract:
+//   SAVE = false  the inference forward. Replaces speech_separation_tpu/ops/
+//                 lstm_pallas.py::lstm_seq_infer (_fwd_infer_kernel).
+//   SAVE = true   the training forward. Replaces lstm_pallas.py::lstm_seq_fwd
+//                 (_fwd_kernel): the same recurrence, and also the saves the
+//                 backward (lstm_bwd.cu) reads.
+//
+// Contract:
 //   xw      (T, D, B, 4H)  gate inputs x @ W_ih + b, bf16 or f32
 //   w_hh    (D, H, 4H)     recurrent weights, the same type as xw
 //   h0, c0  (D, B, H)      f32
 //   lengths (B,)           int32
-//   ys      (T, D, B, H)   f32, m * h_new (zero at masked steps)
+//   ys      (T, D, B, H)   m * h_new (zero at masked steps): f32 without
+//                          saves, the weight type with them
+//   cs      (T, D, B, H)   SAVE only: the carried cell state, weight type
+//   gates   (T, D, B, 4H)  SAVE only: post-activation (i, f, tanh g, o),
+//                          weight type
 //   h_last, c_last (D, B, H) f32
+// The save type is the weight type: the only pairing the training path makes
+// (models/blstm.py), and the one the backward's exchange relies on.
 // Direction d uses a suffix mask (valid iff lengths[b] > T-1-t) when bit d of
 // suffix_mask is set, a prefix mask (valid iff lengths[b] > t) otherwise. At a
 // masked step the carry passes through. Gates are (i, f, g, o); the product
@@ -26,38 +38,20 @@
 // cell update needs nothing from other CTAs. Per step a CTA stages h_{t-1}
 // (B x H, f32, from a double-buffered global buffer in L2) transposed into
 // shared memory, computes its 4 x 16 gate columns for all rows with f32 FMAs,
-// updates c and h of its units, and writes h_t. A grid-wide barrier (global
-// counter, release/acquire) separates the steps. The cooperative launch
-// refuses a grid that cannot be co-resident instead of deadlocking in the
-// barrier. What is left per step is the FMA work of the product on the CUDA
-// cores plus the barrier latency; the tensor cores (wgmma) are not used yet.
+// updates c and h of its units, and writes h_t (and, with saves, ys, cs and
+// the gates). A grid-wide barrier (global counter, release/acquire) separates
+// the steps. The cooperative launch refuses a grid that cannot be co-resident
+// instead of deadlocking in the barrier. Per step what is left is latency
+// (staging h_{t-1} from L2, the barrier) and the FMA work of the product on
+// the CUDA cores; the tensor cores (wgmma) are not used yet.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "lstm_common.cuh"
 
 namespace {
 
-constexpr int HB = 16;                 // hidden units per CTA
-constexpr int RB = 16;                 // batch rows staged per chunk
-constexpr int KS = 4;                  // lanes that split the sum over H
-constexpr int THREADS = HB * (RB / 4) * KS;   // 256
-constexpr int HS_STRIDE = RB + 4;      // padded row of the transposed h tile
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T zero_of();
-template <> __device__ __forceinline__ float zero_of<float>() { return 0.f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
-  return __float2bfloat16_rn(0.f);
-}
-
-// h_{t-1} as the product sees it: rounded to the weight type.
-__device__ __forceinline__ float round_like(float x, float) { return x; }
-__device__ __forceinline__ float round_like(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+using namespace seplstm;
 
 // The four gate weights of one unit at one k, stored contiguously.
 __device__ __forceinline__ void load_w4(const float* p, float w[4]) {
@@ -71,41 +65,17 @@ __device__ __forceinline__ void load_w4(const __nv_bfloat16* p, float w[4]) {
   w[0] = a.x; w[1] = a.y; w[2] = b.x; w[3] = b.y;
 }
 
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// All CTAs arrive; thread 0 of each waits until the counter reaches target.
-// A wait of more than 10 s can only be a fault: the kernel traps (the launch
-// then fails) rather than hang the card.
-__device__ __forceinline__ void grid_barrier(unsigned int* counter, unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-    const unsigned long long start = global_ns();
-    unsigned int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(counter) : "memory");
-      if (global_ns() - start > 10000000000ull) __trap();
-    } while (seen < target);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-template <typename WT>
+template <typename WT, bool SAVE>
 __global__ void __launch_bounds__(THREADS, 1)
-lstm_infer_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
-                  const float* __restrict__ h0, const float* __restrict__ c0,
-                  const int* __restrict__ lengths, float* __restrict__ ys,
-                  float* __restrict__ h_last, float* __restrict__ c_last,
-                  float* hbuf, unsigned int* barrier,
-                  int T, int D, int B, int H, unsigned int suffix_mask) {
+lstm_fwd_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
+                const float* __restrict__ h0, const float* __restrict__ c0,
+                const int* __restrict__ lengths,
+                std::conditional_t<SAVE, WT, float>* __restrict__ ys,
+                WT* __restrict__ cs, WT* __restrict__ gates_out,
+                float* __restrict__ h_last, float* __restrict__ c_last,
+                float* hbuf, unsigned int* barrier,
+                int T, int D, int B, int H, unsigned int suffix_mask) {
+  using YT = std::conditional_t<SAVE, WT, float>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tiles = (H + HB - 1) / HB;
   const int d = blockIdx.x / tiles;
@@ -123,7 +93,7 @@ lstm_infer_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
     const int jl = (idx >> 2) % HB;
     const int k = idx / (4 * HB);
     const int j = j0 + jl;
-    Ws[idx] = (j < H) ? wd[(size_t)k * G + (size_t)g * H + j] : zero_of<WT>();
+    Ws[idx] = (j < H) ? wd[(size_t)k * G + (size_t)g * H + j] : from_f<WT>(0.f);
   }
 
   const int tid = threadIdx.x;
@@ -189,8 +159,7 @@ lstm_infer_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
         for (int g = 0; g < 4; ++g)
           pre[g] = ks == 0 ? acc[g][0] : ks == 1 ? acc[g][1] : ks == 2 ? acc[g][2] : acc[g][3];
         const size_t o = ((size_t)d * B + b) * H + j;
-        const int L = lengths[b];
-        const bool valid = suffix ? (L > T - 1 - t) : (L > t);
+        const bool valid = step_valid(suffix, lengths[b], t, T);
         const float h_prev = __ldcg(hsrc + o);
         const float c_prev = (t == 0) ? c0[o] : c_last[o];
         const float ia = sigmoidf(xg[0] + pre[0]);
@@ -200,9 +169,19 @@ lstm_infer_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
         const float c_new = fa * c_prev + ia * ga;
         const float h_new = oa * tanhf(c_new);
         const float h_out = valid ? h_new : h_prev;
+        const float c_out = valid ? c_new : c_prev;
+        const size_t so = ((size_t)t * D + d) * B + b;
         hdst[o] = h_out;
-        c_last[o] = valid ? c_new : c_prev;
-        ys[(((size_t)t * D + d) * B + b) * H + j] = valid ? h_new : 0.f;
+        c_last[o] = c_out;
+        ys[so * H + j] = from_f<YT>(valid ? h_new : 0.f);
+        if constexpr (SAVE) {
+          cs[so * H + j] = from_f<WT>(c_out);
+          WT* gp = gates_out + so * G + j;
+          gp[0] = from_f<WT>(ia);
+          gp[(size_t)H] = from_f<WT>(fa);
+          gp[2 * (size_t)H] = from_f<WT>(ga);
+          gp[3 * (size_t)H] = from_f<WT>(oa);
+        }
         if (t == T - 1) h_last[o] = h_out;
       }
     }
@@ -211,20 +190,25 @@ lstm_infer_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
   }
 }
 
-template <typename WT>
+template <typename WT, bool SAVE>
 int launch(const void* xw, const void* w_hh, const float* h0, const float* c0,
-           const int* lengths, float* ys, float* h_last, float* c_last, float* hbuf,
-           unsigned int* barrier, int T, int D, int B, int H, unsigned int suffix_mask,
-           cudaStream_t stream) {
+           const int* lengths, void* ys, void* cs, void* gates, float* h_last,
+           float* c_last, float* hbuf, unsigned int* barrier, int T, int D, int B, int H,
+           unsigned int suffix_mask, cudaStream_t stream) {
+  using YT = std::conditional_t<SAVE, WT, float>;
   const size_t smem = (size_t)H * HB * 4 * sizeof(WT) + (size_t)H * HS_STRIDE * sizeof(float);
-  auto kernel = lstm_infer_kernel<WT>;
+  auto kernel = lstm_fwd_kernel<WT, SAVE>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const WT* xw_t = static_cast<const WT*>(xw);
   const WT* w_t = static_cast<const WT*>(w_hh);
+  YT* ys_t = static_cast<YT*>(ys);
+  WT* cs_t = static_cast<WT*>(cs);
+  WT* gates_t = static_cast<WT*>(gates);
   void* args[] = {(void*)&xw_t, (void*)&w_t, (void*)&h0, (void*)&c0, (void*)&lengths,
-                  (void*)&ys, (void*)&h_last, (void*)&c_last, (void*)&hbuf, (void*)&barrier,
+                  (void*)&ys_t, (void*)&cs_t, (void*)&gates_t, (void*)&h_last,
+                  (void*)&c_last, (void*)&hbuf, (void*)&barrier,
                   (void*)&T, (void*)&D, (void*)&B, (void*)&H, (void*)&suffix_mask};
   const dim3 grid(D * ((H + HB - 1) / HB));
   const dim3 block(THREADS);
@@ -238,18 +222,33 @@ int launch(const void* xw, const void* w_hh, const float* h0, const float* c0,
 extern "C" {
 
 // Returns a cudaError_t code; 0 on success. xw and w_hh are bf16 when
-// bf16 != 0, f32 otherwise; hbuf is (2, D, B, H) f32 scratch, barrier one
-// zeroed uint32.
+// bf16 != 0, f32 otherwise; ys is f32; hbuf is (2, D, B, H) f32 scratch,
+// barrier one zeroed uint32.
 int sep_lstm_infer(const void* xw, const void* w_hh, int bf16, const float* h0,
                    const float* c0, const int* lengths, float* ys, float* h_last,
                    float* c_last, float* hbuf, unsigned int* barrier, int T, int D, int B,
                    int H, unsigned int suffix_mask, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(xw, w_hh, h0, c0, lengths, ys, h_last, c_last, hbuf, barrier,
-                                 T, D, B, H, suffix_mask, s);
-  return launch<float>(xw, w_hh, h0, c0, lengths, ys, h_last, c_last, hbuf, barrier, T, D, B,
-                       H, suffix_mask, s);
+    return launch<__nv_bfloat16, false>(xw, w_hh, h0, c0, lengths, ys, nullptr, nullptr,
+                                        h_last, c_last, hbuf, barrier, T, D, B, H,
+                                        suffix_mask, s);
+  return launch<float, false>(xw, w_hh, h0, c0, lengths, ys, nullptr, nullptr, h_last,
+                              c_last, hbuf, barrier, T, D, B, H, suffix_mask, s);
+}
+
+// The training forward: as sep_lstm_infer, and ys, cs and gates are written in
+// the weight type.
+int sep_lstm_fwd(const void* xw, const void* w_hh, int bf16, const float* h0,
+                 const float* c0, const int* lengths, void* ys, void* cs, void* gates,
+                 float* h_last, float* c_last, float* hbuf, unsigned int* barrier, int T,
+                 int D, int B, int H, unsigned int suffix_mask, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16, true>(xw, w_hh, h0, c0, lengths, ys, cs, gates, h_last,
+                                       c_last, hbuf, barrier, T, D, B, H, suffix_mask, s);
+  return launch<float, true>(xw, w_hh, h0, c0, lengths, ys, cs, gates, h_last, c_last,
+                             hbuf, barrier, T, D, B, H, suffix_mask, s);
 }
 
 const char* sep_lstm_error_string(int code) {

@@ -1,11 +1,16 @@
-"""Bidirectional multi-layer LSTM (inference forward) in PyTorch.
+"""Bidirectional multi-layer LSTM in PyTorch, for training and inference.
 
 The counterpart of speech_separation_tpu/models/blstm.py:
 
 - the input projection x @ W_ih + b of all steps is one product hoisted out
-  of the recurrence; the recurrence of both directions runs in one call of
-  ops/lstm_kernel.lstm_seq_infer (the hand-written kernel on CUDA, its plain
-  version on the CPU), for either compute dtype;
+  of the recurrence; the recurrence of both directions runs in one call per
+  layer (the hand-written kernels on CUDA, their plain versions on the CPU),
+  for either compute dtype;
+- when autograd will want gradients (grad mode on and a parameter that
+  requires grad) the recurrence is ops/lstm_kernel.lstm_seq, the
+  differentiable training forward whose outputs are in the compute dtype
+  (bf16 in bf16 mode, as the JAX package's ``save_activations=True``);
+  otherwise it is lstm_seq_infer, which saves nothing and records no graph;
 - variable lengths follow packed-sequence semantics by masking: at padded
   steps the carry passes through and the output is zero. The reverse
   direction runs on the time-flipped input with a suffix mask, so each
@@ -26,7 +31,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops.lstm_kernel import lstm_seq_infer
+from ..ops.lstm_kernel import lstm_seq, lstm_seq_infer
 
 
 def random_hidden(generator: torch.Generator, num_layers: int, batch: int,
@@ -75,8 +80,10 @@ class BLSTM(nn.Module):
         """x: (B, T, in) float32, zero past each row's length; lengths: (B,)
         int; h0, c0: (num_layers, 2, B, H), direction 0 = forward.
 
-        Returns (out (B, T, 2H) with zeros at padded steps,
-        (h_n, c_n) each (num_layers, 2, B, H))."""
+        Returns (out (B, T, 2H) with zeros at padded steps, f32 for
+        inference and in compute_dtype for training, (h_n, c_n) each
+        (num_layers, 2, B, H) f32)."""
+        train = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
         out = x
         h_finals, c_finals = [], []
         for layer in range(self.num_layers):
@@ -98,9 +105,13 @@ class BLSTM(nn.Module):
                                   torch.matmul(x_rev, wb_ih.t()) + bb])
             xw = xw.permute(2, 0, 1, 3).contiguous()                      # (T, 2, B, 4H)
             w_hh = torch.stack([wf_hh.t(), wb_hh.t()]).to(compute_dtype).contiguous()
-            ys, h_last, c_last = lstm_seq_infer(
-                xw, w_hh, h0[layer].contiguous(), c0[layer].contiguous(), lengths,
-                suffix_dirs=(False, True))
+            state = (h0[layer].contiguous(), c0[layer].contiguous(), lengths)
+            if train:
+                ys, h_last, c_last = lstm_seq(xw, w_hh, *state, save_dtype=compute_dtype,
+                                              suffix_dirs=(False, True))
+            else:
+                ys, h_last, c_last = lstm_seq_infer(xw, w_hh, *state,
+                                                    suffix_dirs=(False, True))
             y_fwd = ys[:, 0].transpose(0, 1)
             # outputs at suffix-masked steps are zero, so flipping back
             # leaves zeros past each row's length

@@ -1,8 +1,9 @@
 """Architecture registry of the port.
 
 Each arch module exposes ``NAME``, ``Config`` (with ``from_kwargs``), an
-``nn.Module`` built from the config, and ``infer_masks``. The port has uPIT
-only so far; the other archs of the JAX package are queued in ROADMAP.md.
+``nn.Module`` built from the config, ``loss_fn`` (the training objective)
+and ``infer_masks``. The port has uPIT only so far; the other archs of the
+JAX package are queued in ROADMAP.md.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""uPIT architecture (eval forward): BLSTM mask estimation.
+"""uPIT architecture: BLSTM mask estimation with utterance-level
+permutation-invariant training.
 
 The counterpart of speech_separation_tpu/models/upit.py:
 
@@ -7,12 +8,15 @@ The counterpart of speech_separation_tpu/models/upit.py:
           output (padding frames included in the statistics) -> Linear(
           2*hidden -> feat_dim*num_spk) -> sigmoid, giving num_spk masks
           stacked along the frequency axis.
+  loss:   min over speaker permutations of the summed elementwise MSE
+          between mask * mixture and the permuted source magnitudes;
+          scalar = (sum_b min_perm * row_mask / num_spk) /
+          (sum lengths * row_mask * feat_dim) (``contract_loss``).
   infer:  the same forward in eval mode; source s is the feat_dim-sized
           slice [s*feat_dim : (s+1)*feat_dim] of the output.
 
 The initial LSTM state is drawn from N(0, 1) per batch (a reference quirk);
-``zero_init_hidden=True`` gives the deterministic variant. The training
-objective (the permutation-min loss) belongs to the training slice.
+``zero_init_hidden=True`` gives the deterministic variant.
 
 Parameter names follow the reference ``.mdl`` state dict: ``blstm.*``
 (torch.nn.LSTM names), ``bn.*`` (BatchNorm1d) and ``lin.*`` (Linear).
@@ -29,6 +33,7 @@ from torch import nn
 from .blstm import BLSTM, random_hidden
 from ..ops.batchnorm import BatchNorm
 from ..ops.mxu import head_dot
+from ..ops.pit import pairwise_mse, permutation_min_loss
 
 NAME = "uPIT"
 
@@ -117,6 +122,36 @@ def initial_state(cfg: Config, batch: int, generator: torch.Generator,
         zeros = torch.zeros(shape, dtype=torch.float32, device=device)
         return zeros, zeros
     return random_hidden(generator, cfg.num_layers, batch, cfg.hidden)
+
+
+def contract_loss(model: nn.Module, batch: dict, h0: torch.Tensor, c0: torch.Tensor,
+                  train: bool):
+    """The uPIT objective (speech_separation_tpu/models/upit.py::
+    contract_loss) for a batch dict with ``mix`` (B, T, F), ``sources``
+    (B, S, T, F), ``lengths`` (B,) and ``row_mask`` (B,): returns
+    (total / norm, aux) with aux ``norm`` (for the norm-weighted epoch
+    average), ``total``, ``best_perm`` and ``masked`` (B, T, S, F). BN runs
+    in train mode, updating its running statistics, when ``train``."""
+    cfg = model.cfg
+    mix, sources = batch["mix"], batch["sources"]
+    lengths, row_mask = batch["lengths"], batch["row_mask"]
+    B, T, F = mix.shape
+    masks = model(mix, lengths, row_mask, h0, c0, train=train)
+    masked = masks.reshape(B, T, cfg.num_spk, F) * mix[:, :, None, :]
+    min_losses, best_perm = permutation_min_loss(pairwise_mse(masked, sources),
+                                                 cfg.num_spk)
+    total = torch.sum(min_losses * row_mask) / cfg.num_spk
+    norm = torch.sum(lengths.to(torch.float32) * row_mask) * cfg.feat_dim
+    return total / norm, {"norm": norm, "total": total, "best_perm": best_perm,
+                          "masked": masked}
+
+
+def loss_fn(model: UPIT, batch: dict, generator: torch.Generator, train: bool):
+    """``contract_loss`` with the batch's initial state: zeros, or the
+    reference's N(0, 1) draw from ``generator``."""
+    h0, c0 = initial_state(model.cfg, batch["mix"].shape[0], generator,
+                           batch["mix"].device)
+    return contract_loss(model, batch, h0, c0, train)
 
 
 @torch.inference_mode()

@@ -1,0 +1,157 @@
+"""Host-side input pipeline: npz features -> padded batches on the device.
+
+The counterpart of speech_separation_tpu/train/data.py, for npz feature
+files (the packed cache and the native loader of the JAX package are not
+ported; they give the same arrays):
+
+- utterances are shuffled per epoch from ``seed * 100003 + epoch`` and
+  grouped into fixed-size batches, optionally sorted by length first, in
+  the same order as the JAX package, so both see the same batches;
+- every batch is padded: time up to a multiple of ``time_pad_multiple`` and
+  rows up to the batch size with dummy rows (``row_mask`` 0);
+- a collate thread loads and pads batches ahead of the consumer, and a
+  second thread hands them to the caller's transfer function (the trainer's
+  copies pinned buffers to the card on a side stream), so host work and the
+  host-to-device copy overlap the device's compute.
+
+Feature files are the reference's npz format: key ``mix`` plus ``s1``..``sN``,
+magnitudes of shape (freq, time). A file without sources maps source 1 to
+the mixture.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import queue
+import threading
+
+import numpy as np
+
+from ..datadir.scp import read_scp
+
+# batches each producer thread keeps ready ahead of its consumer
+PREFETCH = 2
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class FeatureDataset:
+    """Indexable view over a data dir's ``feats_train.scp``. ``num_frames``
+    holds each utterance's frame count when the dir has ``utt2num_frames``
+    for all of them (length bucketing reads it), else None."""
+
+    def __init__(self, data_dir: str):
+        self.entries = read_scp(os.path.join(data_dir, "feats_train.scp"))
+        if not self.entries:
+            raise ValueError(f"empty feats_train.scp in {data_dir}")
+        self.num_frames = None
+        nf_path = os.path.join(data_dir, "utt2num_frames")
+        if os.path.isfile(nf_path):
+            nf = {k: int(v) for k, v in read_scp(nf_path)}
+            if all(utt in nf for utt, _ in self.entries):
+                self.num_frames = np.asarray([nf[utt] for utt, _ in self.entries], np.int32)
+
+    def __len__(self):
+        return len(self.entries)
+
+    def load(self, idx: int) -> dict:
+        """{'mix': (T, F) float32, 'sources': (S, T, F) float32, 'name'}."""
+        utt, path = self.entries[idx]
+        with np.load(path) as feat:
+            mix = feat["mix"].T.astype(np.float32)
+            src_keys = sorted(k for k in feat.files if k != "mix")
+            sources = (np.stack([feat[k].T.astype(np.float32) for k in src_keys])
+                       if src_keys else mix[None])
+        return {"mix": mix, "sources": sources, "name": utt}
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPlan:
+    batch_size: int = 100
+    time_pad_multiple: int = 128
+    bucket_by_length: bool = False
+    seed: int = 0
+
+
+def plan_batches(dataset, plan: BatchPlan, epoch: int,
+                 lengths: np.ndarray | None = None,
+                 shuffle: bool = True) -> list[list[int]]:
+    """The epoch's batches as lists of dataset indices."""
+    n = len(dataset)
+    rng = np.random.default_rng(plan.seed * 100003 + epoch)
+    order = rng.permutation(n) if shuffle else np.arange(n)
+    idxs = [int(i) for i in order]
+    if plan.bucket_by_length and lengths is not None:
+        idxs = sorted(idxs, key=lambda i: int(lengths[i]))
+    batches = [idxs[s: s + plan.batch_size] for s in range(0, len(idxs), plan.batch_size)]
+    if shuffle and plan.bucket_by_length:
+        rng.shuffle(batches)
+    return batches
+
+
+def make_device_batch(samples: list[dict], plan: BatchPlan) -> dict:
+    """Collate loaded samples into padded numpy arrays: {'mix': (B, T, F),
+    'sources': (B, S, T, F), 'lengths': (B,) int32, 'row_mask': (B,)
+    float32, 'names'}, B the plan's batch size and T the longest length
+    rounded up to time_pad_multiple."""
+    B = plan.batch_size
+    if len(samples) > B:
+        raise ValueError(f"{len(samples)} samples for a batch of {B}")
+    F = samples[0]["mix"].shape[1]
+    S = max(s["sources"].shape[0] for s in samples)
+    T = _round_up(max(s["mix"].shape[0] for s in samples), plan.time_pad_multiple)
+    mix = np.zeros((B, T, F), np.float32)
+    sources = np.zeros((B, S, T, F), np.float32)
+    lengths = np.zeros((B,), np.int32)
+    row_mask = np.zeros((B,), np.float32)
+    names = []
+    for i, s in enumerate(samples):
+        t = s["mix"].shape[0]
+        mix[i, :t] = s["mix"]
+        sources[i, :s["sources"].shape[0], :t] = s["sources"]
+        lengths[i] = t
+        row_mask[i] = 1.0
+        names.append(s.get("name", str(i)))
+    return {"mix": mix, "sources": sources, "lengths": lengths, "row_mask": row_mask,
+            "names": names}
+
+
+def iter_batches(dataset: FeatureDataset, plan: BatchPlan, epoch: int,
+                 shuffle: bool = True, transfer_fn=None):
+    """Yield the epoch's collated batches. Loading and padding run in a
+    background thread and ``transfer_fn(batch)`` in a second one, each
+    ``PREFETCH`` batches ahead of its consumer."""
+    batches = plan_batches(dataset, plan, epoch, lengths=dataset.num_frames,
+                           shuffle=shuffle)
+    done = object()
+
+    def produce(source, out, fn):
+        try:
+            for item in source:
+                out.put(fn(item))
+        except Exception as e:  # surface loader errors on the consumer side
+            out.put(e)
+            return
+        out.put(done)
+
+    def drain(q):
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+
+    collated: queue.Queue = queue.Queue(maxsize=PREFETCH)
+    threading.Thread(target=produce, daemon=True, args=(
+        batches, collated, lambda idxs: make_device_batch(
+            [dataset.load(i) for i in idxs], plan))).start()
+    out = collated
+    if transfer_fn is not None:
+        out = queue.Queue(maxsize=PREFETCH)
+        threading.Thread(target=produce, daemon=True,
+                         args=(drain(collated), out, transfer_fn)).start()
+    yield from drain(out)

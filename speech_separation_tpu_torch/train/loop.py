@@ -1,0 +1,410 @@
+"""The training loop: the reference's recipe, step by step on the card.
+
+The counterpart of speech_separation_tpu/train/loop.py. Per batch: forward
+(the BLSTM's recurrence through the hand-written training kernels on CUDA),
+PIT loss / norm, backward, global-norm clip at 0.25, Adam(1e-3). Kept from
+the reference and the JAX package:
+
+- epoch losses are norm-weighted means, appended to
+  ``train_stats/train_loss.txt`` / ``cv_loss.txt`` as ``NNN loss`` lines; on
+  resume the logs are cut back to epochs <= start_epoch and continued;
+- CV every 5 epochs in eval mode (BN running statistics, no update, no
+  graph: the inference kernel);
+- checkpoints: ``intermediate_models/init.mdl`` at epoch 0, ``NNN.mdl``
+  every 5 epochs, ``final.mdl`` at the end (train/checkpoint.py), with the
+  optimizer and generator states beside them so a resume is bit-continuous;
+  ``reference_resume`` restores the weights only;
+- one trainable bias per LSTM direction (utils/weights.fold_lstm_biases).
+
+Not ported yet (ROADMAP.md): plots, the profiler, waveform-direct training,
+the packed feature cache, the hang watchdog, RSH's reference batching and
+data parallelism over several cards.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+import sys
+import time
+
+import torch
+
+from ..eval.infer import resolve_device
+from ..models.registry import get_arch
+from ..utils.weights import fold_lstm_biases
+from .checkpoint import (final_model_path, intermediate_model_path, load_checkpoint,
+                         save_checkpoint)
+from .data import BatchPlan, FeatureDataset, iter_batches
+
+# the reference's cadence: CV and an intermediate checkpoint every 5 epochs
+CV_EVERY = CHECKPOINT_EVERY = 5
+BATCH_KEYS = ("mix", "sources", "lengths", "row_mask")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainLoopConfig:
+    arch: str = "uPIT"
+    batch_size: int = 100
+    num_epochs: int = 200
+    learning_rate: float = 1e-3
+    grad_clip: float = 0.25
+    # per-epoch multiplicative lr decay as a staircase (1.0 = constant, the
+    # reference's behavior)
+    lr_decay: float = 1.0
+    start_epoch: int = 0
+    seed: int = 0
+    time_pad_multiple: int = 128
+    bucket_by_length: bool = False
+    reference_resume: bool = False  # drop optimizer state on resume, like the reference
+
+
+class Optimizer:
+    """The reference optimizer: clip by global norm, then Adam(0.9, 0.999,
+    1e-8), with an optional per-epoch staircase lr decay.
+
+    The clip follows optax's ``clip_by_global_norm``: gradients are scaled
+    by max_norm / norm only when norm >= max_norm (not torch's
+    ``clip_grad_norm_``, which always scales by max_norm / (norm + 1e-6)).
+    The lr of update k (0-based) is lr * lr_decay ** (k // steps_per_epoch),
+    optax's ``exponential_decay(staircase=True)``; without steps_per_epoch
+    the lr is constant."""
+
+    def __init__(self, params, cfg: TrainLoopConfig, steps_per_epoch: int | None = None):
+        self.params = [p for p in params if p.requires_grad]
+        self.adam = torch.optim.Adam(self.params, lr=cfg.learning_rate,
+                                     betas=(0.9, 0.999), eps=1e-8)
+        self.max_norm = cfg.grad_clip
+        self.lr0, self.decay = cfg.learning_rate, cfg.lr_decay
+        self.steps_per_epoch = steps_per_epoch
+        self.count = 0
+
+    def lr(self) -> float:
+        if self.decay != 1.0 and self.steps_per_epoch:
+            return self.lr0 * self.decay ** (self.count // self.steps_per_epoch)
+        return self.lr0
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def clip(self) -> torch.Tensor:
+        """Clip the gradients in place; returns their global norm before."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        keep = norm < self.max_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / norm * self.max_norm))
+        return norm
+
+    def step(self) -> None:
+        """Clip, then one Adam update at the schedule's lr."""
+        self.clip()
+        for group in self.adam.param_groups:
+            group["lr"] = self.lr()
+        self.adam.step()
+        self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.adam.load_state_dict(sd["adam"])
+        self.count = int(sd["count"])
+
+
+def update_step(arch, model, optimizer: Optimizer, batch: dict,
+                generator: torch.Generator):
+    """One training step: gradients of loss / norm, clip, Adam; BN's
+    running statistics update in the forward. Returns (loss, norm) as
+    device scalars."""
+    optimizer.zero_grad()
+    loss, aux = arch.loss_fn(model, batch, generator, True)
+    loss.backward()
+    optimizer.step()
+    return loss.detach(), aux["norm"]
+
+
+def to_device(batch: dict, dev: torch.device, copy_stream=None) -> dict:
+    """The collated arrays as tensors on ``dev``, plus ``n_real``. With a
+    CUDA ``copy_stream`` (the trainer's transfer thread passes one) the
+    arrays are pinned and copied on it, so the copy overlaps the kernels of
+    the running step; ``_wait_for_copy`` orders it before the step that
+    reads it."""
+    host = {k: torch.from_numpy(batch[k]) for k in BATCH_KEYS}
+    if copy_stream is None:
+        out = {k: v.to(dev) for k, v in host.items()}
+    else:
+        with torch.cuda.stream(copy_stream):
+            out = {k: v.pin_memory().to(dev, non_blocking=True) for k, v in host.items()}
+            out["ready"] = copy_stream.record_event()
+    out["n_real"] = int(batch["row_mask"].sum())
+    return out
+
+
+def _wait_for_copy(batch: dict) -> dict:
+    """Order the batch's side-stream copy before the step's kernels, and
+    keep its device buffers from going back to the copy stream's pool before
+    the step has read them."""
+    ready = batch.pop("ready", None)
+    if ready is not None:
+        stream = torch.cuda.current_stream(batch["mix"].device)
+        stream.wait_event(ready)
+        for k in BATCH_KEYS:
+            batch[k].record_stream(stream)
+    return batch
+
+
+@torch.no_grad()
+def eval_step(arch, model, batch: dict, generator: torch.Generator):
+    """CV loss of one batch in eval mode: (loss, norm) device scalars."""
+    loss, aux = arch.loss_fn(model, batch, generator, False)
+    return loss, aux["norm"]
+
+
+def _truncate_loss_file(path: str, max_epoch: int) -> list[tuple[int, float]]:
+    """Keep only epochs <= max_epoch, rewrite the file, return the history."""
+    history = []
+    if os.path.isfile(path):
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) >= 2 and int(parts[0]) <= max_epoch:
+                    history.append((int(parts[0]), float(parts[1])))
+        with open(path, "w") as f:
+            for ep, loss in history:
+                f.write(f"{ep:03d} {loss}\n")
+    return history
+
+
+class ExpDirLocked(RuntimeError):
+    pass
+
+
+class _ExpLock:
+    """Concurrent-run guard: two trainers writing one exp dir corrupt the
+    checkpoints and loss logs. A lock owned by a dead pid is replaced."""
+
+    def __init__(self, exp_dir: str):
+        self.path = os.path.join(exp_dir, ".train.lock")
+
+    def __enter__(self):
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        # the pid is written to a private file first and hard-linked into
+        # place: the lock appears with its content, and link() fails
+        # atomically if the lock exists
+        tmp = f"{self.path}.{os.getpid()}"
+        with open(tmp, "w") as f:
+            f.write(str(os.getpid()))
+        try:
+            while True:
+                try:
+                    os.link(tmp, self.path)
+                    return self
+                except FileExistsError:
+                    pass
+                try:
+                    pid = int(open(self.path).read().strip())
+                except FileNotFoundError:
+                    time.sleep(0.05)
+                    continue  # released between attempts; retry
+                except OSError as e:
+                    raise ExpDirLocked(
+                        f"{os.path.dirname(self.path)} has a lock file this "
+                        f"process cannot read ({e}); refusing to run concurrently") from e
+                except ValueError:
+                    pid = -1  # unparsable: stale (the content is atomic)
+                if pid > 0:
+                    try:
+                        os.kill(pid, 0)  # raises if the owner is gone
+                        live = True
+                    except ProcessLookupError:
+                        live = False
+                    except PermissionError:
+                        live = True  # exists under another uid
+                    if live:
+                        raise ExpDirLocked(
+                            f"{os.path.dirname(self.path)} is being trained by live "
+                            f"pid {pid}; refusing to run concurrently")
+                # stale: steal by rename, which exactly one waiter wins
+                steal = f"{self.path}.stale.{os.getpid()}"
+                try:
+                    os.rename(self.path, steal)
+                    os.remove(steal)
+                except OSError:
+                    pass  # another waiter stole it first; retry the link
+        finally:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+
+    def __exit__(self, *exc):
+        try:
+            os.remove(self.path)
+        except OSError:
+            pass
+
+
+def latest_intermediate_epoch(exp_dir: str) -> int:
+    """Highest saved intermediate checkpoint epoch, 0 if none."""
+    int_dir = os.path.join(exp_dir, "intermediate_models")
+    if not os.path.isdir(int_dir):
+        return 0
+    epochs = [int(f[:3]) for f in os.listdir(int_dir)
+              if f.endswith(".mdl") and f[:3].isdigit()]
+    return max(epochs, default=0)
+
+
+def train_with_restarts(data_dir: str, exp_dir: str, loop_cfg: TrainLoopConfig,
+                        max_restarts: int = 0, log=print, **kwargs) -> dict:
+    """On a crash, resume from the newest intermediate checkpoint, up to
+    max_restarts times."""
+    attempt = 0
+    cfg = loop_cfg
+    while True:
+        try:
+            return train(data_dir, exp_dir, cfg, log=log, **kwargs)
+        except (ExpDirLocked, KeyboardInterrupt):
+            raise
+        except Exception as e:
+            if attempt >= max_restarts:
+                raise
+            attempt += 1
+            resume_from = max(latest_intermediate_epoch(exp_dir), cfg.start_epoch)
+            log(f"training crashed ({type(e).__name__}: {e}); "
+                f"restart {attempt}/{max_restarts} from epoch {resume_from}")
+            cfg = dataclasses.replace(cfg, start_epoch=resume_from)
+
+
+def train(data_dir: str, exp_dir: str, loop_cfg: TrainLoopConfig,
+          cv_data_dir: str = "", model_kwargs: dict | None = None, device=None,
+          log=print) -> dict:
+    """Run the training loop on ``device`` (CUDA by default; it raises when
+    no card is visible). Returns {'model', 'model_cfg', 'epoch_losses',
+    'cv_losses', 'steps', 'utts_per_sec'}; steps holds (ms, real rows) of
+    each step, the ms on the host clock up to the loss's read-back, which
+    waits for the device."""
+    dev = resolve_device(device)
+    with _ExpLock(exp_dir):
+        return _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs,
+                             dev, log)
+
+
+def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, log):
+    arch = get_arch(loop_cfg.arch)
+    model_cfg = arch.Config.from_kwargs(**(model_kwargs or {}))
+    meta = {"arch": arch.NAME,
+            "model_kwargs": {k: str(v) for k, v in (model_kwargs or {}).items()}}
+    for k, v in (model_kwargs or {}).items():
+        log(f"modelparam: {k} {v}")
+    # f32 products in full f32, as the JAX package's f32 path
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    stats_dir = os.path.join(exp_dir, "train_stats")
+    os.makedirs(stats_dir, exist_ok=True)
+    loss_file = os.path.join(stats_dir, "train_loss.txt")
+    cv_loss_file = os.path.join(stats_dir, "cv_loss.txt")
+
+    dataset = FeatureDataset(data_dir)
+    cv_dataset = FeatureDataset(cv_data_dir) if cv_data_dir else None
+    plan = BatchPlan(batch_size=loop_cfg.batch_size,
+                     time_pad_multiple=loop_cfg.time_pad_multiple,
+                     bucket_by_length=loop_cfg.bucket_by_length, seed=loop_cfg.seed)
+
+    model = arch.UPIT(model_cfg)
+    model.reset_parameters(torch.Generator().manual_seed(loop_cfg.seed))
+    model.to(dev)
+    # draws the reference's N(0, 1) initial LSTM states, on the device
+    generator = torch.Generator(device=dev).manual_seed(loop_cfg.seed)
+    steps_per_epoch = max(1, -(-len(dataset) // loop_cfg.batch_size))
+
+    epoch_losses: list[tuple[int, float]] = []
+    cv_losses: list[tuple[int, float]] = []
+    if loop_cfg.start_epoch == 0:
+        fold_lstm_biases(model.blstm)
+        optimizer = Optimizer(model.parameters(), loop_cfg, steps_per_epoch)
+        save_checkpoint(intermediate_model_path(exp_dir, "init"), model,
+                        optimizer=optimizer, generator=generator, epoch=0, meta=meta)
+        # a fresh run starts the logs; a resumed one continues them
+        open(loss_file, "w").close()
+        if cv_dataset:
+            open(cv_loss_file, "w").close()
+    else:
+        ckpt = load_checkpoint(intermediate_model_path(exp_dir, loop_cfg.start_epoch),
+                               reference_resume=loop_cfg.reference_resume)
+        model.load_state_dict(ckpt["model"])
+        fold_lstm_biases(model.blstm)
+        optimizer = Optimizer(model.parameters(), loop_cfg, steps_per_epoch)
+        if ckpt["optimizer"] is not None:
+            optimizer.load_state_dict(ckpt["optimizer"])
+        if ckpt["generator"] is not None:
+            generator.set_state(ckpt["generator"])
+        epoch_losses = _truncate_loss_file(loss_file, loop_cfg.start_epoch)
+        cv_losses = _truncate_loss_file(cv_loss_file, loop_cfg.start_epoch)
+
+    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    copy = functools.partial(to_device, dev=dev, copy_stream=copy_stream)
+
+    lossF = open(loss_file, "a")
+    cv_lossF = open(cv_loss_file, "a") if cv_dataset else None
+    steps: list[tuple[float, int]] = []
+    utts_seen = 0
+    t_start = time.time()
+    try:
+        for epoch in range(loop_cfg.start_epoch, loop_cfg.num_epochs):
+            epoch_loss, epoch_norm, epoch_utts = 0.0, 0.0, 0
+            t_epoch = time.time()
+            for batch in iter_batches(dataset, plan, epoch, transfer_fn=copy):
+                t0 = time.perf_counter()
+                _wait_for_copy(batch)
+                loss, norm = update_step(arch, model, optimizer, batch, generator)
+                loss, norm = float(loss), float(norm)
+                steps.append(((time.perf_counter() - t0) * 1e3, batch["n_real"]))
+                epoch_loss += loss * norm
+                epoch_norm += norm
+                epoch_utts += batch["n_real"]
+            utts_seen += epoch_utts
+            epoch_wall = time.time() - t_epoch
+            log(f"epoch {epoch + 1:03d} wall: {epoch_wall:.1f}s "
+                f"({epoch_utts / max(epoch_wall, 1e-9):.1f} utts/sec)")
+
+            if cv_dataset and (epoch + 1) % CV_EVERY == 0:
+                cv_loss_sum, cv_norm_sum = 0.0, 0.0
+                for batch in iter_batches(cv_dataset, plan, 0, shuffle=False,
+                                          transfer_fn=copy):
+                    loss, norm = eval_step(arch, model, _wait_for_copy(batch), generator)
+                    cv_loss_sum += float(loss) * float(norm)
+                    cv_norm_sum += float(norm)
+                cv_avg = cv_loss_sum / cv_norm_sum
+                log(f"For epoch: {epoch + 1:03d} cv set loss is: {cv_avg}")
+                cv_lossF.write(f"{epoch + 1:03d} {cv_avg}\n")
+                cv_lossF.flush()
+                cv_losses.append((epoch + 1, cv_avg))
+
+            avg = epoch_loss / epoch_norm
+            log(f"For epoch: {epoch + 1:03d} loss is: {avg}")
+            lossF.write(f"{epoch + 1:03d} {avg}\n")
+            lossF.flush()
+            epoch_losses.append((epoch + 1, avg))
+
+            if (epoch + 1) % CHECKPOINT_EVERY == 0:
+                log(f"Saving model for epoch {epoch + 1:03d}")
+                save_checkpoint(intermediate_model_path(exp_dir, epoch + 1), model,
+                                optimizer=optimizer, generator=generator,
+                                epoch=epoch + 1, meta=meta)
+            sys.stdout.flush()
+    finally:
+        lossF.close()
+        if cv_lossF:
+            cv_lossF.close()
+
+    save_checkpoint(final_model_path(exp_dir), model, optimizer=optimizer,
+                    generator=generator, epoch=loop_cfg.num_epochs, meta=meta)
+    wall = time.time() - t_start
+    log(f"trained {utts_seen} utterance-steps in {wall:.1f}s "
+        f"({utts_seen / max(wall, 1e-9):.2f} utts/sec)")
+    return {"model": model, "model_cfg": model_cfg, "epoch_losses": epoch_losses,
+            "cv_losses": cv_losses, "steps": steps,
+            "utts_per_sec": utts_seen / max(wall, 1e-9)}

@@ -10,6 +10,14 @@ The layout rule is the one of speech_separation_tpu/utils/import_torch.py
   forward is unchanged);
 - ``lin.weight`` (out, 2H) <-> ``lin.w`` transposed, ``lin.bias`` <-> ``lin.b``;
 - ``bn.weight/bias`` <-> gamma/beta, ``bn.running_mean/var`` <-> state['bn'].
+
+Training keeps that layout (``fold_lstm_biases``): the JAX package trains
+one summed bias per direction, while torch's LSTM layout has two trainable
+ones. Adam on both would move their sum by twice the step, and the global
+norm of the clip would count that gradient twice, so the trajectory would
+leave the JAX package's from the first step. So the trainer folds
+``bias_hh`` into ``bias_ih`` and keeps ``bias_hh`` at zero and out of the
+optimizer.
 """
 
 from __future__ import annotations
@@ -72,3 +80,15 @@ def state_dict_from_jax(params_np, state_np) -> dict[str, torch.Tensor]:
     sd["lin.weight"] = tT(params_np["lin"]["w"])
     sd["lin.bias"] = f32(params_np["lin"]["b"])
     return sd
+
+
+def fold_lstm_biases(blstm: torch.nn.Module) -> None:
+    """Fold every ``bias_hh_*`` of a BLSTM into its ``bias_ih_*``, zero it
+    and freeze it (requires_grad False): one trainable bias per direction,
+    as the JAX package has. Forwards are unchanged."""
+    with torch.no_grad():
+        for name, p in blstm.named_parameters():
+            if name.startswith("bias_hh_"):
+                getattr(blstm, "bias_ih_" + name[len("bias_hh_"):]).add_(p)
+                p.zero_()
+                p.requires_grad_(False)

@@ -7,14 +7,20 @@ a machine with a card they run without the JAX package's test setup:
 
 Tolerances: f32 atol 1e-5 (same math, other summation order); bf16 atol
 2e-2 (one bf16 step of a rounded h_{t-1}); STFT atol 5e-5 of the largest
-|X| (an f32 sum of n_fft products).
+|X| (an f32 sum of n_fft products). Gradients are compared divided by
+max(1, max |reference|): against the plain backward on the same saves at
+the forward's tolerances; against autograd through the plain forward at
+1e-4 in f32 (sums over T steps in another order) and 2e-2 in bf16 (the
+backward reads bf16-rounded saves, as the TPU kernel does).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from speech_separation_tpu_torch.ops.lstm_kernel import (lstm_seq_infer,
+from speech_separation_tpu_torch.ops.lstm_kernel import (lstm_seq, lstm_seq_bwd,
+                                                         lstm_seq_bwd_plain, lstm_seq_fwd,
+                                                         lstm_seq_fwd_plain, lstm_seq_infer,
                                                          lstm_seq_infer_plain)
 from speech_separation_tpu_torch.ops.stft_kernel import stft, stft_plain
 
@@ -68,3 +74,137 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         lstm_seq_infer(xw, torch.zeros((2, 8, 32), device=cuda),
                        torch.zeros((2, 2, 4), device=cuda), torch.zeros((2, 2, 8), device=cuda),
                        torch.ones(2, dtype=torch.int32, device=cuda))
+
+
+def _lstm_args(cuda, dtype, T, B, H, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xw = (0.5 * torch.randn((T, 2, B, 4 * H), generator=g, device=cuda)).to(dtype)
+    w = (0.3 * torch.randn((2, H, 4 * H), generator=g, device=cuda)).to(dtype)
+    h0 = torch.randn((2, B, H), generator=g, device=cuda)
+    c0 = torch.randn((2, B, H), generator=g, device=cuda)
+    lengths = torch.tensor(([T, 1, max(1, T // 2)] * B)[:B], dtype=torch.int32, device=cuda)
+    return xw, w, h0, c0, lengths
+
+
+def _scaled_close(a, b, tol, name):
+    b = b.float().cpu().numpy()
+    scale = max(1.0, float(np.abs(b).max()))
+    np.testing.assert_allclose(a.float().cpu().numpy() / scale, b / scale, atol=tol,
+                               err_msg=name)
+
+
+SFX = (False, True)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,B,H", [(1, 1, 8), (11, 5, 24), (7, 33, 40)])
+def test_lstm_training_kernels_match_plain(cuda, dtype, tol, T, B, H):
+    """K3 on all five outputs, then K4 on the same saves and cotangents."""
+    args = _lstm_args(cuda, dtype, T, B, H, T * 100 + B)
+    before = (lstm_seq_fwd.launches, lstm_seq_bwd.launches)
+    got = lstm_seq_fwd(*args, save_dtype=dtype, suffix_dirs=SFX)
+    ref = lstm_seq_fwd_plain(*args, save_dtype=dtype, suffix_dirs=SFX)
+    for name, a, b in zip(("ys", "cs", "gates", "h_last", "c_last"), got, ref):
+        assert a.dtype == b.dtype, name
+        np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                                   atol=tol, err_msg=name)
+    _, w, _, c0, lengths = args
+    _, cs, gates, _, _ = ref
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dys = torch.randn(cs.shape, generator=g, device=cuda).to(dtype)
+    dh_last = torch.randn(c0.shape, generator=g, device=cuda)
+    dc_last = torch.randn(c0.shape, generator=g, device=cuda)
+    bargs = (w, c0, lengths, cs, gates, dys, dh_last, dc_last)
+    got = lstm_seq_bwd(*bargs, save_dtype=dtype, suffix_dirs=SFX)
+    ref = lstm_seq_bwd_plain(*bargs, save_dtype=dtype, suffix_dirs=SFX)
+    torch.cuda.synchronize()
+    assert (lstm_seq_fwd.launches, lstm_seq_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("dxw", "dh0", "dc0"), got, ref):
+        _scaled_close(a, b, tol, name)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_lstm_seq_gradients_match_plain_autograd(cuda, dtype, tol):
+    """lstm_seq (K3 forward, K4 backward, dW_hh outside) against autograd
+    through the plain forward, on the card."""
+    T, B, H = 13, 20, 40
+    base = _lstm_args(cuda, dtype, T, B, H, 11)
+    lengths = base[4]
+    g = torch.Generator(device=cuda).manual_seed(12)
+    cot = torch.randn((T, 2, B, H), generator=g, device=cuda)
+
+    def grads(fn):
+        ts = [t.detach().clone().requires_grad_(True) for t in base[:4]]
+        ys, h_last, c_last = fn(ts)
+        (torch.sum(ys.float() * cot) + torch.sum(torch.sin(h_last))
+         + 0.1 * torch.sum(c_last ** 2)).backward()
+        return [t.grad for t in ts]
+
+    def plain(ts):
+        ys, _, _, h_last, c_last = lstm_seq_fwd_plain(*ts, lengths, dtype, SFX)
+        return ys, h_last, c_last
+
+    got = grads(lambda ts: lstm_seq(*ts, lengths, dtype, SFX))
+    ref = grads(plain)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dxw", "dw_hh", "dh0", "dc0"), got, ref):
+        assert a.dtype == b.dtype, name
+        _scaled_close(a, b, tol, name)
+
+
+def test_blstm_training_gives_every_parameter_a_gradient(cuda):
+    from speech_separation_tpu_torch.models import upit
+    cfg = upit.Config(feat_dim=20, num_spk=2, hidden=24, num_layers=2,
+                      compute_dtype="bfloat16")
+    model = upit.UPIT(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    B, T = 5, 9
+    lengths = torch.tensor([T, 4, 1, 9, 6], dtype=torch.int32, device=cuda)
+    valid = (torch.arange(T, device=cuda)[None, :, None] < lengths[:, None, None])
+    batch = {"mix": torch.rand((B, T, 20), generator=g, device=cuda) * valid,
+             "sources": torch.rand((B, 2, T, 20), generator=g, device=cuda) * valid[:, None],
+             "lengths": lengths, "row_mask": torch.ones(B, device=cuda)}
+    before = (lstm_seq_fwd.launches, lstm_seq_bwd.launches, lstm_seq_infer.launches)
+    loss, _ = upit.loss_fn(model, batch, g, True)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (lstm_seq_fwd.launches, lstm_seq_bwd.launches, lstm_seq_infer.launches) == (
+        before[0] + 2, before[1] + 2, before[2])
+    for name, p in model.blstm.named_parameters():
+        assert p.grad is not None and float(p.grad.abs().max()) > 0, name
+
+
+def test_training_kernels_refuse_what_they_do_not_take(cuda):
+    xw, w, h0, c0, lengths = _lstm_args(cuda, torch.float32, 3, 2, 8, 0)
+    with pytest.raises(ValueError, match="save_dtype"):
+        lstm_seq_fwd(xw, w, h0, c0, lengths, save_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="xw"):
+        lstm_seq_fwd(xw.bfloat16(), w, h0, c0, lengths, save_dtype=torch.float32)
+    ys, cs, gates, _, _ = lstm_seq_fwd(xw, w, h0, c0, lengths, save_dtype=torch.float32)
+    with pytest.raises(ValueError, match="dys"):
+        lstm_seq_bwd(w, c0, lengths, cs, gates, ys[:2], h0, c0, save_dtype=torch.float32)
+    with pytest.raises(ValueError, match="cs"):
+        lstm_seq_bwd(w, c0, lengths, cs.bfloat16(), gates, ys, h0, c0,
+                     save_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="lstm_seq"):
+        lstm_seq_infer(xw, w.requires_grad_(True), h0, c0, lengths)
+    with torch.no_grad():
+        lstm_seq_infer(xw, w, h0, c0, lengths)
+
+
+def test_side_stream_copy_delivers_the_batch(cuda):
+    """The trainer's transfer copies pinned arrays on a side stream; after
+    _wait_for_copy the current stream reads exactly the collated arrays."""
+    from speech_separation_tpu_torch.train import loop
+    rng = np.random.default_rng(0)
+    batch = {"mix": rng.random((4, 32, 257), dtype=np.float32),
+             "sources": rng.random((4, 2, 32, 257), dtype=np.float32),
+             "lengths": np.array([32, 20, 5, 0], np.int32),
+             "row_mask": np.array([1, 1, 1, 0], np.float32)}
+    got = loop._wait_for_copy(loop.to_device(batch, cuda, torch.cuda.Stream(cuda)))
+    assert "ready" not in got and got["n_real"] == 3
+    for k in loop.BATCH_KEYS:
+        assert got[k].device.type == "cuda", k
+        np.testing.assert_array_equal(got[k].cpu().numpy(), batch[k], err_msg=k)

@@ -64,9 +64,13 @@ def test_no_source_names_jax_or_the_jax_package():
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     from speech_separation_tpu_torch.eval.infer import resolve_device
     from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         SeparationPipeline(str(tmp_path / "missing.mdl"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(str(tmp_path / "data"), str(tmp_path / "exp"), TrainLoopConfig())
+    assert not (tmp_path / "exp").exists()
     assert resolve_device("cpu").type == "cpu"

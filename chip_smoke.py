@@ -15,8 +15,10 @@ Phases, in order; any failure exits non-zero without the final line:
    serving shapes (an 8 s bucket of 16 rows: T=513 frames, 2x600 BLSTM),
    the training kernels (LSTM training forward and backward) at the
    training shape (T=384, B=100, H=600), all also at a small ragged shape;
-   and the differentiable recurrence's gradients against autograd through
-   the plain forward;
+   the differentiable recurrence's gradients against autograd through the
+   plain forward; and the attention kernel (forward and backward) at a small
+   ragged shape, at SepFormer's training intra-chunk shape (N=10624, T=100,
+   dh=16) and at a long inter-chunk shape (T=1230, a 60 s request);
 4. serve: a 2x600 bf16 uPIT with weights from a seed, saved as a reference
    .mdl, behind the port's SeparationServer on a Unix socket; one request,
    then two concurrent ones, then a ping; every output wav is checked, and
@@ -27,12 +29,26 @@ Phases, in order; any failure exits non-zero without the final line:
    (120 training and 40 CV utterances of 4.5-6 s, so every batch pads to
    T=384), 2x600 bf16 uPIT at B=100 with the reference's N(0, 1) initial
    state, 5 epochs (10 steps, CV at epoch 5); losses, files, launch counts
-   (zeroed just before, read just after), and final.mdl separating a wav on
-   the card;
+   (zeroed just before, read just after), each epoch's wall against its
+   summed step time, and final.mdl separating a wav on the card;
 6. one training step (loss and every gradient) on the card against the
    same step on the CPU (plain versions), same weights and initial state;
-7. one JSON line with every kernel and its numbers, then
+7. serve SepFormer: the full-width bf16 SepFormer with fused attention
+   (random weights from the seed, saved by the port's checkpoint writer) in
+   SeparationServer, three requests of 3-8 s; tracks checked, and held
+   against the CPU plain path by SNR; attention launches counted;
+8. train SepFormer: train() on a synthetic mix/s1/s2 wav corpus (64 training
+   and 16 CV utterances of 4 s) at B=32 with --on-device-features, 5 epochs
+   (10 steps, CV at epoch 5); losses, files, ms per step, launch counts;
+9. one SepFormer training step on the card, fused attention against the
+   einsum path at B=32 (loss and every gradient by relative L2), then the
+   fused step on the card against the CPU at B=4;
+10. one JSON line with every kernel and its numbers, then
    {"ok": true, "device": {...}} as the last line.
+
+``python3 chip_smoke.py --epoch-start ROOT`` runs only phase 5's training
+with the package of the checkout at ROOT (for comparing two commits in one
+call) and prints each epoch's wall and summed step time as one JSON line.
 """
 
 from __future__ import annotations
@@ -68,6 +84,17 @@ MIN_SNR_DB = 50.0
 # gradients 3.7e-3.
 TRAIN_TOL = {"fwd_bf16": 4e-2, "fwd_f32": 2e-5, "bwd_bf16": 2e-2, "bwd_f32": 1.5e-5,
              "grad_bf16": 6e-2, "grad_f32": 7e-5, "step_loss": 1.5e-6, "step_grad": 4e-2}
+# The attention kernel (K5) against its plain versions, as max |error| /
+# max(1, max |reference|), forward and backward; SepFormer's served tracks
+# against the CPU by SNR; its training step fused against einsum and card
+# against CPU by relative L2 error (loss, worst gradient). Provisional limits
+# until the card's first readings.
+ATTN_TOL = {"bf16": 3e-2, "f32": 2e-5}
+SEPFORMER_TOL = {"min_snr_db": 20.0, "fused_loss": 1e-2, "fused_grad": 1e-1,
+                 "cpu_loss": 1e-2, "cpu_grad": 1e-1}
+# exp runs on the SFU: 16 results per SM and clock (4 per SM sub-partition),
+# 132 SMs, at the 1.98 GHz boost clock (H100 SXM)
+SFU_PER_S = 132 * 16 * 1.98e9
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -340,6 +367,120 @@ def check_lstm_train(fails: Failures) -> dict:
     return out
 
 
+def attention_inputs(N, T, dh, dtype, gen, lengths=None):
+    """q, k, v, do (N, T, dh) and a key mask with the given valid counts
+    (random in 1..T, and row 1 fully masked, when none are given)."""
+    dev = "cuda"
+    q, k, v, do = (torch.randn((N, T, dh), generator=gen, device=dev).to(dtype)
+                   for _ in range(4))
+    if lengths is None:
+        lengths = torch.randint(1, T + 1, (N,), generator=gen, device=dev)
+        lengths[1] = 0
+    mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None]).float()
+    return q, k, v, mask, do
+
+
+def attention_bound_ms(q, io_bytes: int, products: int) -> tuple[float, str]:
+    """The larger of the bytes' time and the operations' time: ``products``
+    (N, T, T, dh) products at the dtype's peak, or one exp per (query, key)
+    at the SFU rate, whichever is longer."""
+    N, T, dh = q.shape
+    t_bytes = io_bytes / HBM_BYTES_PER_S
+    t_ops = max(products * 2 * N * T * T * dh / PEAK_FLOPS[q.dtype], N * T * T / SFU_PER_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_ms(q, k, v, mask, do) -> tuple[float, float]:
+    """F.scaled_dot_product_attention on the same rows (heads folded into
+    the batch, the mask as an additive bias): forward ms, and the backward
+    through autograd alone. A yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+    bias = ((1.0 - mask) * -1e9).to(q.dtype)[:, None, None, :]
+    q4, k4, v4, do4 = (t[:, None] for t in (q, k, v, do))
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias), 10)
+    leaves = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
+    bwd = 0.0
+    for i in range(6):
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out.backward(do4)
+        e1.record()
+        e1.synchronize()
+        bwd += e0.elapsed_time(e1) if i else 0.0      # the first is a warm-up
+    return fwd, bwd / 5
+
+
+def check_attention(fails: Failures) -> dict:
+    """K5 forward and backward against their plain versions on the same
+    inputs: at a small ragged shape (N odd, one fully-masked row, T past
+    nothing), at SepFormer's training intra-chunk shape and at a long
+    inter-chunk shape (two key tiles), with times, bounds and SDPA's times."""
+    from speech_separation_tpu_torch.ops.attention_kernel import (
+        chunk_attention_bwd, chunk_attention_bwd_plain, chunk_attention_fwd,
+        chunk_attention_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def compare(args, label):
+        q, k, v, mask, do = args
+        key = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        o = chunk_attention_fwd(q, k, v, mask)
+        grads = chunk_attention_bwd(q, k, v, mask, do)
+        err_f = scaled_err(o, chunk_attention_fwd_plain(q, k, v, mask))
+        err_b = max(scaled_err(g, r) for g, r in
+                    zip(grads, chunk_attention_bwd_plain(q, k, v, mask, do)))
+        torch.cuda.synchronize()
+        fails.check(err_f <= ATTN_TOL[key], f"chunk_attention_fwd {label} {q.dtype}: "
+                                            f"max_abs_err {err_f:.3e} <= {ATTN_TOL[key]}")
+        fails.check(err_b <= ATTN_TOL[key], f"chunk_attention_bwd {label} {q.dtype} (dq, dk, "
+                                            f"dv): max_abs_err {err_b:.3e} <= {ATTN_TOL[key]}")
+        return err_f, err_b, o, grads
+
+    def measure(args, label):
+        q, k, v, mask, do = args
+        err_f, err_b, o, grads = compare(args, label)
+        ms_f = cuda_ms(lambda: chunk_attention_fwd(q, k, v, mask), 20)
+        ms_b = cuda_ms(lambda: chunk_attention_bwd(q, k, v, mask, do), 10)
+        plain_f = cuda_ms(lambda: chunk_attention_fwd_plain(q, k, v, mask), 3)
+        plain_b = cuda_ms(lambda: chunk_attention_bwd_plain(q, k, v, mask, do), 3)
+        lib_f, lib_b = sdpa_ms(q, k, v, mask, do)
+        b_f = attention_bound_ms(q, nbytes(q, k, v, mask, o), 2)
+        # the backward recomputes QK^T, then dV, dW, dQ and dK: five products
+        b_b = attention_bound_ms(q, nbytes(q, k, v, mask, do, *grads), 5)
+        N, T, dh = q.shape
+        print(f"  chunk_attention {label} {q.dtype}: fwd {ms_f:.4f} ms (plain {plain_f:.3f}, "
+              f"SDPA {lib_f:.4f}, bound {b_f[0]:.4f} by {b_f[1]}); bwd {ms_b:.4f} ms (plain "
+              f"{plain_b:.3f}, SDPA {lib_b:.4f}, bound {b_b[0]:.4f} by {b_b[1]})", flush=True)
+        shape = {"N": N, "T": T, "dh": dh}
+        return ({"max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f, "bound_ms": b_f[0],
+                 "bound_by": b_f[1], "library_ms": lib_f, **shape},
+                {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b, "bound_ms": b_b[0],
+                 "bound_by": b_b[1], "library_ms": lib_b, **shape})
+
+    for dtype in (torch.bfloat16, torch.float32):
+        compare(attention_inputs(37, 20, 16, dtype, gen), "small ragged N=37 T=20")
+
+    out = {"fwd": {}, "bwd": {}}
+    # training, intra-chunk: B=32 4 s utterances (4000 valid of 4095 encoder
+    # frames) -> 83 chunks of K=100 frames, 4 heads: N = 32 * 83 * 4; the
+    # key masks of the model's chunks: full, but half of chunk 80 and none
+    # of chunks 81 and 82
+    N, T = 10624, 100
+    lens = torch.full((N,), T, device="cuda")
+    lens.view(32, 83, 4)[:, 80] = 50
+    lens.view(32, 83, 4)[:, 81:] = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        f, b = measure(attention_inputs(N, T, 16, dtype, gen, lens), "training intra N=10624 T=100")
+        out["fwd"][dtype], out["bwd"][dtype] = f, b
+        torch.cuda.empty_cache()
+    # serving, inter-chunk: one 60 s request -> 1230 chunks; N = 100 * 4
+    f, b = measure(attention_inputs(400, 1230, 16, torch.bfloat16, gen), "long inter T=1230")
+    out["fwd"]["long"], out["bwd"]["long"] = f, b
+    torch.cuda.empty_cache()
+    return out
+
+
 # -------------------------------------------------------------------- serve
 
 def mixture(n: int, rng) -> np.ndarray:
@@ -545,6 +686,8 @@ def train_phase(fails: Failures, counters) -> dict:
     ms = [m for m, _ in steps[1:]]
     ms_per_step = float(np.mean(full))
     utts_per_s = sum(n for _, n in steps[1:]) / (sum(ms) / 1e3)
+    print(f"  epochs (wall s, steps s): "
+          f"{[(round(w, 3), round(st, 3)) for _, w, st in res['epoch_times']]}", flush=True)
     print(f"  full-batch steps after the first: {ms_per_step:.2f} ms/step (min "
           f"{min(full):.2f}, max {max(full):.2f}; {len(full)} steps); 20-row steps "
           f"{np.mean(part):.2f} ms/step; real rows over all steps after the first: "
@@ -556,7 +699,8 @@ def train_phase(fails: Failures, counters) -> dict:
     fails.check(len(tracks) == 2 and all(np.all(np.isfinite(t)) for t in tracks),
                 "final.mdl separates a wav on the card into finite tracks")
     return {"launches": launches, "ms_per_step": ms_per_step, "utts_per_s": utts_per_s,
-            "epoch_losses": losses, "cv_loss": res["cv_losses"], "train_dir": tr}
+            "epoch_losses": losses, "cv_loss": res["cv_losses"],
+            "epoch_times": res["epoch_times"], "train_dir": tr}
 
 
 def step_phase(fails: Failures, train_dir: str) -> dict:
@@ -606,12 +750,274 @@ def step_phase(fails: Failures, train_dir: str) -> dict:
     return {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
 
 
+# ------------------------------------------------------------- SepFormer
+
+SEPFORMER_KW = {"compute_dtype": "bfloat16", "fused_attention": "1"}
+
+
+def serve_sepformer_phase(fails: Failures, counters) -> dict:
+    """Phase 7: the full-width bf16 SepFormer with fused attention, served."""
+    from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    from speech_separation_tpu_torch.eval.serve import SeparationServer, request
+    from speech_separation_tpu_torch.models import sepformer
+    from speech_separation_tpu_torch.train.checkpoint import save_checkpoint
+    from speech_separation_tpu_torch.utils.audio import load_wav, write_wav_int16
+
+    work = os.path.join(REPO, "build", "chip_smoke_sepformer_serve")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = sepformer.Config.from_kwargs(**SEPFORMER_KW)
+    model = sepformer.SepFormer(cfg, torch.Generator().manual_seed(SEED))
+    mdl = os.path.join(work, "sepformer.mdl")
+    save_checkpoint(mdl, model, meta={"arch": "SepFormer", "model_kwargs": SEPFORMER_KW})
+    rng = np.random.default_rng(SEED + 6)
+    wavs = []
+    for k, sec in enumerate((3.0, 5.5, 8.0)):
+        path = os.path.join(work, f"mix{k}.wav")
+        write_wav_int16(path, 8000, mixture(int(sec * 8000), rng))
+        wavs.append(path)
+
+    pipe = SeparationPipeline(mdl, batch_size=16, seed=SEED, device="cuda")
+    fails.check(pipe.arch.NAME == "SepFormer" and pipe.cfg == cfg,
+                f"the .state meta gives {pipe.arch.NAME} {pipe.cfg}")
+    sock_dir = tempfile.mkdtemp(prefix="sepsmoke")
+    sock = os.path.join(sock_dir, "s.sock")
+    server = SeparationServer(pipe, sock, coalesce=8)
+    server.warmup([8.0])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    replies = {}
+    try:
+        deadline = time.monotonic() + 60
+        while not os.path.exists(sock):
+            if time.monotonic() > deadline:
+                raise RuntimeError("server never bound its socket")
+            time.sleep(0.02)
+        for c in counters:
+            c.launches = 0
+        t0 = time.monotonic()
+
+        def send(name, idx):
+            replies[name] = request(sock, {"wavs": [wavs[idx]],
+                                           "out_dir": os.path.join(work, name)})
+
+        send("r1", 0)
+        pair = [threading.Thread(target=send, args=(f"r{i + 2}", i + 1)) for i in range(2)]
+        for th in pair:
+            th.start()
+        for th in pair:
+            th.join(timeout=300)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+        launches = {c.__name__: c.launches for c in counters}
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    fails.check(not thread.is_alive(), "server thread stopped")
+    for name in ("r1", "r2", "r3"):
+        rep = replies.get(name, {})
+        fails.check(bool(rep.get("ok")), f"request {name} ok ({rep.get('ms')} ms)")
+        for wav, paths in rep.get("outputs", {}).items():
+            n = len(load_wav(wav)[0])
+            for p in paths:
+                y, sr = (load_wav(p) if os.path.exists(p) else (np.zeros(0), 0))
+                fails.check(sr == 8000 and len(y) == n and np.all(np.isfinite(y)),
+                            f"{os.path.basename(p)}: {len(y)} samples, want {n}")
+    fails.check(launches["chunk_attention_fwd"] > 0,
+                f"chunk_attention_fwd launched {launches['chunk_attention_fwd']} times "
+                "while serving")
+    print(f"  requests: r1 {replies['r1'].get('ms')} ms, r2 {replies['r2'].get('ms')} ms, "
+          f"r3 {replies['r3'].get('ms')} ms; wall {wall_ms:.1f} ms; launches {launches}",
+          flush=True)
+
+    # r1's mixture on the card (the serving pipeline) and on the CPU (plain
+    # versions), as float tracks
+    x = load_wav(wavs[0])[0]
+    got = pipe.separate([x])[0]
+    cpu = SeparationPipeline(mdl, batch_size=16, seed=SEED, device="cpu")
+    ref = cpu.separate([x])[0]
+    snrs = [snr_db(np.asarray(r), np.asarray(g)) for r, g in zip(ref, got)]
+    fails.check(min(snrs) >= SEPFORMER_TOL["min_snr_db"],
+                f"r1 tracks vs CPU plain versions: SNR {', '.join(f'{v:.1f}' for v in snrs)} "
+                f"dB >= {SEPFORMER_TOL['min_snr_db']}")
+    return {"launches": launches, "request_ms": {k: v.get("ms") for k, v in replies.items()},
+            "wall_ms": wall_ms, "snr_db": snrs}
+
+
+def write_wav_corpus(root: str, n: int, rng, prefix: str, sec: float = 4.0) -> str:
+    """n utterances of ``sec`` seconds in the mix/s1/s2 layout under
+    root/corpus, listed in root/data/wav.scp; returns the data dir."""
+    from speech_separation_tpu_torch.utils.audio import write_wav_int16
+    corpus, data = os.path.join(root, "corpus"), os.path.join(root, "data")
+    for sub in ("mix", "s1", "s2"):
+        os.makedirs(os.path.join(corpus, sub))
+    os.makedirs(data)
+    lines = []
+    for i in range(n):
+        s1, s2 = sources(int(8000 * sec), rng)
+        mix = s1 + s2
+        g = min(1.0, 0.9 / float(np.max(np.abs(mix))))
+        utt = f"{prefix}{i:04d}"
+        for sub, x in (("mix", mix), ("s1", s1), ("s2", s2)):
+            write_wav_int16(os.path.join(corpus, sub, utt + ".wav"), 8000, x * g)
+        lines.append(f"{utt} {os.path.join(corpus, 'mix', utt + '.wav')}\n")
+    with open(os.path.join(data, "wav.scp"), "w") as f:
+        f.writelines(lines)
+    return data
+
+
+def train_sepformer_phase(fails: Failures, counters) -> dict:
+    """Phase 8: the full-width bf16 SepFormer trained through train()."""
+    from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
+    from speech_separation_tpu_torch.utils.audio import load_wav
+
+    work = os.path.join(REPO, "build", "chip_smoke_sepformer_train")
+    shutil.rmtree(work, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 7)
+    t0 = time.monotonic()
+    tr = write_wav_corpus(os.path.join(work, "tr"), 64, rng, "tr")
+    cv = write_wav_corpus(os.path.join(work, "cv"), 16, rng, "cv")
+    print(f"  corpus: {time.monotonic() - t0:.1f} s", flush=True)
+    exp = os.path.join(work, "exp")
+    cfg = TrainLoopConfig(arch="SepFormer", batch_size=32, num_epochs=5, seed=SEED,
+                          on_device_features=True)
+    for c in counters:
+        c.launches = 0
+    res = train(tr, exp, cfg, cv_data_dir=cv, model_kwargs=SEPFORMER_KW, device="cuda",
+                log=lambda m: print("  " + m, flush=True))
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    losses = [loss for _, loss in res["epoch_losses"]]
+    fails.check(len(losses) == 5 and all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"epoch losses finite and falling: {losses}")
+    fails.check(len(res["cv_losses"]) == 1 and np.isfinite(res["cv_losses"][0][1]),
+                f"cv loss at epoch 5: {res['cv_losses']}")
+    for rel in ("train_stats/train_loss.txt", "train_stats/cv_loss.txt",
+                "intermediate_models/init.mdl", "intermediate_models/005.mdl", "final.mdl"):
+        fails.check(os.path.isfile(os.path.join(exp, rel)), f"{rel} written")
+    steps = res["steps"]
+    fails.check(len(steps) == 10 and all(n == 32 for _, n in steps),
+                f"{len(steps)} training steps of 32 rows")
+    # 8 attention layers (4 blocks x intra, inter): each step runs the
+    # forward and the backward of each once; the CV batch runs the forward
+    fails.check(launches["chunk_attention_fwd"] == 8 * 11,
+                f"chunk_attention_fwd launched {launches['chunk_attention_fwd']} times "
+                "(8 layers x (10 steps + 1 CV batch))")
+    fails.check(launches["chunk_attention_bwd"] == 8 * 10,
+                f"chunk_attention_bwd launched {launches['chunk_attention_bwd']} times "
+                "(8 layers x 10 steps)")
+    ms = [m for m, _ in steps[1:]]
+    print(f"  steps after the first: {np.mean(ms):.2f} ms/step (min {min(ms):.2f}, max "
+          f"{max(ms):.2f}); first step {steps[0][0]:.1f} ms; epochs (wall s, steps s): "
+          f"{[(round(w, 3), round(st, 3)) for _, w, st in res['epoch_times']]}", flush=True)
+
+    pipe = SeparationPipeline(os.path.join(exp, "final.mdl"), device="cuda")
+    x = load_wav(os.path.join(work, "cv", "corpus", "mix", "cv0000.wav"))[0]
+    tracks = pipe.separate([x])[0]
+    fails.check(len(tracks) == 2 and all(len(t) == len(x) and np.all(np.isfinite(t))
+                                         for t in tracks),
+                "final.mdl separates a wav on the card into finite tracks")
+    return {"launches": launches, "ms_per_step": float(np.mean(ms)), "epoch_losses": losses,
+            "cv_loss": res["cv_losses"], "epoch_times": res["epoch_times"], "train_dir": tr}
+
+
+def sepformer_step_phase(fails: Failures, train_dir: str) -> dict:
+    """Phase 9: one SepFormer step on the card, fused attention against the
+    einsum path at B=32; then the fused step on the card against the CPU at
+    B=4. Same weights, same batch."""
+    import copy
+    import dataclasses
+
+    from speech_separation_tpu_torch.dsp.stft import STFTConfig
+    from speech_separation_tpu_torch.models import sepformer
+    from speech_separation_tpu_torch.train.wav_data import (WavDataset, audio_to_wave_batch,
+                                                            collate_wav_batch)
+
+    ds = WavDataset(train_dir)
+    shipped = collate_wav_batch(ds, list(range(32)), 32)
+    cfg = sepformer.Config.from_kwargs(**SEPFORMER_KW)
+    base = sepformer.SepFormer(cfg, torch.Generator().manual_seed(SEED + 8))
+
+    def step(fused: bool, dev: str, rows: int):
+        m = copy.deepcopy(base).to(dev)
+        m.cfg = dataclasses.replace(cfg, fused_attention=fused)
+        b = audio_to_wave_batch({k: torch.from_numpy(shipped[k][:rows]).to(dev) for k in
+                                 ("audio", "sample_lengths", "row_mask")}, STFTConfig())
+        t0 = time.monotonic()
+        loss, _ = sepformer.loss_fn(m, b, None, True)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        print(f"  {dev} {'fused' if fused else 'einsum'} step, B={rows}: "
+              f"{(time.monotonic() - t0) * 1e3:.0f} ms, loss {loss.item():.6f}", flush=True)
+        return loss.detach(), {n: p.grad for n, p in m.named_parameters()}
+
+    def compare(a, b, what, tol_loss, tol_grad):
+        loss_err = rel_l2(a[0], b[0])
+        grad_err = {n: rel_l2(g, b[1][n]) for n, g in a[1].items()}
+        worst = max(grad_err, key=grad_err.get)
+        fails.check(loss_err <= tol_loss, f"{what} loss: rel err {loss_err:.3e} <= {tol_loss}")
+        fails.check(len(grad_err) == len(list(base.parameters()))
+                    and grad_err[worst] <= tol_grad,
+                    f"{what} gradients ({len(grad_err)} parameters): worst {worst} rel err "
+                    f"{grad_err[worst]:.3e} <= {tol_grad}")
+        return {"loss_rel_err": loss_err, "worst": worst, "worst_rel_err": grad_err[worst]}
+
+    fused = step(True, "cuda", 32)
+    einsum = step(False, "cuda", 32)
+    out = {"fused_vs_einsum": compare(fused, einsum, "B=32 fused vs einsum on the card",
+                                      SEPFORMER_TOL["fused_loss"], SEPFORMER_TOL["fused_grad"])}
+    del fused, einsum
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = compare(step(True, "cuda", 4), step(True, "cpu", 4),
+                                 "B=4 fused step card vs CPU", SEPFORMER_TOL["cpu_loss"],
+                                 SEPFORMER_TOL["cpu_grad"])
+    return out
+
+
+def epoch_start_main(root: str) -> int:
+    """Phase 5's training with the package of the checkout at ``root``:
+    prints {"root", "epoch_wall_s", "epoch_step_s", "epoch_losses"}. The
+    wall of each epoch is read from the trainer's log line (its real rows
+    over its rate), the step time from the steps it returns."""
+    import re
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
+    work = os.path.join(REPO, "build", "chip_smoke_epochs")
+    shutil.rmtree(work, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 3)
+    tr, _ = write_corpus(os.path.join(work, "tr"), 120, rng, "tr")
+    cv, _ = write_corpus(os.path.join(work, "cv"), 40, rng, "cv")
+    logs = []
+    res = train(tr, os.path.join(work, "exp"),
+                TrainLoopConfig(batch_size=100, num_epochs=5, time_pad_multiple=128, seed=SEED),
+                cv_data_dir=cv, model_kwargs={"compute_dtype": "bfloat16"}, device="cuda",
+                log=logs.append)
+    walls = [120 / float(m.group(1)) for m in
+             (re.search(r"^epoch \d+ wall: .*\(([\d.]+) utts/sec\)", ln) for ln in logs) if m]
+    steps = [m for m, _ in res["steps"]]
+    print(json.dumps({"root": root, "package": sys.modules["speech_separation_tpu_torch"].__file__,
+                      "epoch_wall_s": walls,
+                      "epoch_step_s": [sum(steps[2 * e: 2 * e + 2]) / 1e3 for e in range(5)],
+                      "epoch_losses": [loss for _, loss in res["epoch_losses"]]}))
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--epoch-start":
+        return epoch_start_main(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     from speech_separation_tpu_torch.ops import _build
+    from speech_separation_tpu_torch.ops.attention_kernel import (chunk_attention_bwd,
+                                                                  chunk_attention_fwd)
     from speech_separation_tpu_torch.ops.lstm_kernel import (lstm_seq_bwd, lstm_seq_fwd,
                                                              lstm_seq_infer)
     from speech_separation_tpu_torch.ops.stft_kernel import stft
@@ -633,7 +1039,7 @@ def main() -> int:
 
     print("== 2. build", flush=True)
     t0 = time.monotonic()
-    _build.build(["lstm_fwd", "lstm_bwd", "stft"])
+    _build.build(["lstm_fwd", "lstm_bwd", "stft", "attention"])
     print(f"  nvcc (parallel): {time.monotonic() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -644,6 +1050,8 @@ def main() -> int:
     lstm = check_lstm(fails)
     stft_nums = check_stft(fails)
     lstm_train = check_lstm_train(fails)
+    attention = check_attention(fails)
+    print(f"  phase 3 done at {time.monotonic() - t_start:.1f} s", flush=True)
 
     print("== 4. serve (2x600 uPIT, bf16)", flush=True)
     served = serve_phase(fails, [lstm_seq_infer, stft])
@@ -657,6 +1065,18 @@ def main() -> int:
 
     print("== 6. one training step, card against CPU", flush=True)
     step = step_phase(fails, trained["train_dir"])
+    print(f"  phase 6 done at {time.monotonic() - t_start:.1f} s", flush=True)
+
+    attn_counters = [chunk_attention_fwd, chunk_attention_bwd]
+    print("== 7. serve (SepFormer, bf16, fused attention)", flush=True)
+    served_sf = serve_sepformer_phase(fails, attn_counters)
+
+    print("== 8. train (SepFormer, bf16, fused attention, B=32, 4 s)", flush=True)
+    trained_sf = train_sepformer_phase(fails, attn_counters)
+    launches.update(trained_sf["launches"])
+
+    print("== 9. one SepFormer step: fused against einsum, card against CPU", flush=True)
+    step_sf = sepformer_step_phase(fails, trained_sf["train_dir"])
 
     def row(name, route, source, replaces, nums, extra):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -678,10 +1098,22 @@ def main() -> int:
             "speech_separation_tpu/ops/lstm_pallas.py:400", lstm_train["bwd"][torch.bfloat16],
             {"dtype": "bfloat16", "float32": lstm_train["bwd"][torch.float32]}),
     ]
+    for name, part, line in (("chunk_attention_fwd", "fwd", 82), ("chunk_attention_bwd", "bwd", 99)):
+        nums = attention[part]
+        kernels.append(row(name, "cuda", "speech_separation_tpu_torch/csrc/attention.cu",
+                           f"speech_separation_tpu/ops/attention_pallas.py:{line}",
+                           nums[torch.bfloat16],
+                           {"dtype": "bfloat16", "float32": nums[torch.float32],
+                            "long": nums["long"],
+                            "serve_launches": served_sf["launches"][name]}))
     print(f"  serve: {served}", flush=True)
     print(f"  train: {({k: v for k, v in trained.items() if k != 'train_dir'})}", flush=True)
     print(f"  lstm_seq gradients: {lstm_train['grad']}", flush=True)
     print(f"  card vs CPU step: {step}", flush=True)
+    print(f"  SepFormer serve: {served_sf}", flush=True)
+    print(f"  SepFormer train: {({k: v for k, v in trained_sf.items() if k != 'train_dir'})}",
+          flush=True)
+    print(f"  SepFormer step: {step_sf}", flush=True)
     print(f"  total {time.monotonic() - t_start:.1f} s", flush=True)
     if fails:
         print("chip_smoke FAILED:\n  " + "\n  ".join(fails), file=sys.stderr)

@@ -4,12 +4,16 @@ Run as ``python -m speech_separation_tpu_torch.cli.main <subcommand>``. The
 subcommands and flags are those of the JAX package's ``sepsep train``,
 ``sepsep separate`` and ``sepsep serve`` (speech_separation_tpu/cli/main.py),
 without what is not ported yet (``train``: ``--reference-batching``,
-``--profile-dir``, ``--train-copy-location``, ``--on-device-features`` and
-the hang watchdog; ``--no-plots`` is accepted and plots are not drawn;
-``separate``/``serve``: ``--data-parallel`` and ``--streaming-model``), and
-with ``--device`` (default ``cuda``; without a card the command fails).
-Models are reference ``.mdl`` state dicts: ``train`` writes them, and
-``sepsep export-model`` turns the JAX package's checkpoints into them.
+``--profile-dir``, ``--train-copy-location`` and the hang watchdog;
+``--no-plots`` is accepted and plots are not drawn; ``separate``/``serve``:
+``--data-parallel`` and ``--streaming-model``), and with ``--device``
+(default ``cuda``; without a card the command fails). The archs are uPIT
+(npz features, or ``--on-device-features``) and SepFormer (waveforms:
+``train SepFormer <data_dir> <exp_dir> --on-device-features``, ``wav.scp``
+input). Models are ``.mdl`` state dicts: ``train`` writes them with the arch
+and model config in the ``.state`` beside each, which ``separate``/``serve``
+read, and ``sepsep export-model`` turns the JAX package's uPIT/RSH
+checkpoints into reference ``.mdl`` files.
 """
 
 from __future__ import annotations
@@ -148,7 +152,8 @@ def cmd_serve(args):
 
 
 def cmd_train(args):
-    """Train a separation model on npz features (``feats_train.scp``)."""
+    """Train a separation model on npz features (``feats_train.scp``) or,
+    with ``--on-device-features``, on the waveforms of ``wav.scp``."""
     from ..train.loop import TrainLoopConfig, train_with_restarts
     loop_cfg = TrainLoopConfig(
         arch=args.arch, batch_size=args.batch_size, num_epochs=args.num_epochs,
@@ -156,7 +161,8 @@ def cmd_train(args):
         lr_decay=args.lr_decay, start_epoch=args.start_epoch, seed=args.seed,
         time_pad_multiple=args.time_pad_multiple,
         bucket_by_length=args.bucket_by_length,
-        reference_resume=args.reference_resume)
+        reference_resume=args.reference_resume,
+        on_device_features=args.on_device_features)
     train_with_restarts(args.data_dir, args.exp_dir, loop_cfg,
                         max_restarts=args.max_restarts, cv_data_dir=args.cv_data_dir,
                         model_kwargs=read_model_config(args.model_config),
@@ -206,6 +212,11 @@ def build_parser():
     p.add_argument("--max-restarts", type=int, default=2,
                    help="resume from the newest checkpoint after a crash, up "
                         "to N times")
+    p.add_argument("--on-device-features", action="store_true",
+                   help="read wav.scp (mix/ with s1/ s2/ beside it) and ship the "
+                        "waveforms; the card computes the features, or feeds "
+                        "them as they are to a time-domain arch (SepFormer), "
+                        "which requires this")
     p.add_argument("--no-plots", action="store_true",
                    help="accepted for the JAX package's command lines; the "
                         "port draws no plots yet")

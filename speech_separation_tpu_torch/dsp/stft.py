@@ -14,7 +14,8 @@ No complex dtypes: the real DFT is one product with a precomputed
 (n_fft, 2*n_bins) matrix with the window folded in. The forward STFT runs
 through the hand-written kernel of ops/stft_kernel.py (framing fused into
 its loads); the inverse is a plain f32 product plus reshape/pad/add, as the
-reference leaves it outside any kernel. f32 products must run in full f32,
+reference leaves it outside any kernel. ``frame_signal`` cuts the overlapping
+frames of the time-domain archs' learned encoder. f32 products must run in full f32,
 as the reference's Precision.HIGHEST: SeparationPipeline turns TF32 off.
 """
 
@@ -124,6 +125,12 @@ def stft_magnitude_batch(xp: torch.Tensor, n_fft: int, hop: int, n_t: int
     """|STFT| (B, n_t, n_bins), fused in the kernel's epilogue."""
     from ..ops.stft_kernel import stft
     return stft(xp, n_fft, hop, n_t, magnitude=True)
+
+
+def frame_signal(xp: torch.Tensor, n_fft: int, hop: int, n_t: int) -> torch.Tensor:
+    """Overlapping frames: (B, L) -> (B, n_t, n_fft), frame t starting at
+    sample t * hop (a strided view; L >= (n_t - 1) * hop + n_fft)."""
+    return xp.unfold(-1, n_fft, hop)[:, :n_t]
 
 
 def _overlap_add_divisible(frames: torch.Tensor, hop: int) -> torch.Tensor:

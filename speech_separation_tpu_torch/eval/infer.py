@@ -1,18 +1,23 @@
-"""Model loading for the port: reference torch state-dict ``.mdl`` files.
+"""Model loading for the port: torch state-dict ``.mdl`` files.
 
 The counterpart of speech_separation_tpu/eval/infer.py::load_model. The port
-reads the reference SepDNN state dict (``torch.save(model.state_dict())``),
-which the JAX package writes with ``sepsep export-model``; the arch and its
-sizes are inferred from the weight shapes, and ``model_kwargs`` (for example
+reads a ``.mdl`` state dict (``torch.save(model.state_dict())``): one that
+its own trainer wrote, with the arch and model kwargs in the ``.state`` meta
+beside it (train/checkpoint.py), or a reference SepDNN state dict (the JAX
+package writes one with ``sepsep export-model``), whose arch and sizes are
+inferred from the weight shapes. ``model_kwargs`` (for example
 ``compute_dtype`` or ``zero_init_hidden``) apply on top. The JAX package's
 own msgpack checkpoints are not read yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from ..models.registry import get_arch
+from ..models.registry import build_model, get_arch
+from ..train.checkpoint import state_path
 from ..utils.weights import infer_model_info
 
 _SEPTPU_MAGIC = b"SEPTPU01"
@@ -40,19 +45,37 @@ def load_state_dict(model_path: str) -> dict:
     return torch.load(model_path, map_location="cpu", weights_only=True)
 
 
+def _checkpoint_meta(model_path: str) -> dict:
+    """The meta (arch, model kwargs) that the port's trainer writes beside a
+    ``.mdl`` in ``<name>.state``; {} when there is none (a reference
+    ``.mdl``)."""
+    path = state_path(model_path)
+    if not os.path.isfile(path):
+        return {}
+    return torch.load(path, map_location="cpu", weights_only=True).get("meta") or {}
+
+
 def load_model(model_path: str, arch_name: str = "",
                model_kwargs: dict | None = None, device=None):
-    """Load (arch, cfg, model) from a reference ``.mdl``, the model in eval
-    mode on ``device`` (CUDA by default)."""
+    """Load (arch, cfg, model) from a ``.mdl``, the model in eval mode on
+    ``device`` (CUDA by default). The arch and its kwargs come from the
+    port's ``.state`` meta when it is there, else from the shapes of a
+    reference uPIT/RSH state dict; ``arch_name`` and ``model_kwargs``
+    override both."""
     dev = resolve_device(device)
     sd = load_state_dict(model_path)
-    info = infer_model_info(sd)
-    arch = get_arch(arch_name or info["arch"])
-    kwargs = {k: str(info[k]) for k in ("feat_dim", "num_spk", "hidden", "num_layers")
-              if info.get(k) is not None}
+    meta = _checkpoint_meta(model_path)
+    if meta.get("arch"):
+        name, kwargs = meta["arch"], dict(meta.get("model_kwargs") or {})
+    else:
+        info = infer_model_info(sd)
+        name = info["arch"]
+        kwargs = {k: str(info[k]) for k in ("feat_dim", "num_spk", "hidden", "num_layers")
+                  if info.get(k) is not None}
+    arch = get_arch(arch_name or name)
     kwargs.update(model_kwargs or {})
     cfg = arch.Config.from_kwargs(**kwargs)
-    model = arch.UPIT(cfg)
+    model = build_model(arch, cfg)
     missing, unexpected = model.load_state_dict(sd, strict=False)
     # older torch writes no num_batches_tracked; eval never reads it
     missing = [k for k in missing if k != "bn.num_batches_tracked"]

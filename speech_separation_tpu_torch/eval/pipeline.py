@@ -1,11 +1,15 @@
 """Batched separation: waveforms in, separated waveforms out.
 
 The counterpart of speech_separation_tpu/eval/pipeline.py. Per batch the
-device runs: STFT of the center-padded rows (the hand-written STFT kernel on
-CUDA), magnitude, uPIT masks (BLSTM through the hand-written recurrence
-kernel, eval-mode BN, head, sigmoid), then the masked iSTFT with per-row
-frame masking. Audio is bucketed by padded length; the pipeline counts the
-(frame count, num_spk) buckets it has run, which the server reports.
+device runs, for a spectral arch (uPIT): STFT of the center-padded rows (the
+hand-written STFT kernel on CUDA), magnitude, masks (BLSTM through the
+hand-written recurrence kernel, eval-mode BN, head, sigmoid), then the masked
+iSTFT with per-row frame masking; for a time-domain arch (SepFormer): the
+arch's ``separate`` on the raw zero-padded samples (its attention through the
+hand-written attention kernel), each track trimmed to its input's length.
+Audio is bucketed by padded length; the pipeline counts the buckets it has
+run, (frame count or padded sample count, num_spk), which the server
+reports.
 
 This is the serving API. Data-parallel separation over several cards is not
 ported yet (ROADMAP.md).
@@ -21,6 +25,7 @@ import torch
 
 from ..dsp.stft import (STFTConfig, istft_batch, istft_output_length,
                         num_frames, reflect_pad_center, stft_centered_batch)
+from ..models.registry import domain
 from .infer import load_model
 
 
@@ -65,6 +70,7 @@ class SeparationPipeline:
         self.arch, self.cfg, self.model = load_model(
             model_path, arch_name, model_kwargs, device)
         self.device = next(self.model.parameters()).device
+        self.domain = domain(self.arch)
         # the one place the port sets this process-wide flag: every f32
         # product of the path in full f32, as the reference's
         # Precision.HIGHEST and f32 dots (TF32 keeps ~3 digits)
@@ -80,12 +86,16 @@ class SeparationPipeline:
     @torch.inference_mode()
     def _separate_batch(self, xp: np.ndarray, counts: np.ndarray, n_t: int,
                         num_spk: int) -> np.ndarray:
-        """(B, Lp) padded rows -> (B, S, n_fft + hop*(n_t-1)) untrimmed tracks."""
+        """(B, Lp) padded rows -> (B, S, n_fft + hop*(n_t-1)) untrimmed tracks
+        (spectral), or (B, S, Lp) (time domain, n_t = Lp)."""
+        xp_d = torch.from_numpy(xp).to(self.device)
+        counts_d = torch.from_numpy(counts).to(self.device)
+        self.buckets.add((n_t, num_spk))
+        if self.domain == "time":
+            return self.arch.separate(self.model, xp_d, counts_d).cpu().numpy()
         scfg = self.stft_cfg
         F = scfg.num_bins
         B = xp.shape[0]
-        xp_d = torch.from_numpy(xp).to(self.device)
-        counts_d = torch.from_numpy(counts).to(self.device)
         re, im = stft_centered_batch(xp_d, scfg.n_fft, scfg.hop, n_t)
         tmask = (torch.arange(n_t, device=self.device)[None, :]
                  < counts_d[:, None]).to(torch.float32)[:, :, None]
@@ -98,7 +108,6 @@ class SeparationPipeline:
         re_s = (re[:, None] * masks).reshape(B * num_spk, n_t, F)
         im_s = (im[:, None] * masks).reshape(B * num_spk, n_t, F)
         y = istft_batch(re_s, im_s, counts_d.repeat_interleave(num_spk), hop=scfg.hop)
-        self.buckets.add((n_t, num_spk))
         return y.reshape(B, num_spk, -1).cpu().numpy()
 
     def separate_stream(self, loader, lengths, num_spk: int | None = None,
@@ -130,6 +139,15 @@ class SeparationPipeline:
             group = [np.asarray(loader(i), np.float32) for i in idxs]
             max_len = _round_up(max(len(s) for s in group), self.length_quantum)
             B = self.batch_size if pad_batches else len(group)
+            if self.domain == "time":
+                # raw zero-padded samples; the bucket key is the padded
+                # sample count (pad rows: 1 sample of silence)
+                xp = np.zeros((B, max_len), np.float32)
+                counts = np.ones((B,), np.int32)
+                for r, s in enumerate(group):
+                    xp[r, : len(s)] = s
+                    counts[r] = len(s)
+                return xp, counts, max_len
             n_t = num_frames(max_len, scfg.hop)
             xp = np.zeros((B, max_len + scfg.n_fft), np.float32)
             counts = np.ones((B,), np.int32)  # pad rows: 1 frame of silence
@@ -147,6 +165,10 @@ class SeparationPipeline:
                 if k + prefetch < len(groups):
                     futs.append(pool.submit(load_group, groups[k + prefetch]))
                 y = self._separate_batch(xp, counts, n_t, S)
+                if self.domain == "time":
+                    for r, i in enumerate(idxs):
+                        yield i, [y[r, s, : int(counts[r])] for s in range(S)]
+                    continue
                 half = scfg.n_fft // 2
                 for r, i in enumerate(idxs):
                     L_out = istft_output_length(int(counts[r]), scfg.hop)
@@ -155,7 +177,8 @@ class SeparationPipeline:
     def separate(self, signals: list[np.ndarray],
                  num_spk: int | None = None) -> list[list[np.ndarray]]:
         """Separate a list of waveforms. Returns, per input, num_spk
-        estimated source waveforms of length hop*(T_i - 1)."""
+        estimated source waveforms: of length hop*(T_i - 1) from a spectral
+        arch, of the input's length from a time-domain one."""
         out: list[list[np.ndarray]] = [None] * len(signals)
         for i, tracks in self.separate_stream(
                 signals.__getitem__, [len(s) for s in signals], num_spk):

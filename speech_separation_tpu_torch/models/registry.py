@@ -1,16 +1,19 @@
 """Architecture registry of the port.
 
-Each arch module exposes ``NAME``, ``Config`` (with ``from_kwargs``), an
-``nn.Module`` built from the config, ``loss_fn`` (the training objective)
-and ``infer_masks``. The port has uPIT only so far; the other archs of the
-JAX package are queued in ROADMAP.md.
+Each arch module exposes ``NAME``, ``DOMAIN``, ``Config`` (with
+``from_kwargs``), ``Model`` (the ``nn.Module`` built from a config, with
+``reset_parameters(generator)``) and ``loss_fn(model, batch, generator,
+train)``. A ``DOMAIN = "spectrum"`` arch (uPIT) trains on STFT-magnitude
+batches and serves through ``infer_masks``; a ``DOMAIN = "time"`` arch
+(SepFormer) trains on waveform batches and serves through ``separate``. The
+other archs of the JAX package are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
-from . import upit
+from . import sepformer, upit
 
-ARCHS = {"uPIT": upit}
+ARCHS = {"uPIT": upit, "SepFormer": sepformer}
 
 
 def get_arch(name: str):
@@ -21,3 +24,14 @@ def get_arch(name: str):
     raise NotImplementedError(
         f"architecture {name!r} is not ported to PyTorch yet (ported: "
         f"{sorted(ARCHS)}); see ROADMAP.md for the order of the port")
+
+
+def domain(arch) -> str:
+    """'spectrum' (STFT-magnitude batches, infer_masks) or 'time' (waveform
+    batches, separate)."""
+    return arch.DOMAIN
+
+
+def build_model(arch, cfg):
+    """The arch's module for ``cfg``, on the CPU, with its default init."""
+    return arch.Model(cfg)

@@ -36,6 +36,7 @@ from ..ops.mxu import head_dot
 from ..ops.pit import pairwise_mse, permutation_min_loss
 
 NAME = "uPIT"
+DOMAIN = "spectrum"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,3 +162,6 @@ def infer_masks(model: UPIT, batch: dict, generator: torch.Generator) -> torch.T
     mix = batch["mix"]
     h0, c0 = initial_state(model.cfg, mix.shape[0], generator, mix.device)
     return model(mix, batch["lengths"], batch["row_mask"], h0, c0, train=False)
+
+
+Model = UPIT

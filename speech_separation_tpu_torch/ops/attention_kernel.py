@@ -1,0 +1,196 @@
+"""Fused masked chunk attention (K5): the wrappers of csrc/attention.cu.
+
+Replaces the TPU kernel speech_separation_tpu/ops/attention_pallas.py::
+chunk_attention (forward body ``_fwd_kernel``, recompute backward
+``_bwd_kernel``, one custom VJP). SepFormer with ``fused_attention=1`` runs
+every intra- and inter-chunk attention through it: q, k, v (N, T, dh) with the
+heads folded into N, a key mask (N, T) float32 (1 at valid keys). Per row:
+
+- logits in float32: (q . k) * scale + (1 - m) * (-1e9), scale = 1/sqrt(dh)
+  unless given; then max-subtract, exp, divide by the sum. A row whose keys
+  are all masked gets uniform weights (the mean of v), not NaN;
+- the weights are cast to v's dtype before AV, AV sums in float32, and the
+  output is in q's dtype;
+- the backward recomputes the float32 weights from q and k: dv from the
+  rounded weights, the softmax VJP ds = (w32 * (dw - sum(dw * w32))) * scale
+  from the float32 ones, dq = ds k and dk = ds^T q, all summed in float32 and
+  cast to q's dtype; the mask gets zeros.
+
+``chunk_attention_fwd`` and ``chunk_attention_bwd`` launch their kernels for
+CUDA tensors (or raise) and run their plain versions (``*_plain``, batched
+products of the same arithmetic) only for CPU tensors; ``<wrapper>.launches``
+counts kernel launches. ``chunk_attention`` is the differentiable call, a
+``torch.autograd.Function`` whose forward is the one and whose backward is
+the other, so the CPU runs the same VJP rule as the TPU kernel, not autograd
+through the plain forward (the two differ in bf16).
+
+The kernels take dh in ``DH_SUPPORTED``, contiguous tensors of one dtype
+(float32 or bfloat16), any T in the forward and T up to ``MAX_T_BWD`` in the
+backward, which keeps three float32 statistics per query of a row in shared
+memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+DH_SUPPORTED = (4, 8, 16, 32, 64)
+MAX_T_BWD = 8192
+
+_lib_handle = None
+
+
+def _lib():
+    global _lib_handle
+    if _lib_handle is None:
+        from ._build import load
+        lib = load("attention")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.sep_attn_fwd.argtypes = [p] * 5 + [i, i, i, i, f, p]
+        lib.sep_attn_fwd.restype = i
+        lib.sep_attn_bwd.argtypes = [p] * 8 + [i, i, i, i, f, p]
+        lib.sep_attn_bwd.restype = i
+        lib.sep_attn_error_string.argtypes = [i]
+        lib.sep_attn_error_string.restype = ctypes.c_char_p
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _scale(dh: int, scale) -> float:
+    """The logits' scale as the float32 value the reference multiplies by."""
+    return float(np.float32(1.0 / np.sqrt(dh) if scale is None else scale))
+
+
+def _check(q, k, v, key_mask, do=None):
+    if q.dim() != 3:
+        raise ValueError(f"q must be (N, T, dh), got {tuple(q.shape)}")
+    N, T, dh = q.shape
+    named = {"k": k, "v": v, **({} if do is None else {"do": do})}
+    for name, t in named.items():
+        if tuple(t.shape) != (N, T, dh):
+            raise ValueError(f"{name} must be {(N, T, dh)} like q, got {tuple(t.shape)}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"q, k, v and do share one dtype: q is {q.dtype}, "
+                             f"{name} is {t.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q, k, v must be float32 or bfloat16, got {q.dtype}")
+    if tuple(key_mask.shape) != (N, T) or key_mask.dtype != torch.float32:
+        raise ValueError(f"key_mask must be ({N}, {T}) float32, got "
+                         f"{tuple(key_mask.shape)} {key_mask.dtype}")
+    return N, T, dh
+
+
+def _check_cuda(name, tensors, T, cap=None):
+    dev = tensors["q"].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
+    dh = tensors["q"].shape[-1]
+    if dh not in DH_SUPPORTED:
+        raise ValueError(f"the {name} kernel takes dh in {DH_SUPPORTED}, got {dh}")
+    if cap is not None and T > cap:
+        raise ValueError(f"the {name} kernel takes T <= {cap} (three float32 statistics "
+                         f"per query in shared memory), got T={T}")
+    for n, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{n} is on {t.device}, not {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors; {n} is not")
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{_lib().sep_attn_error_string(err).decode()}")
+
+
+def _weights(q, k, key_mask, scale):
+    """The float32 softmax weights, step by step as the TPU kernel."""
+    s = torch.bmm(q.float(), k.float().transpose(1, 2))
+    s = s * scale + (1.0 - key_mask)[:, None, :] * (-1e9)
+    s = s - torch.amax(s, dim=-1, keepdim=True)
+    e = torch.exp(s)
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def chunk_attention_fwd_plain(q, k, v, key_mask, scale=None):
+    """The forward in plain PyTorch: o (N, T, dh) in q's dtype."""
+    _check(q, k, v, key_mask)
+    w = _weights(q, k, key_mask, _scale(q.shape[-1], scale)).to(v.dtype)
+    return torch.bmm(w.float(), v.float()).to(q.dtype)
+
+
+def chunk_attention_bwd_plain(q, k, v, key_mask, do, scale=None):
+    """The backward in plain PyTorch: (dq, dk, dv) in q's dtype."""
+    _check(q, k, v, key_mask, do)
+    scale = _scale(q.shape[-1], scale)
+    w32 = _weights(q, k, key_mask, scale)
+    wv = w32.to(v.dtype).float()
+    dof = do.float()
+    dv = torch.bmm(wv.transpose(1, 2), dof)
+    dw = torch.bmm(dof, v.float().transpose(1, 2))
+    ds = w32 * (dw - torch.sum(dw * w32, dim=-1, keepdim=True))
+    ds = ds * scale
+    dq = torch.bmm(ds, k.float())
+    dk = torch.bmm(ds.transpose(1, 2), q.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def chunk_attention_fwd(q, k, v, key_mask, scale=None):
+    """K5's forward: o (N, T, dh) in q's dtype."""
+    if q.device.type == "cpu":
+        return chunk_attention_fwd_plain(q, k, v, key_mask, scale)
+    N, T, dh = _check(q, k, v, key_mask)
+    _check_cuda("chunk_attention_fwd", {"q": q, "k": k, "v": v, "key_mask": key_mask}, T)
+    o = torch.empty_like(q)
+    err = _lib().sep_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(),
+        int(q.dtype == torch.bfloat16), N, T, dh, _scale(dh, scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "chunk_attention_fwd")
+    chunk_attention_fwd.launches += 1
+    return o
+
+
+def chunk_attention_bwd(q, k, v, key_mask, do, scale=None):
+    """K5's backward: (dq, dk, dv) in q's dtype."""
+    if q.device.type == "cpu":
+        return chunk_attention_bwd_plain(q, k, v, key_mask, do, scale)
+    N, T, dh = _check(q, k, v, key_mask, do)
+    _check_cuda("chunk_attention_bwd",
+                {"q": q, "k": k, "v": v, "key_mask": key_mask, "do": do}, T, MAX_T_BWD)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    err = _lib().sep_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
+        N, T, dh, _scale(dh, scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "chunk_attention_bwd")
+    chunk_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+chunk_attention_fwd.launches = 0
+chunk_attention_bwd.launches = 0
+
+
+class _ChunkAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, scale):
+        ctx.save_for_backward(q, k, v, key_mask)
+        ctx.scale = scale
+        return chunk_attention_fwd(q, k, v, key_mask, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_mask = ctx.saved_tensors
+        dq, dk, dv = chunk_attention_bwd(q, k, v, key_mask, do.contiguous(), ctx.scale)
+        dm = torch.zeros_like(key_mask) if ctx.needs_input_grad[3] else None
+        return dq, dk, dv, dm, None
+
+
+def chunk_attention(q, k, v, key_mask, scale=None):
+    """Differentiable fused masked attention over whole rows: q, k, v
+    (N, T, dh), key_mask (N, T) float32; returns (N, T, dh) in q's dtype."""
+    return _ChunkAttention.apply(q, k, v, key_mask, scale)

@@ -12,7 +12,11 @@ ported; they give the same arrays):
 - a collate thread loads and pads batches ahead of the consumer, and a
   second thread hands them to the caller's transfer function (the trainer's
   copies pinned buffers to the card on a side stream), so host work and the
-  host-to-device copy overlap the device's compute.
+  host-to-device copy overlap the device's compute; for training one such
+  loader spans all the epochs (``iter_epochs``), so the next epoch's first
+  batches are ready before the current epoch ends;
+- the collation is the caller's to choose: npz features here, or waveforms
+  (train/wav_data.collate_wav_batch).
 
 Feature files are the reference's npz format: key ``mix`` plus ``s1``..``sN``,
 magnitudes of shape (freq, time). A file without sources maps source 1 to
@@ -118,19 +122,24 @@ def make_device_batch(samples: list[dict], plan: BatchPlan) -> dict:
             "names": names}
 
 
-def iter_batches(dataset: FeatureDataset, plan: BatchPlan, epoch: int,
-                 shuffle: bool = True, transfer_fn=None):
-    """Yield the epoch's collated batches. Loading and padding run in a
-    background thread and ``transfer_fn(batch)`` in a second one, each
-    ``PREFETCH`` batches ahead of its consumer."""
-    batches = plan_batches(dataset, plan, epoch, lengths=dataset.num_frames,
-                           shuffle=shuffle)
+class _EpochEnd:
+    """The marker between two epochs' batches in a loader that spans epochs."""
+
+
+_EPOCH_END = _EpochEnd()
+
+
+def _pipeline(items, collate_fn, transfer_fn=None):
+    """Yield ``transfer_fn(collate_fn(item))`` for each item, in order, the
+    collation in one background thread and the transfer in a second one,
+    each ``PREFETCH`` items ahead of its consumer. Epoch-end markers pass
+    through untouched; a loader error is raised on the consumer's side."""
     done = object()
 
     def produce(source, out, fn):
         try:
             for item in source:
-                out.put(fn(item))
+                out.put(item if item is _EPOCH_END else fn(item))
         except Exception as e:  # surface loader errors on the consumer side
             out.put(e)
             return
@@ -146,12 +155,53 @@ def iter_batches(dataset: FeatureDataset, plan: BatchPlan, epoch: int,
             yield item
 
     collated: queue.Queue = queue.Queue(maxsize=PREFETCH)
-    threading.Thread(target=produce, daemon=True, args=(
-        batches, collated, lambda idxs: make_device_batch(
-            [dataset.load(i) for i in idxs], plan))).start()
+    threading.Thread(target=produce, daemon=True,
+                     args=(items, collated, collate_fn)).start()
     out = collated
     if transfer_fn is not None:
         out = queue.Queue(maxsize=PREFETCH)
         threading.Thread(target=produce, daemon=True,
                          args=(drain(collated), out, transfer_fn)).start()
     yield from drain(out)
+
+
+def _default_collate(dataset: FeatureDataset, plan: BatchPlan):
+    return lambda idxs: make_device_batch([dataset.load(i) for i in idxs], plan)
+
+
+def iter_batches(dataset, plan: BatchPlan, epoch: int, shuffle: bool = True,
+                 collate_fn=None, transfer_fn=None):
+    """Yield one epoch's collated batches (``collate_fn(idxs)``, by default
+    npz features padded by ``make_device_batch``), loaded and handed to
+    ``transfer_fn`` in background threads."""
+    batches = plan_batches(dataset, plan, epoch, lengths=dataset.num_frames,
+                           shuffle=shuffle)
+    yield from _pipeline(batches, collate_fn or _default_collate(dataset, plan), transfer_fn)
+
+
+def iter_epochs(dataset, plan: BatchPlan, epochs, collate_fn=None, transfer_fn=None):
+    """Yield ``(epoch, batches)`` for each of ``epochs``, ``batches``
+    iterating over that epoch's shuffled batches in ``plan_batches`` order.
+    One loader spans all the epochs (each epoch's plan is fixed by its seed,
+    so it can be made ahead): its threads collate and transfer the next
+    epoch's first batches while the caller runs the current epoch's last
+    steps, its CV pass and its checkpoint, so no epoch starts with the card
+    waiting for its input. Each epoch's iterator must be consumed to its end
+    before the next one is taken."""
+    epochs = list(epochs)
+
+    def items():
+        for e in epochs:
+            yield from plan_batches(dataset, plan, e, lengths=dataset.num_frames)
+            yield _EPOCH_END
+
+    stream = _pipeline(items(), collate_fn or _default_collate(dataset, plan), transfer_fn)
+
+    def one_epoch():
+        for item in stream:
+            if item is _EPOCH_END:
+                return
+            yield item
+
+    for e in epochs:
+        yield e, one_epoch()

@@ -1,9 +1,13 @@
 """The training loop: the reference's recipe, step by step on the card.
 
-The counterpart of speech_separation_tpu/train/loop.py. Per batch: forward
-(the BLSTM's recurrence through the hand-written training kernels on CUDA),
-PIT loss / norm, backward, global-norm clip at 0.25, Adam(1e-3). Kept from
-the reference and the JAX package:
+The counterpart of speech_separation_tpu/train/loop.py, for every ported
+arch. Per batch: forward (uPIT's recurrence, or SepFormer's attention with
+``fused_attention=1``, through the hand-written training kernels on CUDA),
+PIT loss / norm, backward, global-norm clip at 0.25, Adam(1e-3). Input is
+npz features (``feats_train.scp``) or, with ``on_device_features``, the
+waveforms of ``wav.scp`` (train/wav_data.py), which a time-domain arch
+requires; the card turns them into the arch's batch. Kept from the reference
+and the JAX package:
 
 - epoch losses are norm-weighted means, appended to
   ``train_stats/train_loss.txt`` / ``cv_loss.txt`` as ``NNN loss`` lines; on
@@ -16,9 +20,12 @@ the reference and the JAX package:
   ``reference_resume`` restores the weights only;
 - one trainable bias per LSTM direction (utils/weights.fold_lstm_biases).
 
-Not ported yet (ROADMAP.md): plots, the profiler, waveform-direct training,
-the packed feature cache, the hang watchdog, RSH's reference batching and
-data parallelism over several cards.
+One loader spans all the epochs (train/data.iter_epochs), so each epoch's
+first batches are collated and copied while the previous epoch ends.
+
+Not ported yet (ROADMAP.md): plots, the profiler, the packed feature cache,
+the hang watchdog, RSH's reference batching and data parallelism over
+several cards.
 """
 
 from __future__ import annotations
@@ -31,16 +38,21 @@ import time
 
 import torch
 
+from ..dsp.stft import STFTConfig
 from ..eval.infer import resolve_device
-from ..models.registry import get_arch
+from ..models.registry import build_model, domain, get_arch
 from ..utils.weights import fold_lstm_biases
 from .checkpoint import (final_model_path, intermediate_model_path, load_checkpoint,
                          save_checkpoint)
-from .data import BatchPlan, FeatureDataset, iter_batches
+from .data import BatchPlan, FeatureDataset, iter_batches, iter_epochs
+from .wav_data import (WavDataset, audio_to_feature_batch, audio_to_wave_batch,
+                       collate_wav_batch)
 
 # the reference's cadence: CV and an intermediate checkpoint every 5 epochs
 CV_EVERY = CHECKPOINT_EVERY = 5
-BATCH_KEYS = ("mix", "sources", "lengths", "row_mask")
+# the arrays each kind of collated batch sends to the card
+FEATURE_KEYS = ("mix", "sources", "lengths", "row_mask")
+AUDIO_KEYS = ("audio", "sample_lengths", "lengths", "row_mask")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +70,10 @@ class TrainLoopConfig:
     time_pad_multiple: int = 128
     bucket_by_length: bool = False
     reference_resume: bool = False  # drop optimizer state on resume, like the reference
+    # read wav.scp and ship the waveforms; the card makes the arch's batch
+    # (the only input of a time-domain arch)
+    on_device_features: bool = False
+    stft: STFTConfig = STFTConfig()
 
 
 class Optimizer:
@@ -126,13 +142,14 @@ def update_step(arch, model, optimizer: Optimizer, batch: dict,
     return loss.detach(), aux["norm"]
 
 
-def to_device(batch: dict, dev: torch.device, copy_stream=None) -> dict:
-    """The collated arrays as tensors on ``dev``, plus ``n_real``. With a
-    CUDA ``copy_stream`` (the trainer's transfer thread passes one) the
-    arrays are pinned and copied on it, so the copy overlaps the kernels of
-    the running step; ``_wait_for_copy`` orders it before the step that
-    reads it."""
-    host = {k: torch.from_numpy(batch[k]) for k in BATCH_KEYS}
+def to_device(batch: dict, dev: torch.device, copy_stream=None,
+              keys=FEATURE_KEYS) -> dict:
+    """The collated arrays named by ``keys`` as tensors on ``dev``, plus
+    ``n_real`` and the utterance ``names``. With a CUDA ``copy_stream`` (the
+    trainer's transfer thread passes one) the arrays are pinned and copied
+    on it, so the copy overlaps the kernels of the running step;
+    ``_wait_for_copy`` orders it before the step that reads it."""
+    host = {k: torch.from_numpy(batch[k]) for k in keys}
     if copy_stream is None:
         out = {k: v.to(dev) for k, v in host.items()}
     else:
@@ -140,6 +157,7 @@ def to_device(batch: dict, dev: torch.device, copy_stream=None) -> dict:
             out = {k: v.pin_memory().to(dev, non_blocking=True) for k, v in host.items()}
             out["ready"] = copy_stream.record_event()
     out["n_real"] = int(batch["row_mask"].sum())
+    out["names"] = batch["names"]
     return out
 
 
@@ -149,10 +167,11 @@ def _wait_for_copy(batch: dict) -> dict:
     the step has read them."""
     ready = batch.pop("ready", None)
     if ready is not None:
-        stream = torch.cuda.current_stream(batch["mix"].device)
+        stream = torch.cuda.current_stream(batch["row_mask"].device)
         stream.wait_event(ready)
-        for k in BATCH_KEYS:
-            batch[k].record_stream(stream)
+        for v in batch.values():
+            if isinstance(v, torch.Tensor):
+                v.record_stream(stream)
     return batch
 
 
@@ -283,9 +302,11 @@ def train(data_dir: str, exp_dir: str, loop_cfg: TrainLoopConfig,
           log=print) -> dict:
     """Run the training loop on ``device`` (CUDA by default; it raises when
     no card is visible). Returns {'model', 'model_cfg', 'epoch_losses',
-    'cv_losses', 'steps', 'utts_per_sec'}; steps holds (ms, real rows) of
-    each step, the ms on the host clock up to the loss's read-back, which
-    waits for the device."""
+    'cv_losses', 'steps', 'epoch_times', 'utts_per_sec'}; steps holds (ms,
+    real rows) of each step, the ms on the host clock up to the loss's
+    read-back, which waits for the device; epoch_times holds (epoch, wall s,
+    summed step s) of each epoch, its wall from the wait for its first batch
+    to its last step."""
     dev = resolve_device(device)
     with _ExpLock(exp_dir):
         return _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs,
@@ -295,6 +316,12 @@ def train(data_dir: str, exp_dir: str, loop_cfg: TrainLoopConfig,
 def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, log):
     arch = get_arch(loop_cfg.arch)
     model_cfg = arch.Config.from_kwargs(**(model_kwargs or {}))
+    time_domain = domain(arch) == "time"
+    if time_domain and not loop_cfg.on_device_features:
+        raise ValueError(
+            f"{arch.NAME} is a time-domain architecture: it trains on "
+            "waveforms, not spectral feature files. Run with "
+            "--on-device-features (wav.scp input; no extraction stage).")
     meta = {"arch": arch.NAME,
             "model_kwargs": {k: str(v) for k, v in (model_kwargs or {}).items()}}
     for k, v in (model_kwargs or {}).items():
@@ -307,13 +334,30 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
     loss_file = os.path.join(stats_dir, "train_loss.txt")
     cv_loss_file = os.path.join(stats_dir, "cv_loss.txt")
 
-    dataset = FeatureDataset(data_dir)
-    cv_dataset = FeatureDataset(cv_data_dir) if cv_data_dir else None
     plan = BatchPlan(batch_size=loop_cfg.batch_size,
                      time_pad_multiple=loop_cfg.time_pad_multiple,
                      bucket_by_length=loop_cfg.bucket_by_length, seed=loop_cfg.seed)
+    if loop_cfg.on_device_features:
+        dataset = WavDataset(data_dir, loop_cfg.stft)
+        cv_dataset = WavDataset(cv_data_dir, loop_cfg.stft) if cv_data_dir else None
+        keys = AUDIO_KEYS
+        to_arch = audio_to_wave_batch if time_domain else audio_to_feature_batch
+        prepare = functools.partial(to_arch, cfg=loop_cfg.stft)
 
-    model = arch.UPIT(model_cfg)
+        def collate_for(ds):
+            return lambda idxs: collate_wav_batch(ds, idxs, loop_cfg.batch_size)
+    else:
+        dataset = FeatureDataset(data_dir)
+        cv_dataset = FeatureDataset(cv_data_dir) if cv_data_dir else None
+        keys = FEATURE_KEYS
+
+        def prepare(batch):
+            return batch
+
+        def collate_for(ds):
+            return None                     # the loader's npz collation
+
+    model = build_model(arch, model_cfg)
     model.reset_parameters(torch.Generator().manual_seed(loop_cfg.seed))
     model.to(dev)
     # draws the reference's N(0, 1) initial LSTM states, on the device
@@ -323,7 +367,7 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
     epoch_losses: list[tuple[int, float]] = []
     cv_losses: list[tuple[int, float]] = []
     if loop_cfg.start_epoch == 0:
-        fold_lstm_biases(model.blstm)
+        fold_lstm_biases(model)
         optimizer = Optimizer(model.parameters(), loop_cfg, steps_per_epoch)
         save_checkpoint(intermediate_model_path(exp_dir, "init"), model,
                         optimizer=optimizer, generator=generator, epoch=0, meta=meta)
@@ -335,7 +379,7 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
         ckpt = load_checkpoint(intermediate_model_path(exp_dir, loop_cfg.start_epoch),
                                reference_resume=loop_cfg.reference_resume)
         model.load_state_dict(ckpt["model"])
-        fold_lstm_biases(model.blstm)
+        fold_lstm_biases(model)
         optimizer = Optimizer(model.parameters(), loop_cfg, steps_per_epoch)
         if ckpt["optimizer"] is not None:
             optimizer.load_state_dict(ckpt["optimizer"])
@@ -345,21 +389,25 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
         cv_losses = _truncate_loss_file(cv_loss_file, loop_cfg.start_epoch)
 
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-    copy = functools.partial(to_device, dev=dev, copy_stream=copy_stream)
+    copy = functools.partial(to_device, dev=dev, copy_stream=copy_stream, keys=keys)
 
     lossF = open(loss_file, "a")
     cv_lossF = open(cv_loss_file, "a") if cv_dataset else None
     steps: list[tuple[float, int]] = []
+    epoch_times: list[tuple[int, float, float]] = []
     utts_seen = 0
     t_start = time.time()
     try:
-        for epoch in range(loop_cfg.start_epoch, loop_cfg.num_epochs):
-            epoch_loss, epoch_norm, epoch_utts = 0.0, 0.0, 0
+        for epoch, batches in iter_epochs(dataset, plan,
+                                          range(loop_cfg.start_epoch, loop_cfg.num_epochs),
+                                          collate_fn=collate_for(dataset), transfer_fn=copy):
+            epoch_loss, epoch_norm, epoch_utts, n_steps = 0.0, 0.0, 0, 0
             t_epoch = time.time()
-            for batch in iter_batches(dataset, plan, epoch, transfer_fn=copy):
+            for batch in batches:
+                n_steps += 1
                 t0 = time.perf_counter()
-                _wait_for_copy(batch)
-                loss, norm = update_step(arch, model, optimizer, batch, generator)
+                loss, norm = update_step(arch, model, optimizer,
+                                         prepare(_wait_for_copy(batch)), generator)
                 loss, norm = float(loss), float(norm)
                 steps.append(((time.perf_counter() - t0) * 1e3, batch["n_real"]))
                 epoch_loss += loss * norm
@@ -367,14 +415,18 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
                 epoch_utts += batch["n_real"]
             utts_seen += epoch_utts
             epoch_wall = time.time() - t_epoch
-            log(f"epoch {epoch + 1:03d} wall: {epoch_wall:.1f}s "
+            step_s = sum(ms for ms, _ in steps[len(steps) - n_steps:]) / 1e3
+            epoch_times.append((epoch + 1, epoch_wall, step_s))
+            log(f"epoch {epoch + 1:03d} wall: {epoch_wall:.1f}s, steps {step_s:.1f}s "
                 f"({epoch_utts / max(epoch_wall, 1e-9):.1f} utts/sec)")
 
             if cv_dataset and (epoch + 1) % CV_EVERY == 0:
                 cv_loss_sum, cv_norm_sum = 0.0, 0.0
                 for batch in iter_batches(cv_dataset, plan, 0, shuffle=False,
+                                          collate_fn=collate_for(cv_dataset),
                                           transfer_fn=copy):
-                    loss, norm = eval_step(arch, model, _wait_for_copy(batch), generator)
+                    loss, norm = eval_step(arch, model, prepare(_wait_for_copy(batch)),
+                                           generator)
                     cv_loss_sum += float(loss) * float(norm)
                     cv_norm_sum += float(norm)
                 cv_avg = cv_loss_sum / cv_norm_sum
@@ -406,5 +458,5 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
     log(f"trained {utts_seen} utterance-steps in {wall:.1f}s "
         f"({utts_seen / max(wall, 1e-9):.2f} utts/sec)")
     return {"model": model, "model_cfg": model_cfg, "epoch_losses": epoch_losses,
-            "cv_losses": cv_losses, "steps": steps,
+            "cv_losses": cv_losses, "steps": steps, "epoch_times": epoch_times,
             "utts_per_sec": utts_seen / max(wall, 1e-9)}

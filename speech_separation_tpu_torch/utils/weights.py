@@ -1,5 +1,6 @@
 """Weights across the two packages: shape inference on reference state
-dicts, and the JAX parameter pytree as a state dict of the port.
+dicts, and the JAX parameter pytrees (uPIT/RSH, SepFormer) as state dicts of
+the port.
 
 The layout rule is the one of speech_separation_tpu/utils/import_torch.py
 (a copy, not an import):
@@ -82,13 +83,38 @@ def state_dict_from_jax(params_np, state_np) -> dict[str, torch.Tensor]:
     return sd
 
 
-def fold_lstm_biases(blstm: torch.nn.Module) -> None:
-    """Fold every ``bias_hh_*`` of a BLSTM into its ``bias_ih_*``, zero it
-    and freeze it (requires_grad False): one trainable bias per direction,
-    as the JAX package has. Forwards are unchanged."""
+def sepformer_state_dict_from_jax(params_np) -> dict[str, torch.Tensor]:
+    """The JAX package's SepFormer params pytree, as numpy arrays, turned into
+    the port's state dict of float32 tensors. The port names its parameters
+    by the pytree's paths in the same (in, out) layout, so this flattens the
+    tree and copies: ``blocks`` is a list (or, in a msgpack checkpoint, a dict
+    keyed "0".."N-1")."""
+    sd = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            keys = sorted(node, key=int) if prefix.endswith("blocks") else node
+            for k in keys:
+                walk(f"{prefix}.{k}" if prefix else str(k), node[k])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(f"{prefix}.{i}", v)
+        else:
+            sd[prefix] = torch.from_numpy(np.array(node, dtype=np.float32))
+
+    walk("", params_np)
+    return sd
+
+
+def fold_lstm_biases(module: torch.nn.Module) -> None:
+    """Fold every ``bias_hh_*`` of the LSTMs in ``module`` into its
+    ``bias_ih_*``, zero it and freeze it (requires_grad False): one trainable
+    bias per direction, as the JAX package has. Forwards are unchanged; a
+    module without an LSTM is left as it is."""
     with torch.no_grad():
-        for name, p in blstm.named_parameters():
-            if name.startswith("bias_hh_"):
-                getattr(blstm, "bias_ih_" + name[len("bias_hh_"):]).add_(p)
-                p.zero_()
-                p.requires_grad_(False)
+        for m in module.modules():
+            for name, p in list(m.named_parameters(recurse=False)):
+                if name.startswith("bias_hh_"):
+                    getattr(m, "bias_ih_" + name[len("bias_hh_"):]).add_(p)
+                    p.zero_()
+                    p.requires_grad_(False)

@@ -11,7 +11,10 @@ Tolerances: f32 atol 1e-5 (same math, other summation order); bf16 atol
 max(1, max |reference|): against the plain backward on the same saves at
 the forward's tolerances; against autograd through the plain forward at
 1e-4 in f32 (sums over T steps in another order) and 2e-2 in bf16 (the
-backward reads bf16-rounded saves, as the TPU kernel does).
+backward reads bf16-rounded saves, as the TPU kernel does). The attention
+kernel (K5) against its plain versions: f32 1e-5, bf16 2e-2 of
+max(1, max |reference|) (one bf16 rounding of each weight and output, at
+places where a sum in another order can round the other way).
 """
 
 import numpy as np
@@ -208,3 +211,82 @@ def test_side_stream_copy_delivers_the_batch(cuda):
     for k in loop.BATCH_KEYS:
         assert got[k].device.type == "cuda", k
         np.testing.assert_array_equal(got[k].cpu().numpy(), batch[k], err_msg=k)
+
+
+# ----------------------------------------------------------- K5 attention
+
+def _attn_args(cuda, dtype, N, T, dh, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, do = (torch.randn((N, T, dh), generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    lens = torch.randint(1, T + 1, (N,), generator=g, device=cuda)
+    lens[min(1, N - 1)] = 0                       # a fully-masked row
+    mask = (torch.arange(T, device=cuda)[None, :] < lens[:, None]).float()
+    return q, k, v, mask, do
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("N,T,dh", [(1, 1, 16), (13, 20, 8), (37, 100, 16), (5, 300, 16),
+                                    (3, 1100, 4), (4, 70, 64)])
+def test_attention_kernels_match_plain(cuda, dtype, tol, N, T, dh):
+    """K5 forward and backward against their plain versions, scaled by
+    max(1, max |reference|); T=300 and T=1100 take more than one key tile."""
+    from speech_separation_tpu_torch.ops.attention_kernel import (
+        chunk_attention_bwd, chunk_attention_bwd_plain, chunk_attention_fwd,
+        chunk_attention_fwd_plain)
+    q, k, v, mask, do = _attn_args(cuda, dtype, N, T, dh, N * 1000 + T)
+    before = (chunk_attention_fwd.launches, chunk_attention_bwd.launches)
+    o = chunk_attention_fwd(q, k, v, mask)
+    grads = chunk_attention_bwd(q, k, v, mask, do)
+    torch.cuda.synchronize()
+    assert (chunk_attention_fwd.launches, chunk_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert o.dtype == dtype and all(t.dtype == dtype for t in grads)
+    _scaled_close(o, chunk_attention_fwd_plain(q, k, v, mask), tol, "o")
+    for name, a, b in zip(("dq", "dk", "dv"), grads,
+                          chunk_attention_bwd_plain(q, k, v, mask, do)):
+        _scaled_close(a, b, tol, name)
+
+
+def test_attention_kernel_refuses_what_it_does_not_take(cuda):
+    from speech_separation_tpu_torch.ops.attention_kernel import (
+        MAX_T_BWD, chunk_attention_bwd, chunk_attention_fwd)
+    q, k, v, mask, do = _attn_args(cuda, torch.float32, 3, 8, 16, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        chunk_attention_fwd(q, k.bfloat16(), v, mask)
+    with pytest.raises(ValueError, match="dtype"):
+        chunk_attention_bwd(q, k, v, mask, do.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        chunk_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, mask)
+    with pytest.raises(ValueError, match="dh"):
+        chunk_attention_fwd(*(t[..., :12].contiguous() for t in (q, k, v)), mask)
+    big = torch.zeros((1, MAX_T_BWD + 1, 4), device=cuda)
+    with pytest.raises(ValueError, match=str(MAX_T_BWD)):
+        chunk_attention_bwd(big, big, big, torch.ones((1, MAX_T_BWD + 1), device=cuda), big)
+
+
+def test_fused_sepformer_step_launches_the_attention_kernels(cuda):
+    """A fused SepFormer forward and backward on the card launches K5's
+    forward once per attention layer and its backward once per layer, and
+    gives every parameter a gradient."""
+    from speech_separation_tpu_torch.models import sepformer
+    from speech_separation_tpu_torch.ops.attention_kernel import (chunk_attention_bwd,
+                                                                  chunk_attention_fwd)
+    cfg = sepformer.Config(n_filters=16, channels=16, heads=2, d_ff=24, chunk=8, blocks=2,
+                           fused_attention=True, compute_dtype="bfloat16")
+    model = sepformer.SepFormer(cfg, torch.Generator().manual_seed(0)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    srcs = 0.1 * torch.randn((3, 2, 800), generator=g, device=cuda)
+    lengths = torch.tensor([800, 555, 123], dtype=torch.int32, device=cuda)
+    srcs = srcs * (torch.arange(800, device=cuda)[None, None] < lengths[:, None, None])
+    batch = {"mix_wav": srcs.sum(1), "source_wavs": srcs, "sample_lengths": lengths,
+             "row_mask": torch.ones(3, device=cuda)}
+    before = (chunk_attention_fwd.launches, chunk_attention_bwd.launches)
+    loss, _ = sepformer.loss_fn(model, batch, None, True)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (chunk_attention_fwd.launches, chunk_attention_bwd.launches) == (
+        before[0] + 4, before[1] + 4)
+    assert torch.isfinite(loss)
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name

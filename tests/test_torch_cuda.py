@@ -199,18 +199,22 @@ def test_training_kernels_refuse_what_they_do_not_take(cuda):
 
 def test_side_stream_copy_delivers_the_batch(cuda):
     """The trainer's transfer copies pinned arrays on a side stream; after
-    _wait_for_copy the current stream reads exactly the collated arrays."""
+    _wait_for_copy the current stream reads exactly the collated arrays, for
+    feature batches and for shipped waveform batches."""
     from speech_separation_tpu_torch.train import loop
     rng = np.random.default_rng(0)
-    batch = {"mix": rng.random((4, 32, 257), dtype=np.float32),
-             "sources": rng.random((4, 2, 32, 257), dtype=np.float32),
-             "lengths": np.array([32, 20, 5, 0], np.int32),
-             "row_mask": np.array([1, 1, 1, 0], np.float32)}
-    got = loop._wait_for_copy(loop.to_device(batch, cuda, torch.cuda.Stream(cuda)))
-    assert "ready" not in got and got["n_real"] == 3
-    for k in loop.BATCH_KEYS:
-        assert got[k].device.type == "cuda", k
-        np.testing.assert_array_equal(got[k].cpu().numpy(), batch[k], err_msg=k)
+    common = {"lengths": np.array([32, 20, 5, 0], np.int32),
+              "row_mask": np.array([1, 1, 1, 0], np.float32), "names": ["a", "b", "c"]}
+    features = {"mix": rng.random((4, 32, 257), dtype=np.float32),
+                "sources": rng.random((4, 2, 32, 257), dtype=np.float32), **common}
+    audio = {"audio": rng.integers(-2 ** 15, 2 ** 15, (4, 3, 4608)).astype(np.int16),
+             "sample_lengths": np.array([4000, 2500, 600, 0], np.int32), **common}
+    for batch, keys in ((features, loop.FEATURE_KEYS), (audio, loop.AUDIO_KEYS)):
+        got = loop._wait_for_copy(loop.to_device(batch, cuda, torch.cuda.Stream(cuda), keys))
+        assert "ready" not in got and got["n_real"] == 3 and got["names"] == batch["names"]
+        for k in keys:
+            assert got[k].device.type == "cuda", k
+            np.testing.assert_array_equal(got[k].cpu().numpy(), batch[k], err_msg=k)
 
 
 # ----------------------------------------------------------- K5 attention

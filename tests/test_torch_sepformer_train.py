@@ -90,7 +90,9 @@ def test_three_step_trajectory_matches_jax_update_step(corpus):
     JAX package's make_update_step (einsum path) on one shipped batch."""
     _, data_dir, _ = corpus
     ds = twav.WavDataset(data_dir)
-    shipped = twav.collate_wav_batch(ds, [0, 1, 2, 3], 4)
+    # padded to a multiple of 1024 samples, not the loader's 16384, to keep
+    # the two programs small
+    shipped = twav.collate_wav_batch(ds, [0, 1, 2, 3], 4, sample_pad_multiple=1024)
     jcfg = jsf.Config(num_spk=2, **TINY)
     params, state = jax.jit(jsf.init, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
     model = tsf.SepFormer(tsf.Config(num_spk=2, fused_attention=True, **TINY))
@@ -136,13 +138,16 @@ def _npz_dir(root, n=7, seed=0):
 def test_trainer_consumes_each_epochs_planned_batches_in_order(corpus, tmp_path,
                                                                monkeypatch, arch):
     """One loader spans the epochs; what the trainer steps on is, in order,
-    the batches of three per-epoch plan_batches calls."""
+    the batches of three per-epoch plan_batches calls. The step itself is
+    replaced by one that only records its batch."""
     root, data_dir, conf = corpus
     if arch == "uPIT":
         data_dir = _npz_dir(str(tmp_path / "feats"))
         ds, kwargs = tdata.FeatureDataset(data_dir), {"feat_dim": "5", "hidden": "4", "num_layers": "1"}
+        want_keys = {"mix", "sources", "lengths", "row_mask"}
     else:
         ds, kwargs = twav.WavDataset(data_dir), dict(TINY)
+        want_keys = {"mix_wav", "source_wavs", "sample_lengths", "row_mask"}
     consumed = []
     real_wait = loop._wait_for_copy
 
@@ -150,7 +155,12 @@ def test_trainer_consumes_each_epochs_planned_batches_in_order(corpus, tmp_path,
         consumed.append(list(batch["names"]))
         return real_wait(batch)
 
+    def recording_step(arch, model, optimizer, batch, generator):
+        assert want_keys <= set(batch), sorted(batch)
+        return torch.zeros(()), batch["row_mask"].sum()
+
     monkeypatch.setattr(loop, "_wait_for_copy", recording_wait)
+    monkeypatch.setattr(loop, "update_step", recording_step)
     cfg = loop.TrainLoopConfig(arch=arch, batch_size=2, num_epochs=3, seed=5,
                                time_pad_multiple=4, on_device_features=arch == "SepFormer")
     loop.train(data_dir, str(tmp_path / "exp"), cfg, model_kwargs=kwargs, device="cpu",

@@ -36,8 +36,8 @@ Phases, in order; any failure exits non-zero without the final line:
    same step on the CPU (plain versions), same weights and initial state;
 7. serve SepFormer: the full-width bf16 SepFormer with fused attention
    (random weights from the seed, saved by the port's checkpoint writer) in
-   SeparationServer, three requests of 3-8 s; tracks checked, and held
-   against the CPU plain path by SNR; attention launches counted;
+   SeparationServer, three requests of 3-8 s as in phase 4; tracks checked,
+   and held against the CPU plain path by SNR; attention launches counted;
 8. train SepFormer: train() on a synthetic mix/s1/s2 wav corpus (64 training
    and 16 CV utterances of 4 s) at B=32 with --on-device-features, 5 epochs
    (10 steps, CV at epoch 5); losses, files, ms per step, launch counts;
@@ -489,6 +489,7 @@ def check_attention(fails: Failures) -> dict:
     # serving, inter-chunk: one 60 s request -> 1230 chunks; N = 100 * 4
     f, b = measure(attention_inputs(400, 1230, 16, torch.bfloat16, gen), "long inter T=1230")
     out["fwd"]["long"], out["bwd"]["long"] = f, b
+    compare(attention_inputs(400, 1230, 16, torch.float32, gen), "long inter T=1230")
     torch.cuda.empty_cache()
     return out
 
@@ -511,11 +512,78 @@ def snr_db(ref: np.ndarray, est: np.ndarray) -> float:
     return float(10 * np.log10(np.sum(ref ** 2) / max(np.sum((ref - est) ** 2), 1e-20)))
 
 
+def serve_requests(fails: Failures, pipe, work: str, wavs: list, groups, counters,
+                   want_len) -> tuple[dict, dict, float]:
+    """Serve ``pipe`` through SeparationServer on a Unix socket (one 8 s
+    bucket warmed up): request r1 with the wavs of ``groups[0]``, then r2
+    and r3 with ``groups[1]`` and ``groups[2]`` at once, then a ping. Launch
+    counts are zeroed just before the requests and read just after. Checks
+    every reply and output wav (``want_len(n)`` samples for an n-sample
+    input) and that the server stopped; returns (replies, launches, wall
+    ms)."""
+    from speech_separation_tpu_torch.eval.serve import SeparationServer, request
+    from speech_separation_tpu_torch.utils.audio import load_wav
+
+    sock_dir = tempfile.mkdtemp(prefix="sepsmoke")
+    sock = os.path.join(sock_dir, "s.sock")
+    server = SeparationServer(pipe, sock, coalesce=8)
+    print(f"  warmup: {server.warmup([8.0])} bucket(s)", flush=True)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    replies = {}
+
+    def send(name, idx):
+        replies[name] = request(sock, {"wavs": [wavs[i] for i in idx],
+                                       "out_dir": os.path.join(work, name)})
+
+    try:
+        deadline = time.monotonic() + 60
+        while not os.path.exists(sock):
+            if time.monotonic() > deadline:
+                raise RuntimeError("server never bound its socket")
+            time.sleep(0.02)
+        for c in counters:
+            c.launches = 0
+        t0 = time.monotonic()
+        send("r1", groups[0])
+        pair = [threading.Thread(target=send, args=(f"r{k + 2}", groups[k + 1]))
+                for k in range(2)]
+        for th in pair:
+            th.start()
+        for th in pair:
+            th.join(timeout=300)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+        launches = {c.__name__: c.launches for c in counters}
+        ping = request(sock, {"cmd": "ping"})
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    fails.check(not thread.is_alive(), "server thread stopped")
+
+    for name in ("r1", "r2", "r3"):
+        rep = replies.get(name, {})
+        fails.check(bool(rep.get("ok")), f"request {name} ok ({rep.get('ms')} ms)")
+        for wav, paths in rep.get("outputs", {}).items():
+            want = want_len(len(load_wav(wav)[0]))
+            for p in paths:
+                y, sr = (load_wav(p) if os.path.exists(p) else (np.zeros(0), 0))
+                fails.check(sr == 8000 and len(y) == want and np.all(np.isfinite(y)),
+                            f"{os.path.basename(p)}: {len(y)} samples, want {want}")
+    fails.check(bool(ping.get("ok")) and ping.get("served") == 3,
+                f"ping: served {ping.get('served')}, buckets {ping.get('compiled_buckets')}, "
+                f"latency {ping.get('latency_ms')}")
+    print(f"  requests: r1 {replies['r1'].get('ms')} ms, r2 {replies['r2'].get('ms')} ms, "
+          f"r3 {replies['r3'].get('ms')} ms; wall {wall_ms:.1f} ms; launches {launches}",
+          flush=True)
+    return replies, launches, wall_ms
+
+
 def serve_phase(fails: Failures, counters) -> dict:
     """Phase 4: a 2x600 bf16 uPIT served on the card."""
     from speech_separation_tpu_torch.dsp.stft import istft_output_length, num_frames
     from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
-    from speech_separation_tpu_torch.eval.serve import SeparationServer, request
     from speech_separation_tpu_torch.models import upit
     from speech_separation_tpu_torch.utils.audio import (limit_peak, load_wav,
                                                          write_wav_int16)
@@ -538,61 +606,9 @@ def serve_phase(fails: Failures, counters) -> dict:
         wavs.append(path)
 
     pipe = SeparationPipeline(mdl, model_kwargs=kw, batch_size=16, seed=SEED, device="cuda")
-    sock_dir = tempfile.mkdtemp(prefix="sepsmoke")
-    sock = os.path.join(sock_dir, "s.sock")
-    server = SeparationServer(pipe, sock, coalesce=8)
-    n_warm = server.warmup([8.0])
-    print(f"  warmup: {n_warm} bucket(s)", flush=True)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    replies = {}
-    try:
-        deadline = time.monotonic() + 60
-        while not os.path.exists(sock):
-            if time.monotonic() > deadline:
-                raise RuntimeError("server never bound its socket")
-            time.sleep(0.02)
-
-        for c in counters:
-            c.launches = 0
-        t0 = time.monotonic()
-        replies["r1"] = request(sock, {"wavs": wavs[:1], "out_dir": os.path.join(work, "r1")})
-
-        def send(name, idx):
-            replies[name] = request(sock, {"wavs": [wavs[i] for i in idx],
-                                           "out_dir": os.path.join(work, name)})
-
-        pair = [threading.Thread(target=send, args=("r2", [1, 2])),
-                threading.Thread(target=send, args=("r3", [3]))]
-        for th in pair:
-            th.start()
-        for th in pair:
-            th.join(timeout=300)
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
-        launches = {c.__name__: c.launches for c in counters}
-        ping = request(sock, {"cmd": "ping"})
-    finally:
-        server.shutdown()
-        thread.join(timeout=30)
-        shutil.rmtree(sock_dir, ignore_errors=True)
-    fails.check(not thread.is_alive(), "server thread stopped")
-
-    for name in ("r1", "r2", "r3"):
-        rep = replies.get(name, {})
-        fails.check(bool(rep.get("ok")), f"request {name} ok ({rep.get('ms')} ms)")
-        for wav, paths in rep.get("outputs", {}).items():
-            n = len(load_wav(wav)[0])
-            want = istft_output_length(num_frames(n, 128), 128)
-            for p in paths:
-                y, sr = (load_wav(p) if os.path.exists(p) else (np.zeros(0), 0))
-                fails.check(sr == 8000 and len(y) == want and np.all(np.isfinite(y)),
-                            f"{os.path.basename(p)}: {len(y)} samples, want {want}")
-    fails.check(bool(ping.get("ok")) and ping.get("served") == 3,
-                f"ping: served {ping.get('served')}, buckets {ping.get('compiled_buckets')}, "
-                f"latency {ping.get('latency_ms')}")
-    print(f"  requests: r1 {replies['r1'].get('ms')} ms, r2 {replies['r2'].get('ms')} ms, "
-          f"r3 {replies['r3'].get('ms')} ms; wall {wall_ms:.1f} ms", flush=True)
+    replies, launches, wall_ms = serve_requests(
+        fails, pipe, work, wavs, ([0], [1, 2], [3]), counters,
+        lambda n: istft_output_length(num_frames(n, 128), 128))
 
     # the first request against the same pipeline on the CPU (plain versions)
     cpu = SeparationPipeline(mdl, model_kwargs=kw, batch_size=16, seed=SEED, device="cpu")
@@ -654,6 +670,21 @@ def write_corpus(root: str, n: int, rng, prefix: str) -> tuple[str, np.ndarray]:
     return root, first
 
 
+def check_trained(fails: Failures, res: dict, exp: str) -> list:
+    """Checks on a 5-epoch train() run: epoch losses finite and falling, one
+    CV loss at epoch 5, the loss files and checkpoints written. Returns the
+    epoch losses."""
+    losses = [loss for _, loss in res["epoch_losses"]]
+    fails.check(len(losses) == 5 and all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"epoch losses finite and falling: {losses}")
+    fails.check(len(res["cv_losses"]) == 1 and np.isfinite(res["cv_losses"][0][1]),
+                f"cv loss at epoch 5: {res['cv_losses']}")
+    for rel in ("train_stats/train_loss.txt", "train_stats/cv_loss.txt",
+                "intermediate_models/init.mdl", "intermediate_models/005.mdl", "final.mdl"):
+        fails.check(os.path.isfile(os.path.join(exp, rel)), f"{rel} written")
+    return losses
+
+
 def train_phase(fails: Failures, counters) -> dict:
     """Phase 5: 2x600 bf16 uPIT trained through train() on the card."""
     from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
@@ -676,14 +707,7 @@ def train_phase(fails: Failures, counters) -> dict:
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
 
-    losses = [loss for _, loss in res["epoch_losses"]]
-    fails.check(len(losses) == 5 and all(np.isfinite(losses)) and losses[-1] < losses[0],
-                f"epoch losses finite and falling: {losses}")
-    fails.check(len(res["cv_losses"]) == 1 and np.isfinite(res["cv_losses"][0][1]),
-                f"cv loss at epoch 5: {res['cv_losses']}")
-    for rel in ("train_stats/train_loss.txt", "train_stats/cv_loss.txt",
-                "intermediate_models/init.mdl", "intermediate_models/005.mdl", "final.mdl"):
-        fails.check(os.path.isfile(os.path.join(exp, rel)), f"{rel} written")
+    losses = check_trained(fails, res, exp)
     steps = res["steps"]
     fails.check(len(steps) == 10, f"{len(steps)} training steps")
     for name in ("lstm_seq_fwd", "lstm_seq_bwd"):
@@ -770,7 +794,6 @@ SEPFORMER_KW = {"compute_dtype": "bfloat16", "fused_attention": "1"}
 def serve_sepformer_phase(fails: Failures, counters) -> dict:
     """Phase 7: the full-width bf16 SepFormer with fused attention, served."""
     from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
-    from speech_separation_tpu_torch.eval.serve import SeparationServer, request
     from speech_separation_tpu_torch.models import sepformer
     from speech_separation_tpu_torch.train.checkpoint import save_checkpoint
     from speech_separation_tpu_torch.utils.audio import load_wav, write_wav_int16
@@ -792,56 +815,11 @@ def serve_sepformer_phase(fails: Failures, counters) -> dict:
     pipe = SeparationPipeline(mdl, batch_size=16, seed=SEED, device="cuda")
     fails.check(pipe.arch.NAME == "SepFormer" and pipe.cfg == cfg,
                 f"the .state meta gives {pipe.arch.NAME} {pipe.cfg}")
-    sock_dir = tempfile.mkdtemp(prefix="sepsmoke")
-    sock = os.path.join(sock_dir, "s.sock")
-    server = SeparationServer(pipe, sock, coalesce=8)
-    server.warmup([8.0])
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    replies = {}
-    try:
-        deadline = time.monotonic() + 60
-        while not os.path.exists(sock):
-            if time.monotonic() > deadline:
-                raise RuntimeError("server never bound its socket")
-            time.sleep(0.02)
-        for c in counters:
-            c.launches = 0
-        t0 = time.monotonic()
-
-        def send(name, idx):
-            replies[name] = request(sock, {"wavs": [wavs[idx]],
-                                           "out_dir": os.path.join(work, name)})
-
-        send("r1", 0)
-        pair = [threading.Thread(target=send, args=(f"r{i + 2}", i + 1)) for i in range(2)]
-        for th in pair:
-            th.start()
-        for th in pair:
-            th.join(timeout=300)
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
-        launches = {c.__name__: c.launches for c in counters}
-    finally:
-        server.shutdown()
-        thread.join(timeout=30)
-        shutil.rmtree(sock_dir, ignore_errors=True)
-    fails.check(not thread.is_alive(), "server thread stopped")
-    for name in ("r1", "r2", "r3"):
-        rep = replies.get(name, {})
-        fails.check(bool(rep.get("ok")), f"request {name} ok ({rep.get('ms')} ms)")
-        for wav, paths in rep.get("outputs", {}).items():
-            n = len(load_wav(wav)[0])
-            for p in paths:
-                y, sr = (load_wav(p) if os.path.exists(p) else (np.zeros(0), 0))
-                fails.check(sr == 8000 and len(y) == n and np.all(np.isfinite(y)),
-                            f"{os.path.basename(p)}: {len(y)} samples, want {n}")
+    replies, launches, wall_ms = serve_requests(fails, pipe, work, wavs, ([0], [1], [2]),
+                                                counters, lambda n: n)
     fails.check(launches["chunk_attention_fwd"] > 0,
                 f"chunk_attention_fwd launched {launches['chunk_attention_fwd']} times "
                 "while serving")
-    print(f"  requests: r1 {replies['r1'].get('ms')} ms, r2 {replies['r2'].get('ms')} ms, "
-          f"r3 {replies['r3'].get('ms')} ms; wall {wall_ms:.1f} ms; launches {launches}",
-          flush=True)
 
     # r1's mixture on the card (the serving pipeline) and on the CPU (plain
     # versions), as float tracks
@@ -901,14 +879,7 @@ def train_sepformer_phase(fails: Failures, counters) -> dict:
                 log=lambda m: print("  " + m, flush=True))
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
-    losses = [loss for _, loss in res["epoch_losses"]]
-    fails.check(len(losses) == 5 and all(np.isfinite(losses)) and losses[-1] < losses[0],
-                f"epoch losses finite and falling: {losses}")
-    fails.check(len(res["cv_losses"]) == 1 and np.isfinite(res["cv_losses"][0][1]),
-                f"cv loss at epoch 5: {res['cv_losses']}")
-    for rel in ("train_stats/train_loss.txt", "train_stats/cv_loss.txt",
-                "intermediate_models/init.mdl", "intermediate_models/005.mdl", "final.mdl"):
-        fails.check(os.path.isfile(os.path.join(exp, rel)), f"{rel} written")
+    losses = check_trained(fails, res, exp)
     steps = res["steps"]
     fails.check(len(steps) == 10 and all(n == 32 for _, n in steps),
                 f"{len(steps)} training steps of 32 rows")

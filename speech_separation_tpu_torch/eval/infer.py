@@ -16,7 +16,7 @@ import os
 
 import torch
 
-from ..models.registry import build_model, get_arch
+from ..models.registry import get_arch
 from ..train.checkpoint import state_path
 from ..utils.weights import infer_model_info
 
@@ -75,7 +75,7 @@ def load_model(model_path: str, arch_name: str = "",
     arch = get_arch(arch_name or name)
     kwargs.update(model_kwargs or {})
     cfg = arch.Config.from_kwargs(**kwargs)
-    model = build_model(arch, cfg)
+    model = arch.Model(cfg)
     missing, unexpected = model.load_state_dict(sd, strict=False)
     # older torch writes no num_batches_tracked; eval never reads it
     missing = [k for k in missing if k != "bn.num_batches_tracked"]

@@ -25,7 +25,6 @@ import torch
 
 from ..dsp.stft import (STFTConfig, istft_batch, istft_output_length,
                         num_frames, reflect_pad_center, stft_centered_batch)
-from ..models.registry import domain
 from .infer import load_model
 
 
@@ -70,7 +69,7 @@ class SeparationPipeline:
         self.arch, self.cfg, self.model = load_model(
             model_path, arch_name, model_kwargs, device)
         self.device = next(self.model.parameters()).device
-        self.domain = domain(self.arch)
+        self.domain = self.arch.DOMAIN
         # the one place the port sets this process-wide flag: every f32
         # product of the path in full f32, as the reference's
         # Precision.HIGHEST and f32 dots (TF32 keeps ~3 digits)

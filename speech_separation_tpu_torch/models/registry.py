@@ -25,13 +25,3 @@ def get_arch(name: str):
         f"architecture {name!r} is not ported to PyTorch yet (ported: "
         f"{sorted(ARCHS)}); see ROADMAP.md for the order of the port")
 
-
-def domain(arch) -> str:
-    """'spectrum' (STFT-magnitude batches, infer_masks) or 'time' (waveform
-    batches, separate)."""
-    return arch.DOMAIN
-
-
-def build_model(arch, cfg):
-    """The arch's module for ``cfg``, on the CPU, with its default init."""
-    return arch.Model(cfg)

@@ -40,7 +40,7 @@ import torch
 
 from ..dsp.stft import STFTConfig
 from ..eval.infer import resolve_device
-from ..models.registry import build_model, domain, get_arch
+from ..models.registry import get_arch
 from ..utils.weights import fold_lstm_biases
 from .checkpoint import (final_model_path, intermediate_model_path, load_checkpoint,
                          save_checkpoint)
@@ -316,7 +316,7 @@ def train(data_dir: str, exp_dir: str, loop_cfg: TrainLoopConfig,
 def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, log):
     arch = get_arch(loop_cfg.arch)
     model_cfg = arch.Config.from_kwargs(**(model_kwargs or {}))
-    time_domain = domain(arch) == "time"
+    time_domain = arch.DOMAIN == "time"
     if time_domain and not loop_cfg.on_device_features:
         raise ValueError(
             f"{arch.NAME} is a time-domain architecture: it trains on "
@@ -357,7 +357,7 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
         def collate_for(ds):
             return None                     # the loader's npz collation
 
-    model = build_model(arch, model_cfg)
+    model = arch.Model(model_cfg)
     model.reset_parameters(torch.Generator().manual_seed(loop_cfg.seed))
     model.to(dev)
     # draws the reference's N(0, 1) initial LSTM states, on the device

@@ -22,6 +22,11 @@ def _port_modules():
 
 
 def test_importing_the_port_loads_no_jax():
+    # every source file of the package is one of the modules imported below
+    sources = {"speech_separation_tpu_torch." + os.path.relpath(os.path.join(root, n), PKG)
+               [:-3].replace(os.sep, ".").removesuffix(".__init__")
+               for root, _, names in os.walk(PKG) for n in names if n.endswith(".py")}
+    assert sources - {"speech_separation_tpu_torch.__init__"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax'):\n"

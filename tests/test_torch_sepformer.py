@@ -24,7 +24,7 @@ import jax.numpy as jnp
 
 from speech_separation_tpu.models import sepformer as jsf
 from speech_separation_tpu_torch.models import sepformer as tsf
-from speech_separation_tpu_torch.models.registry import build_model, domain, get_arch
+from speech_separation_tpu_torch.models.registry import get_arch
 from speech_separation_tpu_torch.utils.weights import sepformer_state_dict_from_jax
 
 TINY = dict(n_filters=16, filter_len=16, stride=8, channels=16, heads=2,
@@ -113,9 +113,9 @@ def test_config_registry_and_init():
         with pytest.raises(ValueError):
             tsf.Config(**bad)
     arch = get_arch("sepformer")
-    assert arch is tsf and domain(arch) == "time" and domain(get_arch("uPIT")) == "spectrum"
+    assert arch is tsf and arch.DOMAIN == "time" and get_arch("uPIT").DOMAIN == "spectrum"
     cfg = tsf.Config(num_spk=2, **TINY)
-    a, b = build_model(arch, cfg), build_model(arch, cfg)
+    a, b = arch.Model(cfg), arch.Model(cfg)
     a.reset_parameters(torch.Generator().manual_seed(3))
     b.reset_parameters(torch.Generator().manual_seed(3))
     for (n, pa), pb in zip(a.named_parameters(), b.parameters()):

@@ -40,6 +40,18 @@ TINY = dict(n_filters=16, filter_len=16, stride=8, channels=16, heads=2,
             d_ff=24, chunk=8, blocks=2)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these steps are many small ops, and when several
+    test processes share the cores, each one's full thread pool spins
+    against the others' (the CLI test: 5 s alone, about 10x that under a
+    6-process run with the default pool)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_sepformer")
@@ -49,14 +61,12 @@ def corpus(tmp_path_factory):
     data_dir = prepare_data_dir("toy", DatasetRegistry({"toy": str(root / "corpus")}),
                                 data_root=str(root / "data"),
                                 id_lists_dir=str(root / "id_lists"))
-    conf = root / "model.conf"
-    conf.write_text("".join(f"{k}={v}\n" for k, v in TINY.items()) + "fused_attention=1\n")
-    return root, data_dir, str(conf)
+    return root, data_dir
 
 
 @pytest.mark.parametrize("kind", ["wave", "feature"])
 def test_waveform_batches_match_jax(corpus, kind):
-    _, data_dir, _ = corpus
+    _, data_dir = corpus
     jds = jwav.WavDataset(data_dir)
     tds = twav.WavDataset(data_dir)
     assert os.path.isfile(os.path.join(data_dir, "utt2num_samples"))
@@ -88,7 +98,7 @@ def test_waveform_batches_match_jax(corpus, kind):
 def test_three_step_trajectory_matches_jax_update_step(corpus):
     """The port's update_step (fused attention, K5's VJP rule) against the
     JAX package's make_update_step (einsum path) on one shipped batch."""
-    _, data_dir, _ = corpus
+    _, data_dir = corpus
     ds = twav.WavDataset(data_dir)
     # padded to a multiple of 1024 samples, not the loader's 16384, to keep
     # the two programs small
@@ -140,7 +150,7 @@ def test_trainer_consumes_each_epochs_planned_batches_in_order(corpus, tmp_path,
     """One loader spans the epochs; what the trainer steps on is, in order,
     the batches of three per-epoch plan_batches calls. The step itself is
     replaced by one that only records its batch."""
-    root, data_dir, conf = corpus
+    _, data_dir = corpus
     if arch == "uPIT":
         data_dir = _npz_dir(str(tmp_path / "feats"))
         ds, kwargs = tdata.FeatureDataset(data_dir), {"feat_dim": "5", "hidden": "4", "num_layers": "1"}
@@ -172,17 +182,22 @@ def test_trainer_consumes_each_epochs_planned_batches_in_order(corpus, tmp_path,
 
 
 def test_time_domain_arch_needs_waveform_input(corpus, tmp_path):
-    _, data_dir, _ = corpus
+    _, data_dir = corpus
     with pytest.raises(ValueError, match="--on-device-features"):
         loop.train(data_dir, str(tmp_path / "exp"), loop.TrainLoopConfig(arch="SepFormer"),
                    device="cpu")
 
 
 def test_train_sepformer_cli_then_separate(corpus):
-    root, data_dir, conf = corpus
+    root, data_dir = corpus
+    # one block and 32-frame chunks: the waveforms pad to 16384 samples, and
+    # TINY's 8-frame chunks make 513 of them, a costly inter-chunk attention
+    conf = root / "model_cli.conf"
+    conf.write_text("".join(f"{k}={v}\n" for k, v in {**TINY, "chunk": 32, "blocks": 1}.items())
+                    + "fused_attention=1\n")
     exp = str(root / "exp_cli")
     main(["train", "SepFormer", data_dir, exp, "--on-device-features", "--cv-data-dir",
-          data_dir, "--model-config", conf, "--num-epochs", "5", "--batch-size", "4",
+          data_dir, "--model-config", str(conf), "--num-epochs", "5", "--batch-size", "4",
           "--device", "cpu", "--seed", "2"])
     with open(os.path.join(exp, "train_stats", "train_loss.txt")) as f:
         losses = [float(ln.split()[1]) for ln in f]

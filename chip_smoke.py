@@ -47,9 +47,6 @@ Phases, in order; any failure exits non-zero without the final line:
 10. one JSON line with every kernel and its numbers, then
    {"ok": true, "device": {...}} as the last line.
 
-``python3 chip_smoke.py --epoch-start ROOT`` runs only phase 5's training
-with the package of the checkout at ROOT (for comparing two commits in one
-call) and prints each epoch's wall and summed step time as one JSON line.
 ``python3 chip_smoke.py --profile`` traces full-width SepFormer training
 steps with torch.profiler and prints where their time goes.
 """
@@ -960,37 +957,6 @@ def sepformer_step_phase(fails: Failures, train_dir: str) -> dict:
     return out
 
 
-def epoch_start_main(root: str) -> int:
-    """Phase 5's training with the package of the checkout at ``root``:
-    prints {"root", "epoch_wall_s", "epoch_step_s", "epoch_losses"}. The
-    wall of each epoch is read from the trainer's log line (its real rows
-    over its rate), the step time from the steps it returns."""
-    import re
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.abspath(root))
-    from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
-    work = os.path.join(REPO, "build", "chip_smoke_epochs")
-    shutil.rmtree(work, ignore_errors=True)
-    rng = np.random.default_rng(SEED + 3)
-    tr, _ = write_corpus(os.path.join(work, "tr"), 120, rng, "tr")
-    cv, _ = write_corpus(os.path.join(work, "cv"), 40, rng, "cv")
-    logs = []
-    res = train(tr, os.path.join(work, "exp"),
-                TrainLoopConfig(batch_size=100, num_epochs=5, time_pad_multiple=128, seed=SEED),
-                cv_data_dir=cv, model_kwargs={"compute_dtype": "bfloat16"}, device="cuda",
-                log=logs.append)
-    walls = [120 / float(m.group(1)) for m in
-             (re.search(r"^epoch \d+ wall: .*\(([\d.]+) utts/sec\)", ln) for ln in logs) if m]
-    steps = [m for m, _ in res["steps"]]
-    print(json.dumps({"root": root, "package": sys.modules["speech_separation_tpu_torch"].__file__,
-                      "epoch_wall_s": walls,
-                      "epoch_step_s": [sum(steps[2 * e: 2 * e + 2]) / 1e3 for e in range(5)],
-                      "epoch_losses": [loss for _, loss in res["epoch_losses"]]}))
-    return 0
-
-
 def _kernel_group(name: str) -> str:
     if "attn_fwd_kernel" in name:
         return "K5 forward"
@@ -1086,8 +1052,6 @@ def profile_main() -> int:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--epoch-start":
-        return epoch_start_main(sys.argv[2])
     if sys.argv[1:] == ["--profile"]:
         return profile_main()
     if not torch.cuda.is_available():

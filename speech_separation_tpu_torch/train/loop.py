@@ -38,14 +38,13 @@ import time
 
 import torch
 
-from ..dsp.stft import STFTConfig
 from ..eval.infer import resolve_device
 from ..models.registry import get_arch
 from ..utils.weights import fold_lstm_biases
 from .checkpoint import (final_model_path, intermediate_model_path, load_checkpoint,
                          save_checkpoint)
 from .data import BatchPlan, FeatureDataset, iter_batches, iter_epochs
-from .wav_data import (WavDataset, audio_to_feature_batch, audio_to_wave_batch,
+from .wav_data import (STFT, WavDataset, audio_to_feature_batch, audio_to_wave_batch,
                        collate_wav_batch)
 
 # the reference's cadence: CV and an intermediate checkpoint every 5 epochs
@@ -73,7 +72,6 @@ class TrainLoopConfig:
     # read wav.scp and ship the waveforms; the card makes the arch's batch
     # (the only input of a time-domain arch)
     on_device_features: bool = False
-    stft: STFTConfig = STFTConfig()
 
 
 class Optimizer:
@@ -338,11 +336,11 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
                      time_pad_multiple=loop_cfg.time_pad_multiple,
                      bucket_by_length=loop_cfg.bucket_by_length, seed=loop_cfg.seed)
     if loop_cfg.on_device_features:
-        dataset = WavDataset(data_dir, loop_cfg.stft)
-        cv_dataset = WavDataset(cv_data_dir, loop_cfg.stft) if cv_data_dir else None
+        dataset = WavDataset(data_dir)
+        cv_dataset = WavDataset(cv_data_dir) if cv_data_dir else None
         keys = AUDIO_KEYS
         to_arch = audio_to_wave_batch if time_domain else audio_to_feature_batch
-        prepare = functools.partial(to_arch, cfg=loop_cfg.stft)
+        prepare = functools.partial(to_arch, cfg=STFT)
 
         def collate_for(ds):
             return lambda idxs: collate_wav_batch(ds, idxs, loop_cfg.batch_size)

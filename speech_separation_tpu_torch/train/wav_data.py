@@ -27,6 +27,9 @@ from ..datadir.scp import read_scp, source_wavs_for_mix, write_scp
 from ..dsp.stft import STFTConfig, num_frames, reflect_pad_center, stft_magnitude_batch
 from ..utils.audio import load_wav, wav_num_samples
 
+# the framing of every shipped batch (the reference's 512/128 STFT at 8 kHz)
+STFT = STFTConfig()
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -38,8 +41,7 @@ class WavDataset:
     ``<data-dir>/utt2num_samples`` on the first scan; ``num_frames`` (STFT
     frame counts) drives length bucketing as ``utt2num_frames`` does."""
 
-    def __init__(self, data_dir: str, cfg: STFTConfig = STFTConfig()):
-        self.cfg = cfg
+    def __init__(self, data_dir: str):
         self.entries = read_scp(os.path.join(data_dir, "wav.scp"))
         if not self.entries:
             raise ValueError(f"empty wav.scp in {data_dir}")
@@ -55,7 +57,7 @@ class WavDataset:
             write_scp(cache, ((utt, str(n)) for (utt, _), n
                               in zip(self.entries, self.num_samples)))
         self.num_frames = np.asarray(
-            [num_frames(int(n), cfg.hop) for n in self.num_samples], np.int32)
+            [num_frames(int(n), STFT.hop) for n in self.num_samples], np.int32)
 
     def __len__(self):
         return len(self.entries)
@@ -65,12 +67,11 @@ class WavDataset:
 
 
 def collate_wav_batch(dataset: WavDataset, idxs: list[int], batch_size: int,
-                      sample_pad_multiple: int = 16384, ship_int16: bool = True) -> dict:
+                      sample_pad_multiple: int = 16384) -> dict:
     """One shipped batch of the utterances ``idxs``, padded to
-    ``batch_size`` rows (``row_mask`` 0 on the dummies). ``ship_int16``
-    quantizes the normalized audio to int16 for the copy; set it False for
-    float-format wavs."""
-    cfg = dataset.cfg
+    ``batch_size`` rows (``row_mask`` 0 on the dummies), the normalized
+    audio quantized to int16 for the copy."""
+    cfg = STFT
     B = batch_size
     S = max(int(dataset.num_spks[i]) for i in idxs)
     max_len = _round_up(max(int(dataset.num_samples[i]) for i in idxs), sample_pad_multiple)
@@ -94,21 +95,16 @@ def collate_wav_batch(dataset: WavDataset, idxs: list[int], batch_size: int,
         lengths[row] = num_frames(n, cfg.hop)
         row_mask[row] = 1.0
         names.append(utt)
-    if ship_int16:
-        audio = np.round(audio * 32768.0).clip(-32768, 32767).astype(np.int16)
+    audio = np.round(audio * 32768.0).clip(-32768, 32767).astype(np.int16)
     return {"audio": audio, "sample_lengths": sample_lengths, "lengths": lengths,
             "row_mask": row_mask, "names": names}
-
-
-def _audio_f32(audio: torch.Tensor) -> torch.Tensor:
-    return audio.float() / 32768.0 if audio.dtype == torch.int16 else audio
 
 
 def audio_to_wave_batch(batch: dict, cfg: STFTConfig) -> dict:
     """Shipped audio batch -> the waveform batch of a time-domain arch:
     {'mix_wav' (B, L), 'source_wavs' (B, S, L), 'sample_lengths',
     'row_mask'}, L = Lp - n_fft."""
-    audio = _audio_f32(batch["audio"])
+    audio = batch["audio"].float() / 32768.0
     half = cfg.n_fft // 2
     L = audio.shape[-1] - cfg.n_fft
     wav = audio[:, :, half: half + L]
@@ -123,7 +119,7 @@ def audio_to_feature_batch(batch: dict, cfg: STFTConfig) -> dict:
     """Shipped audio batch -> the feature batch of a spectral arch:
     {'mix' (B, T, F), 'sources' (B, S, T, F), 'lengths', 'row_mask'},
     T = (Lp - n_fft) // hop + 1, zero past each row's frame count."""
-    audio = _audio_f32(batch["audio"])
+    audio = batch["audio"].float() / 32768.0
     B, C, Lp = audio.shape
     n_t = (Lp - cfg.n_fft) // cfg.hop + 1
     mag = stft_magnitude_batch(audio.reshape(B * C, Lp).contiguous(), cfg.n_fft, cfg.hop,

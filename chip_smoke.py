@@ -256,7 +256,8 @@ def check_lstm_train(fails: Failures) -> dict:
     training shape; lstm_seq's gradients against autograd through the
     plain forward at the training shape."""
     from speech_separation_tpu_torch.ops.lstm_kernel import (
-        lstm_seq, lstm_seq_bwd, lstm_seq_bwd_plain, lstm_seq_fwd, lstm_seq_fwd_plain)
+        lstm_bwd_plan, lstm_seq, lstm_seq_bwd, lstm_seq_bwd_plain, lstm_seq_fwd,
+        lstm_seq_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     sfx = (False, True)
     names_f = ("ys", "cs", "gates", "h_last", "c_last")
@@ -299,6 +300,12 @@ def check_lstm_train(fails: Failures) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         args = lstm_inputs(T, B, H, dtype, lengths, gen)
         err_f, err_b, got, bargs, got_b = compare(args, dtype, f"T={T} B={B} H={H}")
+        again = lstm_seq_bwd(*bargs, save_dtype=dtype, suffix_dirs=sfx)
+        fails.check(all(torch.equal(a, b) for a, b in zip(got_b, again)),
+                    f"lstm_bwd T={T} B={B} H={H} {dtype}: a second launch gives "
+                    f"bit-identical {', '.join(names_b)}")
+        del again
+        plan = lstm_bwd_plan(2, B, H, dtype)
         ms_f = cuda_ms(lambda: lstm_seq_fwd(*args, save_dtype=dtype, suffix_dirs=sfx), 5)
         plain_f = cuda_ms(lambda: lstm_seq_fwd_plain(*args, save_dtype=dtype,
                                                      suffix_dirs=sfx), 1, warmup=0)
@@ -332,11 +339,19 @@ def check_lstm_train(fails: Failures) -> dict:
         out["fwd"][dtype] = {"max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f,
                              "bound_ms": b_f[0], "bound_by": b_f[1], "library_ms": lib_f}
         out["bwd"][dtype] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
-                             "bound_ms": b_b[0], "bound_by": b_b[1], "library_ms": lib_b}
+                             "bound_ms": b_b[0], "bound_by": b_b[1], "library_ms": lib_b,
+                             "us_per_step": 1e3 * ms_b / T,
+                             "library_us_per_step": 1e3 * lib_b / T,
+                             "ctas": plan["ctas"], "ctas_per_sm": plan["per_sm"],
+                             "smem": plan["smem"], "stages": plan["stages"]}
         print(f"  lstm_fwd {dtype}: {ms_f:.3f} ms (plain {plain_f:.1f}, cuDNN fwd "
               f"{lib_f:.3f}, bound {b_f[0]:.4f} by {b_f[1]})", flush=True)
         print(f"  lstm_bwd {dtype}: {ms_b:.3f} ms (plain {plain_b:.1f}, cuDNN bwd "
-              f"{lib_b:.3f}, bound {b_b[0]:.4f} by {b_b[1]})", flush=True)
+              f"{lib_b:.3f}, bound {b_b[0]:.4f} by {b_b[1]}); per step "
+              f"{1e3 * ms_b / T:.2f} us (cuDNN {1e3 * lib_b / T:.2f} us); {plan['ctas']} "
+              f"CTAs, {plan['per_sm']} per SM resident ({plan['cap']} on "
+              f"{plan['sms']} SMs), {plan['smem']} B shared, {plan['stages']}-stage ring",
+              flush=True)
         del got, bargs, got_b
 
         # the differentiable recurrence: K3 forward, K4 backward and dW_hh
@@ -1105,6 +1120,13 @@ def main() -> int:
     print("== 5. train (2x600 uPIT, bf16, B=100)", flush=True)
     trained = train_phase(fails, [lstm_seq_fwd, lstm_seq_bwd, lstm_seq_infer])
     launches.update({k: trained["launches"][k] for k in ("lstm_seq_fwd", "lstm_seq_bwd")})
+
+    k34_ms = 2 * sum(lstm_train[p][torch.bfloat16]["ms"] for p in ("fwd", "bwd"))
+    print(f"  K3 and K4 at the step's shape (2 layers, timed apart in phase 3): "
+          + ", ".join(f"{k} {2 * lstm_train[p][torch.bfloat16]['ms']:.2f} ms "
+                      f"({200 * lstm_train[p][torch.bfloat16]['ms'] / trained['ms_per_step']:.1f}%)"
+                      for k, p in (("K3", "fwd"), ("K4", "bwd")))
+          + f"; together {k34_ms:.2f} of {trained['ms_per_step']:.2f} ms per step", flush=True)
 
     print("== 6. one training step, card against CPU", flush=True)
     step = step_phase(fails, trained["train_dir"])

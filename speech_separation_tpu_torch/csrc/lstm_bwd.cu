@@ -25,21 +25,37 @@
 //             dh_new tanh_c o(1-o))
 //   dh <- (1-m) dh + round(dgates) @ W_hh^T;  dc <- (1-m) dc + dc_new f
 //
-// What bounds it: a chain of T dependent steps, each a (B, 4H) x (4H, H)
-// product per direction. The dh of one hidden unit needs the dgates of all 4H
-// columns of its direction, so what must be exchanged per step is dgates
-// (B x 4H), four times the forward's h. The design keeps the forward's split
-// by unit: a grid of D * ceil(H/16) CTAs, each owning 16 units of one
-// direction, keeps the rows j0..j0+15 of W_hh (all 4H columns) resident in
-// shared memory (76.8 KB in bf16, 153.6 KB in f32 at H=600). Per step a CTA
-//   A. computes the 64 dgate columns of its units from its own dh and dc (kept
-//      in dh0/dc0, which only this CTA touches), the saved gates and cs, and
-//      writes them to dxw[t];
-//   -- grid barrier --
-//   B. stages the direction's whole dxw[t] (through L2), in chunks of rows
-//      and columns, transposed into shared memory, and forms dh of its units
-//      with f32 FMAs on the CUDA cores.
-// One grid barrier per step; tensor cores are not used yet.
+// The design. The dh of one hidden unit needs the dgates of all 4H columns of
+// its direction, so what the CTAs exchange per step is dgates (B x 4H), and
+// it goes through dxw[t] in L2. The grid is D * ceil(H/8) CTAs (150 at H=600),
+// each owning U = 8 units of one direction, two CTAs per SM (under 113 KB of
+// shared memory each), so 150 of the 132 SMs' 264 slots work. A CTA keeps
+//   - rows j0..j0+7 of W_hh (all 4H columns, k contiguous, rows padded so
+//     ldmatrix and float4 reads hit distinct banks): 38.5 KB in bf16, 76.9 KB
+//     in f32 at H=600;
+//   - dh and dc of its units for all B rows (f32), on chip for the whole
+//     sequence; dh0 and dc0 are written once, after step 0;
+//   - a ring of 2-4 stages of dxw[t] column chunks (64 bf16 or 32 f32 columns
+//     of every row, 144-byte padded rows).
+// Per step a CTA
+//   A. computes the 32 dgate columns of its units (arithmetic as _bwd_kernel)
+//      and writes them to dxw[t];
+//   -- grid barrier (one per step) --
+//   B. streams dxw[t] through the ring with 16-byte cp.async.cg (up to three
+//      chunks in flight while one is consumed) and forms dh of its units:
+//      bf16: mma.sync m16n8k16 (bf16 x bf16, f32 sums), A = dgate rows of the
+//      stage and B = the resident W_hh rows, both by ldmatrix; warp w owns
+//      the 16-row m-tiles w and w+8 for the whole k-range, so every dh entry
+//      has one owner and its sum a fixed order (no atomics, no cross-warp
+//      reduction). f32: FMAs on the CUDA cores, one thread per (row, unit)
+//      summing over k in order; tensor cores have no f32 form that keeps the
+//      operands exact (TF32 rounds them).
+// What bounds it now: every CTA reads its direction's whole dxw[t] from L2
+// each step (480 KB in bf16 at B=100, H=600; 72 MB per step over the grid),
+// plus phase A's latency and the grid barrier. The products are small.
+
+#include <algorithm>
+#include <type_traits>
 
 #include "lstm_common.cuh"
 
@@ -47,51 +63,144 @@ namespace {
 
 using namespace seplstm;
 
-constexpr int KC = 800;   // dgate columns staged per pass (64 KB of f32)
+constexpr int U = 8;                 // hidden units per CTA
+constexpr int NT = 256;              // threads per CTA (8 warps)
+constexpr int ROW_BYTES = 128;       // bytes of one row in a ring stage
+constexpr int RS_BYTES = ROW_BYTES + 16;   // padded stage row
+constexpr int MAX_STAGES = 4;
+constexpr int MAX_ROWS = 256;        // batch rows: 2 m-tiles per warp, 8 per thread
+constexpr int SMEM_2_PER_SM = 115712;      // (228 KB per SM) / 2 - 1 KB reserved
+constexpr int SMEM_1_PER_SM = 232448;      // 227 KB, the most one CTA may take
+
+template <typename WT> struct Layout {
+  int G, kpad, ws, rows, nchunks;
+  size_t w_bytes, state_bytes, stage_bytes;
+  static constexpr int kc = ROW_BYTES / (int)sizeof(WT);   // columns per chunk
+  __host__ __device__ Layout(int B, int H) {
+    G = 4 * H;
+    kpad = (G + 15) / 16 * 16;                 // k padded to whole mma k-steps
+    ws = kpad + 16 / (int)sizeof(WT);          // odd count of 16-byte units per row
+    rows = std::is_same<WT, float>::value ? B : (B + 15) / 16 * 16;
+    nchunks = (kpad + kc - 1) / kc;
+    w_bytes = (size_t)U * ws * sizeof(WT);
+    state_bytes = (size_t)2 * B * U * sizeof(float);
+    stage_bytes = (size_t)rows * RS_BYTES;
+  }
+  __host__ __device__ size_t smem(int stages) const {
+    return w_bytes + stages * stage_bytes + state_bytes;
+  }
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most `pending` (0..2) of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending >= 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2(unsigned r[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four consecutive values from shared memory, as f32.
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
 
 template <typename WT>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(NT, 2)
 lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
                 const int* __restrict__ lengths, const WT* __restrict__ cs,
                 const WT* __restrict__ gates, const WT* __restrict__ dys,
                 const float* __restrict__ dh_last, const float* __restrict__ dc_last,
-                WT* dxw, float* dh0, float* dc0, unsigned int* barrier,
-                int T, int D, int B, int H, unsigned int suffix_mask) {
+                WT* dxw, float* __restrict__ dh0, float* __restrict__ dc0,
+                unsigned int* barrier, int T, int D, int B, int H, unsigned int suffix_mask,
+                int stages) {
+  constexpr bool kTensorCores = false;
+  constexpr int SEG = ROW_BYTES / 16;            // 16-byte copies per stage row
+  constexpr int EPS = 16 / (int)sizeof(WT);      // elements per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
-  const int tiles = (H + HB - 1) / HB;
+  const Layout<WT> L(B, H);
+  const int tiles = (H + U - 1) / U;
   const int d = blockIdx.x / tiles;
-  const int j0 = (blockIdx.x % tiles) * HB;
-  const int G = 4 * H;
+  const int j0 = (blockIdx.x % tiles) * U;
+  const int G = L.G;
+  const int tid = threadIdx.x;
 
-  WT* Ws = reinterpret_cast<WT*>(smem);                                     // (4H, HB)
-  float* Ds = reinterpret_cast<float*>(smem + (size_t)G * HB * sizeof(WT));  // (KC, HS_STRIDE)
+  WT* Ws = reinterpret_cast<WT*>(smem);                                     // (U, ws)
+  unsigned char* ring = smem + L.w_bytes;                                   // stages x (rows, RS)
+  float* dhs = reinterpret_cast<float*>(ring + stages * L.stage_bytes);     // (B, U)
+  float* dcs = dhs + (size_t)B * U;                                         // (B, U)
 
-  // rows j0..j0+15 of this direction's W_hh, all 4H columns, resident
+  // rows j0..j0+7 of this direction's W_hh, zero past H and past 4H
   const WT* wd = w_hh + (size_t)d * H * G;
-  for (int idx = threadIdx.x; idx < G * HB; idx += THREADS) {
-    const int c = idx % G;
-    const int jl = idx / G;
+  for (int idx = tid; idx < U * L.ws; idx += NT) {
+    const int jl = idx / L.ws, k = idx - jl * L.ws;
     const int j = j0 + jl;
-    Ws[c * HB + jl] = (j < H) ? wd[(size_t)j * G + c] : from_f<WT>(0.f);
+    Ws[idx] = (j < H && k < G) ? wd[(size_t)j * G + k] : from_f<WT>(0.f);
+  }
+  // the stages' pad rows (past B) stay zero; cp.async writes only rows < B
+  for (int idx = tid; idx < stages * (L.rows - B) * RS_BYTES / 4; idx += NT) {
+    const int per = (L.rows - B) * RS_BYTES / 4;
+    const int s = idx / per, w = idx - s * per;
+    reinterpret_cast<unsigned*>(ring + s * L.stage_bytes + (size_t)B * RS_BYTES)[w] = 0u;
+  }
+  for (int idx = tid; idx < B * U; idx += NT) {
+    const int b = idx / U, j = j0 + idx % U;
+    const size_t o = ((size_t)d * B + b) * H + j;
+    dhs[idx] = (j < H) ? dh_last[o] : 0.f;
+    dcs[idx] = (j < H) ? dc_last[o] : 0.f;
   }
 
-  const int tid = threadIdx.x;
   const bool suffix = (suffix_mask >> d) & 1u;
   const unsigned int nblocks = gridDim.x;
-  // phase A: thread -> (row in chunk, unit); phase B as in lstm_fwd.cu
-  const int a_r = tid >> 4, a_j = j0 + (tid & (HB - 1));
-  const int ks = tid & (KS - 1), jl = (tid >> 2) & (HB - 1), rq = tid >> 6;
-  const int j = j0 + jl;
+  const int a_r = tid / U, a_jl = tid % U, a_j = j0 + a_jl;   // phase A: (row, unit)
+  const int warp = tid >> 5, lane = tid & 31;                  // phase B, bf16
+  const int f_rg = tid / U, f_jl = tid % U;                    // phase B, f32
 
   for (int t = T - 1; t >= 0; --t) {
     // ---- A: this CTA's dgate columns at step t
-    for (int b0 = 0; b0 < B; b0 += RB) {
-      const int b = b0 + a_r;
-      if (b >= B || a_j >= H) continue;
+    for (int b = a_r; b < B && a_j < H; b += NT / U) {
       const size_t o = ((size_t)d * B + b) * H + a_j;
       const size_t so = ((size_t)t * D + d) * B + b;
-      const float dh = (t == T - 1) ? dh_last[o] : dh0[o];
-      const float dc = (t == T - 1) ? dc_last[o] : dc0[o];
+      const float dh = dhs[b * U + a_jl];
+      const float dc = dcs[b * U + a_jl];
       WT* dp = dxw + so * G + a_j;
       if (step_valid(suffix, lengths[b], t, T)) {
         const WT* gp = gates + so * G + a_j;
@@ -109,55 +218,151 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
         dp[(size_t)H] = from_f<WT>(dc_new * c_prev * fa * (1.f - fa));
         dp[2 * (size_t)H] = from_f<WT>(dc_new * ia * (1.f - ga * ga));
         dp[3 * (size_t)H] = from_f<WT>(dh_new * tanh_c * oa * (1.f - oa));
-        dc0[o] = dc_new * fa;
-        dh0[o] = 0.f;   // phase B adds the product
+        dcs[b * U + a_jl] = dc_new * fa;
+        dhs[b * U + a_jl] = 0.f;   // phase B adds the product
       } else {
         const WT z = from_f<WT>(0.f);
         dp[0] = z; dp[(size_t)H] = z; dp[2 * (size_t)H] = z; dp[3 * (size_t)H] = z;
-        dc0[o] = dc;
-        dh0[o] = dh;
       }
     }
     // every CTA's dgates at step t must be visible before any CTA reads them
     grid_barrier(barrier, (unsigned int)(T - t) * nblocks);
 
-    // ---- B: dh of this CTA's units += dxw[t] @ W_hh[j0:j0+16]^T
+    // ---- B: dh of this CTA's units += dxw[t] @ W_hh[j0:j0+8]^T
     const WT* drow = dxw + ((size_t)t * D + d) * B * G;
-    for (int b0 = 0; b0 < B; b0 += RB) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int c0_ = 0; c0_ < G; c0_ += KC) {
-        const int kc = min(KC, G - c0_);
-        __syncthreads();  // the previous pass's readers are done with Ds
-        for (int idx = tid; idx < RB * kc; idx += THREADS) {
-          const int r = idx / kc;
-          const int c = idx - r * kc;
-          const int b = b0 + r;
-          Ds[c * HS_STRIDE + r] =
-              (b < B) ? to_f(__ldcg(drow + (size_t)b * G + c0_ + c)) : 0.f;
-        }
-        __syncthreads();
-        for (int c = ks; c < kc; c += KS) {
-          const float w = to_f(Ws[(c0_ + c) * HB + jl]);
-          const float4 dv = *reinterpret_cast<const float4*>(Ds + c * HS_STRIDE + rq * 4);
-          acc[0] = fmaf(w, dv.x, acc[0]);
-          acc[1] = fmaf(w, dv.y, acc[1]);
-          acc[2] = fmaf(w, dv.z, acc[2]);
-          acc[3] = fmaf(w, dv.w, acc[3]);
-        }
+    auto issue = [&](int c) {
+      unsigned char* st = ring + (c % stages) * L.stage_bytes;
+      for (int idx = tid; idx < B * SEG; idx += NT) {
+        const int r = idx / SEG, s = idx % SEG;
+        const int col = c * L.kc + s * EPS;
+        const bool valid = col < G;
+        cp_async16(st + r * RS_BYTES + s * 16, valid ? drow + (size_t)r * G + col : drow, valid);
       }
+    };
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};   // bf16: (m-tile, frag)
+    float facc[MAX_ROWS / (NT / U)] = {};                             // f32: one per row
+
+    for (int c = 0; c < stages - 1; ++c) {
+      if (c < L.nchunks) issue(c);
+      cp_async_commit();
+    }
+    for (int c = 0; c < L.nchunks; ++c) {
+      cp_async_wait(stages - 2);
+      __syncthreads();   // chunk c landed for every thread; chunk c-1's stage is free
+      if (c + stages - 1 < L.nchunks) issue(c + stages - 1);
+      cp_async_commit();
+      const unsigned char* st = ring + (c % stages) * L.stage_bytes;
+      const int k0 = c * L.kc;
+      const int kn = min(L.kc, L.kpad - k0);
+      if constexpr (kTensorCores) {
+        for (int ks = 0; ks < kn; ks += 16) {
+          unsigned bf[2];
+          ldmatrix_x2(bf, Ws + (lane & 7) * L.ws + k0 + ks + ((lane >> 3) & 1) * 8);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 1);
-        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 2);
-      }
-      const int b = b0 + rq * 4 + ks;
-      if (b < B && j < H) {
-        const float s = ks == 0 ? acc[0] : ks == 1 ? acc[1] : ks == 2 ? acc[2] : acc[3];
-        dh0[((size_t)d * B + b) * H + j] += s;
+          for (int m = 0; m < 2; ++m) {
+            const int m0 = (warp + 8 * m) * 16;
+            if (m0 >= L.rows) break;
+            unsigned af[4];
+            ldmatrix_x4(af, st + (m0 + (lane & 15)) * RS_BYTES + (ks + (lane >> 4) * 8) * 2);
+            mma_bf16(acc[m], af, bf);
+          }
+        }
+      } else {
+        const WT* wrow = Ws + f_jl * L.ws + k0;
+        for (int k = 0; k < kn; k += 4) {
+          float w[4];
+          load4(wrow + k, w);
+#pragma unroll
+          for (int i = 0; i < MAX_ROWS / (NT / U); ++i) {
+            const int r = f_rg + i * (NT / U);
+            if (r >= B) break;
+            float v[4];
+            load4(reinterpret_cast<const WT*>(st + r * RS_BYTES) + k, v);
+            float a = facc[i];
+            a = fmaf(w[0], v[0], a);
+            a = fmaf(w[1], v[1], a);
+            a = fmaf(w[2], v[2], a);
+            a = fmaf(w[3], v[3], a);
+            facc[i] = a;
+          }
+        }
       }
     }
-    __syncthreads();  // dh0 of this CTA's units is complete for step t-1's phase A
+    cp_async_wait(0);
+
+    // each dh entry has one owner: add its product
+    if constexpr (kTensorCores) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int r0 = (warp + 8 * m) * 16 + (lane >> 2);
+        const int col = 2 * (lane & 3);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          if (r < B) {
+            dhs[r * U + col] += acc[m][2 * h];
+            dhs[r * U + col + 1] += acc[m][2 * h + 1];
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < MAX_ROWS / (NT / U); ++i) {
+        const int r = f_rg + i * (NT / U);
+        if (r < B) dhs[r * U + f_jl] += facc[i];
+      }
+    }
+    __syncthreads();  // dh of this CTA's units is complete for step t-1's phase A
   }
+
+  for (int idx = tid; idx < B * U; idx += NT) {
+    const int b = idx / U, j = j0 + idx % U;
+    if (j < H) {
+      const size_t o = ((size_t)d * B + b) * H + j;
+      dh0[o] = dhs[idx];
+      dc0[o] = dcs[idx];
+    }
+  }
+}
+
+// The ring's depth and the shared memory of one CTA: two CTAs per SM where
+// at least two stages fit, else one CTA per SM; 0 stages when none fits.
+template <typename WT>
+int stages_for(int B, int H, size_t* smem) {
+  const Layout<WT> L(B, H);
+  const size_t budgets[2] = {SMEM_2_PER_SM, SMEM_1_PER_SM};
+  for (const size_t budget : budgets) {
+    const size_t fixed = L.smem(0);
+    if (budget <= fixed) continue;
+    const int n = (int)std::min<size_t>(MAX_STAGES, (budget - fixed) / L.stage_bytes);
+    if (n >= 2) {
+      *smem = L.smem(n);
+      return n;
+    }
+  }
+  *smem = 0;
+  return 0;
+}
+
+// ctas, the CTAs per SM that can be resident, the SMs, the shared memory per
+// CTA and the ring's stages; a cudaError_t.
+template <typename WT>
+int plan(int D, int B, int H, int* ctas, int* per_sm, int* sms, int* smem_out, int* stages) {
+  size_t smem = 0;
+  *ctas = D * ((H + U - 1) / U);
+  *stages = stages_for<WT>(B, H, &smem);
+  *smem_out = (int)smem;
+  *per_sm = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess || *stages == 0 || B > MAX_ROWS) return (int)err;
+  auto kernel = lstm_bwd_kernel<WT>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, NT, smem);
+  return (int)err;
 }
 
 template <typename WT>
@@ -165,7 +370,10 @@ int launch(const void* w_hh, const float* c0, const int* lengths, const void* cs
            const void* gates, const void* dys, const float* dh_last, const float* dc_last,
            void* dxw, float* dh0, float* dc0, unsigned int* barrier, int T, int D, int B,
            int H, unsigned int suffix_mask, cudaStream_t stream) {
-  const size_t smem = (size_t)4 * H * HB * sizeof(WT) + (size_t)KC * HS_STRIDE * sizeof(float);
+  if (B > MAX_ROWS || (sizeof(WT) == 2 && H % 2 != 0)) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  int stages = stages_for<WT>(B, H, &smem);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
   auto kernel = lstm_bwd_kernel<WT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -178,10 +386,10 @@ int launch(const void* w_hh, const float* c0, const int* lengths, const void* cs
   void* args[] = {(void*)&w_t, (void*)&c0, (void*)&lengths, (void*)&cs_t, (void*)&gates_t,
                   (void*)&dys_t, (void*)&dh_last, (void*)&dc_last, (void*)&dxw_t,
                   (void*)&dh0, (void*)&dc0, (void*)&barrier,
-                  (void*)&T, (void*)&D, (void*)&B, (void*)&H, (void*)&suffix_mask};
-  const dim3 grid(D * ((H + HB - 1) / HB));
-  const dim3 block(THREADS);
-  err = cudaLaunchCooperativeKernel((const void*)kernel, grid, block, args, smem, stream);
+                  (void*)&T, (void*)&D, (void*)&B, (void*)&H, (void*)&suffix_mask,
+                  (void*)&stages};
+  const dim3 grid(D * ((H + U - 1) / U));
+  err = cudaLaunchCooperativeKernel((const void*)kernel, grid, dim3(NT), args, smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -191,7 +399,8 @@ int launch(const void* w_hh, const float* c0, const int* lengths, const void* cs
 extern "C" {
 
 // Returns a cudaError_t code; 0 on success. w_hh, cs, gates, dys and dxw are
-// bf16 when bf16 != 0, f32 otherwise; barrier is one zeroed uint32.
+// bf16 when bf16 != 0, f32 otherwise; barrier is one zeroed uint32. Takes
+// B <= 256 and, in bf16, an even H (16-byte copies of dxw rows).
 int sep_lstm_bwd(const void* w_hh, int bf16, const float* c0, const int* lengths,
                  const void* cs, const void* gates, const void* dys, const float* dh_last,
                  const float* dc_last, void* dxw, float* dh0, float* dc0,
@@ -203,6 +412,15 @@ int sep_lstm_bwd(const void* w_hh, int bf16, const float* c0, const int* lengths
                                  dh0, dc0, barrier, T, D, B, H, suffix_mask, s);
   return launch<float>(w_hh, c0, lengths, cs, gates, dys, dh_last, dc_last, dxw, dh0, dc0,
                        barrier, T, D, B, H, suffix_mask, s);
+}
+
+// The launch a shape gets on the current device: its CTAs, how many can be
+// resident per SM (0 when the shape fits no ring), the SMs, the shared memory
+// of one CTA and the ring's stages. Returns a cudaError_t code.
+int sep_lstm_bwd_plan(int bf16, int D, int B, int H, int* ctas, int* per_sm, int* sms,
+                      int* smem, int* stages) {
+  if (bf16) return plan<__nv_bfloat16>(D, B, H, ctas, per_sm, sms, smem, stages);
+  return plan<float>(D, B, H, ctas, per_sm, sms, smem, stages);
 }
 
 const char* sep_lstm_bwd_error_string(int code) {

@@ -23,9 +23,11 @@ dW_hh = sum_t h_{t-1}^T dgates_t as one plain product outside the kernel.
 On the H100 each recurrence is a chain of T dependent small products per
 direction, and one direction's W_hh (2.88 MB in bf16 at H=600) is far larger
 than an SM's shared memory. The kernels split the hidden units over a
-cooperative grid of D * ceil(H/16) CTAs, each keeping its slice of W_hh
-resident for the whole sequence and exchanging the step's state through L2
-with a grid barrier per step; the CUDA sources have the design notes.
+cooperative grid (D * ceil(H/16) CTAs forward, D * ceil(H/8) backward, two
+per SM), each CTA keeping its slice of W_hh resident for the whole sequence
+and exchanging the step's state through L2 with a grid barrier per step; the
+CUDA sources have the design notes. ``lstm_bwd_plan`` gives the backward's
+launch for a shape and refuses one whose grid cannot be co-resident.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain PyTorch version (``*_plain``, a Python loop over t) only for CPU
@@ -59,6 +61,8 @@ def _lib(name: str) -> ctypes.CDLL:
         else:
             lib.sep_lstm_bwd.argtypes = [p, i] + [p] * 11 + [i, i, i, i, u, p]
             lib.sep_lstm_bwd.restype = i
+            lib.sep_lstm_bwd_plan.argtypes = [i, i, i, i] + [ctypes.POINTER(i)] * 5
+            lib.sep_lstm_bwd_plan.restype = i
             lib.sep_lstm_bwd_error_string.argtypes = [i]
             lib.sep_lstm_bwd_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
@@ -299,6 +303,42 @@ def lstm_seq_bwd_plain(w_hh, c0, lengths, cs, gates, dys, dh_last, dc_last,
     return torch.stack(dxw), dh, dc
 
 
+BWD_MAX_ROWS = 256      # csrc/lstm_bwd.cu: two 16-row m-tiles per warp
+_bwd_plans: dict = {}
+
+
+def lstm_bwd_plan(D, B, H, dtype=torch.bfloat16):
+    """The launch csrc/lstm_bwd.cu makes for a shape on the current card:
+    a dict of ``ctas`` (D * ceil(H/8)), ``per_sm`` (CTAs that can be
+    resident on one SM at its shared memory), ``sms``, ``cap`` (per_sm *
+    sms), ``smem`` (bytes per CTA) and ``stages`` (the depth of its dxw
+    ring). Raises ValueError, naming the cap, for a shape the kernel does
+    not take: B above 256 rows, an odd H in bf16 (dxw rows move in 16-byte
+    copies), or a grid that cannot be co-resident (the cooperative launch
+    and the per-step grid barrier need every CTA resident at once)."""
+    if B > BWD_MAX_ROWS:
+        raise ValueError(f"lstm_seq_bwd takes at most {BWD_MAX_ROWS} batch rows, got {B}")
+    if dtype == torch.bfloat16 and H % 2:
+        raise ValueError(f"lstm_seq_bwd takes an even H in bfloat16, got {H}")
+    key = (torch.cuda.current_device(), D, B, H, dtype)
+    if key in _bwd_plans:
+        return _bwd_plans[key]
+    vals = [ctypes.c_int(0) for _ in range(5)]
+    err = _lib("lstm_bwd").sep_lstm_bwd_plan(int(dtype == torch.bfloat16), D, B, H,
+                                             *(ctypes.byref(v) for v in vals))
+    _raise_on(err, _lib("lstm_bwd").sep_lstm_bwd_error_string, "lstm_bwd plan")
+    ctas, per_sm, sms, smem, stages = (v.value for v in vals)
+    plan = {"ctas": ctas, "per_sm": per_sm, "sms": sms, "cap": per_sm * sms,
+            "smem": smem, "stages": stages}
+    if ctas > plan["cap"]:
+        raise ValueError(
+            f"lstm_seq_bwd at D={D}, B={B}, H={H} {dtype} needs {ctas} co-resident "
+            f"CTAs, above the cap of {plan['cap']} ({per_sm} per SM x {sms} SMs at "
+            f"{smem} bytes of shared memory each)")
+    _bwd_plans[key] = plan
+    return plan
+
+
 def lstm_seq_bwd(w_hh, c0, lengths, cs, gates, dys, dh_last, dc_last,
                  save_dtype=torch.bfloat16, suffix_dirs=None):
     """Reverse-time gradient: returns (dxw (T, D, B, 4H) save_dtype, dh0,
@@ -315,6 +355,8 @@ def lstm_seq_bwd(w_hh, c0, lengths, cs, gates, dys, dh_last, dc_last,
     dev = gates.device
     _on_device(dev, w_hh=w_hh, c0=c0, lengths=lengths, cs=cs, dys=dys,
                dh_last=dh_last, dc_last=dc_last)
+    with torch.cuda.device(dev):
+        lstm_bwd_plan(D, B, H, w_hh.dtype)
     w_hh, cs, gates, dys = (t.contiguous() for t in (w_hh, cs, gates, dys))
     c0, dh_last, dc_last = (t.contiguous() for t in (c0, dh_last, dc_last))
     lengths = lengths.to(torch.int32).contiguous()

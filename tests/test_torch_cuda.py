@@ -126,6 +126,69 @@ def test_lstm_training_kernels_match_plain(cuda, dtype, tol, T, B, H):
         _scaled_close(a, b, tol, name)
 
 
+def _bwd_args(cuda, dtype, T, B, H, seed):
+    """K4's inputs: the plain forward's saves and random cotangents."""
+    args = _lstm_args(cuda, dtype, T, B, H, seed)
+    _, cs, gates, _, _ = lstm_seq_fwd_plain(*args, save_dtype=dtype, suffix_dirs=SFX)
+    _, w, _, c0, lengths = args
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    dys = torch.randn(cs.shape, generator=g, device=cuda).to(dtype)
+    dh_last = torch.randn(c0.shape, generator=g, device=cuda)
+    dc_last = torch.randn(c0.shape, generator=g, device=cuda)
+    return w, c0, lengths, cs, gates, dys, dh_last, dc_last
+
+
+# chip_smoke.py's TRAIN_TOL for K4: bwd_f32 1.5e-5, bwd_bf16 2e-2
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1.5e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,B,H", [(1, 17, 24), (7, 1, 40), (5, 100, 24), (4, 17, 600),
+                                   (9, 100, 600)])
+def test_lstm_bwd_kernel_tiling_edges(cuda, dtype, tol, T, B, H):
+    """K4 against its plain version where the tiling has edges: B not a
+    multiple of 16 (a partial m-tile), H not a multiple of the 8 units per
+    CTA (a partial last CTA), 4H not a multiple of the 64-column chunk (a
+    partial last chunk), T=1; lengths 1 and T, a prefix and a suffix
+    direction."""
+    bargs = _bwd_args(cuda, dtype, T, B, H, T * 1000 + B + H)
+    before = lstm_seq_bwd.launches
+    got = lstm_seq_bwd(*bargs, save_dtype=dtype, suffix_dirs=SFX)
+    ref = lstm_seq_bwd_plain(*bargs, save_dtype=dtype, suffix_dirs=SFX)
+    torch.cuda.synchronize()
+    assert lstm_seq_bwd.launches == before + 1
+    for name, a, b in zip(("dxw", "dh0", "dc0"), got, ref):
+        assert a.dtype == b.dtype, name
+        _scaled_close(a, b, tol, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_kernel_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs give bit-identical dxw, dh0 and dc0:
+    each dh entry has one owner and a fixed order of its sum."""
+    bargs = _bwd_args(cuda, dtype, 12, 100, 600, 5)
+    first = lstm_seq_bwd(*bargs, save_dtype=dtype, suffix_dirs=SFX)
+    second = lstm_seq_bwd(*bargs, save_dtype=dtype, suffix_dirs=SFX)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dxw", "dh0", "dc0"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_lstm_bwd_refuses_a_grid_that_cannot_be_resident(cuda):
+    """At H=1200 the backward needs 2 * 150 CTAs; two fit on an SM, so an
+    H100's 132 SMs hold 264: the wrapper raises, naming the cap, and
+    launches nothing."""
+    from speech_separation_tpu_torch.ops.lstm_kernel import lstm_bwd_plan
+    plan = lstm_bwd_plan(2, 100, 600)
+    assert plan["ctas"] == 150 and plan["ctas"] <= plan["cap"] == plan["per_sm"] * plan["sms"]
+    bargs = _bwd_args(cuda, torch.bfloat16, 1, 100, 1200, 3)
+    before = lstm_seq_bwd.launches
+    with pytest.raises(ValueError, match=r"cap of \d+"):
+        lstm_seq_bwd(*bargs, save_dtype=torch.bfloat16, suffix_dirs=SFX)
+    with pytest.raises(ValueError, match="256"):
+        lstm_bwd_plan(2, 257, 64)
+    with pytest.raises(ValueError, match="even H"):
+        lstm_bwd_plan(2, 4, 25)
+    assert lstm_seq_bwd.launches == before
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_lstm_seq_gradients_match_plain_autograd(cuda, dtype, tol):
     """lstm_seq (K3 forward, K4 backward, dW_hh outside) against autograd

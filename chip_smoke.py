@@ -15,6 +15,9 @@ Phases, in order; any failure exits non-zero without the final line:
    serving shapes (an 8 s bucket of 16 rows: T=513 frames, 2x600 BLSTM),
    the training kernels (LSTM training forward and backward) at the
    training shape (T=384, B=100, H=600), all also at a small ragged shape;
+   the backward also launched twice on the same inputs (bit-identical
+   outputs), with its time per step beside cuDNN's and its launch plan
+   (CTAs, CTAs resident per SM, shared memory, ring stages);
    the differentiable recurrence's gradients against autograd through the
    plain forward; and the attention kernel (forward and backward) at a small
    ragged shape, at SepFormer's training intra- and inter-chunk shapes

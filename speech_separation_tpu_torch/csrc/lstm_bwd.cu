@@ -131,18 +131,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], const 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Four consecutive values from shared memory, as f32.
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-
 template <typename WT>
 __global__ void __launch_bounds__(NT, 2)
 lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
@@ -152,7 +140,7 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
                 WT* dxw, float* __restrict__ dh0, float* __restrict__ dc0,
                 unsigned int* barrier, int T, int D, int B, int H, unsigned int suffix_mask,
                 int stages) {
-  constexpr bool kTensorCores = false;
+  constexpr bool kTensorCores = std::is_same<WT, __nv_bfloat16>::value;
   constexpr int SEG = ROW_BYTES / 16;            // 16-byte copies per stage row
   constexpr int EPS = 16 / (int)sizeof(WT);      // elements per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
@@ -268,21 +256,19 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
           }
         }
       } else {
-        const WT* wrow = Ws + f_jl * L.ws + k0;
+        const float* wrow = Ws + f_jl * L.ws + k0;
         for (int k = 0; k < kn; k += 4) {
-          float w[4];
-          load4(wrow + k, w);
+          const float4 w = *reinterpret_cast<const float4*>(wrow + k);
 #pragma unroll
           for (int i = 0; i < MAX_ROWS / (NT / U); ++i) {
             const int r = f_rg + i * (NT / U);
             if (r >= B) break;
-            float v[4];
-            load4(reinterpret_cast<const WT*>(st + r * RS_BYTES) + k, v);
+            const float4 v = *reinterpret_cast<const float4*>(st + r * RS_BYTES + k * 4);
             float a = facc[i];
-            a = fmaf(w[0], v[0], a);
-            a = fmaf(w[1], v[1], a);
-            a = fmaf(w[2], v[2], a);
-            a = fmaf(w[3], v[3], a);
+            a = fmaf(w.x, v.x, a);
+            a = fmaf(w.y, v.y, a);
+            a = fmaf(w.z, v.z, a);
+            a = fmaf(w.w, v.w, a);
             facc[i] = a;
           }
         }

@@ -28,31 +28,41 @@
 // The design. The dh of one hidden unit needs the dgates of all 4H columns of
 // its direction, so what the CTAs exchange per step is dgates (B x 4H), and
 // it goes through dxw[t] in L2. The grid is D * ceil(H/8) CTAs (150 at H=600),
-// each owning U = 8 units of one direction, two CTAs per SM (under 113 KB of
-// shared memory each), so 150 of the 132 SMs' 264 slots work. A CTA keeps
-//   - rows j0..j0+7 of W_hh (all 4H columns, k contiguous, rows padded so
-//     ldmatrix and float4 reads hit distinct banks): 38.5 KB in bf16, 76.9 KB
-//     in f32 at H=600;
+// each owning U = 8 units of one direction, at two CTAs per SM (each under
+// 113 KB of shared memory), so all 132 SMs work. The launch stays cooperative
+// with one grid barrier per step; the wrapper checks co-residency
+// (sep_lstm_bwd_plan) and raises, naming the cap, for a grid that cannot be
+// resident. A CTA keeps
+//   - rows j0..j0+7 of W_hh (all 4H columns, k contiguous; a row is an odd
+//     number of 16-byte units, so ldmatrix and float4 reads of 8 rows hit
+//     distinct banks): 38.5 KB in bf16, 76.9 KB in f32 at H=600;
 //   - dh and dc of its units for all B rows (f32), on chip for the whole
 //     sequence; dh0 and dc0 are written once, after step 0;
-//   - a ring of 2-4 stages of dxw[t] column chunks (64 bf16 or 32 f32 columns
-//     of every row, 144-byte padded rows).
+//   - a ring of dxw[t] column chunks, every row of a chunk padded by 16 bytes
+//     (conflict-free for ldmatrix and float4): bf16 2 stages of 128 columns,
+//     f32 2 stages of 32 columns at B=100 (4 stages where they fit).
 // Per step a CTA
 //   A. computes the 32 dgate columns of its units (arithmetic as _bwd_kernel)
 //      and writes them to dxw[t];
-//   -- grid barrier (one per step) --
-//   B. streams dxw[t] through the ring with 16-byte cp.async.cg (up to three
-//      chunks in flight while one is consumed) and forms dh of its units:
-//      bf16: mma.sync m16n8k16 (bf16 x bf16, f32 sums), A = dgate rows of the
-//      stage and B = the resident W_hh rows, both by ldmatrix; warp w owns
-//      the 16-row m-tiles w and w+8 for the whole k-range, so every dh entry
-//      has one owner and its sum a fixed order (no atomics, no cross-warp
-//      reduction). f32: FMAs on the CUDA cores, one thread per (row, unit)
-//      summing over k in order; tensor cores have no f32 form that keeps the
-//      operands exact (TF32 rounds them).
-// What bounds it now: every CTA reads its direction's whole dxw[t] from L2
-// each step (480 KB in bf16 at B=100, H=600; 72 MB per step over the grid),
-// plus phase A's latency and the grid barrier. The products are small.
+//   -- grid barrier --
+//   B. streams dxw[t] through the ring with 16-byte cp.async.cg (the next
+//      chunk in flight while one is consumed) and forms dh of its units.
+//      bf16: mma.sync m16n8k16 (bf16 x bf16, f32 sums) on the tensor cores,
+//      A = 16 dgate rows of the stage, B = the 8 resident W_hh rows, both by
+//      ldmatrix. Warp w takes the k-steps w % 4, w % 4 + 4, ... of each chunk
+//      and the m-tiles of parity w / 4 (B=100: 7 m-tiles, 1 n-tile, 150
+//      k-steps); after the last chunk the four k-classes' partial sums meet
+//      in the free ring and are added in a fixed order, so the result is
+//      bit-identical from run to run with no atomics. f32: FMAs on the CUDA
+//      cores, one thread per (row, unit) summing over k in order; the tensor
+//      cores have no f32 form that keeps the operands exact (TF32 rounds
+//      them), and the f32 path is shared-load bound, not L2 bound.
+// What bounds it (bf16, H100): per step the stream of dxw[t] through the
+// ring, every CTA reading its direction's whole dxw[t] from L2 (480 KB at
+// B=100, H=600; 72 MB per step over the grid) with one __syncthreads per
+// chunk, then phase A and the grid barrier. Each chunk costs a sync, so
+// bf16 takes 128-column chunks (19 per step at H=600) over a deeper ring of
+// narrower ones. The products are off the critical path.
 
 #include <algorithm>
 #include <type_traits>
@@ -65,17 +75,18 @@ using namespace seplstm;
 
 constexpr int U = 8;                 // hidden units per CTA
 constexpr int NT = 256;              // threads per CTA (8 warps)
-constexpr int ROW_BYTES = 128;       // bytes of one row in a ring stage
-constexpr int RS_BYTES = ROW_BYTES + 16;   // padded stage row
 constexpr int MAX_STAGES = 4;
-constexpr int MAX_ROWS = 256;        // batch rows: 2 m-tiles per warp, 8 per thread
+constexpr int MAX_ROWS = 256;        // batch rows: 8 m-tiles per warp (bf16), 8 rows per thread (f32)
 constexpr int SMEM_2_PER_SM = 115712;      // (228 KB per SM) / 2 - 1 KB reserved
 constexpr int SMEM_1_PER_SM = 232448;      // 227 KB, the most one CTA may take
 
 template <typename WT> struct Layout {
   int G, kpad, ws, rows, nchunks;
   size_t w_bytes, state_bytes, stage_bytes;
-  static constexpr int kc = ROW_BYTES / (int)sizeof(WT);   // columns per chunk
+  // one row of a ring stage: 128 bf16 or 32 f32 columns, padded by 16 bytes
+  static constexpr int row_bytes = std::is_same<WT, float>::value ? 128 : 256;
+  static constexpr int rs = row_bytes + 16;
+  static constexpr int kc = row_bytes / (int)sizeof(WT);   // columns per chunk
   __host__ __device__ Layout(int B, int H) {
     G = 4 * H;
     kpad = (G + 15) / 16 * 16;                 // k padded to whole mma k-steps
@@ -84,7 +95,7 @@ template <typename WT> struct Layout {
     nchunks = (kpad + kc - 1) / kc;
     w_bytes = (size_t)U * ws * sizeof(WT);
     state_bytes = (size_t)2 * B * U * sizeof(float);
-    stage_bytes = (size_t)rows * RS_BYTES;
+    stage_bytes = (size_t)rows * rs;
   }
   __host__ __device__ size_t smem(int stages) const {
     return w_bytes + stages * stage_bytes + state_bytes;
@@ -113,15 +124,15 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* p) {
+__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+               : "r"(addr));
 }
-__device__ __forceinline__ void ldmatrix_x2(unsigned r[2], const void* p) {
+__device__ __forceinline__ void ldmatrix_x2(unsigned r[2], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
+               : "r"(addr));
 }
 __device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], const unsigned b[2]) {
   asm volatile(
@@ -141,7 +152,8 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
                 unsigned int* barrier, int T, int D, int B, int H, unsigned int suffix_mask,
                 int stages) {
   constexpr bool kTensorCores = std::is_same<WT, __nv_bfloat16>::value;
-  constexpr int SEG = ROW_BYTES / 16;            // 16-byte copies per stage row
+  constexpr int SEG = Layout<WT>::row_bytes / 16;   // 16-byte copies per stage row
+  constexpr int RS = Layout<WT>::rs;
   constexpr int EPS = 16 / (int)sizeof(WT);      // elements per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout<WT> L(B, H);
@@ -163,12 +175,9 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
     const int j = j0 + jl;
     Ws[idx] = (j < H && k < G) ? wd[(size_t)j * G + k] : from_f<WT>(0.f);
   }
-  // the stages' pad rows (past B) stay zero; cp.async writes only rows < B
-  for (int idx = tid; idx < stages * (L.rows - B) * RS_BYTES / 4; idx += NT) {
-    const int per = (L.rows - B) * RS_BYTES / 4;
-    const int s = idx / per, w = idx - s * per;
-    reinterpret_cast<unsigned*>(ring + s * L.stage_bytes + (size_t)B * RS_BYTES)[w] = 0u;
-  }
+  // A stage's rows past B (up to the m-tile edge) are never written by a
+  // copy: a product row depends on its own dgate row alone, and those rows'
+  // products are dropped.
   for (int idx = tid; idx < B * U; idx += NT) {
     const int b = idx / U, j = j0 + idx % U;
     const size_t o = ((size_t)d * B + b) * H + j;
@@ -179,7 +188,13 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
   const bool suffix = (suffix_mask >> d) & 1u;
   const unsigned int nblocks = gridDim.x;
   const int a_r = tid / U, a_jl = tid % U, a_j = j0 + a_jl;   // phase A: (row, unit)
-  const int warp = tid >> 5, lane = tid & 31;                  // phase B, bf16
+  // phase B, bf16: warp w takes the k-steps kq = w % 4, kq + 4, ... of every
+  // chunk and the m-tiles of parity w / 4; the lane's ldmatrix row addresses
+  // in W and in a stage
+  const int warp = tid >> 5, lane = tid & 31;
+  const int kq = warp & 3, mpar = warp >> 2;
+  const unsigned w_addr = smem_u32(Ws) + ((lane & 7) * L.ws + ((lane >> 3) & 1) * 8) * 2;
+  const unsigned a_off = (mpar * 16 + (lane & 15)) * RS + (lane >> 4) * 16;
   const int f_rg = tid / U, f_jl = tid % U;                    // phase B, f32
 
   for (int t = T - 1; t >= 0; --t) {
@@ -220,14 +235,15 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
     const WT* drow = dxw + ((size_t)t * D + d) * B * G;
     auto issue = [&](int c) {
       unsigned char* st = ring + (c % stages) * L.stage_bytes;
+      const int col0 = c * L.kc;
       for (int idx = tid; idx < B * SEG; idx += NT) {
         const int r = idx / SEG, s = idx % SEG;
-        const int col = c * L.kc + s * EPS;
+        const int col = col0 + s * EPS;
         const bool valid = col < G;
-        cp_async16(st + r * RS_BYTES + s * 16, valid ? drow + (size_t)r * G + col : drow, valid);
+        cp_async16(st + r * RS + s * 16, valid ? drow + (size_t)r * G + col : drow, valid);
       }
     };
-    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};   // bf16: (m-tile, frag)
+    float acc[MAX_ROWS / 32][4] = {};                                 // bf16: (m-tile, frag)
     float facc[MAX_ROWS / (NT / U)] = {};                             // f32: one per row
 
     for (int c = 0; c < stages - 1; ++c) {
@@ -243,16 +259,16 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
       const int k0 = c * L.kc;
       const int kn = min(L.kc, L.kpad - k0);
       if constexpr (kTensorCores) {
-        for (int ks = 0; ks < kn; ks += 16) {
+        for (int ks = kq * 16; ks < kn; ks += 64) {
           unsigned bf[2];
-          ldmatrix_x2(bf, Ws + (lane & 7) * L.ws + k0 + ks + ((lane >> 3) & 1) * 8);
+          ldmatrix_x2(bf, w_addr + (k0 + ks) * 2);
+          const unsigned a_addr = smem_u32(st) + a_off + ks * 2;
 #pragma unroll
-          for (int m = 0; m < 2; ++m) {
-            const int m0 = (warp + 8 * m) * 16;
-            if (m0 >= L.rows) break;
+          for (int i = 0; i < MAX_ROWS / 32; ++i) {
+            if ((mpar + 2 * i) * 16 >= L.rows) break;
             unsigned af[4];
-            ldmatrix_x4(af, st + (m0 + (lane & 15)) * RS_BYTES + (ks + (lane >> 4) * 8) * 2);
-            mma_bf16(acc[m], af, bf);
+            ldmatrix_x4(af, a_addr + i * 32 * RS);
+            mma_bf16(acc[i], af, bf);
           }
         }
       } else {
@@ -263,7 +279,7 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
           for (int i = 0; i < MAX_ROWS / (NT / U); ++i) {
             const int r = f_rg + i * (NT / U);
             if (r >= B) break;
-            const float4 v = *reinterpret_cast<const float4*>(st + r * RS_BYTES + k * 4);
+            const float4 v = *reinterpret_cast<const float4*>(st + r * RS + k * 4);
             float a = facc[i];
             a = fmaf(w.x, v.x, a);
             a = fmaf(w.y, v.y, a);
@@ -276,21 +292,27 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
     }
     cp_async_wait(0);
 
-    // each dh entry has one owner: add its product
+    // add the product to dh
     if constexpr (kTensorCores) {
+      // the four k-step classes' partial sums, through the free ring, summed
+      // in a fixed order: no atomics
+      __syncthreads();
+      float* part = reinterpret_cast<float*>(ring);             // (4, rows, U)
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const int r0 = (warp + 8 * m) * 16 + (lane >> 2);
-        const int col = 2 * (lane & 3);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = r0 + 8 * h;
-          if (r < B) {
-            dhs[r * U + col] += acc[m][2 * h];
-            dhs[r * U + col + 1] += acc[m][2 * h + 1];
-          }
-        }
+      for (int i = 0; i < MAX_ROWS / 32; ++i) {
+        const int m0 = (mpar + 2 * i) * 16;
+        if (m0 >= L.rows) break;
+        const int r = m0 + (lane >> 2), col = 2 * (lane & 3);
+        float* p = part + ((size_t)kq * L.rows + r) * U + col;
+        p[0] = acc[i][0];
+        p[1] = acc[i][1];
+        p[8 * U] = acc[i][2];
+        p[8 * U + 1] = acc[i][3];
       }
+      __syncthreads();
+      const size_t cls = (size_t)L.rows * U;
+      for (int idx = tid; idx < B * U; idx += NT)
+        dhs[idx] += ((part[idx] + part[cls + idx]) + part[2 * cls + idx]) + part[3 * cls + idx];
     } else {
 #pragma unroll
       for (int i = 0; i < MAX_ROWS / (NT / U); ++i) {

@@ -9,7 +9,8 @@ Tolerances: f32 atol 1e-5 (same math, other summation order); bf16 atol
 2e-2 (one bf16 step of a rounded h_{t-1}); STFT atol 5e-5 of the largest
 |X| (an f32 sum of n_fft products). Gradients are compared divided by
 max(1, max |reference|): against the plain backward on the same saves at
-the forward's tolerances; against autograd through the plain forward at
+the forward's tolerances (K4 alone at chip_smoke.py's: f32 1.5e-5, bf16
+2e-2); against autograd through the plain forward at
 1e-4 in f32 (sums over T steps in another order) and 2e-2 in bf16 (the
 backward reads bf16-rounded saves, as the TPU kernel does). The attention
 kernel (K5) against its plain versions: f32 1e-5, bf16 2e-2 of
@@ -140,8 +141,8 @@ def _bwd_args(cuda, dtype, T, B, H, seed):
 
 # chip_smoke.py's TRAIN_TOL for K4: bwd_f32 1.5e-5, bwd_bf16 2e-2
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1.5e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("T,B,H", [(1, 17, 24), (7, 1, 40), (5, 100, 24), (4, 17, 600),
-                                   (9, 100, 600)])
+@pytest.mark.parametrize("T,B,H", [(1, 17, 24), (7, 1, 40), (5, 100, 20), (3, 17, 36),
+                                   (4, 17, 600), (9, 100, 598)])
 def test_lstm_bwd_kernel_tiling_edges(cuda, dtype, tol, T, B, H):
     """K4 against its plain version where the tiling has edges: B not a
     multiple of 16 (a partial m-tile), H not a multiple of the 8 units per

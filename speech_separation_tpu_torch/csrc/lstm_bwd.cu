@@ -60,9 +60,11 @@
 // What bounds it (bf16, H100): per step the stream of dxw[t] through the
 // ring, every CTA reading its direction's whole dxw[t] from L2 (480 KB at
 // B=100, H=600; 72 MB per step over the grid) with one __syncthreads per
-// chunk, then phase A and the grid barrier. Each chunk costs a sync, so
-// bf16 takes 128-column chunks (19 per step at H=600) over a deeper ring of
-// narrower ones. The products are off the critical path.
+// chunk, then phase A and the grid barrier. On the card, 2 stages of
+// 128-column bf16 chunks (19 per step at H=600; 256 contiguous bytes per row)
+// ran faster than deeper rings of narrower chunks, and faster than each warp
+// staging only its own k-steps without the CTA-wide sync. The products are
+// off the critical path.
 
 #include <algorithm>
 #include <type_traits>
@@ -187,7 +189,8 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
 
   const bool suffix = (suffix_mask >> d) & 1u;
   const unsigned int nblocks = gridDim.x;
-  const int a_r = tid / U, a_jl = tid % U, a_j = j0 + a_jl;   // phase A: (row, unit)
+  // phase A and the f32 product: thread -> rows r0, r0 + 32, ... of unit jl
+  const int r0 = tid / U, jl = tid % U, a_j = j0 + jl;
   // phase B, bf16: warp w takes the k-steps kq = w % 4, kq + 4, ... of every
   // chunk and the m-tiles of parity w / 4; the lane's ldmatrix row addresses
   // in W and in a stage
@@ -195,15 +198,14 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
   const int kq = warp & 3, mpar = warp >> 2;
   const unsigned w_addr = smem_u32(Ws) + ((lane & 7) * L.ws + ((lane >> 3) & 1) * 8) * 2;
   const unsigned a_off = (mpar * 16 + (lane & 15)) * RS + (lane >> 4) * 16;
-  const int f_rg = tid / U, f_jl = tid % U;                    // phase B, f32
 
   for (int t = T - 1; t >= 0; --t) {
     // ---- A: this CTA's dgate columns at step t
-    for (int b = a_r; b < B && a_j < H; b += NT / U) {
+    for (int b = r0; b < B && a_j < H; b += NT / U) {
       const size_t o = ((size_t)d * B + b) * H + a_j;
       const size_t so = ((size_t)t * D + d) * B + b;
-      const float dh = dhs[b * U + a_jl];
-      const float dc = dcs[b * U + a_jl];
+      const float dh = dhs[b * U + jl];
+      const float dc = dcs[b * U + jl];
       WT* dp = dxw + so * G + a_j;
       if (step_valid(suffix, lengths[b], t, T)) {
         const WT* gp = gates + so * G + a_j;
@@ -221,8 +223,8 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
         dp[(size_t)H] = from_f<WT>(dc_new * c_prev * fa * (1.f - fa));
         dp[2 * (size_t)H] = from_f<WT>(dc_new * ia * (1.f - ga * ga));
         dp[3 * (size_t)H] = from_f<WT>(dh_new * tanh_c * oa * (1.f - oa));
-        dcs[b * U + a_jl] = dc_new * fa;
-        dhs[b * U + a_jl] = 0.f;   // phase B adds the product
+        dcs[b * U + jl] = dc_new * fa;
+        dhs[b * U + jl] = 0.f;   // phase B adds the product
       } else {
         const WT z = from_f<WT>(0.f);
         dp[0] = z; dp[(size_t)H] = z; dp[2 * (size_t)H] = z; dp[3 * (size_t)H] = z;
@@ -272,12 +274,12 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
           }
         }
       } else {
-        const float* wrow = Ws + f_jl * L.ws + k0;
+        const float* wrow = Ws + jl * L.ws + k0;
         for (int k = 0; k < kn; k += 4) {
           const float4 w = *reinterpret_cast<const float4*>(wrow + k);
 #pragma unroll
           for (int i = 0; i < MAX_ROWS / (NT / U); ++i) {
-            const int r = f_rg + i * (NT / U);
+            const int r = r0 + i * (NT / U);
             if (r >= B) break;
             const float4 v = *reinterpret_cast<const float4*>(st + r * RS + k * 4);
             float a = facc[i];
@@ -316,8 +318,8 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
     } else {
 #pragma unroll
       for (int i = 0; i < MAX_ROWS / (NT / U); ++i) {
-        const int r = f_rg + i * (NT / U);
-        if (r < B) dhs[r * U + f_jl] += facc[i];
+        const int r = r0 + i * (NT / U);
+        if (r < B) dhs[r * U + jl] += facc[i];
       }
     }
     __syncthreads();  // dh of this CTA's units is complete for step t-1's phase A

@@ -235,7 +235,7 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
 
     // ---- B: dh of this CTA's units += dxw[t] @ W_hh[j0:j0+8]^T
     const WT* drow = dxw + ((size_t)t * D + d) * B * G;
-    auto issue = [&](int c) {
+    auto stage_chunk = [&](int c) {
       unsigned char* st = ring + (c % stages) * L.stage_bytes;
       const int col0 = c * L.kc;
       for (int idx = tid; idx < B * SEG; idx += NT) {
@@ -249,13 +249,13 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
     float facc[MAX_ROWS / (NT / U)] = {};                             // f32: one per row
 
     for (int c = 0; c < stages - 1; ++c) {
-      if (c < L.nchunks) issue(c);
+      if (c < L.nchunks) stage_chunk(c);
       cp_async_commit();
     }
     for (int c = 0; c < L.nchunks; ++c) {
       cp_async_wait(stages - 2);
       __syncthreads();   // chunk c landed for every thread; chunk c-1's stage is free
-      if (c + stages - 1 < L.nchunks) issue(c + stages - 1);
+      if (c + stages - 1 < L.nchunks) stage_chunk(c + stages - 1);
       cp_async_commit();
       const unsigned char* st = ring + (c % stages) * L.stage_bytes;
       const int k0 = c * L.kc;

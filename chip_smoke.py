@@ -17,7 +17,7 @@ Phases, in order; any failure exits non-zero without the final line:
    training shape (T=384, B=100, H=600), all also at a small ragged shape;
    the backward also launched twice on the same inputs (bit-identical
    outputs), with its time per step beside cuDNN's and its launch plan
-   (CTAs, CTAs resident per SM, shared memory, ring stages);
+   (CTAs, CTAs resident per SM, shared memory, rows of a ring group);
    the differentiable recurrence's gradients against autograd through the
    plain forward; and the attention kernel (forward and backward) at a small
    ragged shape, at SepFormer's training intra- and inter-chunk shapes
@@ -346,14 +346,14 @@ def check_lstm_train(fails: Failures) -> dict:
                              "us_per_step": 1e3 * ms_b / T,
                              "library_us_per_step": 1e3 * lib_b / T,
                              "ctas": plan["ctas"], "ctas_per_sm": plan["per_sm"],
-                             "smem": plan["smem"], "stages": plan["stages"]}
+                             "smem": plan["smem"], "group_rows": plan["rows"]}
         print(f"  lstm_fwd {dtype}: {ms_f:.3f} ms (plain {plain_f:.1f}, cuDNN fwd "
               f"{lib_f:.3f}, bound {b_f[0]:.4f} by {b_f[1]})", flush=True)
         print(f"  lstm_bwd {dtype}: {ms_b:.3f} ms (plain {plain_b:.1f}, cuDNN bwd "
               f"{lib_b:.3f}, bound {b_b[0]:.4f} by {b_b[1]}); per step "
               f"{1e3 * ms_b / T:.2f} us (cuDNN {1e3 * lib_b / T:.2f} us); {plan['ctas']} "
               f"CTAs, {plan['per_sm']} per SM resident ({plan['cap']} on "
-              f"{plan['sms']} SMs), {plan['smem']} B shared, {plan['stages']}-stage ring",
+              f"{plan['sms']} SMs), {plan['smem']} B shared, {plan['rows']}-row groups",
               flush=True)
         del got, bargs, got_b
 

@@ -303,7 +303,6 @@ def lstm_seq_bwd_plain(w_hh, c0, lengths, cs, gates, dys, dh_last, dc_last,
     return torch.stack(dxw), dh, dc
 
 
-BWD_MAX_ROWS = 256      # csrc/lstm_bwd.cu: two 16-row m-tiles per warp
 _bwd_plans: dict = {}
 
 
@@ -311,15 +310,11 @@ def lstm_bwd_plan(D, B, H, dtype=torch.bfloat16):
     """The launch csrc/lstm_bwd.cu makes for a shape on the current card:
     a dict of ``ctas`` (D * ceil(H/8)), ``per_sm`` (CTAs that can be
     resident on one SM at its shared memory), ``sms``, ``cap`` (per_sm *
-    sms), ``smem`` (bytes per CTA) and ``stages`` (the depth of its dxw
-    ring). Raises ValueError, naming the cap, for a shape the kernel does
-    not take: B above 256 rows, an odd H in bf16 (dxw rows move in 16-byte
-    copies), or a grid that cannot be co-resident (the cooperative launch
-    and the per-step grid barrier need every CTA resident at once)."""
-    if B > BWD_MAX_ROWS:
-        raise ValueError(f"lstm_seq_bwd takes at most {BWD_MAX_ROWS} batch rows, got {B}")
-    if dtype == torch.bfloat16 and H % 2:
-        raise ValueError(f"lstm_seq_bwd takes an even H in bfloat16, got {H}")
+    sms), ``smem`` (bytes per CTA, whatever B) and ``rows`` (the batch rows
+    of one group of its dxw ring). Raises ValueError, naming the cap, for a
+    grid that cannot be co-resident (the cooperative launch and the
+    per-step grid barrier need every CTA resident at once): on an H100, H
+    above 1056, or above 864 in float32."""
     key = (torch.cuda.current_device(), D, B, H, dtype)
     if key in _bwd_plans:
         return _bwd_plans[key]
@@ -327,9 +322,9 @@ def lstm_bwd_plan(D, B, H, dtype=torch.bfloat16):
     err = _lib("lstm_bwd").sep_lstm_bwd_plan(int(dtype == torch.bfloat16), D, B, H,
                                              *(ctypes.byref(v) for v in vals))
     _raise_on(err, _lib("lstm_bwd").sep_lstm_bwd_error_string, "lstm_bwd plan")
-    ctas, per_sm, sms, smem, stages = (v.value for v in vals)
+    ctas, per_sm, sms, smem, rows = (v.value for v in vals)
     plan = {"ctas": ctas, "per_sm": per_sm, "sms": sms, "cap": per_sm * sms,
-            "smem": smem, "stages": stages}
+            "smem": smem, "rows": rows}
     if ctas > plan["cap"]:
         raise ValueError(
             f"lstm_seq_bwd at D={D}, B={B}, H={H} {dtype} needs {ctas} co-resident "

@@ -140,15 +140,10 @@ def _bwd_args(cuda, dtype, T, B, H, seed):
 
 
 # chip_smoke.py's TRAIN_TOL for K4: bwd_f32 1.5e-5, bwd_bf16 2e-2
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1.5e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("T,B,H", [(1, 17, 24), (7, 1, 40), (5, 100, 20), (3, 17, 36),
-                                   (4, 17, 600), (9, 100, 598)])
-def test_lstm_bwd_kernel_tiling_edges(cuda, dtype, tol, T, B, H):
-    """K4 against its plain version where the tiling has edges: B not a
-    multiple of 16 (a partial m-tile), H not a multiple of the 8 units per
-    CTA (a partial last CTA), 4H not a multiple of the 64-column chunk (a
-    partial last chunk), T=1; lengths 1 and T, a prefix and a suffix
-    direction."""
+BWD_TOL = [(torch.float32, 1.5e-5), (torch.bfloat16, 2e-2)]
+
+
+def _check_bwd(cuda, dtype, tol, T, B, H):
     bargs = _bwd_args(cuda, dtype, T, B, H, T * 1000 + B + H)
     before = lstm_seq_bwd.launches
     got = lstm_seq_bwd(*bargs, save_dtype=dtype, suffix_dirs=SFX)
@@ -160,11 +155,40 @@ def test_lstm_bwd_kernel_tiling_edges(cuda, dtype, tol, T, B, H):
         _scaled_close(a, b, tol, name)
 
 
+@pytest.mark.parametrize("dtype,tol", BWD_TOL)
+@pytest.mark.parametrize("T,B,H", [(1, 17, 24), (7, 1, 40), (5, 100, 20), (3, 17, 36),
+                                   (4, 17, 600), (9, 100, 598), (3, 128, 600),
+                                   (2, 200, 600), (2, 300, 40), (2, 1000, 24),
+                                   (4, 9, 25), (3, 33, 601)])
+def test_lstm_bwd_kernel_tiling_edges(cuda, dtype, tol, T, B, H):
+    """K4 against its plain version where the tiling has edges: B not a
+    multiple of 16 (a partial m-tile), B above one group of the ring's rows
+    (at most 128 rows a group: 2, 3 and 8 groups here), H not a multiple of
+    the 8 units per CTA (a partial last CTA), 4H not a multiple of the
+    chunk (128 columns in bf16, 32 in f32: a partial last chunk), an odd H
+    (dxw rows copied 8 bytes at a time in bf16), T=1; lengths 1 and T, a
+    prefix and a suffix direction."""
+    _check_bwd(cuda, dtype, tol, T, B, H)
+
+
+@pytest.mark.parametrize("dtype,tol,H", [(torch.float32, 1.5e-5, 864),
+                                         (torch.bfloat16, 2e-2, 1056)])
+def test_lstm_bwd_kernel_at_the_widest_h(cuda, dtype, tol, H):
+    """The widest H whose grid an H100 holds: 2 * 132 CTAs of 8 units in
+    bf16; in f32, W_hh's rows at H=864 leave room beside them for a ring of
+    one 16-row m-tile only."""
+    from speech_separation_tpu_torch.ops.lstm_kernel import lstm_bwd_plan
+    plan = lstm_bwd_plan(2, 100, H, dtype)
+    assert plan["per_sm"] == 2, plan
+    _check_bwd(cuda, dtype, tol, 2, 100, H)
+
+
+@pytest.mark.parametrize("B", [100, 200])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_lstm_bwd_kernel_is_deterministic(cuda, dtype):
+def test_lstm_bwd_kernel_is_deterministic(cuda, dtype, B):
     """Two launches on the same inputs give bit-identical dxw, dh0 and dc0:
     each dh entry has one owner and a fixed order of its sum."""
-    bargs = _bwd_args(cuda, dtype, 12, 100, 600, 5)
+    bargs = _bwd_args(cuda, dtype, 12, B, 600, 5)
     first = lstm_seq_bwd(*bargs, save_dtype=dtype, suffix_dirs=SFX)
     second = lstm_seq_bwd(*bargs, save_dtype=dtype, suffix_dirs=SFX)
     torch.cuda.synchronize()
@@ -173,20 +197,23 @@ def test_lstm_bwd_kernel_is_deterministic(cuda, dtype):
 
 
 def test_lstm_bwd_refuses_a_grid_that_cannot_be_resident(cuda):
-    """At H=1200 the backward needs 2 * 150 CTAs; two fit on an SM, so an
-    H100's 132 SMs hold 264: the wrapper raises, naming the cap, and
-    launches nothing."""
+    """At H=600 the backward's 150 CTAs sit two to an SM whatever B. At
+    H=1200 it needs 2 * 150 CTAs; two still fit on an SM, so an H100's 132
+    SMs hold 264, and the wrapper raises, naming that cap, and launches
+    nothing. In f32 at H=1056, W_hh's rows leave no room for a second CTA
+    on an SM, so the cap is one CTA per SM."""
     from speech_separation_tpu_torch.ops.lstm_kernel import lstm_bwd_plan
-    plan = lstm_bwd_plan(2, 100, 600)
-    assert plan["ctas"] == 150 and plan["ctas"] <= plan["cap"] == plan["per_sm"] * plan["sms"]
-    bargs = _bwd_args(cuda, torch.bfloat16, 1, 100, 1200, 3)
+    for dtype in (torch.bfloat16, torch.float32):
+        for B in (1, 100, 128, 200, 1000):
+            plan = lstm_bwd_plan(2, B, 600, dtype)
+            sms = plan["sms"]
+            assert (plan["ctas"], plan["per_sm"], plan["cap"]) == (150, 2, 2 * sms), plan
     before = lstm_seq_bwd.launches
-    with pytest.raises(ValueError, match=r"cap of \d+"):
+    bargs = _bwd_args(cuda, torch.bfloat16, 1, 100, 1200, 3)
+    with pytest.raises(ValueError, match=rf"cap of {2 * sms} \(2 per SM"):
         lstm_seq_bwd(*bargs, save_dtype=torch.bfloat16, suffix_dirs=SFX)
-    with pytest.raises(ValueError, match="256"):
-        lstm_bwd_plan(2, 257, 64)
-    with pytest.raises(ValueError, match="even H"):
-        lstm_bwd_plan(2, 4, 25)
+    with pytest.raises(ValueError, match=rf"cap of {sms} \(1 per SM"):
+        lstm_bwd_plan(2, 100, 1056, torch.float32)
     assert lstm_seq_bwd.launches == before
 
 

@@ -32,8 +32,9 @@
 // 113 KB of shared memory whatever B), so all 132 SMs work. The launch stays
 // cooperative with one grid barrier per step; the wrapper checks co-residency
 // (sep_lstm_bwd_plan) and raises, naming the cap, for a grid that cannot be
-// resident: on an H100, H above 1056, or above 864 in f32, where W no longer
-// fits beside the smallest ring. A CTA keeps in shared memory
+// resident: on an H100, H above 1056 (more than 264 CTAs), or in f32 above
+// 864 (W no longer fits beside the smallest ring at two CTAs per SM). A CTA
+// keeps in shared memory
 //   - rows j0..j0+7 of W_hh (all 4H columns, k contiguous; a row is an odd
 //     number of 16-byte units, so ldmatrix and float4 reads of 8 rows hit
 //     distinct banks): 38.5 KB in bf16, 76.9 KB in f32 at H=600;
@@ -43,8 +44,7 @@
 //     most 128) whose ring fits beside W: at B=100, H=600 the whole batch,
 //     so each step streams 19 chunks (bf16) or 75 (f32).
 // dh and dc of its units (f32) live in dh0 and dc0, each entry read and
-// written by this CTA alone, so they stay in its L1 and L2 and the shared
-// memory does not grow with B.
+// written by this CTA alone, so the shared memory does not grow with B.
 // Per step a CTA
 //   A. computes the 32 dgate columns of its units (arithmetic as _bwd_kernel)
 //      and writes them to dxw[t];

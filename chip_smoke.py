@@ -15,9 +15,11 @@ Phases, in order; any failure exits non-zero without the final line:
    serving shapes (an 8 s bucket of 16 rows: T=513 frames, 2x600 BLSTM),
    the training kernels (LSTM training forward and backward) at the
    training shape (T=384, B=100, H=600), all also at a small ragged shape;
-   the backward also launched twice on the same inputs (bit-identical
-   outputs), with its time per step beside cuDNN's and its launch plan
-   (CTAs, CTAs resident per SM, shared memory, rows of a ring group);
+   the training forward and the backward each also launched twice on the
+   same inputs (bit-identical outputs), each with its time per step beside
+   cuDNN's (the forward's cuDNN time the median of seven repeats, with its
+   range) and its launch plan (CTAs, CTAs resident per SM, shared memory,
+   rows of a ring group);
    the differentiable recurrence's gradients against autograd through the
    plain forward; and the attention kernel (forward and backward) at a small
    ragged shape, at SepFormer's training intra- and inter-chunk shapes
@@ -150,7 +152,7 @@ def lstm_inputs(T, B, H, dtype, lengths, gen):
 
 
 def check_lstm(fails: Failures) -> dict:
-    from speech_separation_tpu_torch.ops.lstm_kernel import (lstm_seq_infer,
+    from speech_separation_tpu_torch.ops.lstm_kernel import (lstm_fwd_plan, lstm_seq_infer,
                                                              lstm_seq_infer_plain)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sfx = (False, True)
@@ -189,11 +191,29 @@ def check_lstm(fails: Failures) -> dict:
         flops = valid_steps * 2 * H * 4 * H
         io = nbytes(xw, w, h0, c0, lens, *got)
         b_ms, b_by = bound_ms(io, flops, dtype)
+        plan = lstm_fwd_plan(2, B, H, dtype)
         out[dtype] = {"max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+                      "us_per_step": 1e3 * ms / T, **plan_keys(plan)}
         print(f"  lstm_infer {dtype}: {ms:.3f} ms (plain {plain_ms:.1f}, cuDNN "
-              f"{library_ms:.3f}, bound {b_ms:.4f} by {b_by})", flush=True)
+              f"{library_ms:.3f}, bound {b_ms:.4f} by {b_by}); per step "
+              f"{1e3 * ms / T:.2f} us; {plan_text(plan)}", flush=True)
     return out
+
+
+def plan_keys(plan: dict) -> dict:
+    return {"ctas": plan["ctas"], "ctas_per_sm": plan["per_sm"], "smem": plan["smem"],
+            "group_rows": plan["rows"]}
+
+
+def plan_text(plan: dict) -> str:
+    return (f"{plan['ctas']} CTAs, {plan['per_sm']} per SM resident ({plan['cap']} on "
+            f"{plan['sms']} SMs), {plan['smem']} B shared, {plan['rows']}-row groups")
+
+
+def median_range(xs) -> dict:
+    return {"median": float(np.median(xs)), "min": float(min(xs)), "max": float(max(xs)),
+            "n": len(xs)}
 
 
 def check_stft(fails: Failures) -> dict:
@@ -259,8 +279,8 @@ def check_lstm_train(fails: Failures) -> dict:
     training shape; lstm_seq's gradients against autograd through the
     plain forward at the training shape."""
     from speech_separation_tpu_torch.ops.lstm_kernel import (
-        lstm_bwd_plan, lstm_seq, lstm_seq_bwd, lstm_seq_bwd_plain, lstm_seq_fwd,
-        lstm_seq_fwd_plain)
+        lstm_bwd_plan, lstm_fwd_plan, lstm_seq, lstm_seq_bwd, lstm_seq_bwd_plain,
+        lstm_seq_fwd, lstm_seq_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     sfx = (False, True)
     names_f = ("ys", "cs", "gates", "h_last", "c_last")
@@ -303,11 +323,16 @@ def check_lstm_train(fails: Failures) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         args = lstm_inputs(T, B, H, dtype, lengths, gen)
         err_f, err_b, got, bargs, got_b = compare(args, dtype, f"T={T} B={B} H={H}")
+        again = lstm_seq_fwd(*args, save_dtype=dtype, suffix_dirs=sfx)
+        fails.check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"lstm_fwd T={T} B={B} H={H} {dtype}: a second launch gives "
+                    f"bit-identical {', '.join(names_f)}")
         again = lstm_seq_bwd(*bargs, save_dtype=dtype, suffix_dirs=sfx)
         fails.check(all(torch.equal(a, b) for a, b in zip(got_b, again)),
                     f"lstm_bwd T={T} B={B} H={H} {dtype}: a second launch gives "
                     f"bit-identical {', '.join(names_b)}")
         del again
+        plan_f = lstm_fwd_plan(2, B, H, dtype)
         plan = lstm_bwd_plan(2, B, H, dtype)
         ms_f = cuda_ms(lambda: lstm_seq_fwd(*args, save_dtype=dtype, suffix_dirs=sfx), 5)
         plain_f = cuda_ms(lambda: lstm_seq_fwd_plain(*args, save_dtype=dtype,
@@ -323,10 +348,13 @@ def check_lstm_train(fails: Failures) -> dict:
         lstm.flatten_parameters()
         x = torch.randn((T, B, 2 * H), generator=gen, device="cuda").to(dtype)
         x.requires_grad_(True)
-        lib_f = cuda_ms(lambda: lstm(x), 5)
+        # the forward's yardstick: the median (and range) of seven repeats of
+        # a 5-call mean, as cuDNN's time varies from run to run
+        lib_fs = [cuda_ms(lambda: lstm(x), 5) for _ in range(7)]
+        lib_f = float(np.median(lib_fs))
         y, _ = lstm(x)
         gy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
-        lib_b = 0.0
+        lib_bs = []
         for i in range(6):
             y, _ = lstm(x)
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -334,27 +362,32 @@ def check_lstm_train(fails: Failures) -> dict:
             y.backward(gy)
             e1.record()
             e1.synchronize()
-            lib_b += e0.elapsed_time(e1) if i else 0.0   # the first is a warm-up
-        lib_b /= 5
+            if i:                                        # the first is a warm-up
+                lib_bs.append(e0.elapsed_time(e1))
+        lib_b = float(np.mean(lib_bs))
         del lstm, x, y, gy
         b_f = bound_ms(nbytes(*args, *got), flops, dtype)
         b_b = bound_ms(nbytes(*bargs, *got_b), flops, dtype)
         out["fwd"][dtype] = {"max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f,
-                             "bound_ms": b_f[0], "bound_by": b_f[1], "library_ms": lib_f}
+                             "bound_ms": b_f[0], "bound_by": b_f[1], "library_ms": lib_f,
+                             "library_repeats": median_range(lib_fs),
+                             "us_per_step": 1e3 * ms_f / T,
+                             "library_us_per_step": 1e3 * lib_f / T, **plan_keys(plan_f)}
         out["bwd"][dtype] = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
                              "bound_ms": b_b[0], "bound_by": b_b[1], "library_ms": lib_b,
                              "us_per_step": 1e3 * ms_b / T,
                              "library_us_per_step": 1e3 * lib_b / T,
-                             "ctas": plan["ctas"], "ctas_per_sm": plan["per_sm"],
-                             "smem": plan["smem"], "group_rows": plan["rows"]}
-        print(f"  lstm_fwd {dtype}: {ms_f:.3f} ms (plain {plain_f:.1f}, cuDNN fwd "
-              f"{lib_f:.3f}, bound {b_f[0]:.4f} by {b_f[1]})", flush=True)
+                             "library_repeats": median_range(lib_bs), **plan_keys(plan)}
+        lr = out["fwd"][dtype]["library_repeats"]
+        print(f"  lstm_fwd {dtype}: {ms_f:.3f} ms (plain {plain_f:.1f}, cuDNN fwd median "
+              f"{lib_f:.3f} of {lr['n']}, range {lr['min']:.3f}-{lr['max']:.3f}, bound "
+              f"{b_f[0]:.4f} by {b_f[1]}); per step {1e3 * ms_f / T:.2f} us (cuDNN "
+              f"{1e3 * lib_f / T:.2f} us); {plan_text(plan_f)}", flush=True)
         print(f"  lstm_bwd {dtype}: {ms_b:.3f} ms (plain {plain_b:.1f}, cuDNN bwd "
-              f"{lib_b:.3f}, bound {b_b[0]:.4f} by {b_b[1]}); per step "
-              f"{1e3 * ms_b / T:.2f} us (cuDNN {1e3 * lib_b / T:.2f} us); {plan['ctas']} "
-              f"CTAs, {plan['per_sm']} per SM resident ({plan['cap']} on "
-              f"{plan['sms']} SMs), {plan['smem']} B shared, {plan['rows']}-row groups",
-              flush=True)
+              f"{lib_b:.3f}, median {float(np.median(lib_bs)):.3f}, range "
+              f"{min(lib_bs):.3f}-{max(lib_bs):.3f}, bound {b_b[0]:.4f} by {b_b[1]}); per "
+              f"step {1e3 * ms_b / T:.2f} us (cuDNN {1e3 * lib_b / T:.2f} us); "
+              f"{plan_text(plan)}", flush=True)
         del got, bargs, got_b
 
         # the differentiable recurrence: K3 forward, K4 backward and dW_hh

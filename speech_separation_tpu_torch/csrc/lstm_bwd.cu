@@ -84,16 +84,12 @@ constexpr int U = 8;                 // hidden units per CTA
 constexpr int NT = 256;              // threads per CTA (8 warps)
 constexpr int RPT = NT / U;          // rows apart of one thread's (row, unit) entries
 constexpr int MAX_GROUP = 128;       // rows per group: 4 m-tiles per warp (bf16), 4 rows per thread (f32)
-constexpr int SMEM_PER_CTA = 115712; // two CTAs per SM: (228 KB per SM) / 2 - 1 KB reserved
-constexpr int SMEM_MAX = 232448;     // 227 KB, the most one CTA may take
 
 template <typename WT> struct Layout {
   int G, kpad, ws, rows, nchunks;    // rows: batch rows of one group (one ring stage)
   size_t w_bytes, stage_bytes;
-  // one row of a ring stage: 128 bf16 or 32 f32 columns, padded by 16 bytes
-  static constexpr int row_bytes = std::is_same<WT, float>::value ? 128 : 256;
-  static constexpr int rs = row_bytes + 16;
-  static constexpr int kc = row_bytes / (int)sizeof(WT);   // columns per chunk
+  static constexpr int rs = Ring<WT>::rs;
+  static constexpr int kc = Ring<WT>::kc;
   __host__ __device__ Layout(int B, int H) {
     G = 4 * H;
     kpad = (G + 15) / 16 * 16;                 // k padded to whole mma k-steps
@@ -111,63 +107,6 @@ template <typename WT> struct Layout {
   }
   __host__ __device__ size_t smem() const { return w_bytes + 2 * stage_bytes; }
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// CB-byte copy, zero-filled when !valid
-template <int CB>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  if constexpr (CB == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-                 "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
-                 "l"(src), "r"(valid ? 8 : 0)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Rows 0..n-1 of one chunk (columns col0.. of rows of G columns at src) into
-// a ring stage, in CB-byte copies; columns past G are zero-filled.
-template <int CB, typename WT>
-__device__ __forceinline__ void stage_rows(unsigned char* st, const WT* src, int n, int G,
-                                           int col0) {
-  constexpr int SEG = Layout<WT>::row_bytes / CB;      // copies per stage row
-  constexpr int EPC = CB / (int)sizeof(WT);            // elements per copy
-  for (int idx = threadIdx.x; idx < n * SEG; idx += NT) {
-    const int r = idx / SEG, s = idx % SEG;
-    const int col = col0 + s * EPC;
-    const bool valid = col < G;
-    cp_async<CB>(st + r * Layout<WT>::rs + s * CB, valid ? src + (size_t)r * G + col : src,
-                 valid);
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x2(unsigned r[2], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], const unsigned b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 template <typename WT>
 __global__ void __launch_bounds__(NT, 2)
@@ -258,9 +197,9 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
       auto stage_chunk = [&](int c) {
         unsigned char* st = ring + (c & 1) * L.stage_bytes;
         if (narrow)
-          stage_rows<8>(st, drow, n, G, c * L.kc);
+          stage_rows<8, NT>(st, drow, n, G, c * L.kc);
         else
-          stage_rows<16>(st, drow, n, G, c * L.kc);
+          stage_rows<16, NT>(st, drow, n, G, c * L.kc);
         cp_async_commit();
       };
       // A stage's rows past n (up to the m-tile edge) are not copied: a
@@ -363,17 +302,7 @@ int plan(int D, int B, int H, int* ctas, int* per_sm, int* sms, int* smem, int* 
   *ctas = D * ((H + U - 1) / U);
   *smem = (int)L.smem();
   *rows = L.rows;
-  *per_sm = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess || L.smem() > SMEM_MAX) return (int)err;
-  auto kernel = lstm_bwd_kernel<WT>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, NT, L.smem());
-  return (int)err;
+  return occupancy(lstm_bwd_kernel<WT>, NT, L.smem(), per_sm, sms);
 }
 
 template <typename WT>

@@ -23,11 +23,11 @@ dW_hh = sum_t h_{t-1}^T dgates_t as one plain product outside the kernel.
 On the H100 each recurrence is a chain of T dependent small products per
 direction, and one direction's W_hh (2.88 MB in bf16 at H=600) is far larger
 than an SM's shared memory. The kernels split the hidden units over a
-cooperative grid (D * ceil(H/16) CTAs forward, D * ceil(H/8) backward, two
-per SM), each CTA keeping its slice of W_hh resident for the whole sequence
-and exchanging the step's state through L2 with a grid barrier per step; the
-CUDA sources have the design notes. ``lstm_bwd_plan`` gives the backward's
-launch for a shape and refuses one whose grid cannot be co-resident.
+cooperative grid (D * ceil(H/8) CTAs of 8 units, two per SM), each CTA
+keeping its slice of W_hh resident for the whole sequence and exchanging the
+step's state through L2 with a grid barrier per step; the CUDA sources have
+the design notes. ``lstm_fwd_plan`` and ``lstm_bwd_plan`` give the launch
+for a shape and refuse one whose grid cannot be co-resident.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain PyTorch version (``*_plain``, a Python loop over t) only for CPU
@@ -56,6 +56,8 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.sep_lstm_infer.restype = i
             lib.sep_lstm_fwd.argtypes = [p, p, i] + [p] * 10 + [i, i, i, i, u, p]
             lib.sep_lstm_fwd.restype = i
+            lib.sep_lstm_fwd_plan.argtypes = [i, i, i, i] + [ctypes.POINTER(i)] * 5
+            lib.sep_lstm_fwd_plan.restype = i
             lib.sep_lstm_error_string.argtypes = [i]
             lib.sep_lstm_error_string.restype = ctypes.c_char_p
         else:
@@ -169,6 +171,47 @@ def lstm_seq_infer_plain(xw, w_hh, h0, c0, lengths, suffix_dirs=None):
     return ys, h, c
 
 
+_plans: dict = {}
+
+
+def _plan(kernel, what, D, B, H, dtype):
+    """The launch plan of csrc/<kernel>.cu for a shape on the current card
+    (see lstm_fwd_plan), or ValueError naming the cap."""
+    key = (kernel, torch.cuda.current_device(), D, B, H, dtype)
+    if key in _plans:
+        return _plans[key]
+    lib = _lib(kernel)
+    vals = [ctypes.c_int(0) for _ in range(5)]
+    fn = lib.sep_lstm_fwd_plan if kernel == "lstm_fwd" else lib.sep_lstm_bwd_plan
+    err_string = (lib.sep_lstm_error_string if kernel == "lstm_fwd"
+                  else lib.sep_lstm_bwd_error_string)
+    err = fn(int(dtype == torch.bfloat16), D, B, H, *(ctypes.byref(v) for v in vals))
+    _raise_on(err, err_string, f"{kernel} plan")
+    ctas, per_sm, sms, smem, rows = (v.value for v in vals)
+    plan = {"ctas": ctas, "per_sm": per_sm, "sms": sms, "cap": per_sm * sms,
+            "smem": smem, "rows": rows}
+    if ctas > plan["cap"]:
+        raise ValueError(
+            f"{what} at D={D}, B={B}, H={H} {dtype} needs {ctas} co-resident "
+            f"CTAs, above the cap of {plan['cap']} ({per_sm} per SM x {sms} SMs at "
+            f"{smem} bytes of shared memory each)")
+    _plans[key] = plan
+    return plan
+
+
+def lstm_fwd_plan(D, B, H, dtype=torch.bfloat16):
+    """The launch csrc/lstm_fwd.cu makes for a shape on the current card (the
+    training and the inference instance alike): a dict of ``ctas`` (D *
+    ceil(H/8)), ``per_sm`` (CTAs that can be resident on one SM at its
+    shared memory, the fewer of the two instances'), ``sms``, ``cap``
+    (per_sm * sms), ``smem`` (bytes per CTA, whatever B) and ``rows`` (the
+    batch rows of one group of its h ring). Raises ValueError, naming the
+    cap, for a grid that cannot be co-resident (the cooperative launch and
+    the per-step grid barrier need every CTA resident at once): on an H100,
+    H above 1056, or above 864 in float32."""
+    return _plan("lstm_fwd", "lstm_seq_fwd / lstm_seq_infer", D, B, H, dtype)
+
+
 def _launch_fwd(xw, w_hh, h0, c0, lengths, suffix_dirs, save_dtype):
     """One launch of csrc/lstm_fwd.cu: the inference instance when
     save_dtype is None, else the training instance."""
@@ -177,12 +220,15 @@ def _launch_fwd(xw, w_hh, h0, c0, lengths, suffix_dirs, save_dtype):
                   *(() if save_dtype is None else (("save_dtype", save_dtype),)))
     dev = xw.device
     _on_device(dev, w_hh=w_hh, h0=h0, c0=c0, lengths=lengths)
+    with torch.cuda.device(dev):
+        lstm_fwd_plan(D, B, H, w_hh.dtype)
     xw, w_hh = xw.contiguous(), w_hh.contiguous()
     h0, c0 = h0.contiguous(), c0.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     h_last = torch.empty((D, B, H), dtype=torch.float32, device=dev)
     c_last = torch.empty_like(h_last)
-    hbuf = torch.empty((2, D, B, H), dtype=torch.float32, device=dev)
+    # the kernel's exchange of h in the weight type, rows padded to 8 elements
+    hbuf = torch.empty((2, D, B, -(-H // 8) * 8), dtype=w_hh.dtype, device=dev)
     barrier = torch.zeros((1,), dtype=torch.int32, device=dev)
     bf16 = int(w_hh.dtype == torch.bfloat16)
     lib = _lib("lstm_fwd")
@@ -303,9 +349,6 @@ def lstm_seq_bwd_plain(w_hh, c0, lengths, cs, gates, dys, dh_last, dc_last,
     return torch.stack(dxw), dh, dc
 
 
-_bwd_plans: dict = {}
-
-
 def lstm_bwd_plan(D, B, H, dtype=torch.bfloat16):
     """The launch csrc/lstm_bwd.cu makes for a shape on the current card:
     a dict of ``ctas`` (D * ceil(H/8)), ``per_sm`` (CTAs that can be
@@ -315,23 +358,7 @@ def lstm_bwd_plan(D, B, H, dtype=torch.bfloat16):
     grid that cannot be co-resident (the cooperative launch and the
     per-step grid barrier need every CTA resident at once): on an H100, H
     above 1056, or above 864 in float32."""
-    key = (torch.cuda.current_device(), D, B, H, dtype)
-    if key in _bwd_plans:
-        return _bwd_plans[key]
-    vals = [ctypes.c_int(0) for _ in range(5)]
-    err = _lib("lstm_bwd").sep_lstm_bwd_plan(int(dtype == torch.bfloat16), D, B, H,
-                                             *(ctypes.byref(v) for v in vals))
-    _raise_on(err, _lib("lstm_bwd").sep_lstm_bwd_error_string, "lstm_bwd plan")
-    ctas, per_sm, sms, smem, rows = (v.value for v in vals)
-    plan = {"ctas": ctas, "per_sm": per_sm, "sms": sms, "cap": per_sm * sms,
-            "smem": smem, "rows": rows}
-    if ctas > plan["cap"]:
-        raise ValueError(
-            f"lstm_seq_bwd at D={D}, B={B}, H={H} {dtype} needs {ctas} co-resident "
-            f"CTAs, above the cap of {plan['cap']} ({per_sm} per SM x {sms} SMs at "
-            f"{smem} bytes of shared memory each)")
-    _bwd_plans[key] = plan
-    return plan
+    return _plan("lstm_bwd", "lstm_seq_bwd", D, B, H, dtype)
 
 
 def lstm_seq_bwd(w_hh, c0, lengths, cs, gates, dys, dh_last, dc_last,

@@ -130,10 +130,11 @@ _EPOCH_END = _EpochEnd()
 
 
 def _pipeline(items, collate_fn, transfer_fn=None):
-    """Yield ``transfer_fn(collate_fn(item))`` for each item, in order, the
-    collation in one background thread and the transfer in a second one,
-    each ``PREFETCH`` items ahead of its consumer. Epoch-end markers pass
-    through untouched; a loader error is raised on the consumer's side."""
+    """An iterator of ``transfer_fn(collate_fn(item))`` for each item, in
+    order, the collation in one background thread and the transfer in a
+    second one, each ``PREFETCH`` items ahead of its consumer. The threads
+    start at once, not at the first ``next``. Epoch-end markers pass through
+    untouched; a loader error is raised on the consumer's side."""
     done = object()
 
     def produce(source, out, fn):
@@ -162,7 +163,7 @@ def _pipeline(items, collate_fn, transfer_fn=None):
         out = queue.Queue(maxsize=PREFETCH)
         threading.Thread(target=produce, daemon=True,
                          args=(drain(collated), out, transfer_fn)).start()
-    yield from drain(out)
+    return drain(out)
 
 
 def _default_collate(dataset: FeatureDataset, plan: BatchPlan):
@@ -180,14 +181,17 @@ def iter_batches(dataset, plan: BatchPlan, epoch: int, shuffle: bool = True,
 
 
 def iter_epochs(dataset, plan: BatchPlan, epochs, collate_fn=None, transfer_fn=None):
-    """Yield ``(epoch, batches)`` for each of ``epochs``, ``batches``
-    iterating over that epoch's shuffled batches in ``plan_batches`` order.
-    One loader spans all the epochs (each epoch's plan is fixed by its seed,
-    so it can be made ahead): its threads collate and transfer the next
-    epoch's first batches while the caller runs the current epoch's last
-    steps, its CV pass and its checkpoint, so no epoch starts with the card
-    waiting for its input. Each epoch's iterator must be consumed to its end
-    before the next one is taken."""
+    """An iterator of ``(epoch, batches)`` for each of ``epochs``,
+    ``batches`` iterating over that epoch's shuffled batches in
+    ``plan_batches`` order. One loader spans all the epochs (each epoch's
+    plan is fixed by its seed, so it can be made ahead), and its threads
+    start when this is called: they collate and transfer the first epoch's
+    first batches while the caller is still setting up (the trainer builds
+    its model meanwhile), and the next epoch's first batches while the
+    caller runs the current epoch's last steps, its CV pass and its
+    checkpoint, so no epoch starts with the card waiting for its input.
+    Each epoch's iterator must be consumed to its end before the next one is
+    taken."""
     epochs = list(epochs)
 
     def items():
@@ -203,5 +207,4 @@ def iter_epochs(dataset, plan: BatchPlan, epochs, collate_fn=None, transfer_fn=N
                 return
             yield item
 
-    for e in epochs:
-        yield e, one_epoch()
+    return ((e, one_epoch()) for e in epochs)

@@ -20,8 +20,10 @@ and the JAX package:
   ``reference_resume`` restores the weights only;
 - one trainable bias per LSTM direction (utils/weights.fold_lstm_biases).
 
-One loader spans all the epochs (train/data.iter_epochs), so each epoch's
-first batches are collated and copied while the previous epoch ends.
+One loader spans all the epochs (train/data.iter_epochs) and starts before
+the model is built, so epoch 1's first batches are collated and copied
+while the model is built and checkpointed, and each later epoch's while the
+previous epoch ends.
 
 Not ported yet (ROADMAP.md): plots, the profiler, the packed feature cache,
 the hang watchdog, RSH's reference batching and data parallelism over
@@ -355,6 +357,13 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
         def collate_for(ds):
             return None                     # the loader's npz collation
 
+    # the loader starts now, so epoch 1's first batches collate and copy
+    # while the model is built, moved and checkpointed
+    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    copy = functools.partial(to_device, dev=dev, copy_stream=copy_stream, keys=keys)
+    epochs = iter_epochs(dataset, plan, range(loop_cfg.start_epoch, loop_cfg.num_epochs),
+                         collate_fn=collate_for(dataset), transfer_fn=copy)
+
     model = arch.Model(model_cfg)
     model.reset_parameters(torch.Generator().manual_seed(loop_cfg.seed))
     model.to(dev)
@@ -386,9 +395,6 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
         epoch_losses = _truncate_loss_file(loss_file, loop_cfg.start_epoch)
         cv_losses = _truncate_loss_file(cv_loss_file, loop_cfg.start_epoch)
 
-    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-    copy = functools.partial(to_device, dev=dev, copy_stream=copy_stream, keys=keys)
-
     lossF = open(loss_file, "a")
     cv_lossF = open(cv_loss_file, "a") if cv_dataset else None
     steps: list[tuple[float, int]] = []
@@ -396,9 +402,7 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
     utts_seen = 0
     t_start = time.time()
     try:
-        for epoch, batches in iter_epochs(dataset, plan,
-                                          range(loop_cfg.start_epoch, loop_cfg.num_epochs),
-                                          collate_fn=collate_for(dataset), transfer_fn=copy):
+        for epoch, batches in epochs:
             epoch_loss, epoch_norm, epoch_utts, n_steps = 0.0, 0.0, 0, 0
             t_epoch = time.time()
             for batch in batches:

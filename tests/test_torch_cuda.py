@@ -127,6 +127,121 @@ def test_lstm_training_kernels_match_plain(cuda, dtype, tol, T, B, H):
         _scaled_close(a, b, tol, name)
 
 
+# chip_smoke.py's TRAIN_TOL for K3 (fwd_f32 2e-5, fwd_bf16 4e-2, divided by
+# max(1, max |reference|)); K1 at this file's tolerances (absolute f32 1e-5,
+# bf16 2e-2)
+FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}
+INFER_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _fwd_args(cuda, dtype, T, B, H, seed):
+    """The forward's inputs at the model's scale: W_hh uniform in
+    +-1/sqrt(H) (the reference's initialisation), xw 0.5 N(0, 1); lengths
+    T, 1 and T // 2 in turn."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xw = (0.5 * torch.randn((T, 2, B, 4 * H), generator=g, device=cuda)).to(dtype)
+    w = ((torch.rand((2, H, 4 * H), generator=g, device=cuda) * 2 - 1) / H ** 0.5).to(dtype)
+    h0 = torch.randn((2, B, H), generator=g, device=cuda)
+    c0 = torch.randn((2, B, H), generator=g, device=cuda)
+    lengths = torch.tensor(([T, 1, max(1, T // 2)] * B)[:B], dtype=torch.int32, device=cuda)
+    return xw, w, h0, c0, lengths
+
+
+def _check_fwd(cuda, dtype, T, B, H):
+    """K3 on all five outputs and K1 on its three, against their plain
+    versions, one launch each."""
+    args = _fwd_args(cuda, dtype, T, B, H, T * 1000 + B + H)
+    before = (lstm_seq_fwd.launches, lstm_seq_infer.launches)
+    got = lstm_seq_fwd(*args, save_dtype=dtype, suffix_dirs=SFX)
+    ref = lstm_seq_fwd_plain(*args, save_dtype=dtype, suffix_dirs=SFX)
+    for name, a, b in zip(("ys", "cs", "gates", "h_last", "c_last"), got, ref):
+        assert a.dtype == b.dtype, name
+        _scaled_close(a, b, FWD_TOL[dtype], name)
+    got = lstm_seq_infer(*args, suffix_dirs=SFX)
+    ref = lstm_seq_infer_plain(*args, suffix_dirs=SFX)
+    torch.cuda.synchronize()
+    assert (lstm_seq_fwd.launches, lstm_seq_infer.launches) == (before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("ys", "h_last", "c_last"), got, ref):
+        assert a.dtype == b.dtype == torch.float32, name
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=INFER_TOL[dtype],
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(1, 17, 24), (7, 1, 40), (5, 100, 20), (3, 9, 25),
+                                   (4, 33, 36), (4, 17, 600), (9, 100, 598), (1, 100, 600),
+                                   (3, 128, 600), (2, 200, 600), (2, 300, 40),
+                                   (2, 1000, 24), (3, 33, 601), (6, 100, 601)])
+def test_lstm_fwd_kernels_tiling_edges(cuda, dtype, T, B, H):
+    """K3 and K1 against their plain versions where the tiling has edges: B
+    not a multiple of 16 (a partial m-tile), B above one group of the ring's
+    rows (at most 128 rows; at H=600 112 in bf16, 80 in f32), H not a
+    multiple of the 8 units per CTA (a partial last CTA, zero pad columns in
+    the exchange), H not a multiple of 16 (a partial last k-step) or of the
+    chunk (128 columns in bf16, 32 in f32), xw rows aligned to 16, 8, 4 or
+    (odd H in bf16: plain loads) 2 bytes, T=1; lengths 1 and T, a prefix and
+    a suffix direction."""
+    _check_fwd(cuda, dtype, T, B, H)
+
+
+def test_lstm_fwd_kernels_at_the_dprnn_shape(cuda):
+    """DPRNN's intra-chunk BLSTM: H=128, B=3200 rows (25 groups of 128), 100
+    steps, bf16."""
+    _check_fwd(cuda, torch.bfloat16, 100, 3200, 128)
+
+
+@pytest.mark.parametrize("dtype,H", [(torch.float32, 864), (torch.bfloat16, 1056)])
+def test_lstm_fwd_kernels_at_the_widest_h(cuda, dtype, H):
+    """The widest H whose grid an H100 holds at two CTAs per SM: 2 * 132 CTAs
+    of 8 units in bf16; in f32, W_hh's columns at H=864 leave room beside
+    them for a ring of one 8-row group only."""
+    from speech_separation_tpu_torch.ops.lstm_kernel import lstm_fwd_plan
+    plan = lstm_fwd_plan(2, 100, H, dtype)
+    assert plan["per_sm"] == 2, plan
+    _check_fwd(cuda, dtype, 2, 100, H)
+
+
+@pytest.mark.parametrize("B", [100, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_fwd_kernels_are_deterministic(cuda, dtype, B):
+    """Two launches on the same inputs give bit-identical ys, cs, gates,
+    h_last and c_last (K3) and ys, h_last, c_last (K1): each gate sum has one
+    owner and a fixed order."""
+    args = _fwd_args(cuda, dtype, 12, B, 600, 5)
+    for names, run in ((("ys", "cs", "gates", "h_last", "c_last"),
+                        lambda: lstm_seq_fwd(*args, save_dtype=dtype, suffix_dirs=SFX)),
+                       (("ys", "h_last", "c_last"),
+                        lambda: lstm_seq_infer(*args, suffix_dirs=SFX))):
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        assert len(first) == len(names)
+        for name, a, b in zip(names, first, second):
+            assert torch.equal(a, b), name
+
+
+def test_lstm_fwd_refuses_a_grid_that_cannot_be_resident(cuda):
+    """At H=600 the forward's 150 CTAs sit two to an SM whatever B. At
+    H=1064 it needs 2 * 133 CTAs, more than an H100's 132 SMs hold at two
+    each: both instances raise, naming that cap, and launch nothing. In f32
+    at H=872, W_hh's columns leave no room for a second CTA on an SM, so the
+    cap is one CTA per SM."""
+    from speech_separation_tpu_torch.ops.lstm_kernel import lstm_fwd_plan
+    for dtype in (torch.bfloat16, torch.float32):
+        for B in (1, 100, 128, 200, 1000):
+            plan = lstm_fwd_plan(2, B, 600, dtype)
+            sms = plan["sms"]
+            assert (plan["ctas"], plan["per_sm"], plan["cap"]) == (150, 2, 2 * sms), plan
+    before = (lstm_seq_fwd.launches, lstm_seq_infer.launches)
+    args = _fwd_args(cuda, torch.bfloat16, 1, 100, 1064, 3)
+    with pytest.raises(ValueError, match=rf"cap of {2 * sms} \(2 per SM"):
+        lstm_seq_fwd(*args, save_dtype=torch.bfloat16, suffix_dirs=SFX)
+    with pytest.raises(ValueError, match=rf"cap of {2 * sms} \(2 per SM"):
+        lstm_seq_infer(*args, suffix_dirs=SFX)
+    with pytest.raises(ValueError, match=rf"cap of {sms} \(1 per SM"):
+        lstm_fwd_plan(2, 100, 872, torch.float32)
+    assert (lstm_seq_fwd.launches, lstm_seq_infer.launches) == before
+
+
 def _bwd_args(cuda, dtype, T, B, H, seed):
     """K4's inputs: the plain forward's saves and random cotangents."""
     args = _lstm_args(cuda, dtype, T, B, H, seed)

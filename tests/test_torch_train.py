@@ -14,6 +14,7 @@ through the clip's rescale). The optimizer against optax: rtol 1e-6
 
 import itertools
 import os
+import threading
 
 import numpy as np
 import optax
@@ -281,3 +282,38 @@ def test_loader_errors_reach_the_consumer(tmp_path):
     with pytest.raises(FileNotFoundError):
         list(tdata.iter_batches(ds, tdata.BatchPlan(batch_size=2), 0,
                                 transfer_fn=lambda b: b))
+
+
+def test_first_batch_collates_before_the_model_is_built(tmp_path, monkeypatch):
+    """train() starts its loader before it builds the model, so epoch 1's
+    first batch collates (and, on a card, copies) while the model is built,
+    moved and checkpointed: the model's constructor, held until a collation
+    begins, finds one begun. The losses are those of the unhooked run."""
+    from speech_separation_tpu_torch.train import loop
+    d = _feature_dir(str(tmp_path / "feats"), n=4)
+    cfg = TrainLoopConfig(batch_size=2, num_epochs=2, time_pad_multiple=8)
+    kwargs = {"feat_dim": 5, "hidden": 8, "num_layers": 1}
+    plain = loop.train(d, str(tmp_path / "plain"), cfg, model_kwargs=kwargs, device="cpu",
+                       log=lambda m: None)
+
+    collating = threading.Event()
+    make_batch = tdata.make_device_batch
+
+    def hooked_collate(samples, plan):
+        collating.set()
+        return make_batch(samples, plan)
+
+    arch = get_arch("uPIT")
+    model = arch.Model
+    found = []
+
+    def hooked_model(model_cfg):
+        found.append(collating.wait(timeout=10.0))
+        return model(model_cfg)
+
+    monkeypatch.setattr(tdata, "make_device_batch", hooked_collate)
+    monkeypatch.setattr(arch, "Model", hooked_model)
+    res = loop.train(d, str(tmp_path / "hooked"), cfg, model_kwargs=kwargs, device="cpu",
+                     log=lambda m: None)
+    assert found == [True]
+    assert res["epoch_losses"] == plain["epoch_losses"]

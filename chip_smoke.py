@@ -791,6 +791,7 @@ def step_phase(fails: Failures, train_dir: str) -> dict:
     """Phase 6: one training step, card against CPU, 2x600 bf16 on 8 rows of
     the training corpus, same weights and initial state."""
     import copy
+    from unittest import mock
 
     from speech_separation_tpu_torch.models import upit
     from speech_separation_tpu_torch.train.data import (BatchPlan, FeatureDataset,
@@ -822,6 +823,18 @@ def step_phase(fails: Failures, train_dir: str) -> dict:
         out[dev] = (loss.detach(), {n: p.grad for n, p in m.named_parameters()
                                     if p.grad is not None})
     loss_err = rel_l2(out["cuda"][0], out["cpu"][0])
+    # The CPU reference's own summation noise, a reading beside the check:
+    # the same CPU loss with the recurrent product summed exactly (in f64,
+    # then rounded to f32) in place of torch.bmm's f32 order.
+    bmm = torch.bmm
+    b = {k: torch.from_numpy(batch[k]) for k in ("mix", "sources", "lengths", "row_mask")}
+    with mock.patch.object(torch, "bmm", lambda x, y: bmm(x.double(), y.double()).float()):
+        exact, _ = upit.contract_loss(copy.deepcopy(model), b, *state, train=True)
+    noise = {"cpu_vs_exact_product": rel_l2(out["cpu"][0], exact.detach()),
+             "card_vs_exact_product": rel_l2(out["cuda"][0], exact.detach())}
+    print(f"  loss rel err: card vs CPU {loss_err:.3e}; CPU (torch.bmm's f32 order) vs the "
+          f"exact-product CPU loss {noise['cpu_vs_exact_product']:.3e}; card vs the "
+          f"exact-product loss {noise['card_vs_exact_product']:.3e}", flush=True)
     grad_err = {n: rel_l2(g, out["cpu"][1][n]) for n, g in out["cuda"][1].items()}
     worst = max(grad_err, key=grad_err.get)
     fails.check(loss_err <= TRAIN_TOL["step_loss"],
@@ -831,7 +844,7 @@ def step_phase(fails: Failures, train_dir: str) -> dict:
                 f"rel err {grad_err[worst]:.3e} <= {TRAIN_TOL['step_grad']}")
     print("  gradient rel errs: " + ", ".join(f"{n} {e:.2e}" for n, e in grad_err.items()),
           flush=True)
-    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, **noise}
 
 
 # ------------------------------------------------------------- SepFormer

@@ -197,9 +197,9 @@ lstm_bwd_kernel(const WT* __restrict__ w_hh, const float* __restrict__ c0,
       auto stage_chunk = [&](int c) {
         unsigned char* st = ring + (c & 1) * L.stage_bytes;
         if (narrow)
-          stage_rows<8, NT>(st, drow, n, G, c * L.kc);
+          stage_rows<8, NT, Ring<WT>>(st, drow, n, G, c * L.kc);
         else
-          stage_rows<16, NT>(st, drow, n, G, c * L.kc);
+          stage_rows<16, NT, Ring<WT>>(st, drow, n, G, c * L.kc);
         cp_async_commit();
       };
       // A stage's rows past n (up to the m-tile edge) are not copied: a

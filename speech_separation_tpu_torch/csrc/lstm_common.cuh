@@ -16,11 +16,12 @@ namespace seplstm {
 constexpr int SMEM_PER_CTA = 115712; // two CTAs per SM: (228 KB per SM) / 2 - 1 KB reserved
 constexpr int SMEM_MAX = 232448;     // 227 KB, the most one CTA may take
 
-// One row of a ring stage: 128 bf16 or 32 f32 columns of a chunk, padded by
-// 16 bytes, so 8 consecutive rows start in distinct 16-byte bank groups
-// (conflict-free for ldmatrix and float4 reads).
-template <typename WT> struct Ring {
-  static constexpr int row_bytes = std::is_same<WT, float>::value ? 128 : 256;
+// One row of a ring stage: ROW_BYTES of a chunk (by default 128 bf16 or 32
+// f32 columns), padded by 16 bytes, so 8 consecutive rows start in distinct
+// 16-byte bank groups (conflict-free for ldmatrix and float4 reads).
+template <typename WT, int ROW_BYTES = std::is_same<WT, float>::value ? 128 : 256>
+struct Ring {
+  static constexpr int row_bytes = ROW_BYTES;
   static constexpr int rs = row_bytes + 16;
   static constexpr int kc = row_bytes / (int)sizeof(WT);   // columns per chunk
 };
@@ -60,19 +61,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Rows 0..n-1 of one chunk (columns col0.. of rows of G elements at src)
-// into a ring stage, in CB-byte copies by NT threads; columns past G are
-// zero-filled.
-template <int CB, int NT, typename WT>
+// into a stage of ring R, in CB-byte copies by NT threads; columns past G
+// are zero-filled.
+template <int CB, int NT, typename R, typename WT>
 __device__ __forceinline__ void stage_rows(unsigned char* st, const WT* src, int n, int G,
                                            int col0) {
-  constexpr int SEG = Ring<WT>::row_bytes / CB;        // copies per stage row
+  constexpr int SEG = R::row_bytes / CB;               // copies per stage row
   constexpr int EPC = CB / (int)sizeof(WT);            // elements per copy
   for (int idx = threadIdx.x; idx < n * SEG; idx += NT) {
     const int r = idx / SEG, s = idx % SEG;
     const int col = col0 + s * EPC;
     const bool valid = col < G;
-    cp_async<CB>(st + r * Ring<WT>::rs + s * CB, valid ? src + (size_t)r * G + col : src,
-                 valid);
+    cp_async<CB>(st + r * R::rs + s * CB, valid ? src + (size_t)r * G + col : src, valid);
   }
 }
 

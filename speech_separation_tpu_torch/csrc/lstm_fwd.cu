@@ -44,17 +44,17 @@
 // cooperative with one grid barrier per step; the wrapper checks
 // co-residency (sep_lstm_fwd_plan) and raises, naming the cap, for a grid
 // that cannot be resident: on an H100, H above 1056 (more than 264 CTAs), or
-// in f32 above 864 (W no longer fits beside the smallest ring at two CTAs per
+// in f32 above 848 (W no longer fits beside the smallest ring at two CTAs per
 // SM). A CTA keeps in shared memory
 //   - its 32 gate columns of W_hh, one row per column (row g*8 + u: gate g of
 //     unit j0+u), k contiguous, a row an odd number of 16-byte units so
 //     ldmatrix and float4 reads of 8 rows hit distinct banks: 39.4 KB in
 //     bf16, 78.3 KB in f32 at H=600;
-//   - a 2-stage ring of h_{t-1} chunks, each one group of batch rows by 128
-//     bf16 or 32 f32 columns (Ring in lstm_common.cuh). A group is the most
-//     rows (whole m-tiles in bf16, at most 128) whose ring and xw buffer fit
-//     beside W at two CTAs per SM: at B=100, H=600 in bf16 the whole batch,
-//     so each step streams 5 chunks;
+//   - a 2-stage ring of h_{t-1} chunks, each one group of batch rows by 256
+//     bytes, 128 bf16 or 64 f32 columns (Ring in lstm_common.cuh). A group
+//     is the most rows (whole m-tiles in bf16, at most 128) whose ring and xw
+//     buffer fit beside W at two CTAs per SM: at B=100, H=600 the whole batch
+//     in bf16 (5 chunks per step), groups of 48 rows in f32 (10 chunks each);
 //   - the group's 32 columns of xw[t], fetched with cp.async a group ahead
 //     (for the first group of step t+1, before step t's grid barrier), so
 //     xw is off the critical path.
@@ -73,8 +73,11 @@
 //     Warp w owns m-tile w of the group and all four gate n-tiles, A = 16 h
 //     rows of the stage, B = 8 resident W rows, both by ldmatrix; so a
 //     thread's accumulators hold i, f, g and o of the same (row, unit)s and
-//     the cell update needs no shuffle. Each sum has one owner and a fixed
-//     order: no atomics, bit-identical from run to run.
+//     the cell update needs no shuffle. Each chunk's sum starts from zero
+//     and is added to the total in f32 (closer to the exact sum than one
+//     chain of tensor-core sums over all k, at no cost in time). Each sum
+//     has one owner and a fixed order: no atomics, bit-identical from run to
+//     run.
 //   f32: FMAs on the CUDA cores (TF32 would round the operands), one thread
 //     per unit of rows r0, r0 + 32, ..., four gates at once: per 4 k, 4 float4
 //     loads of W and one float4 of h per row feed 16 FMAs per row.
@@ -96,10 +99,11 @@ constexpr int RPT = NT / U;          // rows apart of one f32 thread's (row, uni
 constexpr int MAX_GROUP = 128;       // rows per group: 1 m-tile per warp (bf16), 4 rows per thread (f32)
 
 template <typename WT> struct Layout {
+  using R = Ring<WT, 256>;           // a stage row: 128 bf16 or 64 f32 columns
   int Hp, kpad, ws, rows, nchunks;   // rows: batch rows of one group (one ring stage)
   size_t w_bytes, stage_bytes;
-  static constexpr int rs = Ring<WT>::rs;
-  static constexpr int kc = Ring<WT>::kc;
+  static constexpr int rs = R::rs;
+  static constexpr int kc = R::kc;
   static constexpr int xrs = 4 * U * (int)sizeof(WT) + 16;   // a row of the xw buffer
   __host__ __device__ Layout(int B, int H) {
     constexpr bool bf16 = !std::is_same<WT, float>::value;
@@ -147,17 +151,6 @@ __device__ __forceinline__ void stage_xw_rows(unsigned char* xs, const WT* __res
   }
 }
 
-// Four consecutive values as f32.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 // Two adjacent units' values at p (2-element aligned).
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -177,7 +170,7 @@ lstm_fwd_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
                 WT* hbuf, unsigned int* barrier,
                 int T, int D, int B, int H, unsigned int suffix_mask, int xw_copy) {
   using YT = std::conditional_t<SAVE, WT, float>;
-  constexpr bool kTensorCores = false;
+  constexpr bool kTensorCores = std::is_same<WT, __nv_bfloat16>::value;
   constexpr int RS = Layout<WT>::rs;
   constexpr int XRS = Layout<WT>::xrs;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -245,7 +238,8 @@ lstm_fwd_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
       const int n = min(L.rows, B - g0);
       const WT* hrow = hsrc + (size_t)g0 * Hp;
       auto stage_chunk = [&](int c) {
-        stage_rows<16, NT>(ring + (c & 1) * L.stage_bytes, hrow, n, Hp, c * L.kc);
+        stage_rows<16, NT, typename Layout<WT>::R>(ring + (c & 1) * L.stage_bytes, hrow, n,
+                                                   Hp, c * L.kc);
         cp_async_commit();
       };
       // A stage's rows past n (up to the m-tile edge) are not copied: a
@@ -262,29 +256,37 @@ lstm_fwd_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
         const int kn = min(L.kc, L.kpad - k0);
         if constexpr (kTensorCores) {
           if (warp * 16 < n) {
+            // the chunk's sum starts from zero and is added to the total in
+            // f32: shorter chains of tensor-core sums, closer to the exact sum
             const unsigned a_addr = smem_u32(st) + a_off;
+            float part[4][4] = {};
             for (int ks = 0; ks < kn; ks += 16) {
               unsigned af[4], b01[4], b23[4];
               ldmatrix_x4(af, a_addr + ks * 2);
               ldmatrix_x4(b01, w_addr + (k0 + ks) * 2);
               ldmatrix_x4(b23, w_addr + w_gates23 + (k0 + ks) * 2);
-              mma_bf16(acc[0], af, b01);
-              mma_bf16(acc[1], af, b01 + 2);
-              mma_bf16(acc[2], af, b23);
-              mma_bf16(acc[3], af, b23 + 2);
+              mma_bf16(part[0], af, b01);
+              mma_bf16(part[1], af, b01 + 2);
+              mma_bf16(part[2], af, b23);
+              mma_bf16(part[3], af, b23 + 2);
             }
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[g][i] += part[g][i];
           }
         } else {
-          const WT* wrow = Ws + jl * L.ws + k0;
+          const float* wrow = reinterpret_cast<const float*>(Ws) + jl * L.ws + k0;
           for (int k = 0; k < kn; k += 4) {
             float4 w[4];
 #pragma unroll
-            for (int g = 0; g < 4; ++g) w[g] = load4(wrow + g * U * L.ws + k);
+            for (int g = 0; g < 4; ++g)
+              w[g] = *reinterpret_cast<const float4*>(wrow + g * U * L.ws + k);
 #pragma unroll
             for (int i = 0; i < MAX_GROUP / RPT; ++i) {
               const int r = r0 + i * RPT;
               if (r >= n) break;
-              const float4 v = load4(reinterpret_cast<const WT*>(st + r * RS) + k);
+              const float4 v = *reinterpret_cast<const float4*>(st + r * RS + k * 4);
 #pragma unroll
               for (int g = 0; g < 4; ++g) {
                 float a = acc[i][g];
@@ -299,16 +301,18 @@ lstm_fwd_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
         }
       }
 
-      // The owners' cell update of nu adjacent units u.. of group row r,
-      // pre[q][g] the product of gate g of unit u + q.
-      auto update = [&](int r, int u, const float (*pre)[4], int nu) {
+      // The owners' cell update of NU (a compile-time count) adjacent units
+      // u.. of group row r, pre[q][g] the product of gate g of unit u + q.
+      auto update = [&](int r, int u, const float (*pre)[4], auto nu_count) {
+        constexpr int NU = decltype(nu_count)::value;
         const int b = g0 + r;
         const size_t row = (size_t)d * B + b;
         const size_t so = ((size_t)t * D + d) * B + b;
         const bool valid = step_valid(suffix, lengths[b], t, T);
         const WT* xr = reinterpret_cast<const WT*>(xs + r * XRS);
-        float h_out[2] = {0.f, 0.f}, y[2], c_out[2], act[2][4];
-        for (int q = 0; q < nu; ++q) {
+        float h_out[NU] = {}, y[NU], c_out[NU], act[NU][4];
+#pragma unroll
+        for (int q = 0; q < NU; ++q) {
           const int j = j0 + u + q;
           if (j >= H) break;                  // a pad column: h stays zero
           const size_t o = row * H + j;
@@ -329,20 +333,24 @@ lstm_fwd_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
         }
         const int j = j0 + u;
         WT* hp = hdst + (size_t)b * Hp + j;
-        if (nu == 2) store2(hp, h_out[0], h_out[1]);    // Hp and j even: aligned
+        if constexpr (NU == 2) store2(hp, h_out[0], h_out[1]);   // Hp, j even: aligned
         else hp[0] = from_f<WT>(h_out[0]);
         if (j >= H) return;
-        if (nu == 2 && !(H & 1)) {                      // j + 1 < H, pairs aligned
-          store2(ys + so * H + j, y[0], y[1]);
-          if constexpr (SAVE) {
-            store2(cs + so * H + j, c_out[0], c_out[1]);
+        if constexpr (NU == 2) {
+          if (!(H & 1)) {                               // j + 1 < H, pairs aligned
+            store2(ys + so * H + j, y[0], y[1]);
+            if constexpr (SAVE) {
+              store2(cs + so * H + j, c_out[0], c_out[1]);
 #pragma unroll
-            for (int g = 0; g < 4; ++g)
-              store2(gates_out + so * G + (size_t)g * H + j, act[0][g], act[1][g]);
+              for (int g = 0; g < 4; ++g)
+                store2(gates_out + so * G + (size_t)g * H + j, act[0][g], act[1][g]);
+            }
+            return;
           }
-          return;
         }
-        for (int q = 0; q < nu && j + q < H; ++q) {
+#pragma unroll
+        for (int q = 0; q < NU; ++q) {
+          if (j + q >= H) break;
           ys[so * H + j + q] = from_f<YT>(y[q]);
           if constexpr (SAVE) {
             cs[so * H + j + q] = from_f<WT>(c_out[q]);
@@ -367,7 +375,7 @@ lstm_fwd_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
               pre[0][g] = acc[g][2 * half];
               pre[1][g] = acc[g][2 * half + 1];
             }
-            update(r, 2 * (lane & 3), pre, 2);
+            update(r, 2 * (lane & 3), pre, std::integral_constant<int, 2>());
           }
         }
       } else {
@@ -375,7 +383,7 @@ lstm_fwd_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
         for (int i = 0; i < MAX_GROUP / RPT; ++i) {
           const int r = r0 + i * RPT;
           if (r >= n) break;
-          update(r, jl, &acc[i], 1);
+          update(r, jl, &acc[i], std::integral_constant<int, 1>());
         }
       }
       // the ring and the xw buffer are free; fetch the xw of the next group

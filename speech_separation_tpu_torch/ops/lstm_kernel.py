@@ -208,7 +208,7 @@ def lstm_fwd_plan(D, B, H, dtype=torch.bfloat16):
     batch rows of one group of its h ring). Raises ValueError, naming the
     cap, for a grid that cannot be co-resident (the cooperative launch and
     the per-step grid barrier need every CTA resident at once): on an H100,
-    H above 1056, or above 864 in float32."""
+    H above 1056, or above 848 in float32."""
     return _plan("lstm_fwd", "lstm_seq_fwd / lstm_seq_infer", D, B, H, dtype)
 
 

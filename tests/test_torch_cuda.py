@@ -175,10 +175,10 @@ def _check_fwd(cuda, dtype, T, B, H):
 def test_lstm_fwd_kernels_tiling_edges(cuda, dtype, T, B, H):
     """K3 and K1 against their plain versions where the tiling has edges: B
     not a multiple of 16 (a partial m-tile), B above one group of the ring's
-    rows (at most 128 rows; at H=600 112 in bf16, 80 in f32), H not a
+    rows (at most 128 rows; at H=600 112 in bf16, 48 in f32), H not a
     multiple of the 8 units per CTA (a partial last CTA, zero pad columns in
     the exchange), H not a multiple of 16 (a partial last k-step) or of the
-    chunk (128 columns in bf16, 32 in f32), xw rows aligned to 16, 8, 4 or
+    chunk (128 columns in bf16, 64 in f32), xw rows aligned to 16, 8, 4 or
     (odd H in bf16: plain loads) 2 bytes, T=1; lengths 1 and T, a prefix and
     a suffix direction."""
     _check_fwd(cuda, dtype, T, B, H)
@@ -190,10 +190,10 @@ def test_lstm_fwd_kernels_at_the_dprnn_shape(cuda):
     _check_fwd(cuda, torch.bfloat16, 100, 3200, 128)
 
 
-@pytest.mark.parametrize("dtype,H", [(torch.float32, 864), (torch.bfloat16, 1056)])
+@pytest.mark.parametrize("dtype,H", [(torch.float32, 848), (torch.bfloat16, 1056)])
 def test_lstm_fwd_kernels_at_the_widest_h(cuda, dtype, H):
     """The widest H whose grid an H100 holds at two CTAs per SM: 2 * 132 CTAs
-    of 8 units in bf16; in f32, W_hh's columns at H=864 leave room beside
+    of 8 units in bf16; in f32, W_hh's columns at H=848 leave room beside
     them for a ring of one 8-row group only."""
     from speech_separation_tpu_torch.ops.lstm_kernel import lstm_fwd_plan
     plan = lstm_fwd_plan(2, 100, H, dtype)
@@ -223,7 +223,7 @@ def test_lstm_fwd_refuses_a_grid_that_cannot_be_resident(cuda):
     """At H=600 the forward's 150 CTAs sit two to an SM whatever B. At
     H=1064 it needs 2 * 133 CTAs, more than an H100's 132 SMs hold at two
     each: both instances raise, naming that cap, and launch nothing. In f32
-    at H=872, W_hh's columns leave no room for a second CTA on an SM, so the
+    at H=856, W_hh's columns leave no room for a second CTA on an SM, so the
     cap is one CTA per SM."""
     from speech_separation_tpu_torch.ops.lstm_kernel import lstm_fwd_plan
     for dtype in (torch.bfloat16, torch.float32):
@@ -238,7 +238,7 @@ def test_lstm_fwd_refuses_a_grid_that_cannot_be_resident(cuda):
     with pytest.raises(ValueError, match=rf"cap of {2 * sms} \(2 per SM"):
         lstm_seq_infer(*args, suffix_dirs=SFX)
     with pytest.raises(ValueError, match=rf"cap of {sms} \(1 per SM"):
-        lstm_fwd_plan(2, 100, 872, torch.float32)
+        lstm_fwd_plan(2, 100, 856, torch.float32)
     assert (lstm_seq_fwd.launches, lstm_seq_infer.launches) == before
 
 

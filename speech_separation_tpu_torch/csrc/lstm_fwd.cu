@@ -78,9 +78,11 @@
 //     chain of tensor-core sums over all k, at no cost in time). Each sum
 //     has one owner and a fixed order: no atomics, bit-identical from run to
 //     run.
-//   f32: FMAs on the CUDA cores (TF32 would round the operands), one thread
-//     per unit of rows r0, r0 + 32, ..., four gates at once: per 4 k, 4 float4
-//     loads of W and one float4 of h per row feed 16 FMAs per row.
+//   f32: FMAs on the CUDA cores (TF32 would round the operands). A thread
+//     takes one unit's four gates for a quad of 4 rows, over one of S slices
+//     of the k (S = 1 at 128 rows up to 8 at 16, so all 256 threads work
+//     whatever B): per 4 k, 4 float4 loads of W and 4 of h feed 64 FMAs. The
+//     slices' sums are added across lanes by shuffles in a fixed order.
 // Then the owners update c and h, write h_t to hbuf and ys (and, with saves,
 // cs and the gates: bf16 pairs of units where H is even), and the grid
 // barrier separates the steps. What is left per step is latency: the chunk
@@ -95,8 +97,8 @@ using namespace seplstm;
 
 constexpr int U = 8;                 // hidden units per CTA
 constexpr int NT = 256;              // threads per CTA (8 warps)
-constexpr int RPT = NT / U;          // rows apart of one f32 thread's (row, unit) entries
-constexpr int MAX_GROUP = 128;       // rows per group: 1 m-tile per warp (bf16), 4 rows per thread (f32)
+constexpr int MAX_GROUP = 128;       // rows per group: 1 m-tile per warp (bf16), 32 quads of rows (f32)
+constexpr int MAX_SLICES = 8;        // f32: most threads that split one product's k
 
 template <typename WT> struct Layout {
   using R = Ring<WT, 256>;           // a stage row: 128 bf16 or 64 f32 columns
@@ -228,8 +230,6 @@ lstm_fwd_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
       smem_u32(Ws) + (((lane >> 4) * U + (lane & 7)) * L.ws + ((lane >> 3) & 1) * 8) * 2;
   const unsigned w_gates23 = 2 * U * L.ws * 2;
   const unsigned a_off = (warp * 16 + (lane & 15)) * RS + (lane >> 4) * 16;
-  // f32: the thread owns unit jl of rows r0, r0 + RPT, ...
-  const int r0 = tid / U, jl = tid % U;
 
   for (int t = 0; t < T; ++t) {
     const WT* hsrc = hbuf + (size_t)(t & 1) * DBHp + (size_t)d * B * Hp;
@@ -247,6 +247,12 @@ lstm_fwd_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
       // products are dropped.
       stage_chunk(0);
       float acc[4][4] = {};     // bf16: (gate, fragment); f32: (row, gate)
+      // f32: thread = (slice sl of the k, unit jl, quad q of 4 rows), with
+      // as many slices as keep all threads busy: 1 at 128 rows, 8 at 16
+      const int quads = (n + 3) / 4;
+      int S = 1;
+      while (S < MAX_SLICES && quads * U * S * 2 <= NT) S *= 2;
+      const int sl = tid % S, jl = (tid / S) % U, q = tid / (S * U);
       for (int c = 0; c < L.nchunks; ++c) {
         cp_async_wait_all();
         __syncthreads();   // chunk c (and the group's xw) landed; chunk c-1's stage is free
@@ -275,16 +281,18 @@ lstm_fwd_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
 #pragma unroll
               for (int i = 0; i < 4; ++i) acc[g][i] += part[g][i];
           }
-        } else {
+        } else if (q < quads) {
+          // blocks of 4 k, slice sl taking every S-th: per block 4 float4 of
+          // W and one float4 of h per row feed 16 FMAs per row
           const float* wrow = reinterpret_cast<const float*>(Ws) + jl * L.ws + k0;
-          for (int k = 0; k < kn; k += 4) {
+          for (int k = 4 * sl; k < kn; k += 4 * S) {
             float4 w[4];
 #pragma unroll
             for (int g = 0; g < 4; ++g)
               w[g] = *reinterpret_cast<const float4*>(wrow + g * U * L.ws + k);
 #pragma unroll
-            for (int i = 0; i < MAX_GROUP / RPT; ++i) {
-              const int r = r0 + i * RPT;
+            for (int i = 0; i < 4; ++i) {
+              const int r = 4 * q + i;
               if (r >= n) break;
               const float4 v = *reinterpret_cast<const float4*>(st + r * RS + k * 4);
 #pragma unroll
@@ -361,6 +369,14 @@ lstm_fwd_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
         }
       };
 
+      if constexpr (!kTensorCores) {
+        // the slices' partial sums, added across lanes in a fixed order
+        for (int m = 1; m < S; m <<= 1)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int g = 0; g < 4; ++g) acc[i][g] += __shfl_xor_sync(0xffffffffu, acc[i][g], m);
+      }
       if constexpr (kTensorCores) {
         // the thread's fragments: rows lane/4 and lane/4 + 8 of the m-tile,
         // units 2 (lane % 4) and the next, of each gate
@@ -378,12 +394,12 @@ lstm_fwd_kernel(const WT* __restrict__ xw, const WT* __restrict__ w_hh,
             update(r, 2 * (lane & 3), pre, std::integral_constant<int, 2>());
           }
         }
-      } else {
+      } else if (q < quads) {
+        // row i of the quad goes to slice i % S
 #pragma unroll
-        for (int i = 0; i < MAX_GROUP / RPT; ++i) {
-          const int r = r0 + i * RPT;
-          if (r >= n) break;
-          update(r, jl, &acc[i], std::integral_constant<int, 1>());
+        for (int i = 0; i < 4; ++i) {
+          const int r = 4 * q + i;
+          if (r < n && i % S == sl) update(r, jl, &acc[i], std::integral_constant<int, 1>());
         }
       }
       // the ring and the xw buffer are free; fetch the xw of the next group

@@ -19,12 +19,17 @@
 // number of chunks inter-chunk) a row's whole score matrix is a few tens of
 // KB, so no logit needs to touch device memory; the compulsory traffic is q,
 // k, v, the mask and o (and do, dq, dk, dv) once, about 42 us (forward) and
-// 72 us (backward) at the training shape, N=10624, T=100, bf16. The products
-// are tiny (dh=16 deep) and here run on the CUDA cores in f32, one query (or
-// key) per thread, so this first version is bound by instruction issue, not
-// by bytes: tensor cores (mma/wgmma on bf16) are later work.
+// 72 us (backward) at the training shape, N=10624, T=100, bf16. What is left
+// above that is one exp (and one division) per (query, key) and the latency
+// of each row's softmax.
 //
-// Design. One CTA per row n. The keys of the row (or the queries, in the
+// bf16 (attention_mma.cuh): the products on the tensor cores (mma.sync),
+// whole logit rows in registers up to T = 256, passes over streamed key
+// tiles above; see that header.
+//
+// f32 (below): the products stay on the CUDA cores, since the tensor cores
+// take f32 only as TF32, which would round the operands to 10 bits. One CTA
+// per row n. The keys of the row (or the queries, in the
 // backward's second phase) pass through shared memory in f32 tiles of
 // TILE_ELEMS / dh rows, so T has no cap in the forward. Each thread owns one
 // query: pass 1 takes the row max, pass 2 the sum of exp(s - max), pass 3 the
@@ -38,6 +43,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -431,16 +438,45 @@ extern "C" {
 int sep_attn_fwd(const void* q, const void* k, const void* v, const float* mask, void* o,
                  int bf16, int N, int T, int dh, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? fwd_dh<__nv_bfloat16>(q, k, v, mask, o, N, T, dh, scale, s)
-              : fwd_dh<float>(q, k, v, mask, o, N, T, dh, scale, s);
+  if (!bf16) return fwd_dh<float>(q, k, v, mask, o, N, T, dh, scale, s);
+  if (N <= 0 || T <= 0) return 0;
+  switch (dh) {
+    case 4: return sepattn::fwd_mma<4>(q, k, v, mask, o, N, T, scale, s);
+    case 8: return sepattn::fwd_mma<8>(q, k, v, mask, o, N, T, scale, s);
+    case 16: return sepattn::fwd_mma<16>(q, k, v, mask, o, N, T, scale, s);
+    case 32: return sepattn::fwd_mma<32>(q, k, v, mask, o, N, T, scale, s);
+    case 64: return sepattn::fwd_mma<64>(q, k, v, mask, o, N, T, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int sep_attn_bwd(const void* q, const void* k, const void* v, const float* mask,
                  const void* dout, void* dq, void* dk, void* dv, int bf16, int N, int T, int dh,
                  float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? bwd_dh<__nv_bfloat16>(q, k, v, mask, dout, dq, dk, dv, N, T, dh, scale, s)
-              : bwd_dh<float>(q, k, v, mask, dout, dq, dk, dv, N, T, dh, scale, s);
+  if (!bf16) return bwd_dh<float>(q, k, v, mask, dout, dq, dk, dv, N, T, dh, scale, s);
+  if (N <= 0 || T <= 0) return 0;
+  switch (dh) {
+    case 4: return sepattn::bwd_mma<4>(q, k, v, mask, dout, dq, dk, dv, N, T, scale, s);
+    case 8: return sepattn::bwd_mma<8>(q, k, v, mask, dout, dq, dk, dv, N, T, scale, s);
+    case 16: return sepattn::bwd_mma<16>(q, k, v, mask, dout, dq, dk, dv, N, T, scale, s);
+    case 32: return sepattn::bwd_mma<32>(q, k, v, mask, dout, dq, dk, dv, N, T, scale, s);
+    case 64: return sepattn::bwd_mma<64>(q, k, v, mask, dout, dq, dk, dv, N, T, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 launch of a shape, as attention_plan computes it: path (0
+// registers, 1 passes), rows and warps a CTA, shared bytes a CTA, CTAs.
+int sep_attn_plan(int backward, int N, int T, int dh, int* path, int* rows, int* warps,
+                  int* smem, int* ctas) {
+  const sepattn::Plan p = sepattn::plan_mma(backward != 0, N, T, dh);
+  *path = p.path;
+  *rows = p.rows;
+  *warps = p.warps;
+  *smem = p.smem;
+  *ctas = p.ctas;
+  return 0;
 }
 
 const char* sep_attn_error_string(int code) {

@@ -27,7 +27,10 @@ through the plain forward (the two differ in bf16).
 The kernels take dh in ``DH_SUPPORTED``, contiguous tensors of one dtype
 (float32 or bfloat16), any T in the forward and T up to ``MAX_T_BWD`` in the
 backward, which keeps three float32 statistics per query of a row in shared
-memory.
+memory. ``attention_plan`` names the launch of a shape: in bfloat16 the
+products run on the tensor cores, with whole logit rows in registers up to
+T = ``REG_CAP`` and passes over streamed key tiles above; float32 stays on
+the CUDA cores (the tensor cores take float32 only as TF32).
 """
 
 from __future__ import annotations
@@ -39,6 +42,12 @@ import torch
 
 DH_SUPPORTED = (4, 8, 16, 32, 64)
 MAX_T_BWD = 8192
+REG_CAP = 256              # T up to which a bf16 warp keeps whole logit rows in registers
+SMEM_MAX = 232448          # 227 KB, the most shared memory one CTA may take on an H100
+# csrc/attention_mma.cuh: warps of a registers-path and of a passes-path CTA,
+# rows of a registers-path CTA at most, and the shared bytes such a CTA may
+# take for more than one row
+_WARPS_REG, _WARPS_PASS, _ROWS_MAX, _ROW_BUDGET = 4, 8, 8, 76800
 
 _lib_handle = None
 
@@ -53,6 +62,8 @@ def _lib():
         lib.sep_attn_fwd.restype = i
         lib.sep_attn_bwd.argtypes = [p] * 8 + [i, i, i, i, f, p]
         lib.sep_attn_bwd.restype = i
+        lib.sep_attn_plan.argtypes = [i, i, i, i] + [ctypes.POINTER(i)] * 5
+        lib.sep_attn_plan.restype = i
         lib.sep_attn_error_string.argtypes = [i]
         lib.sep_attn_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
@@ -83,16 +94,70 @@ def _check(q, k, v, key_mask, do=None):
     return N, T, dh
 
 
-def _check_cuda(name, tensors, T, cap=None):
+def attention_plan(N, T, dh, dtype=torch.bfloat16, backward=False):
+    """The launch csrc/attention.cu makes for (N, T, dh) rows of ``dtype``,
+    forward or backward: a dict of ``path`` ("registers": bf16, T <= ``REG_CAP``,
+    whole rows in shared memory and logit rows in registers; "passes": bf16
+    above, key tiles streamed, max, sum then weights; "cuda_cores": float32),
+    ``rows`` (rows a CTA), ``warps`` (a CTA), ``smem`` (shared bytes a CTA),
+    ``ctas`` and ``cap`` (``REG_CAP``). A pure function of its arguments (the
+    bf16 plan is the card's own ``sep_attn_plan``). Raises ValueError for dh
+    outside ``DH_SUPPORTED`` and, naming the cap, for a backward above
+    ``MAX_T_BWD``."""
+    if dh not in DH_SUPPORTED:
+        raise ValueError(f"chunk attention takes dh in {DH_SUPPORTED}, got {dh}")
+    if backward and T > MAX_T_BWD:
+        raise ValueError(f"the chunk_attention_bwd kernel takes T <= {MAX_T_BWD} (three "
+                         f"float32 statistics per query in shared memory), got T={T}")
+    if dtype == torch.float32:
+        kt = min(T, 4096 // dh)
+        smem = 4 * (2 * kt * dh + kt + (3 * T if backward else 0))
+        return {"path": "cuda_cores", "rows": 1, "warps": min(8, -(-T // 32)), "smem": smem,
+                "ctas": N, "cap": REG_CAP}
+    dhp = max(16, dh)
+    Tp, rs2, kt = -(-T // 16) * 16, 2 * (dhp + 8), 64 if dhp >= 64 else 128
+    mt = Tp // 16
+    if T <= REG_CAP:
+        per_row = 4 * Tp * rs2 + 16 * Tp if backward else 3 * Tp * rs2 + 4 * Tp
+
+        def slots(r):                 # warp task slots of a CTA of r rows
+            return _WARPS_REG * -(-r * mt // _WARPS_REG)
+
+        rows = 1
+        for r in range(2, min(_ROWS_MAX, N) + 1):
+            if r * per_row > _ROW_BUDGET:
+                break
+            if r * mt * slots(rows) > rows * mt * slots(r):
+                rows = r
+        return {"path": "registers", "rows": rows, "warps": _WARPS_REG,
+                "smem": rows * per_row, "ctas": -(-N // rows), "cap": REG_CAP}
+    qr = 16 * _WARPS_PASS
+    ring = 2 * (2 * kt * rs2 + 4 * kt)
+    if backward:
+        smem, ctas = 12 * Tp + 4 * qr + 2 * qr * rs2 + ring, N
+    else:
+        smem, ctas = qr * rs2 + ring, N * -(-T // qr)
+    return {"path": "passes", "rows": 1, "warps": _WARPS_PASS, "smem": smem, "ctas": ctas,
+            "cap": REG_CAP}
+
+
+def card_plan(N, T, dh, backward=False):
+    """The bf16 plan as the built library computes it (``sep_attn_plan``),
+    in attention_plan's keys: what a card run holds attention_plan to."""
+    vals = [ctypes.c_int(0) for _ in range(5)]
+    _lib().sep_attn_plan(int(backward), N, T, dh, *vals)
+    path, rows, warps, smem, ctas = (v.value for v in vals)
+    return {"path": ("registers", "passes")[path], "rows": rows, "warps": warps, "smem": smem,
+            "ctas": ctas, "cap": REG_CAP}
+
+
+def _check_cuda(name, tensors):
     dev = tensors["q"].device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
     dh = tensors["q"].shape[-1]
     if dh not in DH_SUPPORTED:
         raise ValueError(f"the {name} kernel takes dh in {DH_SUPPORTED}, got {dh}")
-    if cap is not None and T > cap:
-        raise ValueError(f"the {name} kernel takes T <= {cap} (three float32 statistics "
-                         f"per query in shared memory), got T={T}")
     for n, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{n} is on {t.device}, not {dev}")
@@ -143,7 +208,8 @@ def chunk_attention_fwd(q, k, v, key_mask, scale=None):
     if q.device.type == "cpu":
         return chunk_attention_fwd_plain(q, k, v, key_mask, scale)
     N, T, dh = _check(q, k, v, key_mask)
-    _check_cuda("chunk_attention_fwd", {"q": q, "k": k, "v": v, "key_mask": key_mask}, T)
+    _check_cuda("chunk_attention_fwd", {"q": q, "k": k, "v": v, "key_mask": key_mask})
+    attention_plan(N, T, dh, q.dtype)
     o = torch.empty_like(q)
     err = _lib().sep_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(),
@@ -160,7 +226,8 @@ def chunk_attention_bwd(q, k, v, key_mask, do, scale=None):
         return chunk_attention_bwd_plain(q, k, v, key_mask, do, scale)
     N, T, dh = _check(q, k, v, key_mask, do)
     _check_cuda("chunk_attention_bwd",
-                {"q": q, "k": k, "v": v, "key_mask": key_mask, "do": do}, T, MAX_T_BWD)
+                {"q": q, "k": k, "v": v, "key_mask": key_mask, "do": do})
+    attention_plan(N, T, dh, q.dtype, backward=True)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     err = _lib().sep_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), do.data_ptr(),

@@ -19,7 +19,8 @@ import jax.numpy as jnp
 
 from speech_separation_tpu.ops.attention_pallas import chunk_attention as jax_attention
 from speech_separation_tpu_torch.ops.attention_kernel import (
-    chunk_attention, chunk_attention_bwd, chunk_attention_fwd)
+    DH_SUPPORTED, MAX_T_BWD, REG_CAP, SMEM_MAX, attention_plan, chunk_attention,
+    chunk_attention_bwd, chunk_attention_fwd)
 
 TOL = {"float32": (1e-5, 2e-4), "bfloat16": (2e-2, 5e-2)}
 
@@ -82,3 +83,50 @@ def test_cpu_wrappers_use_the_plain_versions_and_count_no_launch():
         chunk_attention_fwd(q, k.bfloat16(), v, mask)
     with pytest.raises(ValueError, match="key_mask"):
         chunk_attention_fwd(q, k, v, mask[:, :-1])
+
+
+# --------------------------------------------------------- the launch plan
+
+PLAN_T = (1, 15, 16, 17, 83, 100, 104, 129, REG_CAP, REG_CAP + 1, 1230)
+
+
+@pytest.mark.parametrize("dh", DH_SUPPORTED)
+@pytest.mark.parametrize("T", PLAN_T)
+def test_attention_plan_takes_every_tile_edge(T, dh):
+    """bf16 rows stay in registers up to the cap and go to passes beyond it;
+    every CTA fits the card's shared memory and covers all N rows."""
+    for N in (1, 13, 10624):
+        for backward in (False, True):
+            plan = attention_plan(N, T, dh, torch.bfloat16, backward=backward)
+            assert plan["path"] == ("registers" if T <= REG_CAP else "passes")
+            assert plan["cap"] == REG_CAP
+            assert 1 <= plan["rows"] <= N and plan["warps"] >= 1
+            assert 0 < plan["smem"] <= SMEM_MAX
+            if plan["path"] == "registers":
+                assert plan["ctas"] * plan["rows"] >= N > (plan["ctas"] - 1) * plan["rows"]
+            else:
+                assert plan["ctas"] >= N
+
+
+def test_attention_plan_at_sepformers_shapes():
+    """The intra-chunk (T=100) and inter-chunk (T=83) training shapes keep
+    whole rows in registers; one 60 s request's inter-chunk pass (T=1230)
+    goes over key tiles; float32 stays on the CUDA cores."""
+    for N, T in ((10624, 100), (12800, 83)):
+        for backward in (False, True):
+            assert attention_plan(N, T, 16, backward=backward)["path"] == "registers"
+    assert attention_plan(400, 1230, 16)["path"] == "passes"
+    assert attention_plan(400, 1230, 16, backward=True)["ctas"] == 400
+    assert attention_plan(10624, 100, 16, torch.float32)["path"] == "cuda_cores"
+
+
+def test_attention_plan_names_the_cap():
+    """The backward keeps three float32 statistics per query in shared
+    memory, so it refuses T above MAX_T_BWD, naming it; the forward does not."""
+    for dtype in (torch.bfloat16, torch.float32):
+        assert attention_plan(2, MAX_T_BWD, 64, dtype, backward=True)["smem"] <= SMEM_MAX
+        with pytest.raises(ValueError, match=str(MAX_T_BWD)):
+            attention_plan(2, MAX_T_BWD + 1, 16, dtype, backward=True)
+        assert attention_plan(2, MAX_T_BWD + 1, 16, dtype)["smem"] <= SMEM_MAX
+    with pytest.raises(ValueError, match="dh"):
+        attention_plan(2, 100, 12)

@@ -500,3 +500,83 @@ def test_fused_sepformer_step_launches_the_attention_kernels(cuda):
     assert torch.isfinite(loss)
     for name, p in model.named_parameters():
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+
+
+def _attn_edge_args(cuda, N, T, dh, seed):
+    """bf16 rows with ragged key masks: row 1 fully masked and, where N > 2,
+    row 2 whose only valid key is the last."""
+    q, k, v, mask, do = _attn_args(cuda, torch.bfloat16, N, T, dh, seed)
+    if N > 2:
+        mask[2] = 0.0
+        mask[2, -1] = 1.0
+    return q, k, v, mask, do
+
+
+@pytest.mark.parametrize("dh", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 83, 100, 104, 129, 256, 257, 1230])
+def test_attention_bf16_kernels_at_tile_edges(cuda, T, dh):
+    """The bf16 kernels (tensor cores; registers up to REG_CAP = 256, passes
+    above) against their plain versions at 2e-2 of max(1, max |reference|),
+    at the edges of the 16-row m-tiles, the register cap and the key tiles,
+    with N odd."""
+    from speech_separation_tpu_torch.ops.attention_kernel import (
+        REG_CAP, chunk_attention_bwd, chunk_attention_bwd_plain, chunk_attention_fwd,
+        chunk_attention_fwd_plain)
+    assert REG_CAP == 256
+    q, k, v, mask, do = _attn_edge_args(cuda, 3, T, dh, T * 10 + dh)
+    o = chunk_attention_fwd(q, k, v, mask)
+    grads = chunk_attention_bwd(q, k, v, mask, do)
+    torch.cuda.synchronize()
+    _scaled_close(o, chunk_attention_fwd_plain(q, k, v, mask), 2e-2, "o")
+    for name, a, b in zip(("dq", "dk", "dv"), grads,
+                          chunk_attention_bwd_plain(q, k, v, mask, do)):
+        _scaled_close(a, b, 2e-2, name)
+    assert bool(torch.isfinite(o).all())
+
+
+@pytest.mark.parametrize("dh", [16, 64])
+def test_attention_bf16_backward_at_its_cap(cuda, dh):
+    """The bf16 backward at T = MAX_T_BWD (the passes path's per-query
+    statistics fill the most shared memory) against its plain version."""
+    from speech_separation_tpu_torch.ops.attention_kernel import (
+        MAX_T_BWD, chunk_attention_bwd, chunk_attention_bwd_plain)
+    q, k, v, mask, do = _attn_edge_args(cuda, 1, MAX_T_BWD, dh, dh)
+    grads = chunk_attention_bwd(q, k, v, mask, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), grads,
+                          chunk_attention_bwd_plain(q, k, v, mask, do)):
+        _scaled_close(a, b, 2e-2, name)
+
+
+@pytest.mark.parametrize("N,T", [(37, 100), (12, 83), (5, 300)])
+def test_attention_bf16_kernels_are_deterministic(cuda, N, T):
+    """A second launch on the same inputs gives bit-identical outputs: every
+    sum has one owner and a fixed order, and there are no atomics."""
+    from speech_separation_tpu_torch.ops.attention_kernel import (chunk_attention_bwd,
+                                                                  chunk_attention_fwd)
+    q, k, v, mask, do = _attn_edge_args(cuda, N, T, 16, N + T)
+    first = (chunk_attention_fwd(q, k, v, mask), *chunk_attention_bwd(q, k, v, mask, do))
+    again = (chunk_attention_fwd(q, k, v, mask), *chunk_attention_bwd(q, k, v, mask, do))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "dq", "dk", "dv"), first, again):
+        assert torch.equal(a, b), name
+
+
+def test_attention_plan_is_the_cards_plan(cuda):
+    """attention_plan, a pure function tested on the CPU, is the launch the
+    built library makes (sep_attn_plan)."""
+    from speech_separation_tpu_torch.ops.attention_kernel import (DH_SUPPORTED, attention_plan,
+                                                                  card_plan)
+    for N in (1, 3, 400, 10624, 12800):
+        for T in (1, 17, 83, 100, 129, 256, 257, 1230, 8192):
+            for dh in DH_SUPPORTED:
+                for backward in (False, True):
+                    assert card_plan(N, T, dh, backward) == attention_plan(
+                        N, T, dh, torch.bfloat16, backward), (N, T, dh, backward)
+
+
+def test_attention_bf16_backward_refuses_above_its_cap(cuda):
+    from speech_separation_tpu_torch.ops.attention_kernel import MAX_T_BWD, chunk_attention_bwd
+    big = torch.zeros((1, MAX_T_BWD + 1, 16), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=str(MAX_T_BWD)):
+        chunk_attention_bwd(big, big, big, torch.ones((1, MAX_T_BWD + 1), device=cuda), big)

@@ -24,7 +24,10 @@ Phases, in order; any failure exits non-zero without the final line:
    plain forward; and the attention kernel (forward and backward) at a small
    ragged shape, at SepFormer's training intra- and inter-chunk shapes
    (N=10624, T=100 and N=12800, T=83, dh=16) and at a long inter-chunk shape
-   (T=1230, a 60 s request);
+   (T=1230, a 60 s request), its bf16 kernels also launched twice on the same
+   inputs (bit-identical outputs), with their launch plan (attention_plan,
+   held to the library's own) and the HMMA (tensor-core) instructions that
+   cuobjdump finds in their SASS;
 4. serve: a 2x600 bf16 uPIT with weights from a seed, saved as a reference
    .mdl, behind the port's SeparationServer on a Unix socket; one request,
    then two concurrent ones, then a ping; every output wav is checked, and
@@ -466,15 +469,40 @@ def sdpa_ms(q, k, v, mask, do) -> tuple[float, float]:
     return fwd, bwd / 5
 
 
+def attention_sass_hmma() -> dict:
+    """The tensor-core instructions (HMMA) in the SASS of each bf16 K5
+    kernel of the built library, by kernel name, from cuobjdump."""
+    from speech_separation_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.build(["attention"])["attention"])],
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+        elif "HMMA" in line and name and "sepattn" in name:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
 def check_attention(fails: Failures) -> dict:
     """K5 forward and backward against their plain versions on the same
     inputs: at a small ragged shape (N odd, one fully-masked row), at
     SepFormer's training intra- and inter-chunk shapes and at a long
-    inter-chunk shape (five key tiles), with times, bounds and SDPA's times."""
+    inter-chunk shape (ten key tiles), with times, bounds and SDPA's times;
+    for bf16 also a second launch (bit-identical outputs), the launch plan
+    (attention_plan, held to the library's own) and the HMMA count of each
+    kernel's SASS."""
     from speech_separation_tpu_torch.ops.attention_kernel import (
-        chunk_attention_bwd, chunk_attention_bwd_plain, chunk_attention_fwd,
-        chunk_attention_fwd_plain)
+        attention_plan, card_plan, chunk_attention_bwd, chunk_attention_bwd_plain,
+        chunk_attention_fwd, chunk_attention_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    hmma = attention_sass_hmma()
+    for part in ("fwd", "bwd"):
+        n = sum(c for name, c in hmma.items() if f"attn_{part}_" in name)
+        fails.check(n > 0, f"bf16 attention {part} kernels: {n} HMMA in their SASS ("
+                           + ", ".join(f"{c} {name}" for name, c in sorted(hmma.items())
+                                       if f"attn_{part}_" in name) + ")")
 
     def compare(args, label):
         q, k, v, mask, do = args
@@ -494,6 +522,19 @@ def check_attention(fails: Failures) -> dict:
     def measure(args, label):
         q, k, v, mask, do = args
         err_f, err_b, o, grads = compare(args, label)
+        N, T, dh = q.shape
+        plans = {}
+        if q.dtype == torch.bfloat16:
+            again = (chunk_attention_fwd(q, k, v, mask), *chunk_attention_bwd(q, k, v, mask, do))
+            torch.cuda.synchronize()
+            fails.check(all(torch.equal(a, b) for a, b in zip((o, *grads), again)),
+                        f"chunk_attention {label} {q.dtype}: a second launch gives "
+                        f"bit-identical o, dq, dk, dv")
+            del again
+            for part, bwd in (("fwd", False), ("bwd", True)):
+                plans[part] = attention_plan(N, T, dh, q.dtype, backward=bwd)
+                fails.check(plans[part] == card_plan(N, T, dh, bwd),
+                            f"attention_plan {label} {part} is the library's: {plans[part]}")
         ms_f = cuda_ms(lambda: chunk_attention_fwd(q, k, v, mask), 20)
         ms_b = cuda_ms(lambda: chunk_attention_bwd(q, k, v, mask, do), 10)
         plain_f = cuda_ms(lambda: chunk_attention_fwd_plain(q, k, v, mask), 3)
@@ -502,15 +543,18 @@ def check_attention(fails: Failures) -> dict:
         b_f = attention_bound_ms(q, nbytes(q, k, v, mask, o), 2)
         # the backward recomputes QK^T, then dV, dW, dQ and dK: five products
         b_b = attention_bound_ms(q, nbytes(q, k, v, mask, do, *grads), 5)
-        N, T, dh = q.shape
         print(f"  chunk_attention {label} {q.dtype}: fwd {ms_f:.4f} ms (plain {plain_f:.3f}, "
               f"SDPA {lib_f:.4f}, bound {b_f[0]:.4f} by {b_f[1]}); bwd {ms_b:.4f} ms (plain "
               f"{plain_b:.3f}, SDPA {lib_b:.4f}, bound {b_b[0]:.4f} by {b_b[1]})", flush=True)
         shape = {"N": N, "T": T, "dh": dh}
-        return ({"max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f, "bound_ms": b_f[0],
-                 "bound_by": b_f[1], "library_ms": lib_f, **shape},
-                {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b, "bound_ms": b_b[0],
-                 "bound_by": b_b[1], "library_ms": lib_b, **shape})
+        hm = {part: sum(c for name, c in hmma.items() if f"attn_{part}_" in name)
+              for part in ("fwd", "bwd")} if plans else {}
+        return tuple({"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b[0],
+                      "bound_by": b[1], "library_ms": lib, **shape,
+                      **({"plan": plans[part], "hmma": hm[part]} if plans else {})}
+                     for part, err, ms, plain, b, lib in (
+                         ("fwd", err_f, ms_f, plain_f, b_f, lib_f),
+                         ("bwd", err_b, ms_b, plain_b, b_b, lib_b)))
 
     for dtype in (torch.bfloat16, torch.float32):
         compare(attention_inputs(37, 20, 16, dtype, gen), "small ragged N=37 T=20")
@@ -1022,9 +1066,9 @@ def sepformer_step_phase(fails: Failures, train_dir: str) -> dict:
 
 
 def _kernel_group(name: str) -> str:
-    if "attn_fwd_kernel" in name:
+    if "attn_fwd_" in name:                 # attn_fwd_kernel (f32), _rows, _passes (bf16)
         return "K5 forward"
-    if "attn_bwd_kernel" in name:
+    if "attn_bwd_" in name:
         return "K5 backward"
     if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "gemv")):
         return "products (cuBLAS)"
@@ -1149,9 +1193,11 @@ def main() -> int:
     _build.build(["lstm_fwd", "lstm_bwd", "stft", "attention"])
     print(f"  nvcc (parallel): {time.monotonic() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in log.splitlines():       # each kernel's name, then its registers and spills
+            if "Function properties for" in line:
+                print(f"  {name}: {line.split('Function properties for')[1].strip()}")
+            elif "registers" in line or "spill" in line:
+                print(f"  {name}:   {line.strip()}")
 
     print("== 3. kernels against their plain versions", flush=True)
     lstm = check_lstm(fails)
@@ -1223,7 +1269,8 @@ def main() -> int:
         kernels.append(row(name, "cuda", "speech_separation_tpu_torch/csrc/attention.cu",
                            f"speech_separation_tpu/ops/attention_pallas.py:{line}",
                            nums[torch.bfloat16],
-                           {"dtype": "bfloat16", "float32": nums[torch.float32],
+                           {"dtype": "bfloat16", "plan": nums[torch.bfloat16]["plan"],
+                            "hmma": nums[torch.bfloat16]["hmma"], "float32": nums[torch.float32],
                             "inter": nums["inter"], "long": nums["long"],
                             "serve_launches": served_sf["launches"][name]}))
     print(f"  serve: {served}", flush=True)

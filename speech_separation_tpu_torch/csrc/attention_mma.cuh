@@ -18,19 +18,23 @@
 // Keys and queries past T are zero rows with a mask term of -inf: out of
 // every max and sum, and never stored.
 //
-// Two paths, chosen by attention_plan (ops/attention_kernel.py mirrors
-// plan_mma below):
+// Three paths, chosen by attention_plan (ops/attention_kernel.py mirrors
+// plan_mma below) from T and dh:
 // - registers, T <= REG_CAP: a CTA of 4 warps holds R whole rows in shared
 //   memory; a warp keeps its m-tile's whole logit row in its C fragments
 //   (T/2 f32 a thread, up to MAXKB 16-key blocks), so each (query, key) takes
-//   one exp: row max and sum by quad shuffles in a fixed order, w32 =
-//   __fdiv_rn(e, sum), round_bf16(w32) packed from the C layout straight into
-//   AV's A fragments. The backward's query phase keeps w32 there and
-//   recomputes dw per block (two mma are cheaper than 64 more registers): one
-//   sweep for D = sum_k dw w32, one for ds and dq; then, after a CTA barrier,
-//   the key phase (one warp per 16 keys) recomputes the transposed logits
-//   from the per-query max, sum and D kept in shared memory and sums dk and
-//   dv over the query blocks.
+//   one exp: row max and sum by quad shuffles in a fixed order, w32 = e / sum
+//   rounded as __fdiv_rn rounds it (div_rcp), round_bf16(w32) packed from the
+//   C layout straight into AV's A fragments. The backward's query phase keeps
+//   w32 there and recomputes dw per block (two mma are cheaper than 64 more
+//   registers): one sweep for D = sum_k dw w32, one for ds and dq; then,
+//   after a CTA barrier, the key phase (one warp per 16 keys) recomputes the
+//   transposed logits from the per-query max, sum, 1/sum and D kept in shared
+//   memory and sums dk and dv over the query blocks.
+// - stored, a backward whose weights also fit shared memory at two CTAs a SM
+//   (T <= 112 at dh <= 16, 96 above): one row a CTA of 8 warps; the query
+//   phase also stores round(w32), bf16(ds) and its residual, and the key
+//   phase reads them transposed by ldmatrix instead of recomputing them.
 // - passes, T > REG_CAP: the reference's max-exp-divide over key tiles of KT
 //   keys streamed through a 2-stage cp.async ring: max, then sum, then the
 //   weights and AV (the backward's query phase: max, sum, D, then dq),
@@ -38,7 +42,7 @@
 //   the weights are divided by the final sum before they are rounded to bf16,
 //   as the reference does. The forward's CTA takes 128 queries of one row;
 //   the backward's CTA one whole row (the key phase reads every query's max,
-//   sum and D from its shared memory, hence MAX_T_BWD).
+//   sum, 1/sum and D from its shared memory, hence MAX_T_BWD).
 // Sums have one owner and a fixed order, there are no atomics, and a second
 // launch gives bit-identical outputs.
 #pragma once
@@ -56,8 +60,10 @@ constexpr int REG_CAP = 256;        // T up to which a warp keeps whole logit ro
 constexpr int MAX_T_BWD = 8192;     // the backward's per-query statistics in shared memory
 constexpr int WARPS_REG = 4;        // warps of a registers-path CTA
 constexpr int WARPS_PASS = 8;       // warps of a passes-path CTA
+constexpr int WARPS_STORE = 8;      // warps of a backward CTA that stores the weights
+constexpr int STORE_BUDGET = 115712;  // shared bytes of such a CTA: two a SM
 constexpr int ROWS_MAX = 8;         // rows of a registers-path CTA, at most
-constexpr int ROW_BUDGET = 76800;   // shared bytes a registers-path CTA takes for R > 1
+constexpr int ROW_BUDGET = 57344;   // shared bytes a registers-path CTA takes for R > 1 (4 a SM)
 constexpr int SMEM_MAX = 232448;    // 227 KB, the most one CTA may take
 
 __host__ __device__ constexpr int dhp_of(int dh) { return dh < 16 ? 16 : dh; }
@@ -234,7 +240,8 @@ __device__ __forceinline__ void store_tile(uint16_t* out, const float (&c)[ND][4
 // s = logits of the warp's 16 queries (A fragments qa) against 16 keys at ks
 // (rows of RS), with the keys' mask terms at mn
 template <int DH>
-__device__ __forceinline__ void logits_block(float (&s)[2][4], const uint32_t (&qa)[dhp_of(DH) / 16][4],
+__device__ __forceinline__ void logits_block(float (&s)[2][4],
+                                             const uint32_t (&qa)[dhp_of(DH) / 16][4],
                                              const uint16_t* ks, const float* mn, float scale,
                                              int lane) {
   constexpr int KS = dhp_of(DH) / 16, RS = rs_of(DH);
@@ -262,7 +269,8 @@ __device__ __forceinline__ void logits_block(float (&s)[2][4], const uint32_t (&
 
 // dw = dO V^T of the warp's 16 queries (A fragments da) against 16 keys at vs
 template <int DH>
-__device__ __forceinline__ void dw_block(float (&dw)[2][4], const uint32_t (&da)[dhp_of(DH) / 16][4],
+__device__ __forceinline__ void dw_block(float (&dw)[2][4],
+                                         const uint32_t (&da)[dhp_of(DH) / 16][4],
                                          const uint16_t* vs, int lane) {
   constexpr int KS = dhp_of(DH) / 16, RS = rs_of(DH);
 #pragma unroll
@@ -321,14 +329,47 @@ __device__ __forceinline__ void zero(float (&c)[N][4]) {
   for (int i = 0; i < N; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
 }
 
-// w32 = e / sum of a block, in place (rows g: sum0, g + 8: sum1)
-__device__ __forceinline__ void divide_block(float (&s)[2][4], float sum0, float sum1) {
+// e / s rounded to nearest, as __fdiv_rn(e, s) gives it, from r = __frcp_rn(s):
+// q = e r, then one correction by the exact remainder e - q s (Markstein).
+// Exact while the quotient and the remainder stay normal: for s in [1, 2^13]
+// (a softmax sum, at least the max's exp(0) = 1) that holds for e >= 2^-80
+// and e = 0 (checked against IEEE division on 8e8 pairs). __fdiv_rn itself
+// costs a range check and a branch per element, which halved the kernels'
+// speed on the card.
+__device__ __forceinline__ float div_rcp(float e, float s, float r) {
+  const float q = __fmul_rn(e, r);
+  return __fmaf_rn(__fmaf_rn(-q, s, e), r, q);
+}
+// e in (0, 2^-80): the quotient is left to __fdiv_rn
+__device__ __forceinline__ bool tiny(float e) {
+  return __float_as_uint(e) - 1u < 0x17800000u - 1u;
+}
+
+// w32 = e / sum of a block, in place (rows g: sum0 and its reciprocal r0,
+// g + 8: sum1 and r1)
+__device__ __forceinline__ void divide_block(float (&s)[2][4], float sum0, float r0, float sum1,
+                                             float r1) {
+  bool slow = false;
 #pragma unroll
-  for (int n = 0; n < 2; ++n) {
-    s[n][0] = __fdiv_rn(s[n][0], sum0);
-    s[n][1] = __fdiv_rn(s[n][1], sum0);
-    s[n][2] = __fdiv_rn(s[n][2], sum1);
-    s[n][3] = __fdiv_rn(s[n][3], sum1);
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) slow |= tiny(s[n][i]);
+  if (slow) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      s[n][0] = __fdiv_rn(s[n][0], sum0);
+      s[n][1] = __fdiv_rn(s[n][1], sum0);
+      s[n][2] = __fdiv_rn(s[n][2], sum1);
+      s[n][3] = __fdiv_rn(s[n][3], sum1);
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      s[n][0] = div_rcp(s[n][0], sum0, r0);
+      s[n][1] = div_rcp(s[n][1], sum0, r0);
+      s[n][2] = div_rcp(s[n][2], sum1, r1);
+      s[n][3] = div_rcp(s[n][3], sum1, r1);
+    }
   }
 }
 
@@ -360,8 +401,9 @@ __device__ __forceinline__ void ds_block(float (&dw)[2][4], const float (&w)[2][
 // One 16-query block of the backward's key phase: the warp's 16 keys (A
 // fragments ka of K and va of V, mask terms mg0 and mg1 of rows g and g + 8)
 // against the queries i0.. at qs and dos (rows of RS), whose max, sum and D
-// are at smx, ssum and sD (indexed from i0). Adds ds^T Q to dk and
-// round(w32)^T dO to dv; queries at or past Tn weigh nothing.
+// and the sum's reciprocal are at smx, ssum, sD and srcp (indexed from i0).
+// Adds ds^T Q to dk and round(w32)^T dO to dv; queries at or past Tn weigh
+// nothing.
 template <int DH>
 __device__ __forceinline__ void key_block(float (&dk)[dhp_of(DH) / 8][4],
                                           float (&dv)[dhp_of(DH) / 8][4],
@@ -369,7 +411,8 @@ __device__ __forceinline__ void key_block(float (&dk)[dhp_of(DH) / 8][4],
                                           const uint32_t (&va)[dhp_of(DH) / 16][4], float mg0,
                                           float mg1, const uint16_t* qs, const uint16_t* dos,
                                           const float* smx, const float* ssum, const float* sD,
-                                          int i0, int Tn, float scale, int lane) {
+                                          const float* srcp, int i0, int Tn, float scale,
+                                          int lane) {
   constexpr int KS = dhp_of(DH) / 16, RS = rs_of(DH);
   float st[2][4], dwt[2][4];
   zero(st);
@@ -386,17 +429,36 @@ __device__ __forceinline__ void key_block(float (&dk)[dhp_of(DH) / 8][4],
   }
   const int t = lane & 3;
   float w[2][4];
+  bool slow = false;
 #pragma unroll
   for (int n = 0; n < 2; ++n) {
     const int c = n * 8 + 2 * t;
     const float2 mx = *reinterpret_cast<const float2*>(smx + c);
-    const float2 sm = *reinterpret_cast<const float2*>(ssum + c);
-    const float2 D = *reinterpret_cast<const float2*>(sD + c);
     const bool ok0 = i0 + c < Tn, ok1 = i0 + c + 1 < Tn;
-    w[n][0] = ok0 ? __fdiv_rn(expf(__fsub_rn(logit_rn(st[n][0], scale, mg0), mx.x)), sm.x) : 0.f;
-    w[n][1] = ok1 ? __fdiv_rn(expf(__fsub_rn(logit_rn(st[n][1], scale, mg0), mx.y)), sm.y) : 0.f;
-    w[n][2] = ok0 ? __fdiv_rn(expf(__fsub_rn(logit_rn(st[n][2], scale, mg1), mx.x)), sm.x) : 0.f;
-    w[n][3] = ok1 ? __fdiv_rn(expf(__fsub_rn(logit_rn(st[n][3], scale, mg1), mx.y)), sm.y) : 0.f;
+    w[n][0] = ok0 ? expf(__fsub_rn(logit_rn(st[n][0], scale, mg0), mx.x)) : 0.f;
+    w[n][1] = ok1 ? expf(__fsub_rn(logit_rn(st[n][1], scale, mg0), mx.y)) : 0.f;
+    w[n][2] = ok0 ? expf(__fsub_rn(logit_rn(st[n][2], scale, mg1), mx.x)) : 0.f;
+    w[n][3] = ok1 ? expf(__fsub_rn(logit_rn(st[n][3], scale, mg1), mx.y)) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) slow |= tiny(w[n][i]);
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int c = n * 8 + 2 * t;
+    const float2 sm = *reinterpret_cast<const float2*>(ssum + c);
+    const float2 r = *reinterpret_cast<const float2*>(srcp + c);
+    const float2 D = *reinterpret_cast<const float2*>(sD + c);
+    if (slow) {
+      w[n][0] = __fdiv_rn(w[n][0], sm.x);
+      w[n][1] = __fdiv_rn(w[n][1], sm.y);
+      w[n][2] = __fdiv_rn(w[n][2], sm.x);
+      w[n][3] = __fdiv_rn(w[n][3], sm.y);
+    } else {
+      w[n][0] = div_rcp(w[n][0], sm.x, r.x);
+      w[n][1] = div_rcp(w[n][1], sm.y, r.y);
+      w[n][2] = div_rcp(w[n][2], sm.x, r.x);
+      w[n][3] = div_rcp(w[n][3], sm.y, r.y);
+    }
     dwt[n][0] = __fmul_rn(__fmul_rn(w[n][0], __fsub_rn(dwt[n][0], D.x)), scale);
     dwt[n][1] = __fmul_rn(__fmul_rn(w[n][1], __fsub_rn(dwt[n][1], D.y)), scale);
     dwt[n][2] = __fmul_rn(__fmul_rn(w[n][2], __fsub_rn(dwt[n][2], D.x)), scale);
@@ -474,12 +536,13 @@ attn_fwd_rows(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     }
     sum0 = quad_sum(sum0);
     sum1 = quad_sum(sum1);
+    const float r0 = __frcp_rn(sum0), r1 = __frcp_rn(sum1);
     float acc[ND][4];
     zero(acc);
 #pragma unroll
     for (int kb = 0; kb < MAXKB; ++kb) {
       if (kb < MT) {
-        divide_block(s[kb], sum0, sum1);
+        divide_block(s[kb], sum0, r0, sum1, r1);
         uint32_t a[4];
         c_to_a(a, s[kb]);
         av_block<DH>(acc, a, vr + kb * 16 * RS, lane);
@@ -490,9 +553,13 @@ attn_fwd_rows(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 }
 
 // As attn_fwd_rows, with do staged too and, after the mask terms, each row's
-// per-query max, sum and D (3 x Tp f32).
-template <int DH, int MAXKB>
-__global__ void __launch_bounds__(WARPS_REG * 32, MAXKB <= 8 ? 3 : 2)
+// per-query max, sum, D and the sum's reciprocal (4 x Tp f32); or, STORE,
+// the query phase's round(w32), bf16(ds) and bf16(ds - bf16(ds)) (3 x Tp x
+// (Tp + 8) bf16), which the key phase reads transposed by ldmatrix instead
+// of recomputing them.
+template <int DH, int MAXKB, bool STORE>
+__global__ void __launch_bounds__(STORE ? WARPS_STORE * 32 : WARPS_REG * 32,
+                                  STORE || MAXKB > 8 ? 2 : 3)
 attn_bwd_rows(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
               const uint16_t* __restrict__ v, const float* __restrict__ mask,
               const uint16_t* __restrict__ dout, uint16_t* __restrict__ dq,
@@ -508,6 +575,9 @@ attn_bwd_rows(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   uint16_t* dos = vs + R * rowe;
   float* mn = reinterpret_cast<float*>(dos + R * rowe);
   float* stats = mn + R * Tp;
+  uint16_t* wsm = reinterpret_cast<uint16_t*>(stats);       // STORE: W, Hi, Lo of each row
+  constexpr int NW = STORE ? WARPS_STORE : WARPS_REG;
+  const int WS = Tp + 8, wrow = 3 * Tp * WS;
   for (int r = 0; r < rows; ++r) {
     const size_t off = (size_t)(n0 + r) * Tn * DH;
     stage_rows<DH>(qs + r * rowe, q + off, Tn, Tp, vec);
@@ -520,9 +590,9 @@ attn_bwd_rows(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   cp_async_wait<0>();
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   // ---- query phase: a warp per 16 queries; max, sum, D kept for the key phase
-  for (int task = threadIdx.x >> 5; task < rows * MT; task += WARPS_REG) {
+  for (int task = threadIdx.x >> 5; task < rows * MT; task += NW) {
     const int r = task / MT, m0 = (task % MT) * 16;
     const uint16_t* kr = ks + r * rowe;
     const uint16_t* vr = vs + r * rowe;
@@ -559,11 +629,12 @@ attn_bwd_rows(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     }
     sum0 = quad_sum(sum0);
     sum1 = quad_sum(sum1);
+    const float r0 = __frcp_rn(sum0), r1 = __frcp_rn(sum1);
     float D0 = 0.f, D1 = 0.f;
 #pragma unroll
     for (int kb = 0; kb < MAXKB; ++kb) {
       if (kb < MT) {
-        divide_block(s[kb], sum0, sum1);
+        divide_block(s[kb], sum0, r0, sum1, r1);
         float dw[2][4];
         dw_block<DH>(dw, da, vr + kb * 16 * RS, lane);
 #pragma unroll
@@ -586,38 +657,70 @@ attn_bwd_rows(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         uint32_t hi[4], lo[4];
         c_to_a_split(hi, lo, ds);
         av2_block<DH>(acc, hi, lo, kr + kb * 16 * RS, lane);
+        if constexpr (STORE) {
+          // A-fragment words: rows g and g + 8, keys 2t.. and 8 + 2t..
+          uint32_t wa[4];
+          c_to_a(wa, s[kb]);
+          uint16_t* p = wsm + r * wrow + (m0 + g) * WS + kb * 16 + 2 * t;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const uint32_t(&x)[4] = j == 0 ? wa : j == 1 ? hi : lo;
+            uint16_t* pj = p + j * Tp * WS;
+            *reinterpret_cast<uint32_t*>(pj) = x[0];
+            *reinterpret_cast<uint32_t*>(pj + 8 * WS) = x[1];
+            *reinterpret_cast<uint32_t*>(pj + 8) = x[2];
+            *reinterpret_cast<uint32_t*>(pj + 8 * WS + 8) = x[3];
+          }
+        }
       }
     }
     store_tile<DH, ND>(dq + ((size_t)(n0 + r) * Tn + m0) * DH, acc, Tn - m0, vec, lane);
-    if ((lane & 3) == 0) {
-      float* st = stats + r * 3 * Tp + m0 + g;
+    if (!STORE && (lane & 3) == 0) {
+      float* st = stats + r * 4 * Tp + m0 + g;
       st[0] = mx0;
       st[8] = mx1;
       st[Tp] = sum0;
       st[Tp + 8] = sum1;
       st[2 * Tp] = D0;
       st[2 * Tp + 8] = D1;
+      st[3 * Tp] = r0;
+      st[3 * Tp + 8] = r1;
     }
   }
   __syncthreads();
 
   // ---- key phase: a warp per 16 keys, over every query block of the row
-  for (int task = threadIdx.x >> 5; task < rows * MT; task += WARPS_REG) {
+  for (int task = threadIdx.x >> 5; task < rows * MT; task += NW) {
     const int r = task / MT, k0 = (task % MT) * 16;
     const uint16_t* qr = qs + r * rowe;
     const uint16_t* dor = dos + r * rowe;
-    const float* st = stats + r * 3 * Tp;
-    uint32_t ka[KS][4], va[KS][4];
-    load_a<DH>(ka, ks + r * rowe + k0 * RS, lane);
-    load_a<DH>(va, vs + r * rowe + k0 * RS, lane);
-    const float mg0 = mn[r * Tp + k0 + g], mg1 = mn[r * Tp + k0 + g + 8];
     float dka[ND][4], dva[ND][4];
     zero(dka);
     zero(dva);
-    for (int qb = 0; qb < MT; ++qb)
-      key_block<DH>(dka, dva, ka, va, mg0, mg1, qr + qb * 16 * RS, dor + qb * 16 * RS,
-                    st + qb * 16, st + Tp + qb * 16, st + 2 * Tp + qb * 16, qb * 16, Tn, scale,
-                    lane);
+    if constexpr (STORE) {
+      // W^T, Hi^T, Lo^T as A operands: the stored (query, key) blocks, transposed
+      const uint16_t* p = wsm + r * wrow + ((lane & 7) + (lane >> 4) * 8) * WS + k0 +
+                          ((lane >> 3) & 1) * 8;
+      for (int qb = 0; qb < MT; ++qb) {
+        const uint16_t* pb = p + qb * 16 * WS;
+        uint32_t wa[4], hi[4], lo[4];
+        ldsm_x4_t(wa, pb);
+        ldsm_x4_t(hi, pb + Tp * WS);
+        ldsm_x4_t(lo, pb + 2 * Tp * WS);
+        av_block<DH>(dva, wa, dor + qb * 16 * RS, lane);
+        av2_block<DH>(dka, hi, lo, qr + qb * 16 * RS, lane);
+      }
+    } else {
+      const float* st = stats + r * 4 * Tp;
+      uint32_t ka[KS][4], va[KS][4];
+      load_a<DH>(ka, ks + r * rowe + k0 * RS, lane);
+      load_a<DH>(va, vs + r * rowe + k0 * RS, lane);
+      const float mg0 = mn[r * Tp + k0 + g], mg1 = mn[r * Tp + k0 + g + 8];
+      for (int qb = 0; qb < MT; ++qb)
+        key_block<DH>(dka, dva, ka, va, mg0, mg1, qr + qb * 16 * RS, dor + qb * 16 * RS,
+                      st + qb * 16, st + Tp + qb * 16, st + 2 * Tp + qb * 16,
+                      st + 3 * Tp + qb * 16, qb * 16, Tn, scale, lane);
+    }
     const size_t out = ((size_t)(n0 + r) * Tn + k0) * DH;
     store_tile<DH, ND>(dk + out, dka, Tn - k0, vec, lane);
     store_tile<DH, ND>(dv + out, dva, Tn - k0, vec, lane);
@@ -628,8 +731,8 @@ attn_bwd_rows(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 
 // Shared memory of the passes path: the CTA's own QR rows (one array in the
 // forward: q; two in the backward: q and do, then k and v) and, for the
-// backward, the row's per-query max, sum and D and the own keys' mask terms;
-// then a 2-stage ring of KT-key (or KT-query) tiles: two arrays of KT x RS
+// backward, the row's per-query max, sum, D and 1 / sum and the own keys'
+// mask terms; then a 2-stage ring of KT-key (or KT-query) tiles: two arrays of KT x RS
 // and KT mask terms a stage.
 constexpr int QR = 16 * WARPS_PASS;
 
@@ -638,7 +741,8 @@ __device__ __forceinline__ void pass_block(int pass, const uint32_t (&qa)[dhp_of
                                            const uint32_t (&da)[dhp_of(DH) / 16][4],
                                            const uint16_t* ks, const uint16_t* vs,
                                            const float* mn, float scale, float& mx0, float& mx1,
-                                           float& sum0, float& sum1, float& D0, float& D1,
+                                           float& sum0, float& sum1, float r0, float r1,
+                                           float& D0, float& D1,
                                            float (&acc)[dhp_of(DH) / 8][4], bool backward,
                                            int lane) {
   float s[2][4];
@@ -660,7 +764,7 @@ __device__ __forceinline__ void pass_block(int pass, const uint32_t (&qa)[dhp_of
     }
     return;
   }
-  divide_block(s, sum0, sum1);
+  divide_block(s, sum0, r0, sum1, r1);
   if (!backward) {                                   // forward pass 2: AV
     uint32_t a[4];
     c_to_a(a, s);
@@ -692,7 +796,7 @@ __device__ __forceinline__ void query_passes(
     int npass, bool backward, bool act, const uint32_t (&qa)[dhp_of(DH) / 16][4],
     const uint32_t (&da)[dhp_of(DH) / 16][4], const uint16_t* k, const uint16_t* v,
     const float* mask, uint16_t* ring, float* mring, int Tn, float scale, bool vec,
-    float& mx0, float& mx1, float& sum0, float& sum1, float& D0, float& D1,
+    float& mx0, float& mx1, float& sum0, float& sum1, float& r0, float& r1, float& D0, float& D1,
     float (&acc)[dhp_of(DH) / 8][4], int lane) {
   constexpr int RS = rs_of(DH), KT = kt_of(DH);
   const int ntile = (Tn + KT - 1) / KT;
@@ -722,7 +826,7 @@ __device__ __forceinline__ void query_passes(
 #pragma unroll 2
         for (int kb = 0; kb < nkb; ++kb)
           pass_block<DH>(pass, qa, da, ksb + kb * 16 * RS, vsb + kb * 16 * RS, mnb + kb * 16,
-                         scale, mx0, mx1, sum0, sum1, D0, D1, acc, backward, lane);
+                         scale, mx0, mx1, sum0, sum1, r0, r1, D0, D1, acc, backward, lane);
       }
       __syncthreads();
     }
@@ -732,6 +836,8 @@ __device__ __forceinline__ void query_passes(
     } else if (pass == 1) {
       sum0 = quad_sum(sum0);
       sum1 = quad_sum(sum1);
+      r0 = __frcp_rn(sum0);
+      r1 = __frcp_rn(sum1);
     } else if (pass == 2 && backward) {
       D0 = quad_sum(D0);
       D1 = quad_sum(D1);
@@ -761,11 +867,12 @@ attn_fwd_passes(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   const bool act = m0 < nq;
   uint32_t qa[KS][4];
   if (act) load_a<DH>(qa, qs + m0 * RS, lane);
-  float mx0 = -INFINITY, mx1 = -INFINITY, sum0 = 0.f, sum1 = 0.f, D0 = 0.f, D1 = 0.f;
+  float mx0 = -INFINITY, mx1 = -INFINITY, sum0 = 0.f, sum1 = 0.f, r0 = 0.f, r1 = 0.f;
+  float D0 = 0.f, D1 = 0.f;
   float acc[ND][4];
   zero(acc);
   query_passes<DH>(3, false, act, qa, qa, k + off, v + off, mask + (size_t)n * Tn, ring, mring,
-                   Tn, scale, vec, mx0, mx1, sum0, sum1, D0, D1, acc, lane);
+                   Tn, scale, vec, mx0, mx1, sum0, sum1, r0, r1, D0, D1, acc, lane);
   if (act) store_tile<DH, ND>(o + off + (size_t)(c0 + m0) * DH, acc, nq - m0, vec, lane);
 }
 
@@ -780,10 +887,11 @@ attn_bwd_passes(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   constexpr int RS = rs_of(DH), KS = dhp_of(DH) / 16, ND = dhp_of(DH) / 8, KT = kt_of(DH);
   extern __shared__ __align__(16) unsigned char smem[];
   const int Tp = (Tn + 15) & ~15;
-  float* smx = reinterpret_cast<float*>(smem);                      // Tp each: max, sum, D
+  float* smx = reinterpret_cast<float*>(smem);       // Tp each: max, sum, D, 1 / sum
   float* ssum = smx + Tp;
   float* sD = ssum + Tp;
-  float* omn = sD + Tp;                                             // QR
+  float* srcp = sD + Tp;
+  float* omn = srcp + Tp;                                           // QR
   float* mring = omn + QR;                                          // 2 x KT
   uint16_t* oa = reinterpret_cast<uint16_t*>(mring + 2 * KT);       // QR x RS each
   uint16_t* ob = oa + QR * RS;
@@ -807,11 +915,12 @@ attn_bwd_passes(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
       load_a<DH>(qa, oa + m0 * RS, lane);
       load_a<DH>(da, ob + m0 * RS, lane);
     }
-    float mx0 = -INFINITY, mx1 = -INFINITY, sum0 = 0.f, sum1 = 0.f, D0 = 0.f, D1 = 0.f;
+    float mx0 = -INFINITY, mx1 = -INFINITY, sum0 = 0.f, sum1 = 0.f, r0 = 0.f, r1 = 0.f;
+    float D0 = 0.f, D1 = 0.f;
     float acc[ND][4];
     zero(acc);
     query_passes<DH>(4, true, act, qa, da, k + off, v + off, mrow, ring, mring, Tn, scale, vec,
-                     mx0, mx1, sum0, sum1, D0, D1, acc, lane);
+                     mx0, mx1, sum0, sum1, r0, r1, D0, D1, acc, lane);
     if (act) {
       store_tile<DH, ND>(dq + off + (size_t)(c0 + m0) * DH, acc, nq - m0, vec, lane);
       if ((lane & 3) == 0) {
@@ -822,6 +931,8 @@ attn_bwd_passes(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         ssum[i + 8] = sum1;
         sD[i] = D0;
         sD[i + 8] = D1;
+        srcp[i] = r0;
+        srcp[i + 8] = r1;
       }
     }
   }
@@ -869,7 +980,7 @@ attn_bwd_passes(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         for (int qb = 0; qb < nqb; ++qb) {
           const int i = i0 + qb * 16;
           key_block<DH>(dka, dva, ka, va, mg0, mg1, qsb + qb * 16 * RS, dosb + qb * 16 * RS,
-                        smx + i, ssum + i, sD + i, i, Tn, scale, lane);
+                        smx + i, ssum + i, sD + i, srcp + i, i, Tn, scale, lane);
         }
       }
       __syncthreads();
@@ -884,8 +995,9 @@ attn_bwd_passes(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 // ------------------------------------------------------------------ plan
 
 // The launch of a shape (ops/attention_kernel.attention_plan is its mirror):
-// path 0 registers (T <= REG_CAP), 1 passes; rows a CTA; warps a CTA; shared
-// bytes a CTA; CTAs.
+// path 0 registers (T <= REG_CAP), 1 passes, 2 registers with the backward's
+// weights and ds stored for its key phase (one row a CTA, where that fits
+// two CTAs a SM); rows a CTA; warps a CTA; shared bytes a CTA; CTAs.
 struct Plan {
   int path, rows, warps, smem, ctas;
 };
@@ -893,7 +1005,9 @@ struct Plan {
 inline Plan plan_mma(bool backward, int N, int T, int dh) {
   const int Tp = (T + 15) & ~15, MT = Tp / 16, rs2 = rs_of(dh) * 2, kt = kt_of(dh);
   if (T <= REG_CAP) {
-    const int per_row = backward ? 4 * Tp * rs2 + 16 * Tp : 3 * Tp * rs2 + 4 * Tp;
+    const int stored = 4 * Tp * rs2 + 4 * Tp + 6 * Tp * (Tp + 8);
+    if (backward && stored <= STORE_BUDGET) return {2, 1, WARPS_STORE, stored, N};
+    const int per_row = backward ? 4 * Tp * rs2 + 20 * Tp : 3 * Tp * rs2 + 4 * Tp;
     // rows a CTA: the share of its warps' task slots in use (R * MT tasks
     // over WARPS_REG warps) at its largest, the fewest rows on a tie, within
     // the budget
@@ -910,7 +1024,7 @@ inline Plan plan_mma(bool backward, int N, int T, int dh) {
   }
   const int ring = 2 * (2 * kt * rs2 + 4 * kt);
   if (!backward) return {1, 1, WARPS_PASS, QR * rs2 + ring, N * ((T + QR - 1) / QR)};
-  return {1, 1, WARPS_PASS, 12 * Tp + 4 * QR + 2 * QR * rs2 + ring, N};
+  return {1, 1, WARPS_PASS, 16 * Tp + 4 * QR + 2 * QR * rs2 + ring, N};
 }
 
 template <typename K, typename... A>
@@ -966,11 +1080,14 @@ int bwd_mma(const void* q, const void* k, const void* v, const float* mask, cons
   if (p.path == 1)
     return launch(attn_bwd_passes<DH>, p.ctas, threads, p.smem, s, qq, kk, vv, mask, dd, gq, gk,
                   gv, T, scale, vec);
+  if (p.path == 2)
+    return launch(attn_bwd_rows<DH, 8, true>, p.ctas, threads, p.smem, s, qq, kk, vv, mask, dd,
+                  gq, gk, gv, N, T, p.rows, scale, vec);
   if (T <= 128)
-    return launch(attn_bwd_rows<DH, 8>, p.ctas, threads, p.smem, s, qq, kk, vv, mask, dd, gq,
-                  gk, gv, N, T, p.rows, scale, vec);
-  return launch(attn_bwd_rows<DH, 16>, p.ctas, threads, p.smem, s, qq, kk, vv, mask, dd, gq, gk,
-                gv, N, T, p.rows, scale, vec);
+    return launch(attn_bwd_rows<DH, 8, false>, p.ctas, threads, p.smem, s, qq, kk, vv, mask, dd,
+                  gq, gk, gv, N, T, p.rows, scale, vec);
+  return launch(attn_bwd_rows<DH, 16, false>, p.ctas, threads, p.smem, s, qq, kk, vv, mask, dd,
+                gq, gk, gv, N, T, p.rows, scale, vec);
 }
 
 }  // namespace sepattn

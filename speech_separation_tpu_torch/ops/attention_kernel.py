@@ -26,11 +26,12 @@ through the plain forward (the two differ in bf16).
 
 The kernels take dh in ``DH_SUPPORTED``, contiguous tensors of one dtype
 (float32 or bfloat16), any T in the forward and T up to ``MAX_T_BWD`` in the
-backward, which keeps three float32 statistics per query of a row in shared
-memory. ``attention_plan`` names the launch of a shape: in bfloat16 the
-products run on the tensor cores, with whole logit rows in registers up to
-T = ``REG_CAP`` and passes over streamed key tiles above; float32 stays on
-the CUDA cores (the tensor cores take float32 only as TF32).
+backward, which keeps float32 statistics of each query of a row in shared
+memory (three in float32, four in bfloat16). ``attention_plan`` names the
+launch of a shape: in bfloat16 the products run on the tensor cores, with
+whole logit rows in registers up to T = ``REG_CAP`` and passes over streamed
+key tiles above; float32 stays on the CUDA cores (the tensor cores take
+float32 only as TF32).
 """
 
 from __future__ import annotations
@@ -46,8 +47,10 @@ REG_CAP = 256              # T up to which a bf16 warp keeps whole logit rows in
 SMEM_MAX = 232448          # 227 KB, the most shared memory one CTA may take on an H100
 # csrc/attention_mma.cuh: warps of a registers-path and of a passes-path CTA,
 # rows of a registers-path CTA at most, and the shared bytes such a CTA may
-# take for more than one row
-_WARPS_REG, _WARPS_PASS, _ROWS_MAX, _ROW_BUDGET = 4, 8, 8, 76800
+# take for more than one row; warps and shared bytes at most of a backward
+# CTA that stores its weights for the key phase
+_WARPS_REG, _WARPS_PASS, _ROWS_MAX, _ROW_BUDGET = 4, 8, 8, 57344
+_WARPS_STORE, _STORE_BUDGET = 8, 115712
 
 _lib_handle = None
 
@@ -97,8 +100,11 @@ def _check(q, k, v, key_mask, do=None):
 def attention_plan(N, T, dh, dtype=torch.bfloat16, backward=False):
     """The launch csrc/attention.cu makes for (N, T, dh) rows of ``dtype``,
     forward or backward: a dict of ``path`` ("registers": bf16, T <= ``REG_CAP``,
-    whole rows in shared memory and logit rows in registers; "passes": bf16
-    above, key tiles streamed, max, sum then weights; "cuda_cores": float32),
+    whole rows in shared memory and logit rows in registers; "stored": as
+    "registers", a backward whose weights and ds also fit shared memory, where
+    the key phase reads them instead of recomputing them, one row a CTA;
+    "passes": bf16 above ``REG_CAP``, key tiles streamed, max, sum then
+    weights; "cuda_cores": float32),
     ``rows`` (rows a CTA), ``warps`` (a CTA), ``smem`` (shared bytes a CTA),
     ``ctas`` and ``cap`` (``REG_CAP``). A pure function of its arguments (the
     bf16 plan is the card's own ``sep_attn_plan``). Raises ValueError for dh
@@ -107,8 +113,8 @@ def attention_plan(N, T, dh, dtype=torch.bfloat16, backward=False):
     if dh not in DH_SUPPORTED:
         raise ValueError(f"chunk attention takes dh in {DH_SUPPORTED}, got {dh}")
     if backward and T > MAX_T_BWD:
-        raise ValueError(f"the chunk_attention_bwd kernel takes T <= {MAX_T_BWD} (three "
-                         f"float32 statistics per query in shared memory), got T={T}")
+        raise ValueError(f"the chunk_attention_bwd kernel takes T <= {MAX_T_BWD} (float32 "
+                         f"statistics of every query in shared memory), got T={T}")
     if dtype == torch.float32:
         kt = min(T, 4096 // dh)
         smem = 4 * (2 * kt * dh + kt + (3 * T if backward else 0))
@@ -118,7 +124,11 @@ def attention_plan(N, T, dh, dtype=torch.bfloat16, backward=False):
     Tp, rs2, kt = -(-T // 16) * 16, 2 * (dhp + 8), 64 if dhp >= 64 else 128
     mt = Tp // 16
     if T <= REG_CAP:
-        per_row = 4 * Tp * rs2 + 16 * Tp if backward else 3 * Tp * rs2 + 4 * Tp
+        stored = 4 * Tp * rs2 + 4 * Tp + 6 * Tp * (Tp + 8)
+        if backward and stored <= _STORE_BUDGET:
+            return {"path": "stored", "rows": 1, "warps": _WARPS_STORE, "smem": stored,
+                    "ctas": N, "cap": REG_CAP}
+        per_row = 4 * Tp * rs2 + 20 * Tp if backward else 3 * Tp * rs2 + 4 * Tp
 
         def slots(r):                 # warp task slots of a CTA of r rows
             return _WARPS_REG * -(-r * mt // _WARPS_REG)
@@ -134,7 +144,7 @@ def attention_plan(N, T, dh, dtype=torch.bfloat16, backward=False):
     qr = 16 * _WARPS_PASS
     ring = 2 * (2 * kt * rs2 + 4 * kt)
     if backward:
-        smem, ctas = 12 * Tp + 4 * qr + 2 * qr * rs2 + ring, N
+        smem, ctas = 16 * Tp + 4 * qr + 2 * qr * rs2 + ring, N
     else:
         smem, ctas = qr * rs2 + ring, N * -(-T // qr)
     return {"path": "passes", "rows": 1, "warps": _WARPS_PASS, "smem": smem, "ctas": ctas,
@@ -147,8 +157,8 @@ def card_plan(N, T, dh, backward=False):
     vals = [ctypes.c_int(0) for _ in range(5)]
     _lib().sep_attn_plan(int(backward), N, T, dh, *vals)
     path, rows, warps, smem, ctas = (v.value for v in vals)
-    return {"path": ("registers", "passes")[path], "rows": rows, "warps": warps, "smem": smem,
-            "ctas": ctas, "cap": REG_CAP}
+    return {"path": ("registers", "passes", "stored")[path], "rows": rows, "warps": warps,
+            "smem": smem, "ctas": ctas, "cap": REG_CAP}
 
 
 def _check_cuda(name, tensors):

@@ -10,6 +10,8 @@ arithmetic, products summed in another order); bfloat16 2e-2 and 5e-2 (one
 bf16 rounding of the weights and of each output, at other places).
 """
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -135,3 +137,45 @@ def test_attention_plan_names_the_cap():
         assert attention_plan(2, MAX_T_BWD + 1, 16, dtype)["smem"] <= SMEM_MAX
     with pytest.raises(ValueError, match="dh"):
         attention_plan(2, 100, 12)
+
+
+# ------------------------------------------ the bf16 kernels' softmax division
+
+def _rn32(x: Fraction) -> Fraction:
+    """x rounded to the nearest float32 (ties to even, subnormals kept)."""
+    if x == 0:
+        return Fraction(0)
+    sign, x = (-1 if x < 0 else 1), abs(x)
+    exp = x.numerator.bit_length() - x.denominator.bit_length()
+    if Fraction(2) ** exp > x:
+        exp -= 1
+    ulp = Fraction(2) ** (max(exp, -126) - 23)
+    q, rem = divmod(x, ulp)
+    if 2 * rem > ulp or (2 * rem == ulp and q % 2):
+        q += 1
+    return sign * q * ulp
+
+
+def test_reciprocal_division_rounds_as_ieee_division():
+    """csrc/attention_mma.cuh divides a softmax weight e by its row's sum s
+    as q = RN(e r), then RN(q + RN(e - q s) r) with r = RN(1 / s) (div_rcp,
+    each step one float32 rounding, the inner two fused multiply-adds), and
+    leaves e in (0, 2^-80) to __fdiv_rn. Over the range it takes (s in
+    [1, 2^13], the sum of at most 8192 exps whose largest is 1; e in
+    [2^-80, 1]) that is RN(e / s), IEEE division's result, in exact
+    arithmetic on 4000 float32 pairs drawn from a seed and the range's ends."""
+    rng = np.random.default_rng(7)
+    n = 4000
+    e_bits = ((47 + rng.integers(0, 80, n)) << 23) | rng.integers(0, 1 << 23, n)
+    s_bits = ((127 + rng.integers(0, 13, n)) << 23) | rng.integers(0, 1 << 23, n)
+    es = np.minimum(e_bits.astype(np.uint32).view(np.float32), np.float32(1)).tolist()
+    ss = s_bits.astype(np.uint32).view(np.float32).tolist()
+    ends = [1.0, 2.0 ** -80, float(np.float32(1) - np.float32(2) ** -24)]
+    pairs = list(zip(es, ss)) + [(e, s) for e in ends
+                                 for s in (1.0, 8192.0, 2.0 - 2.0 ** -23, 3.0)]
+    for e, s in pairs:
+        e, s = Fraction(e), Fraction(s)
+        r = _rn32(1 / s)
+        q = _rn32(e * r)
+        got = _rn32(_rn32(e - q * s) * r + q)
+        assert got == _rn32(e / s), (float(e), float(s))

@@ -802,17 +802,17 @@ __device__ __forceinline__ void query_passes(
   const int ntile = (Tn + KT - 1) / KT;
   for (int pass = 0; pass < npass; ++pass) {
     const bool with_v = pass >= 2;
-    auto issue = [&](int it) {
+    auto fetch = [&](int it) {
       const int j0 = it * KT, nk = min(KT, Tn - j0), st = it & 1;
       stage_rows<DH>(ring + st * 2 * KT * RS, k + (size_t)j0 * DH, nk, KT, vec);
       if (with_v) stage_rows<DH>(ring + (st * 2 + 1) * KT * RS, v + (size_t)j0 * DH, nk, KT, vec);
       stage_mask_terms(mring + st * KT, mask + j0, nk, KT);
       cp_async_commit();
     };
-    issue(0);
+    fetch(0);
     for (int it = 0; it < ntile; ++it) {
       if (it + 1 < ntile) {
-        issue(it + 1);
+        fetch(it + 1);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -958,16 +958,16 @@ attn_bwd_passes(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     float dka[ND][4], dva[ND][4];
     zero(dka);
     zero(dva);
-    auto issue = [&](int it) {
+    auto fetch = [&](int it) {
       const int i0 = it * KT, ni = min(KT, Tn - i0), st = it & 1;
       stage_rows<DH>(ring + st * 2 * KT * RS, q + off + (size_t)i0 * DH, ni, KT, vec);
       stage_rows<DH>(ring + (st * 2 + 1) * KT * RS, dout + off + (size_t)i0 * DH, ni, KT, vec);
       cp_async_commit();
     };
-    issue(0);
+    fetch(0);
     for (int it = 0; it < ntile; ++it) {
       if (it + 1 < ntile) {
-        issue(it + 1);
+        fetch(it + 1);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();

@@ -219,9 +219,32 @@ def median_range(xs) -> dict:
             "n": len(xs)}
 
 
+def queued_ms(fn, iters: int) -> float:
+    """Mean device time of fn over iters calls enqueued behind a sleep on the
+    stream, so that the host's cost of each call (the wrapper, the launch)
+    does not show: for kernels shorter than their launch."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)      # about 20 ms, longer than enqueuing the calls
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def check_stft(fails: Failures) -> dict:
-    from speech_separation_tpu_torch.dsp.stft import _device_matrix
-    from speech_separation_tpu_torch.ops.stft_kernel import stft, stft_plain
+    """K2 against its plain version: small ragged rows, odd B with a row
+    length that is not a multiple of 4, the direct path at two sizes that are
+    not powers of two, the plan against the library's, and at the serving
+    (B=16, n_t=513) and uPIT on-device-features (300 rows, n_t=384) shapes in
+    both modes, each with a bit-identical second launch and its times beside
+    unfold @ A and torch.stft (cuFFT), timed queued behind a sleep."""
+    from speech_separation_tpu_torch.dsp.stft import _device_matrix, hann_periodic
+    from speech_separation_tpu_torch.ops.stft_kernel import card_plan, stft, stft_plain, stft_plan
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     n_fft, hop = 512, 128
 
@@ -231,37 +254,81 @@ def check_stft(fails: Failures) -> dict:
         scale = max(float(r.abs().max()) for r in ref)
         return max(float((g - r).abs().max()) for g, r in zip(got, ref)), scale
 
-    xs = torch.rand((3, 1000 + n_fft + 37), generator=gen, device="cuda") * 2 - 1
-    for magnitude in (False, True):
-        err, scale = rel_err(stft(xs, n_fft, hop, 8, magnitude), stft_plain(xs, n_fft, hop, 8, magnitude))
-        fails.check(err <= TOL["stft_rel"] * scale,
-                    f"stft small ragged magnitude={magnitude}: max_abs_err {err:.3e} "
-                    f"<= {TOL['stft_rel']} * {scale:.1f}")
+    def check(xp, n_fft, hop, n_t, what):
+        for magnitude in (False, True):
+            err, scale = rel_err(stft(xp, n_fft, hop, n_t, magnitude),
+                                 stft_plain(xp, n_fft, hop, n_t, magnitude))
+            fails.check(err <= TOL["stft_rel"] * scale,
+                        f"stft {what} magnitude={magnitude}: max_abs_err {err:.3e} "
+                        f"<= {TOL['stft_rel']} * {scale:.1f}")
 
-    B, Lp = 16, 65536 + n_fft
-    n_t = 1 + 65536 // hop
-    xp = (torch.rand((B, Lp), generator=gen, device="cuda") * 2 - 1) * 0.5
+    xs = torch.rand((3, 1000 + n_fft + 37), generator=gen, device="cuda") * 2 - 1
+    check(xs, n_fft, hop, 8, "small ragged")
+    xs = torch.rand((5, 3 * 4096 + n_fft + 7), generator=gen, device="cuda") * 2 - 1
+    check(xs, n_fft, hop, 1 + 3 * 4096 // hop, f"B=5 Lp={xs.shape[1]} (not a multiple of 4)")
+    for nf, hp in ((384, 128), (320, 160)):
+        xs = torch.rand((3, 40 * hp + nf + 5), generator=gen, device="cuda") * 2 - 1
+        path = stft_plan(3, xs.shape[1], 41, nf, hp)["path"]
+        fails.check(path == "direct", f"stft n_fft={nf} hop={hp} takes the direct path ({path})")
+        check(xs, nf, hp, 41, f"direct n_fft={nf} hop={hp}")
+    plan_shapes = [(16, 65536 + n_fft, 513, n_fft, hop), (300, 49536, 384, n_fft, hop),
+                   (3, 1549, 8, n_fft, hop), (5, 20000, 3, 8192, 4096), (7, 999, 60, 16, 8),
+                   (2, 5000, 30, 384, 128), (2, 5000, 30, 320, 160), (1, 100, 20, 8, 4)]
+    same = all(card_plan(*a) == stft_plan(*a) for a in plan_shapes)
+    refused = card_plan(1, 40000, 2, 16384, 8192) is None
+    fails.check(same and refused, f"stft_plan equals sep_stft_plan at {len(plan_shapes)} shapes "
+                                  f"and both refuse n_fft=16384")
+
+    window = torch.from_numpy(hann_periodic(n_fft)).cuda()
+    A = _device_matrix("rdft", n_fft, torch.device("cuda"))
     out = {}
-    for magnitude in (False, True):
-        got = stft(xp, n_fft, hop, n_t, magnitude)
-        ref = stft_plain(xp, n_fft, hop, n_t, magnitude)
-        err, scale = rel_err(got, ref)
-        torch.cuda.synchronize()
-        tol = TOL["stft_rel"] * scale
-        fails.check(err <= tol, f"stft B={B} n_t={n_t} magnitude={magnitude}: "
-                                f"max_abs_err {err:.3e} <= {tol:.3e}")
-        ms = cuda_ms(lambda: stft(xp, n_fft, hop, n_t, magnitude), iters=20)
-        plain_ms = cuda_ms(lambda: stft_plain(xp, n_fft, hop, n_t, magnitude), iters=20)
-        A = _device_matrix("rdft", n_fft, xp.device)
-        library_ms = cuda_ms(lambda: torch.matmul(xp.unfold(-1, n_fft, hop)[:, :n_t], A),
-                             iters=20)
-        flops = 2 * B * n_t * n_fft * A.shape[1]
-        outs = got if isinstance(got, tuple) else (got,)
-        b_ms, b_by = bound_ms(nbytes(xp, A, *outs), flops, torch.float32)
-        out[magnitude] = {"max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
-        print(f"  stft magnitude={magnitude}: {ms:.4f} ms (plain {plain_ms:.4f}, "
-              f"unfold@A {library_ms:.4f}, bound {b_ms:.4f} by {b_by})", flush=True)
+    for name, (B, Lp, n_t) in (("serve", (16, 65536 + n_fft, 513)),
+                               ("features", (300, 49536, 384))):
+        xp = (torch.rand((B, Lp), generator=gen, device="cuda") * 2 - 1) * 0.5
+        plan = stft_plan(B, Lp, n_t, n_fft, hop)
+        out[name] = {"shape": {"B": B, "Lp": Lp, "n_t": n_t, "n_fft": n_fft, "hop": hop},
+                     "plan": plan}
+
+        def torch_stft(magnitude):
+            X = torch.stft(xp, n_fft, hop, window=window, center=False, return_complex=True)
+            return X.abs() if magnitude else X
+
+        for magnitude in (False, True):
+            got = stft(xp, n_fft, hop, n_t, magnitude)
+            again = stft(xp, n_fft, hop, n_t, magnitude)
+            ref = stft_plain(xp, n_fft, hop, n_t, magnitude)
+            err, scale = rel_err(got, ref)
+            X = torch_stft(magnitude).transpose(1, 2)
+            lib_err, _ = rel_err((X,) if magnitude else (X.real, X.imag), ref)
+            torch.cuda.synchronize()
+            tol = TOL["stft_rel"] * scale
+            what = f"stft {name} B={B} n_t={n_t} magnitude={magnitude}"
+            fails.check(err <= tol, f"{what}: max_abs_err {err:.3e} <= {tol:.3e}")
+            fails.check(lib_err <= tol, f"{what}: torch.stft agrees, {lib_err:.3e} <= {tol:.3e}")
+            pairs = zip(got if isinstance(got, tuple) else (got,),
+                        again if isinstance(again, tuple) else (again,))
+            fails.check(all(torch.equal(a, b) for a, b in pairs),
+                        f"{what}: a second launch is bit-identical")
+            ms = queued_ms(lambda: stft(xp, n_fft, hop, n_t, magnitude), iters=50)
+            plain_ms = queued_ms(lambda: stft_plain(xp, n_fft, hop, n_t, magnitude), iters=10)
+            unfold_ms = queued_ms(lambda: torch.matmul(xp.unfold(-1, n_fft, hop)[:, :n_t], A),
+                                  iters=10)
+            library_ms = queued_ms(lambda: torch_stft(magnitude), iters=20)
+            unqueued_ms = cuda_ms(lambda: stft(xp, n_fft, hop, n_t, magnitude), iters=50)
+            # the function's least work: an FFT's 2.5 n log2 n operations a
+            # frame at the f32 rate, each row read once, each output written once
+            flops = 2.5 * n_fft * np.log2(n_fft) * B * n_t
+            outs = got if isinstance(got, tuple) else (got,)
+            b_ms, b_by = bound_ms(nbytes(xp, *outs), flops, torch.float32)
+            out[name]["magnitude" if magnitude else "re_im"] = {
+                "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+                "unfold_matmul_ms": unfold_ms, "unqueued_ms": unqueued_ms}
+            print(f"  stft {name} magnitude={magnitude}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+                  f"unfold@A {unfold_ms:.4f}, torch.stft {library_ms:.4f}, bound {b_ms:.4f} "
+                  f"by {b_by}; {ms / b_ms:.2f}x the bound; back to back without the queue "
+                  f"{unqueued_ms:.4f} ms a call)", flush=True)
+        print(f"  stft {name} plan: {plan}", flush=True)
     return out
 
 
@@ -1255,8 +1322,9 @@ def main() -> int:
             "speech_separation_tpu/ops/lstm_pallas.py:288", lstm[torch.bfloat16],
             {"dtype": "bfloat16", "float32": lstm[torch.float32]}),
         row("stft", "cuda", "speech_separation_tpu_torch/csrc/stft.cu",
-            "speech_separation_tpu/ops/stft_pallas.py:77", stft_nums[False],
-            {"magnitude": stft_nums[True]}),
+            "speech_separation_tpu/ops/stft_pallas.py:77", stft_nums["serve"]["re_im"],
+            {"magnitude": stft_nums["serve"]["magnitude"], "plan": stft_nums["serve"]["plan"],
+             "shape": stft_nums["serve"]["shape"], "features": stft_nums["features"]}),
         row("lstm_seq_fwd", "cuda", "speech_separation_tpu_torch/csrc/lstm_fwd.cu",
             "speech_separation_tpu/ops/lstm_pallas.py:175", lstm_train["fwd"][torch.bfloat16],
             {"dtype": "bfloat16", "float32": lstm_train["fwd"][torch.float32]}),

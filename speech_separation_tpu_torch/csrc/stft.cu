@@ -1,25 +1,76 @@
-// Fused framing + windowed real-DFT STFT for Hopper.
+// Fused framing + Hann window + real DFT (STFT) for Hopper.
 //
-// Replaces speech_separation_tpu/ops/stft_pallas.py::stft_pallas (the Pallas
-// kernel built by _make_kernel). Same contract: xp (B, Lp) f32 rows, each
-// center-padded; frame t of row b is xp[b, t*hop : t*hop + n_fft]; the output
-// is frames @ A with A the (n_fft, 2*n_bins) windowed rDFT matrix, split into
-// re and im (each (B, n_t, n_bins) f32), or fused into |X| when magnitude != 0.
+// Replaces speech_separation_tpu/ops/stft_pallas.py::stft_pallas (:77, body
+// _make_kernel :46). Same contract: xp (B, Lp) f32 rows, each center-padded;
+// frame t of row b is xp[b, t*hop : t*hop + n_fft]; the output is frames @ A
+// with A the (n_fft, 2*n_bins) windowed rDFT matrix, split into re and im
+// (each (B, n_t, n_bins) f32, n_bins = n_fft/2 + 1), or fused into |X| when
+// magnitude != 0. Frames past a row's true length are computed from its
+// padding (garbage but finite); the callers mask them.
 //
-// What bounds it: an f32 product of (B*n_t, n_fft) by (n_fft, 2*n_bins). At
-// the serving shape (B=16, n_t=513, n_fft=512) that is 4.3 GFLOP against 22 MB
-// of compulsory traffic, so on the CUDA cores (no TF32: the reference uses
-// Precision.HIGHEST) it is bound by the f32 FMA rate, not by memory. The
-// design keeps the 4x frame expansion out of device memory: a CTA computes a
-// 128-frame x 32-bin tile of both re and im, loading each frame slice straight
-// from the padded row (framing is address arithmetic in the load, no gather
-// tensor), staging 16-deep slices of the frames and of A in shared memory, and
-// accumulating 8 frames x 2 bins x (re, im) per thread in registers. re and im
-// of a bin stay in one thread, so the magnitude is fused into the epilogue.
+// What bounds it: memory. An FFT takes about 2.5 n log2 n operations a frame
+// (11.5 k at n_fft=512) where the dense product takes 4 n (n/2 + 1) (526 k).
+// The least traffic is each padded row read once and each output written
+// once: at the serving shape (B=16, n_t=513, n_fft=512, hop=128) 4.23 MB in
+// and 16.88 MB of re/im out, 6.3 us at 3.35 TB/s (magnitude: 12.7 MB,
+// 3.8 us); at the uPIT on-device-features shape (300 rows, n_t=384,
+// Lp=49536) 59.4 MB in and 237 MB out (magnitude 178 MB, 53 us). Two paths,
+// chosen by plan_stft (ops/stft_kernel.py's stft_plan is the same function):
+//
+// "fft": n_fft a power of two, FFT_MIN <= n_fft <= N_FFT_CAP. A CTA owns one
+//   row b and F = min(64, 4096 / (n_fft/2)) consecutive frames (16 at 512),
+//   so a CTA transforms 4096 complex points with 256 threads of 16 points
+//   each (fewer threads for F*n_fft/2 < 4096). The row span the tile reads,
+//   xp[b, t0*hop : (t0+F-1)*hop + n_fft], crosses from device memory once:
+//   16-byte cp.async for its aligned body, scalar loads for the misaligned
+//   head and tail (rows need not be 16-byte aligned; nothing is copied to
+//   pad), zeros past the row. Each frame's real n_fft-point DFT is one
+//   complex FFT of M = n_fft/2 points, z[n] = w[2n] x[2n] + i w[2n+1]
+//   x[2n+1] (the window applied as the first stage reads the span), by
+//   Stockham stages of radix 8 then a last radix 4 or 2 (512: 8, 8, 4), each
+//   stage reading its 16 points a thread from shared memory, twiddling from
+//   the f32 table, and writing the stage's output back in place after a
+//   barrier. The buffer is padded one float2 in 16 against bank conflicts.
+//   The real-split step X[k] = E[k] + W^k O[k], X[M-k] = conj(E[k] - W^k
+//   O[k]) runs in place (one thread owns slots k and M-k), |X| fused in, and
+//   the tile's output, one contiguous run of F*n_bins floats in each output
+//   tensor, leaves shared memory as 16-byte stores where aligned. Window and
+//   twiddles come from one f32 table rounded from float64 on the host
+//   (window n_fft floats, then exp(-2 pi i k / n_fft), k < n_fft); no
+//   __sinf/__cosf. One frame of N_FFT_CAP fills the CTA's 4096-point buffer.
+//
+// "direct": every other n_fft (hop | n_fft, n_fft <= N_FFT_CAP). The dense
+//   f32 product frames @ A of PR 1: a CTA computes a 128-frame x 32-bin tile
+//   of re and im, framing as address arithmetic in its loads, 16-deep slices
+//   of frames and A in shared memory, 8 frames x 2 bins x (re, im) a thread.
+//   It is bound by the f32 FMA rate; it serves the sizes an FFT of this
+//   design does not take.
+//
+// Every sum has a fixed order, so a second launch is bit-identical.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr int N_FFT_CAP = 8192;     // largest n_fft either path takes
+constexpr int FFT_MIN = 16;         // smallest power of two on the FFT path
+constexpr int FFT_POINTS = 4096;    // complex points a CTA transforms
+constexpr int PTS = 16;             // points a thread holds in one stage
+constexpr int MAX_FRAMES = 64;
+constexpr int FFT_TPB = FFT_POINTS / PTS;
+
+enum Path { REFUSED = -1, FFT = 0, DIRECT = 1 };
+
+struct Plan {
+  int path, frames, warps, smem, ctas;
+};
+
+// floats of shared memory for a tile's span: (F-1)*hop + n_fft samples
+// after up to 3 floats of head, rounded to 16 bytes
+int span_floats(int F, int hop, int n_fft) { return ((F - 1) * hop + n_fft + 6) / 4 * 4; }
+
+// ------------------------------------------------------------ direct path
 
 constexpr int BM = 128;             // frames per CTA
 constexpr int BNB = 32;             // bins per CTA (re and im each)
@@ -28,9 +79,9 @@ constexpr int TPB = 256;
 constexpr int AS_STRIDE = BM + 4;   // padded to spread the transposed stores
 
 __global__ void __launch_bounds__(TPB)
-stft_kernel(const float* __restrict__ xp, const float* __restrict__ A,
-            float* __restrict__ out_a, float* __restrict__ out_b,
-            int B, int Lp, int n_t, int n_fft, int hop, int magnitude) {
+stft_direct_kernel(const float* __restrict__ xp, const float* __restrict__ A,
+                   float* __restrict__ out_a, float* __restrict__ out_b,
+                   int B, int Lp, int n_t, int n_fft, int hop, int magnitude) {
   __shared__ __align__(16) float As[BK][AS_STRIDE];
   __shared__ __align__(16) float Bs[BK][2 * BNB];
 
@@ -118,19 +169,315 @@ stft_kernel(const float* __restrict__ xp, const float* __restrict__ A,
   }
 }
 
+// --------------------------------------------------------------- FFT path
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+// -i z
+__device__ __forceinline__ float2 mul_mi(float2 z) { return make_float2(z.y, -z.x); }
+
+// one float2 of padding after every 16: the strided stores of the first
+// stages and the contiguous reads of every stage fall in distinct banks
+__device__ __forceinline__ int pad(int e) { return e + (e >> 4); }
+
+__device__ __forceinline__ void dft2(float2* v) {
+  const float2 a = v[0], b = v[1];
+  v[0] = cadd(a, b);
+  v[1] = csub(a, b);
+}
+
+// forward 4-point DFT of (a, b, c, d), in natural order
+__device__ __forceinline__ void dft4(float2& a, float2& b, float2& c, float2& d) {
+  const float2 s0 = cadd(a, c), d0 = csub(a, c), s1 = cadd(b, d), d1 = mul_mi(csub(b, d));
+  a = cadd(s0, s1);
+  c = csub(s0, s1);
+  b = cadd(d0, d1);
+  d = csub(d0, d1);
+}
+
+__device__ __forceinline__ void dft8(float2* v) {
+  constexpr float S = 0.70710678118654752f;   // sqrt(1/2)
+  float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
+  float2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
+  dft4(e0, e1, e2, e3);
+  dft4(o0, o1, o2, o3);
+  o1 = make_float2(S * (o1.x + o1.y), S * (o1.y - o1.x));     // exp(-i pi/4)
+  o2 = mul_mi(o2);                                            // exp(-i pi/2)
+  o3 = make_float2(S * (o3.y - o3.x), -S * (o3.x + o3.y));    // exp(-3i pi/4)
+  v[0] = cadd(e0, o0);
+  v[4] = csub(e0, o0);
+  v[1] = cadd(e1, o1);
+  v[5] = csub(e1, o1);
+  v[2] = cadd(e2, o2);
+  v[6] = csub(e2, o2);
+  v[3] = cadd(e3, o3);
+  v[7] = csub(e3, o3);
+}
+
+template <int R>
+__device__ __forceinline__ void dft(float2* v) {
+  if constexpr (R == 8) dft8(v);
+  else if constexpr (R == 4) dft4(v[0], v[1], v[2], v[3]);
+  else dft2(v);
+}
+
+template <int R> struct Log2;
+template <> struct Log2<2> { static constexpr int v = 1; };
+template <> struct Log2<4> { static constexpr int v = 2; };
+template <> struct Log2<8> { static constexpr int v = 3; };
+
+// One Stockham stage over the tile's F frames of M points: butterfly g of
+// the tile (frame f, index j < M/R) reads points j + r*M/R, multiplies point
+// r by exp(-2 pi i r (j mod Ns) / (Ns R)) (table entry 2 r (j mod Ns) M /
+// (Ns R)), takes their R-point DFT and writes point r to (j - j mod Ns) R +
+// (j mod Ns) + r Ns. The first stage (Ns = 1) reads the windowed frame from
+// the span instead. Reads all precede the barrier, writes follow it.
+template <int R, bool FIRST>
+__device__ __forceinline__ void fft_stage(float2* buf, const float* span,
+                                          const float2* __restrict__ win2,
+                                          const float2* __restrict__ tw, int lm, int lns,
+                                          int hop, int nt) {
+  constexpr int NB = PTS / R;
+  constexpr int LR = Log2<R>::v;
+  const int lbpf = lm - LR;
+  const int M = 1 << lm;
+  const int Ns = 1 << lns;
+  const int lstep = lm + 1 - lns - LR;
+  float2 v[NB][R];
+  int dst[NB];
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    const int g = threadIdx.x + q * nt;
+    const int f = g >> lbpf;
+    const int j = g & ((1 << lbpf) - 1);
+    if constexpr (FIRST) {
+      const float* x = span + f * hop;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int n = j + (r << lbpf);
+        const float2 w = __ldg(win2 + n);
+        v[q][r] = make_float2(w.x * x[2 * n], w.y * x[2 * n + 1]);
+      }
+      dst[q] = f * M + j * R;
+    } else {
+      const int jm = j & (Ns - 1);
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[q][r] = buf[pad(f * M + j + (r << lbpf))];
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[q][r] = cmul(v[q][r], __ldg(tw + ((r * jm) << lstep)));
+      dst[q] = f * M + (j - jm) * R + jm;
+    }
+    dft<R>(v[q]);
+  }
+  if constexpr (!FIRST) __syncthreads();
+#pragma unroll
+  for (int q = 0; q < NB; ++q)
+#pragma unroll
+    for (int r = 0; r < R; ++r) buf[pad(dst[q] + r * Ns)] = v[q][r];
+  __syncthreads();
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// Output element i of the tile's run (frame i / n_bins, bin i % n_bins) from
+// the split buffer: slot k < M holds X[k] (or |X[k]| in .x), slot 0 holds
+// (X[0], X[M]) real parts (or magnitudes).
+__device__ __forceinline__ float2 bin_value(const float2* buf, int f, int k, int lm, bool magnitude) {
+  const int M = 1 << lm;
+  if (k == M) return make_float2(buf[pad(f * M)].y, 0.f);
+  const float2 s = buf[pad(f * M + k)];
+  if (magnitude) return make_float2(s.x, 0.f);
+  return k == 0 ? make_float2(s.x, 0.f) : s;
+}
+
+__global__ void __launch_bounds__(FFT_TPB)
+stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
+                float* __restrict__ out_a, float* __restrict__ out_b, int Lp, int n_t,
+                int n_fft, int hop, int F, int tiles, int span_len, int magnitude) {
+  extern __shared__ __align__(16) float smem[];
+  float* span = smem;
+  float2* buf = reinterpret_cast<float2*>(smem + span_len);
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - b * tiles) * F;
+  const int lm = 30 - __clz(n_fft);   // log2(n_fft / 2)
+  const int M = 1 << lm;
+  const float2* win2 = reinterpret_cast<const float2*>(table);
+  const float2* tw = reinterpret_cast<const float2*>(table + n_fft);
+
+  // the tile's span of the row, once, into span[head ...]
+  {
+    const float* src = xp + (long long)b * Lp + (long long)t0 * hop;
+    const int head = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+    const float* abase = src - head;   // 16-byte aligned
+    const int S = (F - 1) * hop + n_fft;
+    const int valid = min(S, Lp - t0 * hop);
+    const int end = head + valid;
+    const int lo = min((head + 3) & ~3, end);
+    const int hi = max(lo, end & ~3);
+    for (int c = (lo >> 2) + tid; c < (hi >> 2); c += nt) cp_async16(span + 4 * c, abase + 4 * c);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int i = head + tid; i < lo; i += nt) span[i] = __ldg(abase + i);
+    for (int i = hi + tid; i < end; i += nt) span[i] = __ldg(abase + i);
+    for (int i = end + tid; i < head + S; i += nt) span[i] = 0.f;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    span += head;
+  }
+
+  // Stockham stages: radix 8 first, then 8s, then one 4 or 2
+  fft_stage<8, true>(buf, span, win2, tw, lm, 0, hop, nt);
+  int lns = 3;
+  for (; lm - lns >= 3; lns += 3) fft_stage<8, false>(buf, span, win2, tw, lm, lns, hop, nt);
+  if (lm - lns == 2) fft_stage<4, false>(buf, span, win2, tw, lm, lns, hop, nt);
+  else if (lm - lns == 1) fft_stage<2, false>(buf, span, win2, tw, lm, lns, hop, nt);
+
+  // real split, in place: the thread of pair k owns slots k and M - k
+  const int half = M / 2 + 1;
+  for (int q = tid; q < F * half; q += nt) {
+    const int f = q / half;
+    const int k = q - f * half;
+    const int ia = pad(f * M + k);
+    const int ic = pad(f * M + ((M - k) & (M - 1)));
+    const float2 a = buf[ia], c = buf[ic];
+    const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
+    const float2 o = make_float2(0.5f * (a.y + c.y), 0.5f * (c.x - a.x));
+    const float2 wo = cmul(__ldg(tw + k), o);
+    float2 x = cadd(e, wo);                               // X[k]
+    float2 y = make_float2(e.x - wo.x, wo.y - e.y);       // X[M - k]
+    if (magnitude) {
+      x.x = sqrtf(x.x * x.x + x.y * x.y);
+      y.x = sqrtf(y.x * y.x + y.y * y.y);
+    }
+    if (k == 0) {
+      buf[ia] = make_float2(x.x, y.x);
+    } else {
+      buf[ia] = x;
+      if (2 * k != M) buf[ic] = y;
+    }
+  }
+  __syncthreads();
+
+  // the tile's run of nf * n_bins floats in each output, 16-byte stores
+  // where aligned
+  const int n_bins = M + 1;
+  const int nf = min(F, n_t - t0);
+  const int run = nf * n_bins;
+  const long long o0 = ((long long)b * n_t + t0) * n_bins;
+  float* oa = out_a + o0;
+  float* ob = out_b + o0;
+  const bool mag = magnitude != 0;
+  const int head = min((int)((4 - ((reinterpret_cast<uintptr_t>(oa) >> 2) & 3)) & 3), run);
+  const int body = (run - head) & ~3;
+  for (int i = tid; i < head; i += nt) {
+    const float2 v = bin_value(buf, i / n_bins, i % n_bins, lm, mag);
+    oa[i] = v.x;
+    if (!mag) ob[i] = v.y;
+  }
+  for (int c = tid; c < (body >> 2); c += nt) {
+    const int i = head + 4 * c;
+    int f = i / n_bins;
+    int k = i - f * n_bins;
+    float re[4], im[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float2 v = bin_value(buf, f, k, lm, mag);
+      re[u] = v.x;
+      im[u] = v.y;
+      if (++k == n_bins) {
+        k = 0;
+        ++f;
+      }
+    }
+    *reinterpret_cast<float4*>(oa + i) = make_float4(re[0], re[1], re[2], re[3]);
+    if (!mag) *reinterpret_cast<float4*>(ob + i) = make_float4(im[0], im[1], im[2], im[3]);
+  }
+  for (int i = head + body + tid; i < run; i += nt) {
+    const float2 v = bin_value(buf, i / n_bins, i % n_bins, lm, mag);
+    oa[i] = v.x;
+    if (!mag) ob[i] = v.y;
+  }
+}
+
+// The launch for a shape, or path REFUSED. ops/stft_kernel.py's stft_plan is
+// the same function.
+Plan plan_stft(int B, int Lp, int n_t, int n_fft, int hop) {
+  Plan p{REFUSED, 0, 0, 0, 0};
+  if (B < 1 || n_t < 1 || hop < 1 || n_fft < 2 || n_fft > N_FFT_CAP || n_fft % hop != 0 ||
+      (long long)Lp < (long long)(n_t - 1) * hop + n_fft)
+    return p;
+  const int n_bins = n_fft / 2 + 1;
+  if ((n_fft & (n_fft - 1)) == 0 && n_fft >= FFT_MIN) {
+    const int M = n_fft / 2;
+    const int F = FFT_POINTS / M < MAX_FRAMES ? FFT_POINTS / M : MAX_FRAMES;
+    const int threads = F * M / PTS;
+    const int buf = F * M + F * M / 16;     // padded float2 slots
+    return Plan{FFT, F, threads / 32, 4 * span_floats(F, hop, n_fft) + 8 * buf,
+                B * ((n_t + F - 1) / F)};
+  }
+  const long long M = (long long)B * n_t;
+  return Plan{DIRECT, BM, TPB / 32, (int)(sizeof(float) * BK * (AS_STRIDE + 2 * BNB)),
+              (int)((M + BM - 1) / BM) * ((n_bins + BNB - 1) / BNB)};
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t code; 0 on success. out_b is unused when magnitude != 0.
-int sep_stft(const float* xp, const float* A, float* out_a, float* out_b, int B, int Lp,
+// Returns a cudaError_t code; 0 on success. table is the windowed rDFT matrix
+// A (n_fft, 2*n_bins) on the direct path, the window and twiddle table
+// (3*n_fft floats) on the FFT path. out_b is unused when magnitude != 0.
+int sep_stft(const float* xp, const float* table, float* out_a, float* out_b, int B, int Lp,
              int n_t, int n_fft, int hop, int magnitude, void* stream) {
-  const int n_bins = n_fft / 2 + 1;
-  const long long M = (long long)B * n_t;
-  const dim3 grid((unsigned int)((M + BM - 1) / BM), (unsigned int)((n_bins + BNB - 1) / BNB));
-  stft_kernel<<<grid, TPB, 0, static_cast<cudaStream_t>(stream)>>>(xp, A, out_a, out_b, B, Lp,
-                                                                    n_t, n_fft, hop, magnitude);
+  const Plan p = plan_stft(B, Lp, n_t, n_fft, hop);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.path == REFUSED) return (int)cudaErrorInvalidValue;
+  if (p.path == DIRECT) {
+    const int n_bins = n_fft / 2 + 1;
+    const long long M = (long long)B * n_t;
+    const dim3 grid((unsigned int)((M + BM - 1) / BM), (unsigned int)((n_bins + BNB - 1) / BNB));
+    stft_direct_kernel<<<grid, TPB, 0, s>>>(xp, table, out_a, out_b, B, Lp, n_t, n_fft, hop,
+                                            magnitude);
+    return (int)cudaGetLastError();
+  }
+  // both outputs share the 16-byte phase the store loop takes from out_a
+  if (!magnitude && ((reinterpret_cast<uintptr_t>(out_a) ^ reinterpret_cast<uintptr_t>(out_b)) & 15))
+    return (int)cudaErrorMisalignedAddress;
+  static int smem_set = 0;
+  if (p.smem > 48 * 1024 && p.smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        stft_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = p.smem;
+  }
+  const int F = p.frames;
+  stft_fft_kernel<<<p.ctas, p.warps * 32, p.smem, s>>>(xp, table, out_a, out_b, Lp, n_t, n_fft,
+                                                       hop, F, (n_t + F - 1) / F,
+                                                       span_floats(F, hop, n_fft), magnitude);
   return (int)cudaGetLastError();
+}
+
+// The plan of a shape: path (0 fft, 1 direct, -1 refused), frames a CTA,
+// warps a CTA, shared bytes a CTA, CTAs, and the n_fft cap. Returns 0, or 1
+// when no path takes the shape.
+int sep_stft_plan(int B, int Lp, int n_t, int n_fft, int hop, int magnitude, int* path,
+                  int* frames, int* warps, int* smem, int* ctas, int* cap) {
+  (void)magnitude;
+  const Plan p = plan_stft(B, Lp, n_t, n_fft, hop);
+  *path = p.path;
+  *frames = p.frames;
+  *warps = p.warps;
+  *smem = p.smem;
+  *ctas = p.ctas;
+  *cap = N_FFT_CAP;
+  return p.path == REFUSED ? 1 : 0;
 }
 
 const char* sep_stft_error_string(int code) {

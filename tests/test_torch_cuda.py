@@ -7,7 +7,8 @@ a machine with a card they run without the JAX package's test setup:
 
 Tolerances: f32 atol 1e-5 (same math, other summation order); bf16 atol
 2e-2 (one bf16 step of a rounded h_{t-1}); STFT atol 5e-5 of the largest
-|X| (an f32 sum of n_fft products). Gradients are compared divided by
+|X| (an f32 sum of n_fft products against an f32 FFT, each within about
+1e-6 of the exact DFT). Gradients are compared divided by
 max(1, max |reference|): against the plain backward on the same saves at
 the forward's tolerances (K4 alone at chip_smoke.py's: f32 1.5e-5, bf16
 2e-2); against autograd through the plain forward at
@@ -68,6 +69,94 @@ def test_stft_kernel_matches_plain(cuda, magnitude):
     scale = max(float(r.abs().max()) for r in ref)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=5e-5 * scale)
+
+
+def _stft_close(cuda, B, Lp, n_t, n_fft, hop, magnitude, offset=0, seed=0):
+    """The kernel against its plain version at 5e-5 of the largest |X|, on
+    rows whose storage starts ``offset`` floats past an aligned address."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    flat = torch.rand((B * Lp + offset,), generator=g, device=cuda) * 2 - 1
+    xp = flat[offset:].view(B, Lp)
+    before = stft.launches
+    got = stft(xp, n_fft, hop, n_t, magnitude)
+    ref = stft_plain(xp, n_fft, hop, n_t, magnitude)
+    torch.cuda.synchronize()
+    assert stft.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    scale = max(float(r.abs().max()) for r in ref)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=5e-5 * scale)
+    return got
+
+
+@pytest.mark.parametrize("magnitude", [False, True])
+@pytest.mark.parametrize("hop_div", [2, 4])
+@pytest.mark.parametrize("n_fft", [64, 128, 256, 512, 1024, 2048, 4096, 8192])
+def test_stft_fft_path_every_power_of_two(cuda, n_fft, hop_div, magnitude):
+    from speech_separation_tpu_torch.ops.stft_kernel import stft_plan
+    hop = n_fft // hop_div
+    n_t = 37
+    Lp = (n_t - 1) * hop + n_fft + 3
+    assert stft_plan(3, Lp, n_t, n_fft, hop)["path"] == "fft"
+    _stft_close(cuda, 3, Lp, n_t, n_fft, hop, magnitude, offset=1, seed=n_fft + hop_div)
+
+
+@pytest.mark.parametrize("magnitude", [False, True])
+@pytest.mark.parametrize("n_t", [1, 15, 16, 17, 513])
+def test_stft_tile_edges_odd_rows_misaligned(cuda, n_t, magnitude):
+    """n_t around the 16-frame tile, B odd, a row length that is not a
+    multiple of 4 and rows that start off a 16-byte boundary."""
+    for offset in (0, 1, 2, 3):
+        _stft_close(cuda, 5, (n_t - 1) * 128 + 512 + 5, n_t, 512, 128, magnitude,
+                    offset=offset, seed=n_t + offset)
+
+
+@pytest.mark.parametrize("magnitude", [False, True])
+@pytest.mark.parametrize("n_fft,hop", [(384, 128), (320, 160), (96, 32), (8, 4)])
+def test_stft_direct_path(cuda, n_fft, hop, magnitude):
+    from speech_separation_tpu_torch.ops.stft_kernel import stft_plan
+    n_t = 29
+    Lp = (n_t - 1) * hop + n_fft + 1
+    assert stft_plan(3, Lp, n_t, n_fft, hop)["path"] == "direct"
+    _stft_close(cuda, 3, Lp, n_t, n_fft, hop, magnitude, offset=3, seed=n_fft)
+
+
+@pytest.mark.parametrize("magnitude", [False, True])
+def test_stft_kernel_is_deterministic(cuda, magnitude):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    xp = torch.rand((16, 65536 + 512), generator=g, device=cuda) * 2 - 1
+    first = stft(xp, 512, 128, 513, magnitude)
+    again = stft(xp, 512, 128, 513, magnitude)
+    torch.cuda.synchronize()
+    first = first if isinstance(first, tuple) else (first,)
+    again = again if isinstance(again, tuple) else (again,)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_stft_plan_is_the_cards_plan(cuda):
+    """stft_plan, a pure function tested on the CPU, is the launch the built
+    library makes (sep_stft_plan), and both refuse above the cap."""
+    from speech_separation_tpu_torch.ops.stft_kernel import N_FFT_CAP, card_plan, stft_plan
+    for B, n_t in ((1, 1), (3, 17), (16, 513), (300, 384)):
+        n_fft = 2
+        while n_fft <= N_FFT_CAP:
+            for hop in (n_fft, max(1, n_fft // 4)):
+                Lp = (n_t - 1) * hop + n_fft + 7
+                assert card_plan(B, Lp, n_t, n_fft, hop) == stft_plan(B, Lp, n_t, n_fft, hop)
+            n_fft *= 2
+        for n_fft, hop in ((384, 128), (320, 160), (6000, 1000)):
+            Lp = (n_t - 1) * hop + n_fft
+            assert card_plan(B, Lp, n_t, n_fft, hop) == stft_plan(B, Lp, n_t, n_fft, hop)
+    assert card_plan(1, 4 * N_FFT_CAP, 1, 2 * N_FFT_CAP, N_FFT_CAP) is None
+
+
+def test_stft_refuses_above_its_cap(cuda):
+    from speech_separation_tpu_torch.ops.stft_kernel import N_FFT_CAP
+    n_fft = 2 * N_FFT_CAP
+    with pytest.raises(ValueError, match=str(N_FFT_CAP)):
+        stft(torch.zeros((1, 2 * n_fft), device=cuda), n_fft, n_fft // 4, 2)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

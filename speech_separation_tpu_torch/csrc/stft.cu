@@ -54,7 +54,7 @@
 namespace {
 
 constexpr int N_FFT_CAP = 8192;     // largest n_fft either path takes
-constexpr int FFT_MIN = 16;         // smallest power of two on the FFT path
+constexpr int FFT_MIN = 32;         // smallest power of two on the FFT path
 constexpr int FFT_POINTS = 4096;    // complex points a CTA transforms
 constexpr int PTS = 16;             // points a thread holds in one stage
 constexpr int MAX_FRAMES = 64;
@@ -180,7 +180,7 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
 __device__ __forceinline__ float2 mul_mi(float2 z) { return make_float2(z.y, -z.x); }
 
 // one float2 of padding after every 16: the strided stores of the first
-// stages and the contiguous reads of every stage fall in distinct banks
+// stage and the contiguous reads of every stage fall in distinct banks
 __device__ __forceinline__ int pad(int e) { return e + (e >> 4); }
 
 __device__ __forceinline__ void dft2(float2* v) {
@@ -198,15 +198,18 @@ __device__ __forceinline__ void dft4(float2& a, float2& b, float2& c, float2& d)
   d = csub(d0, d1);
 }
 
+constexpr float SQRT_HALF = 0.70710678118654752f;
+constexpr float COS_PI_8 = 0.92387953251128676f;
+constexpr float SIN_PI_8 = 0.38268343236508977f;
+
 __device__ __forceinline__ void dft8(float2* v) {
-  constexpr float S = 0.70710678118654752f;   // sqrt(1/2)
   float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
   float2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
   dft4(e0, e1, e2, e3);
   dft4(o0, o1, o2, o3);
-  o1 = make_float2(S * (o1.x + o1.y), S * (o1.y - o1.x));     // exp(-i pi/4)
-  o2 = mul_mi(o2);                                            // exp(-i pi/2)
-  o3 = make_float2(S * (o3.y - o3.x), -S * (o3.x + o3.y));    // exp(-3i pi/4)
+  o1 = make_float2(SQRT_HALF * (o1.x + o1.y), SQRT_HALF * (o1.y - o1.x));    // exp(-i pi/4)
+  o2 = mul_mi(o2);                                                          // exp(-i pi/2)
+  o3 = make_float2(SQRT_HALF * (o3.y - o3.x), -SQRT_HALF * (o3.x + o3.y));   // exp(-3i pi/4)
   v[0] = cadd(e0, o0);
   v[4] = csub(e0, o0);
   v[1] = cadd(e1, o1);
@@ -217,9 +220,39 @@ __device__ __forceinline__ void dft8(float2* v) {
   v[7] = csub(e3, o3);
 }
 
+// 16 = 4 x 4: DFT4 over n1 of x[4 n1 + n2] for each n2, twiddle by
+// exp(-2 pi i n2 k1 / 16), DFT4 over n2 for each k1; X[k1 + 4 k2]
+__device__ __forceinline__ void dft16(float2* v) {
+#pragma unroll
+  for (int n2 = 0; n2 < 4; ++n2) dft4(v[n2], v[4 + n2], v[8 + n2], v[12 + n2]);
+  // v[4 k1 + n2] now holds Y[n2][k1]
+  v[5] = make_float2(COS_PI_8 * v[5].x + SIN_PI_8 * v[5].y, COS_PI_8 * v[5].y - SIN_PI_8 * v[5].x);
+  v[6] = make_float2(SQRT_HALF * (v[6].x + v[6].y), SQRT_HALF * (v[6].y - v[6].x));
+  v[7] = make_float2(SIN_PI_8 * v[7].x + COS_PI_8 * v[7].y, SIN_PI_8 * v[7].y - COS_PI_8 * v[7].x);
+  v[9] = make_float2(SQRT_HALF * (v[9].x + v[9].y), SQRT_HALF * (v[9].y - v[9].x));
+  v[10] = mul_mi(v[10]);
+  v[11] = make_float2(SQRT_HALF * (v[11].y - v[11].x), -SQRT_HALF * (v[11].x + v[11].y));
+  v[13] = make_float2(SIN_PI_8 * v[13].x + COS_PI_8 * v[13].y, SIN_PI_8 * v[13].y - COS_PI_8 * v[13].x);
+  v[14] = make_float2(SQRT_HALF * (v[14].y - v[14].x), -SQRT_HALF * (v[14].x + v[14].y));
+  v[15] = make_float2(-COS_PI_8 * v[15].x - SIN_PI_8 * v[15].y, SIN_PI_8 * v[15].x - COS_PI_8 * v[15].y);
+  float2 t[16];
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+    float2 a = v[4 * k1], b = v[4 * k1 + 1], c = v[4 * k1 + 2], d = v[4 * k1 + 3];
+    dft4(a, b, c, d);
+    t[k1] = a;
+    t[k1 + 4] = b;
+    t[k1 + 8] = c;
+    t[k1 + 12] = d;
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) v[k] = t[k];
+}
+
 template <int R>
 __device__ __forceinline__ void dft(float2* v) {
-  if constexpr (R == 8) dft8(v);
+  if constexpr (R == 16) dft16(v);
+  else if constexpr (R == 8) dft8(v);
   else if constexpr (R == 4) dft4(v[0], v[1], v[2], v[3]);
   else dft2(v);
 }
@@ -228,6 +261,7 @@ template <int R> struct Log2;
 template <> struct Log2<2> { static constexpr int v = 1; };
 template <> struct Log2<4> { static constexpr int v = 2; };
 template <> struct Log2<8> { static constexpr int v = 3; };
+template <> struct Log2<16> { static constexpr int v = 4; };
 
 // One Stockham stage over the tile's F frames of M points: butterfly g of
 // the tile (frame f, index j < M/R) reads points j + r*M/R, multiplies point
@@ -285,15 +319,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
-// Output element i of the tile's run (frame i / n_bins, bin i % n_bins) from
-// the split buffer: slot k < M holds X[k] (or |X[k]| in .x), slot 0 holds
-// (X[0], X[M]) real parts (or magnitudes).
-__device__ __forceinline__ float2 bin_value(const float2* buf, int f, int k, int lm, bool magnitude) {
+// The real split for bin k <= M of frame f, from the frame's M-point
+// transform Z of z[n] = x[2n] + i x[2n+1] (Z[M] = Z[0]):
+// X[k] = E + W^k O, E = (Z[k] + conj Z[M-k]) / 2, O = (Z[k] - conj Z[M-k]) / 2i
+__device__ __forceinline__ float2 bin(const float2* buf, const float2* __restrict__ tw, int f,
+                                      int k, int lm) {
   const int M = 1 << lm;
-  if (k == M) return make_float2(buf[pad(f * M)].y, 0.f);
-  const float2 s = buf[pad(f * M + k)];
-  if (magnitude) return make_float2(s.x, 0.f);
-  return k == 0 ? make_float2(s.x, 0.f) : s;
+  const float2 a = buf[pad(f * M + (k & (M - 1)))];
+  const float2 c = buf[pad(f * M + ((M - k) & (M - 1)))];
+  const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
+  const float2 o = make_float2(0.5f * (a.y + c.y), 0.5f * (c.x - a.x));
+  return cadd(e, cmul(__ldg(tw + k), o));
 }
 
 __global__ void __launch_bounds__(FFT_TPB)
@@ -308,7 +344,6 @@ stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
   const int b = blockIdx.x / tiles;
   const int t0 = (blockIdx.x - b * tiles) * F;
   const int lm = 30 - __clz(n_fft);   // log2(n_fft / 2)
-  const int M = 1 << lm;
   const float2* win2 = reinterpret_cast<const float2*>(table);
   const float2* tw = reinterpret_cast<const float2*>(table + n_fft);
 
@@ -332,77 +367,53 @@ stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
     span += head;
   }
 
-  // Stockham stages: radix 8 first, then 8s, then one 4 or 2
-  fft_stage<8, true>(buf, span, win2, tw, lm, 0, hop, nt);
-  int lns = 3;
-  for (; lm - lns >= 3; lns += 3) fft_stage<8, false>(buf, span, win2, tw, lm, lns, hop, nt);
-  if (lm - lns == 2) fft_stage<4, false>(buf, span, win2, tw, lm, lns, hop, nt);
+  // Stockham stages: radix 16 while 16 divides what is left, then one 8,
+  // 4 or 2 (n_fft=512: 16, 16)
+  fft_stage<16, true>(buf, span, win2, tw, lm, 0, hop, nt);
+  int lns = 4;
+  for (; lm - lns >= 4; lns += 4) fft_stage<16, false>(buf, span, win2, tw, lm, lns, hop, nt);
+  if (lm - lns == 3) fft_stage<8, false>(buf, span, win2, tw, lm, lns, hop, nt);
+  else if (lm - lns == 2) fft_stage<4, false>(buf, span, win2, tw, lm, lns, hop, nt);
   else if (lm - lns == 1) fft_stage<2, false>(buf, span, win2, tw, lm, lns, hop, nt);
 
-  // real split, in place: the thread of pair k owns slots k and M - k
-  const int half = M / 2 + 1;
-  for (int q = tid; q < F * half; q += nt) {
-    const int f = q / half;
-    const int k = q - f * half;
-    const int ia = pad(f * M + k);
-    const int ic = pad(f * M + ((M - k) & (M - 1)));
-    const float2 a = buf[ia], c = buf[ic];
-    const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
-    const float2 o = make_float2(0.5f * (a.y + c.y), 0.5f * (c.x - a.x));
-    const float2 wo = cmul(__ldg(tw + k), o);
-    float2 x = cadd(e, wo);                               // X[k]
-    float2 y = make_float2(e.x - wo.x, wo.y - e.y);       // X[M - k]
-    if (magnitude) {
-      x.x = sqrtf(x.x * x.x + x.y * x.y);
-      y.x = sqrtf(y.x * y.x + y.y * y.y);
-    }
-    if (k == 0) {
-      buf[ia] = make_float2(x.x, y.x);
-    } else {
-      buf[ia] = x;
-      if (2 * k != M) buf[ic] = y;
-    }
-  }
-  __syncthreads();
-
-  // the tile's run of nf * n_bins floats in each output, 16-byte stores
-  // where aligned
-  const int n_bins = M + 1;
+  // the tile's run of nf * n_bins floats in each output, each bin split
+  // from the transform as it is stored, 16-byte stores where aligned
+  const int n_bins = (1 << lm) + 1;
   const int nf = min(F, n_t - t0);
   const int run = nf * n_bins;
   const long long o0 = ((long long)b * n_t + t0) * n_bins;
   float* oa = out_a + o0;
   float* ob = out_b + o0;
-  const bool mag = magnitude != 0;
+  // f = umulhi(i, magic) = i / n_bins exactly for i * (magic * n_bins - 2^32) < 2^32
+  const unsigned magic = 0xFFFFFFFFu / (unsigned)n_bins + 1u;
   const int head = min((int)((4 - ((reinterpret_cast<uintptr_t>(oa) >> 2) & 3)) & 3), run);
   const int body = (run - head) & ~3;
-  for (int i = tid; i < head; i += nt) {
-    const float2 v = bin_value(buf, i / n_bins, i % n_bins, lm, mag);
-    oa[i] = v.x;
-    if (!mag) ob[i] = v.y;
-  }
   for (int c = tid; c < (body >> 2); c += nt) {
     const int i = head + 4 * c;
-    int f = i / n_bins;
+    int f = (int)__umulhi((unsigned)i, magic);
     int k = i - f * n_bins;
     float re[4], im[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const float2 v = bin_value(buf, f, k, lm, mag);
-      re[u] = v.x;
-      im[u] = v.y;
+      const float2 x = bin(buf, tw, f, k, lm);
+      re[u] = magnitude ? sqrtf(x.x * x.x + x.y * x.y) : x.x;
+      im[u] = x.y;
       if (++k == n_bins) {
         k = 0;
         ++f;
       }
     }
     *reinterpret_cast<float4*>(oa + i) = make_float4(re[0], re[1], re[2], re[3]);
-    if (!mag) *reinterpret_cast<float4*>(ob + i) = make_float4(im[0], im[1], im[2], im[3]);
+    if (!magnitude) *reinterpret_cast<float4*>(ob + i) = make_float4(im[0], im[1], im[2], im[3]);
   }
-  for (int i = head + body + tid; i < run; i += nt) {
-    const float2 v = bin_value(buf, i / n_bins, i % n_bins, lm, mag);
-    oa[i] = v.x;
-    if (!mag) ob[i] = v.y;
+  // the head before the first 16-byte boundary and the tail after the last
+  const int rest = run - body;
+  for (int r = tid; r < rest; r += nt) {
+    const int i = r < head ? r : body + r;
+    const int f = (int)__umulhi((unsigned)i, magic);
+    const float2 x = bin(buf, tw, f, i - f * n_bins, lm);
+    oa[i] = magnitude ? sqrtf(x.x * x.x + x.y * x.y) : x.x;
+    if (!magnitude) ob[i] = x.y;
   }
 }
 

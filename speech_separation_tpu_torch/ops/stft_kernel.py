@@ -25,7 +25,7 @@ import torch
 from ..dsp.stft import _device_matrix, hann_periodic
 
 N_FFT_CAP = 8192     # largest n_fft either path takes
-FFT_MIN = 16         # smallest power of two on the FFT path
+FFT_MIN = 32         # smallest power of two on the FFT path
 FFT_POINTS = 4096    # complex points a CTA transforms (F frames of n_fft/2)
 PTS = 16             # points a thread holds in one FFT stage
 MAX_FRAMES = 64

@@ -118,10 +118,10 @@ def test_stft_istft_round_trip_matches_numpy_reference():
 # ---- the kernel's FFT path (csrc/stft.cu) modelled in numpy ----
 
 def _radices(M):
-    """The Stockham radix order of the kernel: radix 8, then 8s, then one
-    4 or 2 (M = 256: 8, 8, 4)."""
+    """The Stockham radix order of the kernel: radix 16 while 16 divides
+    what is left, then one 8, 4 or 2 (M = 256: 16, 16)."""
     lm = M.bit_length() - 1
-    return [8] * (lm // 3) + {0: [], 1: [2], 2: [4]}[lm % 3]
+    return [16] * (lm // 4) + {0: [], 1: [2], 2: [4], 3: [8]}[lm % 4]
 
 
 def _fft_model(xp, n_fft, hop, n_t, magnitude):
@@ -161,11 +161,12 @@ def _fft_model(xp, n_fft, hop, n_t, magnitude):
 
 
 def test_fft_radix_order():
-    assert _radices(256) == [8, 8, 4]
-    assert _radices(8) == [8]
-    assert _radices(4096) == [8, 8, 8, 8]
-    assert _radices(2048) == [8, 8, 8, 4]
-    assert _radices(1024) == [8, 8, 8, 2]
+    assert _radices(256) == [16, 16]
+    assert _radices(16) == [16]
+    assert _radices(4096) == [16, 16, 16]
+    assert _radices(2048) == [16, 16, 8]
+    assert _radices(1024) == [16, 16, 4]
+    assert _radices(512) == [16, 16, 2]
 
 
 @pytest.mark.parametrize("magnitude", [False, True])
@@ -184,10 +185,10 @@ def test_fft_model_matches_plain_and_pallas_interpret(magnitude):
         np.testing.assert_allclose(g, np.asarray(j), rtol=0, atol=1e-5 * scale)
 
 
-@pytest.mark.parametrize("n_fft,hop", [(16, 8), (64, 16), (128, 64), (256, 64), (1024, 256),
-                                       (2048, 512)])
+@pytest.mark.parametrize("n_fft,hop", [(32, 8), (64, 16), (128, 64), (256, 64), (1024, 256),
+                                       (2048, 512), (4096, 1024)])
 def test_fft_model_matches_plain_at_every_radix_tail(n_fft, hop):
-    """Every last radix (none, 2, 4) at the sizes the FFT path takes."""
+    """Every last radix (none, 2, 4, 8) at the sizes the FFT path takes."""
     rng = np.random.default_rng(n_fft)
     n_t = 7
     xp = rng.uniform(-1, 1, (2, (n_t - 1) * hop + n_fft + 3)).astype(np.float32)
@@ -199,7 +200,7 @@ def test_fft_model_matches_plain_at_every_radix_tail(n_fft, hop):
 
 
 def test_fft_table_against_float64():
-    for n_fft in (16, 512, N_FFT_CAP):
+    for n_fft in (32, 512, N_FFT_CAP):
         t = fft_table(n_fft)
         assert t.dtype == np.float32 and t.shape == (3 * n_fft,)
         np.testing.assert_array_equal(t[:n_fft], tstft.hann_periodic(n_fft))
@@ -228,12 +229,12 @@ def test_stft_plan_tile_edges(n_t, tiles):
 
 
 def test_stft_plan_paths_and_cap():
-    for n_fft, F, warps in ((16, 64, 1), (64, 64, 4), (128, 64, 8), (1024, 8, 8),
+    for n_fft, F, warps in ((32, 64, 2), (64, 64, 4), (128, 64, 8), (1024, 8, 8),
                             (N_FFT_CAP, 1, 8)):
         plan = stft_plan(2, 3 * n_fft, 2, n_fft, n_fft // 2)
         assert (plan["path"], plan["frames"], plan["warps"]) == ("fft", F, warps), n_fft
         assert plan["smem"] <= 227 * 1024
-    for n_fft, hop in ((384, 128), (320, 160), (8, 4), (6000, 1000)):
+    for n_fft, hop in ((384, 128), (320, 160), (16, 8), (8, 4), (6000, 1000)):
         plan = stft_plan(5, 4 * n_fft, 3, n_fft, hop)
         assert plan["path"] == "direct", n_fft
         assert plan["ctas"] == -(-15 // 128) * -(-(n_fft // 2 + 1) // 32)

@@ -319,19 +319,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
-// The real split for bin k <= M of frame f, from the frame's M-point
-// transform Z of z[n] = x[2n] + i x[2n+1] (Z[M] = Z[0]):
-// X[k] = E + W^k O, E = (Z[k] + conj Z[M-k]) / 2, O = (Z[k] - conj Z[M-k]) / 2i
-__device__ __forceinline__ float2 bin(const float2* buf, const float2* __restrict__ tw, int f,
-                                      int k, int lm) {
-  const int M = 1 << lm;
-  const float2 a = buf[pad(f * M + (k & (M - 1)))];
-  const float2 c = buf[pad(f * M + ((M - k) & (M - 1)))];
-  const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
-  const float2 o = make_float2(0.5f * (a.y + c.y), 0.5f * (c.x - a.x));
-  return cadd(e, cmul(__ldg(tw + k), o));
-}
-
 __global__ void __launch_bounds__(FFT_TPB)
 stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
                 float* __restrict__ out_a, float* __restrict__ out_b, int Lp, int n_t,
@@ -376,44 +363,50 @@ stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
   else if (lm - lns == 2) fft_stage<4, false>(buf, span, win2, tw, lm, lns, hop, nt);
   else if (lm - lns == 1) fft_stage<2, false>(buf, span, win2, tw, lm, lns, hop, nt);
 
-  // the tile's run of nf * n_bins floats in each output, each bin split
-  // from the transform as it is stored, 16-byte stores where aligned
-  const int n_bins = (1 << lm) + 1;
-  const int nf = min(F, n_t - t0);
-  const int run = nf * n_bins;
-  const long long o0 = ((long long)b * n_t + t0) * n_bins;
-  float* oa = out_a + o0;
-  float* ob = out_b + o0;
-  // f = umulhi(i, magic) = i / n_bins exactly for i * (magic * n_bins - 2^32) < 2^32
-  const unsigned magic = 0xFFFFFFFFu / (unsigned)n_bins + 1u;
-  const int head = min((int)((4 - ((reinterpret_cast<uintptr_t>(oa) >> 2) & 3)) & 3), run);
-  const int body = (run - head) & ~3;
-  for (int c = tid; c < (body >> 2); c += nt) {
-    const int i = head + 4 * c;
-    int f = (int)__umulhi((unsigned)i, magic);
-    int k = i - f * n_bins;
-    float re[4], im[4];
+  // the real split and the stores: the M/16 threads of frame f take the
+  // pairs k = l + (M/16) i, i < 8, with X[k] = E + W^k O and X[M-k] =
+  // conj(E - W^k O), E = (Z[k] + conj Z[M-k]) / 2, O = (Z[k] - conj Z[M-k]) / 2i
+  // (pair 0 gives X[0] and X[M]); thread 0 of a frame also X[M/2] = conj
+  // Z[M/2]. A frame's bins are one contiguous run of n_bins floats in each
+  // output, written by its threads as coalesced runs from both ends.
+  const int M = 1 << lm;
+  const int lt = lm - 4;                         // log2 of threads a frame
+  const int f = tid >> lt;
+  const int l = tid & ((1 << lt) - 1);
+  if (t0 + f < n_t) {
+    const float2* z = buf + pad(f * M);          // M is a multiple of 16
+    const long long o = ((long long)b * n_t + t0 + f) * (M + 1);
+    float* oa = out_a + o;
+    float* ob = out_b + o;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float2 x = bin(buf, tw, f, k, lm);
-      re[u] = magnitude ? sqrtf(x.x * x.x + x.y * x.y) : x.x;
-      im[u] = x.y;
-      if (++k == n_bins) {
-        k = 0;
-        ++f;
+    for (int i = 0; i < 8; ++i) {
+      const int k = l + (i << lt);
+      const int kc = (M - k) & (M - 1);
+      const float2 a = z[k + (k >> 4)], c = z[kc + (kc >> 4)];
+      const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
+      const float2 od = make_float2(0.5f * (a.y + c.y), 0.5f * (c.x - a.x));
+      const float2 wo = cmul(__ldg(tw + k), od);
+      const float2 x = cadd(e, wo);                             // X[k]
+      const float2 y = make_float2(e.x - wo.x, wo.y - e.y);     // X[M - k]
+      if (magnitude) {
+        oa[k] = sqrtf(x.x * x.x + x.y * x.y);
+        oa[M - k] = sqrtf(y.x * y.x + y.y * y.y);
+      } else {
+        oa[k] = x.x;
+        ob[k] = x.y;
+        oa[M - k] = y.x;
+        ob[M - k] = y.y;
       }
     }
-    *reinterpret_cast<float4*>(oa + i) = make_float4(re[0], re[1], re[2], re[3]);
-    if (!magnitude) *reinterpret_cast<float4*>(ob + i) = make_float4(im[0], im[1], im[2], im[3]);
-  }
-  // the head before the first 16-byte boundary and the tail after the last
-  const int rest = run - body;
-  for (int r = tid; r < rest; r += nt) {
-    const int i = r < head ? r : body + r;
-    const int f = (int)__umulhi((unsigned)i, magic);
-    const float2 x = bin(buf, tw, f, i - f * n_bins, lm);
-    oa[i] = magnitude ? sqrtf(x.x * x.x + x.y * x.y) : x.x;
-    if (!magnitude) ob[i] = x.y;
+    if (l == 0) {
+      const float2 a = z[(M >> 1) + (M >> 5)];
+      if (magnitude) {
+        oa[M >> 1] = sqrtf(a.x * a.x + a.y * a.y);
+      } else {
+        oa[M >> 1] = a.x;
+        ob[M >> 1] = -a.y;
+      }
+    }
   }
 }
 

@@ -129,7 +129,8 @@ def _fft_model(xp, n_fft, hop, n_t, magnitude):
     frames windowed from the f32 table and packed as z[n] = x[2n] + i x[2n+1];
     Stockham stages where butterfly j reads points j + r M/R, twiddles point r
     by table entry 2 r (j mod Ns) M / (Ns R), and writes point s to
-    (j - j mod Ns) R + j mod Ns + s Ns; then the real-split step."""
+    (j - j mod Ns) R + j mod Ns + s Ns; then the real-split step, bins k and
+    M - k from one pair, X[M/2] = conj Z[M/2]."""
     table = fft_table(n_fft)
     win, tw = table[:n_fft], table[n_fft:].view(np.complex64)
     M = n_fft // 2
@@ -155,6 +156,7 @@ def _fft_model(xp, n_fft, hop, n_t, magnitude):
     X = np.empty(z.shape[:-1] + (M + 1,), np.complex64)
     X[..., k] = e + wo
     X[..., M - k] = np.conj(e - wo)
+    X[..., M // 2] = np.conj(z[..., M // 2])
     if magnitude:
         return np.abs(X).astype(np.float32)
     return X.real.astype(np.float32), X.imag.astype(np.float32)

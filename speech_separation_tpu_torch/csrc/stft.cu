@@ -319,10 +319,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
+template <bool MAG>
 __global__ void __launch_bounds__(FFT_TPB)
 stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
                 float* __restrict__ out_a, float* __restrict__ out_b, int Lp, int n_t,
-                int n_fft, int hop, int F, int tiles, int span_len, int magnitude) {
+                int n_fft, int hop, int F, int tiles, int span_len) {
   extern __shared__ __align__(16) float smem[];
   float* span = smem;
   float2* buf = reinterpret_cast<float2*>(smem + span_len);
@@ -363,50 +364,79 @@ stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
   else if (lm - lns == 2) fft_stage<4, false>(buf, span, win2, tw, lm, lns, hop, nt);
   else if (lm - lns == 1) fft_stage<2, false>(buf, span, win2, tw, lm, lns, hop, nt);
 
-  // the real split and the stores: the M/16 threads of frame f take the
-  // pairs k = l + (M/16) i, i < 8, with X[k] = E + W^k O and X[M-k] =
+  // the real split: the M/16 threads of frame f take the pairs
+  // k = l + (M/16) i, i < 8, with X[k] = E + W^k O and X[M-k] =
   // conj(E - W^k O), E = (Z[k] + conj Z[M-k]) / 2, O = (Z[k] - conj Z[M-k]) / 2i
   // (pair 0 gives X[0] and X[M]); thread 0 of a frame also X[M/2] = conj
-  // Z[M/2]. A frame's bins are one contiguous run of n_bins floats in each
-  // output, written by its threads as coalesced runs from both ends.
+  // Z[M/2]. |X| is taken here in magnitude mode.
   const int M = 1 << lm;
   const int lt = lm - 4;                         // log2 of threads a frame
   const int f = tid >> lt;
   const int l = tid & ((1 << lt) - 1);
-  if (t0 + f < n_t) {
-    const float2* z = buf + pad(f * M);          // M is a multiple of 16
-    const long long o = ((long long)b * n_t + t0 + f) * (M + 1);
-    float* oa = out_a + o;
-    float* ob = out_b + o;
+  float2 xs[8], ys[8];
+  const float2* z = buf + pad(f * M);            // M is a multiple of 16
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int k = l + (i << lt);
+    const int kc = (M - k) & (M - 1);
+    const float2 a = z[k + (k >> 4)], c = z[kc + (kc >> 4)];
+    const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
+    const float2 od = make_float2(0.5f * (a.y + c.y), 0.5f * (c.x - a.x));
+    const float2 wo = cmul(__ldg(tw + k), od);
+    xs[i] = cadd(e, wo);                                // X[k]
+    ys[i] = make_float2(e.x - wo.x, wo.y - e.y);        // X[M - k]
+    if (MAG) {
+      xs[i].x = sqrtf(xs[i].x * xs[i].x + xs[i].y * xs[i].y);
+      ys[i].x = sqrtf(ys[i].x * ys[i].x + ys[i].y * ys[i].y);
+    }
+  }
+  float2 mid = z[(M >> 1) + (M >> 5)];
+  mid.y = -mid.y;
+  if (MAG) mid.x = sqrtf(mid.x * mid.x + mid.y * mid.y);
+
+  // Stage the tile's output in the buffer as the run it is in each output
+  // tensor (element i at st[i], st as out_a's phase in 16 bytes), then store
+  // the run with 16-byte stores between a scalar head and tail.
+  const int n_bins = M + 1;
+  const int nf = min(F, n_t - t0);
+  const int run = nf * n_bins;
+  const long long o0 = ((long long)b * n_t + t0) * n_bins;
+  float* oa = out_a + o0;
+  float* ob = out_b + o0;
+  const int pa = (int)((reinterpret_cast<uintptr_t>(oa) >> 2) & 3);
+  float* sa = reinterpret_cast<float*>(buf) + pa;
+  float* sb = sa + ((F * n_bins + 7) & ~3);
+  __syncthreads();                               // every read of the transform is done
+  if (f < nf) {
+    float* ra = sa + f * n_bins;
+    float* rb = sb + f * n_bins;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int k = l + (i << lt);
-      const int kc = (M - k) & (M - 1);
-      const float2 a = z[k + (k >> 4)], c = z[kc + (kc >> 4)];
-      const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
-      const float2 od = make_float2(0.5f * (a.y + c.y), 0.5f * (c.x - a.x));
-      const float2 wo = cmul(__ldg(tw + k), od);
-      const float2 x = cadd(e, wo);                             // X[k]
-      const float2 y = make_float2(e.x - wo.x, wo.y - e.y);     // X[M - k]
-      if (magnitude) {
-        oa[k] = sqrtf(x.x * x.x + x.y * x.y);
-        oa[M - k] = sqrtf(y.x * y.x + y.y * y.y);
-      } else {
-        oa[k] = x.x;
-        ob[k] = x.y;
-        oa[M - k] = y.x;
-        ob[M - k] = y.y;
+      ra[k] = xs[i].x;
+      ra[M - k] = ys[i].x;
+      if (!MAG) {
+        rb[k] = xs[i].y;
+        rb[M - k] = ys[i].y;
       }
     }
     if (l == 0) {
-      const float2 a = z[(M >> 1) + (M >> 5)];
-      if (magnitude) {
-        oa[M >> 1] = sqrtf(a.x * a.x + a.y * a.y);
-      } else {
-        oa[M >> 1] = a.x;
-        ob[M >> 1] = -a.y;
-      }
+      ra[M >> 1] = mid.x;
+      if (!MAG) rb[M >> 1] = mid.y;
     }
+  }
+  __syncthreads();
+  const int head = min((4 - pa) & 3, run);
+  const int body = (run - head) & ~3;
+  for (int c = tid; c < (body >> 2); c += nt) {
+    const int i = head + 4 * c;
+    *reinterpret_cast<float4*>(oa + i) = *reinterpret_cast<const float4*>(sa + i);
+    if (!MAG) *reinterpret_cast<float4*>(ob + i) = *reinterpret_cast<const float4*>(sb + i);
+  }
+  for (int r = tid; r < run - body; r += nt) {
+    const int i = r < head ? r : body + r;
+    oa[i] = sa[i];
+    if (!MAG) ob[i] = sb[i];
   }
 }
 
@@ -422,8 +452,9 @@ Plan plan_stft(int B, int Lp, int n_t, int n_fft, int hop) {
     const int M = n_fft / 2;
     const int F = FFT_POINTS / M < MAX_FRAMES ? FFT_POINTS / M : MAX_FRAMES;
     const int threads = F * M / PTS;
-    const int buf = F * M + F * M / 16;     // padded float2 slots
-    return Plan{FFT, F, threads / 32, 4 * span_floats(F, hop, n_fft) + 8 * buf,
+    // floats of the buffer: the padded transform, or the staged output
+    const int fft = 2 * (F * M + F * M / 16), staged = 2 * F * (M + 1) + 12;
+    return Plan{FFT, F, threads / 32, 4 * (span_floats(F, hop, n_fft) + max(fft, staged)),
                 B * ((n_t + F - 1) / F)};
   }
   const long long M = (long long)B * n_t;
@@ -454,17 +485,17 @@ int sep_stft(const float* xp, const float* table, float* out_a, float* out_b, in
   // both outputs share the 16-byte phase the store loop takes from out_a
   if (!magnitude && ((reinterpret_cast<uintptr_t>(out_a) ^ reinterpret_cast<uintptr_t>(out_b)) & 15))
     return (int)cudaErrorMisalignedAddress;
-  static int smem_set = 0;
-  if (p.smem > 48 * 1024 && p.smem > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stft_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  static int smem_set[2] = {0, 0};
+  auto kernel = magnitude ? stft_fft_kernel<true> : stft_fft_kernel<false>;
+  if (p.smem > 48 * 1024 && p.smem > smem_set[magnitude != 0]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (e != cudaSuccess) return (int)e;
-    smem_set = p.smem;
+    smem_set[magnitude != 0] = p.smem;
   }
   const int F = p.frames;
-  stft_fft_kernel<<<p.ctas, p.warps * 32, p.smem, s>>>(xp, table, out_a, out_b, Lp, n_t, n_fft,
-                                                       hop, F, (n_t + F - 1) / F,
-                                                       span_floats(F, hop, n_fft), magnitude);
+  kernel<<<p.ctas, p.warps * 32, p.smem, s>>>(xp, table, out_a, out_b, Lp, n_t, n_fft, hop, F,
+                                              (n_t + F - 1) / F, span_floats(F, hop, n_fft));
   return (int)cudaGetLastError();
 }
 

@@ -84,7 +84,8 @@ def stft_plan(B, Lp, n_t, n_fft, hop, magnitude=False):
         M = n_fft // 2
         F = min(MAX_FRAMES, FFT_POINTS // M)
         span = ((F - 1) * hop + n_fft + 6) // 4 * 4      # + up to 3 floats of head
-        smem = 4 * span + 8 * (F * M + F * M // 16)      # + the padded FFT buffer
+        # + the buffer: the padded transform, or the staged output
+        smem = 4 * (span + max(2 * (F * M + F * M // 16), 2 * F * (M + 1) + 12))
         return {"path": "fft", "frames": F, "warps": F * M // PTS // 32, "smem": smem,
                 "ctas": B * -(-n_t // F), "cap": N_FFT_CAP}
     n_bins = n_fft // 2 + 1

@@ -13,6 +13,12 @@ Phases, in order; any failure exits non-zero without the final line:
    (a yardstick the port never calls) and the least time the card could
    take (bound_ms): the serving kernels (LSTM inference, STFT) at the
    serving shapes (an 8 s bucket of 16 rows: T=513 frames, 2x600 BLSTM),
+   the STFT also at the uPIT on-device-features shape (300 rows, T=384),
+   both modes, with a bit-identical second launch, torch.stft (cuFFT) as its
+   yardstick, its plan held to the library's (sep_stft_plan), odd rows of a
+   length that is not a multiple of 4, and the direct path at n_fft=384 and
+   320; its times are queued behind a sleep, so the wrapper's host cost does
+   not show;
    the training kernels (LSTM training forward and backward) at the
    training shape (T=384, B=100, H=600), all also at a small ragged shape;
    the training forward and the backward each also launched twice on the

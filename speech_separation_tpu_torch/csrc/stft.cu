@@ -27,20 +27,26 @@
 //   pad), zeros past the row. Each frame's real n_fft-point DFT is one
 //   complex FFT of M = n_fft/2 points, z[n] = w[2n] x[2n] + i w[2n+1]
 //   x[2n+1] (the window applied as the first stage reads the span), by
-//   Stockham stages of radix 8 then a last radix 4 or 2 (512: 8, 8, 4), each
-//   stage reading its 16 points a thread from shared memory, twiddling from
-//   the f32 table, and writing the stage's output back in place after a
-//   barrier. The buffer is padded one float2 in 16 against bank conflicts.
-//   The real-split step X[k] = E[k] + W^k O[k], X[M-k] = conj(E[k] - W^k
-//   O[k]) runs in place (one thread owns slots k and M-k), |X| fused in, and
-//   the tile's output, one contiguous run of F*n_bins floats in each output
-//   tensor, leaves shared memory as 16-byte stores where aligned. Window and
-//   twiddles come from one f32 table rounded from float64 on the host
-//   (window n_fft floats, then exp(-2 pi i k / n_fft), k < n_fft); no
-//   __sinf/__cosf. One frame of N_FFT_CAP fills the CTA's 4096-point buffer.
+//   Stockham stages of radix 16 while 16 divides what is left, then one 8,
+//   4 or 2 (512: 16, 16), each thread taking one 16-point butterfly a stage
+//   in registers, twiddled from the f32 table, the stage's output written
+//   back in place after a barrier; the buffer is padded one float2 in 16
+//   against bank conflicts. The real split pairs bins k and M-k in one
+//   thread, X[k] = E[k] + W^k O[k], X[M-k] = conj(E[k] - W^k O[k]), with |X|
+//   fused in (a template parameter); the tile's output is staged in the
+//   buffer as the one contiguous run of F*n_bins floats it is in each output
+//   tensor, then stored with 16-byte stores between a scalar head and tail.
+//   Window and twiddles come from one f32 table rounded from float64 on the
+//   host (window n_fft floats, then exp(-2 pi i k / n_fft), k < n_fft); no
+//   __sinf/__cosf. N_FFT_CAP: one frame of 8192 fills a CTA's 4096-point
+//   buffer. Radix 16 over 8-8-4 and the staged stores over stores straight
+//   from the split were measured on the card (PERF.md). Magnitude mode,
+//   with 40% fewer bytes, takes about 90% of the re/im time: the FFT's
+//   instructions and barriers hold the kernel above its bytes bound more
+//   than its stores.
 //
 // "direct": every other n_fft (hop | n_fft, n_fft <= N_FFT_CAP). The dense
-//   f32 product frames @ A of PR 1: a CTA computes a 128-frame x 32-bin tile
+//   f32 product frames @ A: a CTA computes a 128-frame x 32-bin tile
 //   of re and im, framing as address arithmetic in its loads, 16-deep slices
 //   of frames and A in shared memory, 8 frames x 2 bins x (re, im) a thread.
 //   It is bound by the f32 FMA rate; it serves the sizes an FFT of this
@@ -171,13 +177,21 @@ stft_direct_kernel(const float* __restrict__ xp, const float* __restrict__ A,
 
 // --------------------------------------------------------------- FFT path
 
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
-__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 // -i z
 __device__ __forceinline__ float2 mul_mi(float2 z) { return make_float2(z.y, -z.x); }
+// z (c - i s)
+__device__ __forceinline__ float2 rot(float2 z, float c, float s) {
+  return make_float2(c * z.x + s * z.y, c * z.y - s * z.x);
+}
 
 // one float2 of padding after every 16: the strided stores of the first
 // stage and the contiguous reads of every stage fall in distinct banks
@@ -226,15 +240,15 @@ __device__ __forceinline__ void dft16(float2* v) {
 #pragma unroll
   for (int n2 = 0; n2 < 4; ++n2) dft4(v[n2], v[4 + n2], v[8 + n2], v[12 + n2]);
   // v[4 k1 + n2] now holds Y[n2][k1]
-  v[5] = make_float2(COS_PI_8 * v[5].x + SIN_PI_8 * v[5].y, COS_PI_8 * v[5].y - SIN_PI_8 * v[5].x);
+  v[5] = rot(v[5], COS_PI_8, SIN_PI_8);
   v[6] = make_float2(SQRT_HALF * (v[6].x + v[6].y), SQRT_HALF * (v[6].y - v[6].x));
-  v[7] = make_float2(SIN_PI_8 * v[7].x + COS_PI_8 * v[7].y, SIN_PI_8 * v[7].y - COS_PI_8 * v[7].x);
+  v[7] = rot(v[7], SIN_PI_8, COS_PI_8);
   v[9] = make_float2(SQRT_HALF * (v[9].x + v[9].y), SQRT_HALF * (v[9].y - v[9].x));
   v[10] = mul_mi(v[10]);
   v[11] = make_float2(SQRT_HALF * (v[11].y - v[11].x), -SQRT_HALF * (v[11].x + v[11].y));
-  v[13] = make_float2(SIN_PI_8 * v[13].x + COS_PI_8 * v[13].y, SIN_PI_8 * v[13].y - COS_PI_8 * v[13].x);
+  v[13] = rot(v[13], SIN_PI_8, COS_PI_8);
   v[14] = make_float2(SQRT_HALF * (v[14].y - v[14].x), -SQRT_HALF * (v[14].x + v[14].y));
-  v[15] = make_float2(-COS_PI_8 * v[15].x - SIN_PI_8 * v[15].y, SIN_PI_8 * v[15].x - COS_PI_8 * v[15].y);
+  v[15] = rot(v[15], -COS_PI_8, -SIN_PI_8);
   float2 t[16];
 #pragma unroll
   for (int k1 = 0; k1 < 4; ++k1) {
@@ -319,8 +333,10 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
+// at most 64 registers a thread, so four CTAs of 256 threads share an SM:
+// the serving shape's 528 CTAs are then one wave
 template <bool MAG>
-__global__ void __launch_bounds__(FFT_TPB)
+__global__ void __launch_bounds__(FFT_TPB, 4)
 stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
                 float* __restrict__ out_a, float* __restrict__ out_b, int Lp, int n_t,
                 int n_fft, int hop, int F, int tiles, int span_len) {
@@ -483,7 +499,8 @@ int sep_stft(const float* xp, const float* table, float* out_a, float* out_b, in
     return (int)cudaGetLastError();
   }
   // both outputs share the 16-byte phase the store loop takes from out_a
-  if (!magnitude && ((reinterpret_cast<uintptr_t>(out_a) ^ reinterpret_cast<uintptr_t>(out_b)) & 15))
+  const uintptr_t phase = reinterpret_cast<uintptr_t>(out_a) ^ reinterpret_cast<uintptr_t>(out_b);
+  if (!magnitude && (phase & 15))
     return (int)cudaErrorMisalignedAddress;
   static int smem_set[2] = {0, 0};
   auto kernel = magnitude ? stft_fft_kernel<true> : stft_fft_kernel<false>;

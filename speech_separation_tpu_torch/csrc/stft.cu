@@ -64,7 +64,6 @@ constexpr int FFT_MIN = 32;         // smallest power of two on the FFT path
 constexpr int FFT_POINTS = 4096;    // complex points a CTA transforms
 constexpr int PTS = 16;             // points a thread holds in one stage
 constexpr int MAX_FRAMES = 64;
-constexpr int FFT_TPB = FFT_POINTS / PTS;
 
 enum Path { REFUSED = -1, FFT = 0, DIRECT = 1 };
 
@@ -277,46 +276,59 @@ template <> struct Log2<4> { static constexpr int v = 2; };
 template <> struct Log2<8> { static constexpr int v = 3; };
 template <> struct Log2<16> { static constexpr int v = 4; };
 
-// One Stockham stage over the tile's F frames of M points: butterfly g of
-// the tile (frame f, index j < M/R) reads points j + r*M/R, multiplies point
-// r by exp(-2 pi i r (j mod Ns) / (Ns R)) (table entry 2 r (j mod Ns) M /
-// (Ns R)), takes their R-point DFT and writes point r to (j - j mod Ns) R +
-// (j mod Ns) + r Ns. The first stage (Ns = 1) reads the windowed frame from
-// the span instead. Reads all precede the barrier, writes follow it.
-template <int R, bool FIRST>
+// The tile of a transform size: M = 2^LM points a frame, F frames, NT
+// threads of PTS points.
+template <int LM>
+struct Tile {
+  static constexpr int M = 1 << LM;
+  static constexpr int F = (FFT_POINTS >> LM) < MAX_FRAMES ? (FFT_POINTS >> LM) : MAX_FRAMES;
+  static constexpr int NT = F * M / PTS;
+};
+
+// One Stockham stage over the tile's F frames of M = 2^LM points, after
+// stages of Ns = 2^LNS points: butterfly g of the tile (frame f, index
+// j < M/R) reads points j + r*M/R, multiplies point r by exp(-2 pi i r
+// (j mod Ns) / (Ns R)) (table entry 2 r (j mod Ns) M / (Ns R)), takes their
+// R-point DFT and writes point r to (j - j mod Ns) R + (j mod Ns) + r Ns. The
+// first stage (Ns = 1, R = 16) reads the windowed frame from the span
+// instead. Reads all precede the barrier, writes follow it. Every stride is
+// a multiple of 16 points, so a padded address is a base plus a constant.
+template <int R, int LM, int LNS>
 __device__ __forceinline__ void fft_stage(float2* buf, const float* span,
                                           const float2* __restrict__ win2,
-                                          const float2* __restrict__ tw, int lm, int lns,
-                                          int hop, int nt) {
+                                          const float2* __restrict__ tw, int hop) {
+  constexpr int M = Tile<LM>::M, NT = Tile<LM>::NT;
   constexpr int NB = PTS / R;
-  constexpr int LR = Log2<R>::v;
-  const int lbpf = lm - LR;
-  const int M = 1 << lm;
-  const int Ns = 1 << lns;
-  const int lstep = lm + 1 - lns - LR;
+  constexpr int BPF = M / R;                     // butterflies a frame
+  constexpr int NS = 1 << LNS;
+  constexpr bool FIRST = LNS == 0;
+  static_assert(!FIRST || R == 16, "the first stage is radix 16");
+  static_assert(FIRST || (BPF % 16 == 0 && NS % 16 == 0), "strides of whole pad groups");
   float2 v[NB][R];
-  int dst[NB];
+  float2* dst[NB];
 #pragma unroll
   for (int q = 0; q < NB; ++q) {
-    const int g = threadIdx.x + q * nt;
-    const int f = g >> lbpf;
-    const int j = g & ((1 << lbpf) - 1);
+    const int g = threadIdx.x + q * NT;
+    const int f = g / BPF;
+    const int j = g % BPF;
     if constexpr (FIRST) {
-      const float* x = span + f * hop;
+      const float* x = span + f * hop + 2 * j;
+      const float2* w = win2 + j;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const int n = j + (r << lbpf);
-        const float2 w = __ldg(win2 + n);
-        v[q][r] = make_float2(w.x * x[2 * n], w.y * x[2 * n + 1]);
+        const float2 wr = __ldg(w + r * BPF);
+        v[q][r] = make_float2(wr.x * x[2 * r * BPF], wr.y * x[2 * r * BPF + 1]);
       }
-      dst[q] = f * M + j * R;
+      dst[q] = buf + pad(f * M + j * R);         // + r: within one pad group
     } else {
-      const int jm = j & (Ns - 1);
+      const int jm = j % NS;
+      const float2* src = buf + pad(f * M + j);
 #pragma unroll
-      for (int r = 0; r < R; ++r) v[q][r] = buf[pad(f * M + j + (r << lbpf))];
+      for (int r = 0; r < R; ++r) v[q][r] = src[r * (BPF + BPF / 16)];
+      const int step = jm * (2 * M / (NS * R));
 #pragma unroll
-      for (int r = 1; r < R; ++r) v[q][r] = cmul(v[q][r], __ldg(tw + ((r * jm) << lstep)));
-      dst[q] = f * M + (j - jm) * R + jm;
+      for (int r = 1; r < R; ++r) v[q][r] = cmul(v[q][r], __ldg(tw + r * step));
+      dst[q] = buf + pad(f * M + (j - jm) * R + jm);
     }
     dft<R>(v[q]);
   }
@@ -324,8 +336,24 @@ __device__ __forceinline__ void fft_stage(float2* buf, const float* span,
 #pragma unroll
   for (int q = 0; q < NB; ++q)
 #pragma unroll
-    for (int r = 0; r < R; ++r) buf[pad(dst[q] + r * Ns)] = v[q][r];
+    for (int r = 0; r < R; ++r) dst[q][FIRST ? r : r * (NS + NS / 16)] = v[q][r];
   __syncthreads();
+}
+
+// The stages after the first: radix 16 while 16 divides what is left, then
+// one 8, 4 or 2
+template <int LM, int LNS>
+__device__ __forceinline__ void fft_stages(float2* buf, const float2* __restrict__ tw) {
+  if constexpr (LM - LNS >= 4) {
+    fft_stage<16, LM, LNS>(buf, nullptr, nullptr, tw, 0);
+    fft_stages<LM, LNS + 4>(buf, tw);
+  } else if constexpr (LM - LNS == 3) {
+    fft_stage<8, LM, LNS>(buf, nullptr, nullptr, tw, 0);
+  } else if constexpr (LM - LNS == 2) {
+    fft_stage<4, LM, LNS>(buf, nullptr, nullptr, tw, 0);
+  } else if constexpr (LM - LNS == 1) {
+    fft_stage<2, LM, LNS>(buf, nullptr, nullptr, tw, 0);
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -335,19 +363,19 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 // at most 64 registers a thread, so four CTAs of 256 threads share an SM:
 // the serving shape's 528 CTAs are then one wave
-template <bool MAG>
-__global__ void __launch_bounds__(FFT_TPB, 4)
+template <int LM, bool MAG>
+__global__ void __launch_bounds__(Tile<LM>::NT, 1024 / Tile<LM>::NT)
 stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
                 float* __restrict__ out_a, float* __restrict__ out_b, int Lp, int n_t,
-                int n_fft, int hop, int F, int tiles, int span_len) {
+                int hop, int tiles, int span_len) {
+  constexpr int M = Tile<LM>::M, F = Tile<LM>::F, NT = Tile<LM>::NT;
+  constexpr int n_fft = 2 * M;
   extern __shared__ __align__(16) float smem[];
   float* span = smem;
   float2* buf = reinterpret_cast<float2*>(smem + span_len);
-  const int nt = blockDim.x;
   const int tid = threadIdx.x;
   const int b = blockIdx.x / tiles;
   const int t0 = (blockIdx.x - b * tiles) * F;
-  const int lm = 30 - __clz(n_fft);   // log2(n_fft / 2)
   const float2* win2 = reinterpret_cast<const float2*>(table);
   const float2* tw = reinterpret_cast<const float2*>(table + n_fft);
 
@@ -361,39 +389,32 @@ stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
     const int end = head + valid;
     const int lo = min((head + 3) & ~3, end);
     const int hi = max(lo, end & ~3);
-    for (int c = (lo >> 2) + tid; c < (hi >> 2); c += nt) cp_async16(span + 4 * c, abase + 4 * c);
+    for (int c = (lo >> 2) + tid; c < (hi >> 2); c += NT) cp_async16(span + 4 * c, abase + 4 * c);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
-    for (int i = head + tid; i < lo; i += nt) span[i] = __ldg(abase + i);
-    for (int i = hi + tid; i < end; i += nt) span[i] = __ldg(abase + i);
-    for (int i = end + tid; i < head + S; i += nt) span[i] = 0.f;
+    for (int i = head + tid; i < lo; i += NT) span[i] = __ldg(abase + i);
+    for (int i = hi + tid; i < end; i += NT) span[i] = __ldg(abase + i);
+    for (int i = end + tid; i < head + S; i += NT) span[i] = 0.f;
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
     span += head;
   }
 
-  // Stockham stages: radix 16 while 16 divides what is left, then one 8,
-  // 4 or 2 (n_fft=512: 16, 16)
-  fft_stage<16, true>(buf, span, win2, tw, lm, 0, hop, nt);
-  int lns = 4;
-  for (; lm - lns >= 4; lns += 4) fft_stage<16, false>(buf, span, win2, tw, lm, lns, hop, nt);
-  if (lm - lns == 3) fft_stage<8, false>(buf, span, win2, tw, lm, lns, hop, nt);
-  else if (lm - lns == 2) fft_stage<4, false>(buf, span, win2, tw, lm, lns, hop, nt);
-  else if (lm - lns == 1) fft_stage<2, false>(buf, span, win2, tw, lm, lns, hop, nt);
+  fft_stage<16, LM, 0>(buf, span, win2, tw, hop);
+  fft_stages<LM, 4>(buf, tw);
 
   // the real split: the M/16 threads of frame f take the pairs
   // k = l + (M/16) i, i < 8, with X[k] = E + W^k O and X[M-k] =
   // conj(E - W^k O), E = (Z[k] + conj Z[M-k]) / 2, O = (Z[k] - conj Z[M-k]) / 2i
   // (pair 0 gives X[0] and X[M]); thread 0 of a frame also X[M/2] = conj
   // Z[M/2]. |X| is taken here in magnitude mode.
-  const int M = 1 << lm;
-  const int lt = lm - 4;                         // log2 of threads a frame
-  const int f = tid >> lt;
-  const int l = tid & ((1 << lt) - 1);
+  constexpr int TPF = M / 16;                    // threads a frame
+  const int f = tid / TPF;
+  const int l = tid % TPF;
   float2 xs[8], ys[8];
   const float2* z = buf + pad(f * M);            // M is a multiple of 16
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int k = l + (i << lt);
+    const int k = l + i * TPF;
     const int kc = (M - k) & (M - 1);
     const float2 a = z[k + (k >> 4)], c = z[kc + (kc >> 4)];
     const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
@@ -428,7 +449,7 @@ stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
     float* rb = sb + f * n_bins;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int k = l + (i << lt);
+      const int k = l + i * TPF;
       ra[k] = xs[i].x;
       ra[M - k] = ys[i].x;
       if (!MAG) {
@@ -444,17 +465,45 @@ stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
   __syncthreads();
   const int head = min((4 - pa) & 3, run);
   const int body = (run - head) & ~3;
-  for (int c = tid; c < (body >> 2); c += nt) {
+  for (int c = tid; c < (body >> 2); c += NT) {
     const int i = head + 4 * c;
     *reinterpret_cast<float4*>(oa + i) = *reinterpret_cast<const float4*>(sa + i);
     if (!MAG) *reinterpret_cast<float4*>(ob + i) = *reinterpret_cast<const float4*>(sb + i);
   }
-  for (int r = tid; r < run - body; r += nt) {
+  for (int r = tid; r < run - body; r += NT) {
     const int i = r < head ? r : body + r;
     oa[i] = sa[i];
     if (!MAG) ob[i] = sb[i];
   }
 }
+
+template <int LM, bool MAG>
+int launch_fft(int smem, int ctas, const float* xp, const float* table, float* out_a,
+               float* out_b, int Lp, int n_t, int hop, cudaStream_t s) {
+  static int smem_set = 0;
+  if (smem > 48 * 1024 && smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        stft_fft_kernel<LM, MAG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  constexpr int F = Tile<LM>::F;
+  stft_fft_kernel<LM, MAG><<<ctas, Tile<LM>::NT, smem, s>>>(
+      xp, table, out_a, out_b, Lp, n_t, hop, (n_t + F - 1) / F, span_floats(F, hop, 2 << LM));
+  return (int)cudaGetLastError();
+}
+
+using Launch = int (*)(int, int, const float*, const float*, float*, float*, int, int, int,
+                       cudaStream_t);
+// by magnitude, then log2(n_fft / 2) - 4: n_fft = 32 .. N_FFT_CAP
+constexpr Launch LAUNCH[2][9] = {
+    {launch_fft<4, false>, launch_fft<5, false>, launch_fft<6, false>, launch_fft<7, false>,
+     launch_fft<8, false>, launch_fft<9, false>, launch_fft<10, false>, launch_fft<11, false>,
+     launch_fft<12, false>},
+    {launch_fft<4, true>, launch_fft<5, true>, launch_fft<6, true>, launch_fft<7, true>,
+     launch_fft<8, true>, launch_fft<9, true>, launch_fft<10, true>, launch_fft<11, true>,
+     launch_fft<12, true>}};
+static_assert(2 << 12 == N_FFT_CAP && 2 << 4 == FFT_MIN, "LAUNCH covers the FFT path");
 
 // The launch for a shape, or path REFUSED. ops/stft_kernel.py's stft_plan is
 // the same function.
@@ -502,18 +551,8 @@ int sep_stft(const float* xp, const float* table, float* out_a, float* out_b, in
   const uintptr_t phase = reinterpret_cast<uintptr_t>(out_a) ^ reinterpret_cast<uintptr_t>(out_b);
   if (!magnitude && (phase & 15))
     return (int)cudaErrorMisalignedAddress;
-  static int smem_set[2] = {0, 0};
-  auto kernel = magnitude ? stft_fft_kernel<true> : stft_fft_kernel<false>;
-  if (p.smem > 48 * 1024 && p.smem > smem_set[magnitude != 0]) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set[magnitude != 0] = p.smem;
-  }
-  const int F = p.frames;
-  kernel<<<p.ctas, p.warps * 32, p.smem, s>>>(xp, table, out_a, out_b, Lp, n_t, n_fft, hop, F,
-                                              (n_t + F - 1) / F, span_floats(F, hop, n_fft));
-  return (int)cudaGetLastError();
+  const int lm = 30 - __builtin_clz((unsigned)n_fft);     // log2(n_fft / 2), 4..12
+  return LAUNCH[magnitude != 0][lm - 4](p.smem, p.ctas, xp, table, out_a, out_b, Lp, n_t, hop, s);
 }
 
 // The plan of a shape: path (0 fft, 1 direct, -1 refused), frames a CTA,

@@ -1329,7 +1329,8 @@ def main() -> int:
             {"dtype": "bfloat16", "float32": lstm[torch.float32]}),
         row("stft", "cuda", "speech_separation_tpu_torch/csrc/stft.cu",
             "speech_separation_tpu/ops/stft_pallas.py:77", stft_nums["serve"]["re_im"],
-            {"magnitude": stft_nums["serve"]["magnitude"], "plan": stft_nums["serve"]["plan"],
+            {"unfold_matmul_ms": stft_nums["serve"]["re_im"]["unfold_matmul_ms"],
+             "magnitude": stft_nums["serve"]["magnitude"], "plan": stft_nums["serve"]["plan"],
              "shape": stft_nums["serve"]["shape"], "features": stft_nums["features"]}),
         row("lstm_seq_fwd", "cuda", "speech_separation_tpu_torch/csrc/lstm_fwd.cu",
             "speech_separation_tpu/ops/lstm_pallas.py:175", lstm_train["fwd"][torch.bfloat16],

@@ -432,8 +432,9 @@ stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
   if (MAG) mid.x = sqrtf(mid.x * mid.x + mid.y * mid.y);
 
   // Stage the tile's output in the buffer as the run it is in each output
-  // tensor (element i at st[i], st as out_a's phase in 16 bytes), then store
-  // the run with 16-byte stores between a scalar head and tail.
+  // tensor (element i at sa[i] and sb[i], which sit at out_a's phase in 16
+  // bytes), then store the run with 16-byte stores between a scalar head and
+  // tail.
   const int n_bins = M + 1;
   const int nf = min(F, n_t - t0);
   const int run = nf * n_bins;

@@ -250,7 +250,8 @@ def check_stft(fails: Failures) -> dict:
     both modes, each with a bit-identical second launch and its times beside
     unfold @ A and torch.stft (cuFFT), timed queued behind a sleep."""
     from speech_separation_tpu_torch.dsp.stft import _device_matrix, hann_periodic
-    from speech_separation_tpu_torch.ops.stft_kernel import card_plan, stft, stft_plain, stft_plan
+    from speech_separation_tpu_torch.ops.stft_kernel import (DIRECT_N_FFT_CAP, card_plan, stft,
+                                                             stft_plain, stft_plan)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     n_fft, hop = 512, 128
 
@@ -279,11 +280,14 @@ def check_stft(fails: Failures) -> dict:
         check(xs, nf, hp, 41, f"direct n_fft={nf} hop={hp}")
     plan_shapes = [(16, 65536 + n_fft, 513, n_fft, hop), (300, 49536, 384, n_fft, hop),
                    (3, 1549, 8, n_fft, hop), (5, 20000, 3, 8192, 4096), (7, 999, 60, 16, 8),
-                   (2, 5000, 30, 384, 128), (2, 5000, 30, 320, 160), (1, 100, 20, 8, 4)]
+                   (2, 5000, 30, 384, 128), (2, 5000, 30, 320, 160), (1, 100, 20, 8, 4),
+                   (1, 40000, 2, 16384, 8192)]
     same = all(card_plan(*a) == stft_plan(*a) for a in plan_shapes)
-    refused = card_plan(1, 40000, 2, 16384, 8192) is None
-    fails.check(same and refused, f"stft_plan equals sep_stft_plan at {len(plan_shapes)} shapes "
-                                  f"and both refuse n_fft=16384")
+    above_fft = card_plan(1, 40000, 2, 16384, 8192)["path"] == "direct"
+    refused = card_plan(1, 4 * DIRECT_N_FFT_CAP, 1, DIRECT_N_FFT_CAP + 2, 2) is None
+    fails.check(same and above_fft and refused,
+                f"stft_plan equals sep_stft_plan at {len(plan_shapes)} shapes, n_fft=16384 "
+                f"takes the direct path and both refuse above {DIRECT_N_FFT_CAP}")
 
     window = torch.from_numpy(hann_periodic(n_fft)).cuda()
     A = _device_matrix("rdft", n_fft, torch.device("cuda"))
@@ -329,7 +333,9 @@ def check_stft(fails: Failures) -> dict:
             out[name]["magnitude" if magnitude else "re_im"] = {
                 "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-                "unfold_matmul_ms": unfold_ms, "unqueued_ms": unqueued_ms}
+                "unfold_matmul_ms": unfold_ms, "unqueued_ms": unqueued_ms,
+                "timing": "ms, plain_ms, library_ms, unfold_matmul_ms: queued_ms (calls "
+                          "enqueued behind a sleep); unqueued_ms: cuda_ms (back to back)"}
             print(f"  stft {name} magnitude={magnitude}: {ms:.4f} ms (plain {plain_ms:.4f}, "
                   f"unfold@A {unfold_ms:.4f}, torch.stft {library_ms:.4f}, bound {b_ms:.4f} "
                   f"by {b_by}; {ms / b_ms:.2f}x the bound; back to back without the queue "

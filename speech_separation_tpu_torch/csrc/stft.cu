@@ -39,27 +39,30 @@
 //   Window and twiddles come from one f32 table rounded from float64 on the
 //   host (window n_fft floats, then exp(-2 pi i k / n_fft), k < n_fft); no
 //   __sinf/__cosf. N_FFT_CAP: one frame of 8192 fills a CTA's 4096-point
-//   buffer. Radix 16 over 8-8-4 and the staged stores over stores straight
+//   buffer; a larger power of two takes the direct path. Radix 16 over 8-8-4 and the staged stores over stores straight
 //   from the split were measured on the card (PERF.md). Magnitude mode,
 //   with 40% fewer bytes, takes about 90% of the re/im time: the FFT's
 //   instructions and barriers hold the kernel above its bytes bound more
 //   than its stores.
 //
-// "direct": every other n_fft (hop | n_fft, n_fft <= N_FFT_CAP). The dense
-//   f32 product frames @ A: a CTA computes a 128-frame x 32-bin tile
-//   of re and im, framing as address arithmetic in its loads, 16-deep slices
-//   of frames and A in shared memory, 8 frames x 2 bins x (re, im) a thread.
-//   It is bound by the f32 FMA rate; it serves the sizes an FFT of this
-//   design does not take.
+// "direct": every other n_fft with hop | n_fft, up to DIRECT_N_FFT_CAP. The
+//   dense f32 product frames @ A, the port's first STFT kernel unchanged: a
+//   CTA computes a 128-frame x 32-bin tile of re and im, framing as address
+//   arithmetic in its loads, 16-deep slices of frames and A in shared
+//   memory, 8 frames x 2 bins x (re, im) a thread. It is bound by the f32
+//   FMA rate; it serves the sizes an FFT of this design does not take.
+//   DIRECT_N_FFT_CAP: the grid's y dimension holds at most 65535 tiles of
+//   32 bins.
 //
 // Every sum has a fixed order, so a second launch is bit-identical.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int N_FFT_CAP = 8192;     // largest n_fft either path takes
+constexpr int N_FFT_CAP = 8192;     // largest n_fft the FFT path takes
 constexpr int FFT_MIN = 32;         // smallest power of two on the FFT path
 constexpr int FFT_POINTS = 4096;    // complex points a CTA transforms
 constexpr int PTS = 16;             // points a thread holds in one stage
@@ -82,6 +85,8 @@ constexpr int BNB = 32;             // bins per CTA (re and im each)
 constexpr int BK = 16;              // depth of one shared-memory slice
 constexpr int TPB = 256;
 constexpr int AS_STRIDE = BM + 4;   // padded to spread the transposed stores
+// largest n_fft the direct path takes: n_fft/2 + 1 bins in 65535 tiles
+constexpr int DIRECT_N_FFT_CAP = 2 * (65535 * BNB - 1);
 
 __global__ void __launch_bounds__(TPB)
 stft_direct_kernel(const float* __restrict__ xp, const float* __restrict__ A,
@@ -510,11 +515,11 @@ static_assert(2 << 12 == N_FFT_CAP && 2 << 4 == FFT_MIN, "LAUNCH covers the FFT 
 // the same function.
 Plan plan_stft(int B, int Lp, int n_t, int n_fft, int hop) {
   Plan p{REFUSED, 0, 0, 0, 0};
-  if (B < 1 || n_t < 1 || hop < 1 || n_fft < 2 || n_fft > N_FFT_CAP || n_fft % hop != 0 ||
-      (long long)Lp < (long long)(n_t - 1) * hop + n_fft)
+  if (B < 1 || n_t < 1 || hop < 1 || n_fft < 2 || n_fft > DIRECT_N_FFT_CAP ||
+      n_fft % hop != 0 || (long long)Lp < (long long)(n_t - 1) * hop + n_fft)
     return p;
   const int n_bins = n_fft / 2 + 1;
-  if ((n_fft & (n_fft - 1)) == 0 && n_fft >= FFT_MIN) {
+  if ((n_fft & (n_fft - 1)) == 0 && n_fft >= FFT_MIN && n_fft <= N_FFT_CAP) {
     const int M = n_fft / 2;
     const int F = FFT_POINTS / M < MAX_FRAMES ? FFT_POINTS / M : MAX_FRAMES;
     const int threads = F * M / PTS;
@@ -524,8 +529,10 @@ Plan plan_stft(int B, int Lp, int n_t, int n_fft, int hop) {
                 B * ((n_t + F - 1) / F)};
   }
   const long long M = (long long)B * n_t;
+  const long long ctas = (M + BM - 1) / BM * ((n_bins + BNB - 1) / BNB);
+  if (ctas > INT_MAX) return p;
   return Plan{DIRECT, BM, TPB / 32, (int)(sizeof(float) * BK * (AS_STRIDE + 2 * BNB)),
-              (int)((M + BM - 1) / BM) * ((n_bins + BNB - 1) / BNB)};
+              (int)ctas};
 }
 
 }  // namespace
@@ -557,8 +564,9 @@ int sep_stft(const float* xp, const float* table, float* out_a, float* out_b, in
 }
 
 // The plan of a shape: path (0 fft, 1 direct, -1 refused), frames a CTA,
-// warps a CTA, shared bytes a CTA, CTAs, and the n_fft cap. Returns 0, or 1
-// when no path takes the shape.
+// warps a CTA, shared bytes a CTA, CTAs, and the largest n_fft of the path
+// taken (N_FFT_CAP, or DIRECT_N_FFT_CAP on the direct path or when refused).
+// Returns 0, or 1 when no path takes the shape.
 int sep_stft_plan(int B, int Lp, int n_t, int n_fft, int hop, int magnitude, int* path,
                   int* frames, int* warps, int* smem, int* ctas, int* cap) {
   (void)magnitude;
@@ -568,7 +576,7 @@ int sep_stft_plan(int B, int Lp, int n_t, int n_fft, int hop, int magnitude, int
   *warps = p.warps;
   *smem = p.smem;
   *ctas = p.ctas;
-  *cap = N_FFT_CAP;
+  *cap = p.path == FFT ? N_FFT_CAP : DIRECT_N_FFT_CAP;
   return p.path == REFUSED ? 1 : 0;
 }
 

@@ -7,8 +7,8 @@ bound by memory: each padded row read once and each spectrum written once
 about 2.5 n_fft log2(n_fft) operations a frame. ``stft_plan`` names the
 launch: the "fft" path (n_fft a power of two from ``FFT_MIN`` to
 ``N_FFT_CAP``) stages each tile's row span once in shared memory and runs
-one FFT a frame; the "direct" path (every other n_fft) is the dense f32
-product ``frames @ A``. The source note in csrc/stft.cu has the design.
+one FFT a frame; the "direct" path (every other n_fft up to
+``DIRECT_N_FFT_CAP``) is the dense f32 product ``frames @ A``. The source note in csrc/stft.cu has the design.
 
 ``stft`` launches the kernel for CUDA tensors and runs ``stft_plain`` (unfold
 plus matmul) only for CPU tensors; ``stft.launches`` counts kernel launches.
@@ -24,12 +24,16 @@ import torch
 
 from ..dsp.stft import _device_matrix, hann_periodic
 
-N_FFT_CAP = 8192     # largest n_fft either path takes
+N_FFT_CAP = 8192     # largest n_fft the FFT path takes
 FFT_MIN = 32         # smallest power of two on the FFT path
 FFT_POINTS = 4096    # complex points a CTA transforms (F frames of n_fft/2)
 PTS = 16             # points a thread holds in one FFT stage
 MAX_FRAMES = 64
 _DIRECT = {"frames": 128, "warps": 8, "bins": 32, "smem": 4 * 16 * (132 + 64)}
+# largest n_fft the direct path takes: n_fft/2 + 1 bins in the grid's 65535
+# y tiles of 32
+DIRECT_N_FFT_CAP = 2 * (65535 * _DIRECT["bins"] - 1)
+_INT_MAX = 2 ** 31 - 1
 
 _lib_handle = None
 
@@ -64,23 +68,25 @@ def stft_plan(B, Lp, n_t, n_fft, hop, magnitude=False):
     """The launch csrc/stft.cu makes for B rows of Lp samples, n_t frames:
     a dict of ``path`` ("fft": n_fft a power of two in [FFT_MIN, N_FFT_CAP],
     one row and ``frames`` consecutive frames a CTA, the span staged once in
-    shared memory, an FFT a frame; "direct": every other n_fft, 128 frames x
-    32 bins of the dense product a CTA), ``frames`` (a CTA), ``warps`` (a
-    CTA), ``smem`` (shared bytes a CTA), ``ctas`` and ``cap``
-    (``N_FFT_CAP``). A pure function of its arguments, the same as the
-    library's own ``sep_stft_plan`` (``magnitude`` changes nothing). Raises
-    ValueError for a shape no path takes, naming the cap for n_fft above it."""
+    shared memory, an FFT a frame; "direct": every other n_fft up to
+    DIRECT_N_FFT_CAP, 128 frames x 32 bins of the dense product a CTA),
+    ``frames`` (a CTA), ``warps`` (a CTA), ``smem`` (shared bytes a CTA),
+    ``ctas`` and ``cap`` (the largest n_fft of the path taken). A pure
+    function of its arguments, the same as the library's own
+    ``sep_stft_plan`` (``magnitude`` changes nothing). Raises ValueError for
+    a shape no path takes, naming the cap for n_fft above it."""
     del magnitude
-    if n_fft > N_FFT_CAP or n_fft < 2:
-        raise ValueError(f"the STFT kernel takes 2 <= n_fft <= {N_FFT_CAP} (N_FFT_CAP: one "
-                         f"frame of n_fft/2 complex points fills a CTA's {FFT_POINTS}-point "
-                         f"FFT buffer), got n_fft={n_fft}")
+    if n_fft > DIRECT_N_FFT_CAP or n_fft < 2:
+        raise ValueError(f"the STFT kernel takes 2 <= n_fft <= {DIRECT_N_FFT_CAP} "
+                         f"(DIRECT_N_FFT_CAP: the direct path's grid holds 65535 tiles of "
+                         f"{_DIRECT['bins']} bins; the FFT path takes powers of two up to "
+                         f"N_FFT_CAP={N_FFT_CAP}), got n_fft={n_fft}")
     if hop < 1 or n_fft % hop != 0:
         raise ValueError(f"the STFT kernel needs hop ({hop}) to divide n_fft ({n_fft})")
     if B < 1 or n_t < 1 or Lp < (n_t - 1) * hop + n_fft:
         raise ValueError(f"B={B} rows of {Lp} samples cannot hold n_t={n_t} frames of "
                          f"{n_fft} at hop {hop}")
-    if n_fft & (n_fft - 1) == 0 and n_fft >= FFT_MIN:
+    if n_fft & (n_fft - 1) == 0 and FFT_MIN <= n_fft <= N_FFT_CAP:
         M = n_fft // 2
         F = min(MAX_FRAMES, FFT_POINTS // M)
         span = ((F - 1) * hop + n_fft + 6) // 4 * 4      # + up to 3 floats of head
@@ -90,8 +96,11 @@ def stft_plan(B, Lp, n_t, n_fft, hop, magnitude=False):
                 "ctas": B * -(-n_t // F), "cap": N_FFT_CAP}
     n_bins = n_fft // 2 + 1
     ctas = -(-B * n_t // _DIRECT["frames"]) * -(-n_bins // _DIRECT["bins"])
+    if ctas > _INT_MAX:
+        raise ValueError(f"the direct path's {ctas} CTAs for B={B}, n_t={n_t}, n_fft={n_fft} "
+                         f"exceed the {_INT_MAX} a launch counts")
     return {"path": "direct", "frames": _DIRECT["frames"], "warps": _DIRECT["warps"],
-            "smem": _DIRECT["smem"], "ctas": ctas, "cap": N_FFT_CAP}
+            "smem": _DIRECT["smem"], "ctas": ctas, "cap": DIRECT_N_FFT_CAP}
 
 
 def card_plan(B, Lp, n_t, n_fft, hop, magnitude=False):

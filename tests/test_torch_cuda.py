@@ -113,8 +113,10 @@ def test_stft_tile_edges_odd_rows_misaligned(cuda, n_t, magnitude):
 
 
 @pytest.mark.parametrize("magnitude", [False, True])
-@pytest.mark.parametrize("n_fft,hop", [(384, 128), (320, 160), (96, 32), (8, 4)])
+@pytest.mark.parametrize("n_fft,hop", [(384, 128), (320, 160), (96, 32), (8, 4), (16384, 4096)])
 def test_stft_direct_path(cuda, n_fft, hop, magnitude):
+    """Sizes that are not powers of two, and a power of two above the FFT
+    path's cap, take the dense product."""
     from speech_separation_tpu_torch.ops.stft_kernel import stft_plan
     n_t = 29
     Lp = (n_t - 1) * hop + n_fft + 1
@@ -137,8 +139,10 @@ def test_stft_kernel_is_deterministic(cuda, magnitude):
 
 def test_stft_plan_is_the_cards_plan(cuda):
     """stft_plan, a pure function tested on the CPU, is the launch the built
-    library makes (sep_stft_plan), and both refuse above the cap."""
-    from speech_separation_tpu_torch.ops.stft_kernel import N_FFT_CAP, card_plan, stft_plan
+    library makes (sep_stft_plan), powers of two above the FFT path's cap go
+    to the direct path, and both refuse above the direct path's cap."""
+    from speech_separation_tpu_torch.ops.stft_kernel import (DIRECT_N_FFT_CAP, N_FFT_CAP,
+                                                             card_plan, stft_plan)
     for B, n_t in ((1, 1), (3, 17), (16, 513), (300, 384)):
         n_fft = 2
         while n_fft <= N_FFT_CAP:
@@ -146,16 +150,18 @@ def test_stft_plan_is_the_cards_plan(cuda):
                 Lp = (n_t - 1) * hop + n_fft + 7
                 assert card_plan(B, Lp, n_t, n_fft, hop) == stft_plan(B, Lp, n_t, n_fft, hop)
             n_fft *= 2
-        for n_fft, hop in ((384, 128), (320, 160), (6000, 1000)):
+        for n_fft, hop in ((384, 128), (320, 160), (6000, 1000), (2 * N_FFT_CAP, N_FFT_CAP),
+                           (DIRECT_N_FFT_CAP, DIRECT_N_FFT_CAP // 2)):
             Lp = (n_t - 1) * hop + n_fft
             assert card_plan(B, Lp, n_t, n_fft, hop) == stft_plan(B, Lp, n_t, n_fft, hop)
-    assert card_plan(1, 4 * N_FFT_CAP, 1, 2 * N_FFT_CAP, N_FFT_CAP) is None
+    assert card_plan(1, 4 * N_FFT_CAP, 1, 2 * N_FFT_CAP, N_FFT_CAP)["path"] == "direct"
+    assert card_plan(1, 4 * DIRECT_N_FFT_CAP, 1, DIRECT_N_FFT_CAP + 2, 2) is None
 
 
 def test_stft_refuses_above_its_cap(cuda):
-    from speech_separation_tpu_torch.ops.stft_kernel import N_FFT_CAP
-    n_fft = 2 * N_FFT_CAP
-    with pytest.raises(ValueError, match=str(N_FFT_CAP)):
+    from speech_separation_tpu_torch.ops.stft_kernel import DIRECT_N_FFT_CAP
+    n_fft = DIRECT_N_FFT_CAP + 2
+    with pytest.raises(ValueError, match=f"n_fft <= {DIRECT_N_FFT_CAP}"):
         stft(torch.zeros((1, 2 * n_fft), device=cuda), n_fft, n_fft // 4, 2)
 
 

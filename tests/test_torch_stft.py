@@ -18,8 +18,8 @@ import jax.numpy as jnp
 from speech_separation_tpu.dsp import stft as jstft
 from speech_separation_tpu.ops.stft_pallas import stft_pallas
 from speech_separation_tpu_torch.dsp import stft as tstft
-from speech_separation_tpu_torch.ops.stft_kernel import (N_FFT_CAP, fft_table, stft, stft_plain,
-                                                         stft_plan)
+from speech_separation_tpu_torch.ops.stft_kernel import (DIRECT_N_FFT_CAP, N_FFT_CAP, fft_table,
+                                                         stft, stft_plain, stft_plan)
 
 SPEC_ATOL = 1e-4
 WAVE_ATOL = 2e-5
@@ -236,14 +236,21 @@ def test_stft_plan_paths_and_cap():
         plan = stft_plan(2, 3 * n_fft, 2, n_fft, n_fft // 2)
         assert (plan["path"], plan["frames"], plan["warps"]) == ("fft", F, warps), n_fft
         assert plan["smem"] <= 227 * 1024
-    for n_fft, hop in ((384, 128), (320, 160), (16, 8), (8, 4), (6000, 1000)):
+    # every other n_fft with hop | n_fft, powers of two above N_FFT_CAP too,
+    # takes the direct path up to its own cap
+    for n_fft, hop in ((384, 128), (320, 160), (16, 8), (8, 4), (6000, 1000),
+                       (N_FFT_CAP + 2, 2), (2 * N_FFT_CAP, N_FFT_CAP),
+                       (DIRECT_N_FFT_CAP, DIRECT_N_FFT_CAP // 2)):
         plan = stft_plan(5, 4 * n_fft, 3, n_fft, hop)
-        assert plan["path"] == "direct", n_fft
+        assert (plan["path"], plan["cap"]) == ("direct", DIRECT_N_FFT_CAP), n_fft
         assert plan["ctas"] == -(-15 // 128) * -(-(n_fft // 2 + 1) // 32)
-    with pytest.raises(ValueError, match=str(N_FFT_CAP)):
-        stft_plan(1, 4 * N_FFT_CAP, 1, 2 * N_FFT_CAP, N_FFT_CAP)
-    with pytest.raises(ValueError, match=str(N_FFT_CAP)):
-        stft_plan(1, 20000, 1, N_FFT_CAP + 2, 2)
+    assert -(-(DIRECT_N_FFT_CAP // 2 + 1) // 32) == 65535
+    with pytest.raises(ValueError, match=f"n_fft <= {DIRECT_N_FFT_CAP}"):
+        stft_plan(1, 4 * DIRECT_N_FFT_CAP, 1, DIRECT_N_FFT_CAP + 2, 2)
+    with pytest.raises(ValueError, match=f"n_fft <= {DIRECT_N_FFT_CAP}"):
+        stft_plan(1, 4 * DIRECT_N_FFT_CAP, 1, 2 * DIRECT_N_FFT_CAP, DIRECT_N_FFT_CAP)
+    with pytest.raises(ValueError, match="CTAs"):
+        stft_plan(2 ** 20, 2 ** 21, 2 ** 14, 2 ** 20, 2 ** 6)
     with pytest.raises(ValueError, match="divide"):
         stft_plan(1, 2048, 4, 512, 96)
     with pytest.raises(ValueError, match="cannot hold"):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's serving, training and recipe paths on one CUDA
+card and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -58,8 +58,23 @@ Phases, in order; any failure exits non-zero without the final line:
 9. one SepFormer training step on the card, fused attention against the
    einsum path at B=32 (loss and every gradient by relative L2), then the
    fused step on the card against the CPU at B=4;
-10. one JSON line with every kernel and its numbers, then
-   {"ok": true, "device": {...}} as the last line.
+10. recipe: the reference's staged recipe through the port's CLI, in process
+   (cli.main.main) in build/chip_smoke_recipe/: corpora from
+   utils/synthetic.py (train 120, CV 40, test 100 utterances of 4.5-6 s);
+   run-train stages 0-2 (prepare, extract with K2 in magnitude mode, train a
+   2x600 bf16 uPIT at B=100 for 5 epochs with K3/K4); run-eval stages 0-4 on
+   the test set at B=100 with --nj 8 (extract with K2 in re/im mode, masks
+   with K1 at B=100, T=384, reconstruct, the host f64 scorer in 8 spawned
+   workers); run-eval --on-device-features into a second model dir. K2 and
+   K1 are first held against their plain versions at the recipe's shapes.
+   Checks: the files as the reference writes them, each kernel's launches in
+   the stage that should launch it (zeroed before each command, read at each
+   stage's marker line), the staged and fused mean SDR, and the first 8 test
+   utterances' run-eval on the card against the CPU (both with
+   zero_init_hidden=1): features, tracks by SNR and each source's SDR.
+   Prints each stage's wall and the mean SDR/SIR/SAR/SI-SDRi;
+11. one JSON line with every kernel and its numbers (with the recipe's
+   launch counts), then {"ok": true, "device": {...}} as the last line.
 
 ``python3 chip_smoke.py --profile`` traces full-width SepFormer training
 steps with torch.profiler and prints where their time goes.
@@ -1144,6 +1159,328 @@ def sepformer_step_phase(fails: Failures, train_dir: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ recipe
+
+# The recipe (phase 10) on the card against the same recipe on the CPU (plain
+# versions), on the first RECIPE_CPU_UTTS test utterances with
+# zero_init_hidden=1 on both sides (the reference's N(0, 1) initial state is
+# drawn on the generator's device, so a card draw and a CPU draw differ):
+# test features by max |error| / max |X| (K2's contract), reconstructed
+# tracks by SNR (MIN_SNR_DB, as phase 4 holds served tracks), each source's
+# SDR in dB; the staged and fused runs' mean SDR in dB (BSS-eval ignores the
+# fused path's per-utterance gain).
+RECIPE_TOL = {"feat_rel": TOL["stft_rel"], "sdr_db": 0.05, "fused_mean_sdr_db": 0.1}
+RECIPE_CPU_UTTS = 8
+RECIPE_CORPUS = (("rtr", 120, 1), ("rcv", 40, 2), ("rtt", 100, 3))   # set, utterances, seed
+RECIPE_MODEL_CONF = "hidden=600\nnum_layers=2\ncompute_dtype=bfloat16\n"
+
+
+class StageLog:
+    """A stdout that echoes the CLI's lines indented and stamps each one with
+    the host's clock and the kernels' launch counts at that moment: the
+    recipe's stage markers ("### ... (stage N) ###") and per-set lines split
+    its wall and its launches by stage."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.lines: list[tuple[float, str, dict]] = []
+        self._buf = ""
+
+    def write(self, s: str) -> int:
+        self._buf += s
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.monotonic(), line,
+                               {c.__name__: c.launches for c in self.counters}))
+            sys.__stdout__.write("    " + line + "\n")
+        return len(s)
+
+    def flush(self) -> None:
+        sys.__stdout__.flush()
+
+    def run(self, argv: list) -> None:
+        """Run the port's CLI in process with this log as stdout; the call's
+        end is stamped as a line of its own."""
+        import contextlib
+        from speech_separation_tpu_torch.cli.main import main as cli
+        for c in self.counters:
+            c.launches = 0
+        with contextlib.redirect_stdout(self):
+            print(f"$ {' '.join(argv)}")
+            cli(argv)
+            torch.cuda.synchronize()
+            print("$ done")
+
+    def spans(self, marks) -> dict:
+        """{name: (wall s, launches)} of each span from a line holding one of
+        ``marks`` (name, text) to the next mark or the call's end."""
+        hits = []
+        for t, line, counts in self.lines:
+            for name, text in marks:
+                if text in line:
+                    hits.append((name, t, counts))
+        end_t, _, end_counts = self.lines[-1]
+        out = {}
+        for k, (name, t, counts) in enumerate(hits):
+            t1, c1 = (hits[k + 1][1], hits[k + 1][2]) if k + 1 < len(hits) else (end_t, end_counts)
+            out[name] = (t1 - t, {n: c1[n] - counts[n] for n in counts})
+        return out
+
+
+def check_recipe_kernels(fails: Failures) -> dict:
+    """K2 and K1 at the recipe's shapes against their plain versions: the
+    extraction's launch of 64 rows of 6 s buckets (49152 samples, 385 frames)
+    in both modes, and eval-masks' K1 at B=100 rows of 4.5-6 s (T=384), bf16."""
+    from speech_separation_tpu_torch.ops.lstm_kernel import lstm_seq_infer, lstm_seq_infer_plain
+    from speech_separation_tpu_torch.ops.stft_kernel import stft, stft_plain
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    out = {}
+    B, Lp, n_t = 64, 49152 + 512, 385
+    xp = (torch.rand((B, Lp), generator=gen, device="cuda") * 2 - 1) * 0.5
+    for magnitude in (False, True):
+        got = stft(xp, 512, 128, n_t, magnitude)
+        ref = stft_plain(xp, 512, 128, n_t, magnitude)
+        got, ref = (got, ref) if magnitude else (torch.cat(got), torch.cat(ref))
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        tol = TOL["stft_rel"] * scale
+        fails.check(err <= tol, f"stft extraction B={B} n_t={n_t} magnitude={magnitude}: "
+                                f"max_abs_err {err:.3e} <= {tol:.3e}")
+        out["stft_magnitude" if magnitude else "stft_re_im"] = {
+            "shape": [B, Lp, n_t], "max_abs_err": err, "tolerance": tol,
+            "ms": cuda_ms(lambda: stft(xp, 512, 128, n_t, magnitude), iters=20)}
+    T, B, H = 384, 100, 600
+    lengths = np.random.default_rng(SEED + 10).integers(282, 377, size=B).tolist()
+    args = lstm_inputs(T, B, H, torch.bfloat16, lengths, gen)
+    got = lstm_seq_infer(*args, suffix_dirs=(False, True))
+    ref = lstm_seq_infer_plain(*args, suffix_dirs=(False, True))
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    fails.check(err <= TOL["lstm_bf16"], f"lstm_infer eval-masks T={T} B={B} H={H} bf16: "
+                                         f"max_abs_err {err:.3e} <= {TOL['lstm_bf16']}")
+    out["lstm_seq_infer"] = {"shape": [T, B, H], "max_abs_err": err, "tolerance": TOL["lstm_bf16"],
+                             "ms": cuda_ms(lambda: lstm_seq_infer(*args, suffix_dirs=(False, True)),
+                                           iters=5)}
+    return out
+
+
+def _scp(path: str) -> dict:
+    with open(path) as f:
+        return dict(line.rstrip("\n").split(" ", 1) for line in f if line.strip())
+
+
+def _source_sdrs(out_dir: str) -> dict:
+    with open(os.path.join(out_dir, "results", "source_SDRs.txt")) as f:
+        return {ln.split()[0]: [float(v) for v in ln.split()[1:]] for ln in f}
+
+
+def check_recipe_outputs(fails: Failures, data_dir: str, out_dir: str, staged: bool) -> dict:
+    """The files of one run-eval as the reference writes them: mask npz
+    (s1, s2; (F, T) float32; T the utterance's frame count), test features
+    (complex64, (F, T)), int16 8 kHz tracks of hop * (T - 1) samples, the
+    result files and summary.json. Returns the summary."""
+    from scipy.io import wavfile
+
+    from speech_separation_tpu_torch.utils.audio import load_wav
+    wav = _scp(os.path.join(data_dir, "wav.scp"))
+    frames = {u: 1 + len(load_wav(p)[0]) // 128 for u, p in wav.items()}
+    bad = []
+    if staged:
+        feats = _scp(os.path.join(data_dir, "feats_test.scp"))
+        nf = {u: int(v) for u, v in _scp(os.path.join(data_dir, "utt2num_frames")).items()}
+        for utt, path in feats.items():
+            with np.load(path) as f:
+                if f.files != ["mix"] or f["mix"].dtype != np.complex64 \
+                        or f["mix"].shape != (257, frames[utt]) or nf[utt] != frames[utt]:
+                    bad.append(f"features {utt}")
+            with np.load(os.path.join(out_dir, "masks", utt + ".npz")) as m:
+                if sorted(m.files) != ["s1", "s2"] or any(
+                        m[k].dtype != np.float32 or m[k].shape != (257, frames[utt])
+                        or not np.all((m[k] >= 0) & (m[k] <= 1)) for k in m.files):
+                    bad.append(f"masks {utt}")
+        fails.check(sorted(feats) == sorted(wav), f"features of {len(feats)} utterances")
+    for utt in wav:
+        for s in ("s1", "s2"):
+            path = os.path.join(out_dir, "wav", s, utt + ".wav")
+            sr, y = wavfile.read(path) if os.path.isfile(path) else (0, np.zeros(0))
+            if sr != 8000 or y.dtype != np.int16 or len(y) != 128 * (frames[utt] - 1):
+                bad.append(f"wav {s}/{utt}")
+    res = os.path.join(out_dir, "results")
+    names = [f"{k}_{m}s.txt" for k in ("session", "source")
+             for m in ("SDR", "SIR", "SAR", "SI-SDR", "SI-SDRi")]
+    names += [f"{m}_stats.txt" for m in ("SDR", "SIR", "SAR", "SI-SDR", "SI-SDRi")]
+    missing = [n for n in names + ["summary.json"] if not os.path.isfile(os.path.join(res, n))]
+    with open(os.path.join(res, "summary.json")) as f:
+        summary = json.load(f)
+    sdrs = _source_sdrs(out_dir)
+    fails.check(not bad and not missing and summary["n_utts"] == len(wav)
+                and sorted(sdrs) == sorted(wav)
+                and all(len(v) == 2 and np.all(np.isfinite(v)) for v in sdrs.values()),
+                f"{out_dir}: {len(wav)} utterances' "
+                + ("features, masks, " if staged else "") + "tracks and result files as the "
+                f"reference writes them (bad {bad[:4]}, missing {missing})")
+    return summary
+
+
+def recipe_phase(fails: Failures, counters) -> dict:
+    """Phase 10: the reference's staged recipe through the port's CLI, in
+    process: run-train stages 0-2 (2x600 bf16 uPIT, B=100, 5 epochs) and
+    run-eval stages 0-4 on the card, then run-eval --on-device-features, then
+    the first test utterances' recipe on the card against the CPU."""
+    from speech_separation_tpu_torch.utils.synthetic import make_synthetic_corpus, write_id_list
+
+    kernels = check_recipe_kernels(fails)
+    work = os.path.join(REPO, "build", "chip_smoke_recipe")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.monotonic()
+        roots = {}
+        for name, n, seed in RECIPE_CORPUS:
+            roots[name] = os.path.join(work, "corpus", name)
+            ids = make_synthetic_corpus(roots[name], n, min_sec=4.5, max_sec=6.0, seed=SEED + seed,
+                                        prefix=name)
+            write_id_list("id_lists", name, ids)
+            if name == "rtt":
+                write_id_list("id_lists", "rtt8", ids[:RECIPE_CPU_UTTS])
+                roots["rtt8"] = roots[name]
+        with open("id_lists/path.json", "w") as f:
+            json.dump(roots, f)
+        with open("model.conf", "w") as f:
+            f.write(RECIPE_MODEL_CONF)
+        with open("zero.conf", "w") as f:
+            f.write("zero_init_hidden=1\n")
+        corpus_s = time.monotonic() - t0
+        print(f"  corpora (mix/s1/s2 wavs of 4.5-6 s): {corpus_s:.1f} s", flush=True)
+
+        walls, launches = {}, {}
+        train = StageLog(counters)
+        train.run(["run-train", "--arch", "uPIT", "--train-set", "rtr", "--cv-set", "rcv",
+                   "--model-config", "model.conf", "--batch-size", "100", "--num-epochs", "5",
+                   "--device", "cuda"])
+        for name, (wall, counts) in train.spans([
+                ("prepare", "(stage 0)"), ("extract rtr", "(stage 1)"),
+                ("extract rcv", "-> feats/rtr_train"), ("train", "(stage 2)"),
+                ("", "-> feats/rcv_train")]).items():
+            if name:
+                walls[name], launches[name] = wall, counts
+        walls["run-train"] = train.lines[-1][0] - train.lines[0][0]
+        exp = "exp/uPIT_rtr"
+        for rel in ("final.mdl", "final.state", "conf", "arch.json", "arch.py",
+                    "train_stats/train_loss.txt", "train_stats/cv_loss.txt"):
+            fails.check(os.path.isfile(os.path.join(exp, rel)), f"run-train wrote {exp}/{rel}")
+        with open(os.path.join(exp, "train_stats", "train_loss.txt")) as f:
+            losses = [float(ln.split()[1]) for ln in f]
+        fails.check(len(losses) == 5 and all(np.isfinite(losses)) and losses[-1] < losses[0],
+                    f"run-train epoch losses finite and falling: {losses}")
+
+        ev = StageLog(counters)
+        ev.run(["run-eval", "--model-dir", exp, "--test-sets", "rtt", "--batch-size", "100",
+                "--nj", "8", "--device", "cuda"])
+        for name, (wall, counts) in ev.spans([
+                ("prepare rtt", "(stage 0)"), ("extract rtt", "(stage 1)"),
+                ("masks", "(stage 2)"), ("reconstruct", "(stage 3)"),
+                ("score", "(stage 4)")]).items():
+            walls[name], launches[name] = wall, counts
+        walls["run-eval"] = ev.lines[-1][0] - ev.lines[0][0]
+        staged = check_recipe_outputs(fails, "data/rtt", f"{exp}/output_final/rtt", True)
+
+        # the fused path into a model dir of its own (its outputs go under it)
+        fused_exp = "exp/uPIT_rtr_fused"
+        os.makedirs(fused_exp)
+        for name in ("final.mdl", "final.state", "conf"):
+            shutil.copy(os.path.join(exp, name), fused_exp)
+        fu = StageLog(counters)
+        fu.run(["run-eval", "--model-dir", fused_exp, "--test-sets", "rtt", "--batch-size", "100",
+                "--nj", "8", "--stage", "1", "--on-device-features", "--device", "cuda"])
+        for name, (wall, counts) in fu.spans([("fused separate", "(stages 1-3 combined)"),
+                                              ("fused score", "(stage 4)")]).items():
+            walls[name], launches[name] = wall, counts
+        fused = check_recipe_outputs(fails, "data/rtt", f"{fused_exp}/output_final/rtt", False)
+        d_sdr = abs(staged["mean"]["SDR"] - fused["mean"]["SDR"])
+        fails.check(d_sdr <= RECIPE_TOL["fused_mean_sdr_db"],
+                    f"mean SDR staged {staged['mean']['SDR']:.4f} vs fused "
+                    f"{fused['mean']['SDR']:.4f} dB: {d_sdr:.4f} <= "
+                    f"{RECIPE_TOL['fused_mean_sdr_db']}")
+
+        # the first test utterances on the card and on the CPU, zero initial state
+        for dev in ("cuda", "cpu"):
+            d = f"exp/c8_{dev}"
+            os.makedirs(d)
+            for name in ("final.mdl", "final.state"):
+                shutil.copy(os.path.join(exp, name), d)
+            log = StageLog(counters)
+            log.run(["run-eval", "--model-dir", d, "--test-sets", "rtt8", "--model-config",
+                     "zero.conf", "--batch-size", "8", "--nj", "8", "--data-root",
+                     f"data_{dev}", "--featdir", f"feats_{dev}", "--device", dev])
+            walls[f"{RECIPE_CPU_UTTS} utterances on {dev}"] = log.lines[-1][0] - log.lines[0][0]
+        cpu_cmp = compare_recipe_devices(fails)
+    finally:
+        os.chdir(cwd)
+
+    stage_launches = {
+        "extract (run-train stage 1)": {k: launches["extract rtr"][k] + launches["extract rcv"][k]
+                                        for k in launches["extract rtr"]},
+        "train (run-train stage 2)": launches["train"],
+        "extract (run-eval stage 1)": launches["extract rtt"],
+        "masks (run-eval stage 2)": launches["masks"],
+        "reconstruct (run-eval stage 3)": launches["reconstruct"],
+        "fused separate (run-eval --on-device-features)": launches["fused separate"],
+    }
+    for stage, names in (("extract (run-train stage 1)", ["stft"]),
+                         ("train (run-train stage 2)", ["lstm_seq_fwd", "lstm_seq_bwd",
+                                                        "lstm_seq_infer"]),
+                         ("extract (run-eval stage 1)", ["stft"]),
+                         ("masks (run-eval stage 2)", ["lstm_seq_infer"]),
+                         ("fused separate (run-eval --on-device-features)",
+                          ["stft", "lstm_seq_infer"])):
+        for name in names:
+            n = stage_launches[stage][name]
+            fails.check(n > 0, f"{name} launched {n} times in {stage}")
+    n = stage_launches["masks (run-eval stage 2)"]["lstm_seq_infer"]
+    fails.check(n == 2, f"lstm_seq_infer launched {n} times in masks (2 layers x 1 batch of 100)")
+    total = {k: sum(c[k] for c in stage_launches.values()) for k in launches["masks"]}
+    print("  stage walls (s): " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()), flush=True)
+    print(f"  staged means: {staged['mean']}", flush=True)
+    print(f"  fused means: {fused['mean']}", flush=True)
+    print(f"  launches by stage: {stage_launches}", flush=True)
+    return {"kernels": kernels, "walls_s": walls, "corpus_s": corpus_s,
+            "staged_mean": staged["mean"],
+            "fused_mean": fused["mean"], "launches": total, "stage_launches": stage_launches,
+            "card_vs_cpu": cpu_cmp, "train_losses": losses}
+
+
+def compare_recipe_devices(fails: Failures) -> dict:
+    """The card's and the CPU's run-eval of the first test utterances:
+    features, tracks and SDR (RECIPE_TOL, MIN_SNR_DB)."""
+    from speech_separation_tpu_torch.utils.audio import load_wav
+    feats = {dev: _scp(f"data_{dev}/rtt8/feats_test.scp") for dev in ("cuda", "cpu")}
+    feat_err = 0.0
+    for utt, path in feats["cpu"].items():
+        with np.load(path) as a, np.load(feats["cuda"][utt]) as b:
+            feat_err = max(feat_err, float(np.max(np.abs(b["mix"] - a["mix"]))
+                                           / np.max(np.abs(a["mix"]))))
+    fails.check(sorted(feats["cuda"]) == sorted(feats["cpu"])
+                and feat_err <= RECIPE_TOL["feat_rel"],
+                f"test features card vs CPU: max_abs_err / max|X| {feat_err:.3e} <= "
+                f"{RECIPE_TOL['feat_rel']}")
+    snrs = []
+    for utt in feats["cpu"]:
+        for s in ("s1", "s2"):
+            ref = load_wav(f"exp/c8_cpu/output_final/rtt8/wav/{s}/{utt}.wav")[0]
+            got = load_wav(f"exp/c8_cuda/output_final/rtt8/wav/{s}/{utt}.wav")[0]
+            snrs.append(snr_db(ref, got) if len(ref) == len(got) else -np.inf)
+    fails.check(min(snrs) >= MIN_SNR_DB,
+                f"reconstructed tracks card vs CPU: SNR min {min(snrs):.1f} dB >= {MIN_SNR_DB}")
+    sdr = {dev: _source_sdrs(f"exp/c8_{dev}/output_final/rtt8") for dev in ("cuda", "cpu")}
+    d_sdr = max(abs(a - b) for utt in sdr["cpu"] for a, b in zip(sdr["cuda"][utt], sdr["cpu"][utt]))
+    fails.check(sorted(sdr["cuda"]) == sorted(sdr["cpu"]) and d_sdr <= RECIPE_TOL["sdr_db"],
+                f"each source's SDR card vs CPU: max difference {d_sdr:.4f} dB <= "
+                f"{RECIPE_TOL['sdr_db']}")
+    return {"feature_rel_err": feat_err, "track_snr_db_min": min(snrs),
+            "sdr_max_diff_db": d_sdr}
+
+
 def _kernel_group(name: str) -> str:
     if "attn_fwd_" in name:                 # attn_fwd_kernel (f32), _rows, _passes (bf16)
         return "K5 forward"
@@ -1322,22 +1659,31 @@ def main() -> int:
 
     print("== 9. one SepFormer step: fused against einsum, card against CPU", flush=True)
     step_sf = sepformer_step_phase(fails, trained_sf["train_dir"])
+    print(f"  phase 9 done at {time.monotonic() - t_start:.1f} s", flush=True)
+
+    print("== 10. recipe: run-train and run-eval through the CLI (2x600 uPIT, bf16)", flush=True)
+    t10 = time.monotonic()
+    recipe = recipe_phase(fails, [stft, lstm_seq_infer, lstm_seq_fwd, lstm_seq_bwd,
+                                  *attn_counters])
+    print(f"  phase 10: {time.monotonic() - t10:.1f} s", flush=True)
 
     def row(name, route, source, replaces, nums, extra):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **{k: nums[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-                **extra}
+                "recipe_launches": recipe["launches"][name], **extra}
 
     kernels = [
         row("lstm_seq_infer", "cuda", "speech_separation_tpu_torch/csrc/lstm_fwd.cu",
             "speech_separation_tpu/ops/lstm_pallas.py:288", lstm[torch.bfloat16],
-            {"dtype": "bfloat16", "float32": lstm[torch.float32]}),
+            {"dtype": "bfloat16", "float32": lstm[torch.float32],
+             "recipe": recipe["kernels"]["lstm_seq_infer"]}),
         row("stft", "cuda", "speech_separation_tpu_torch/csrc/stft.cu",
             "speech_separation_tpu/ops/stft_pallas.py:77", stft_nums["serve"]["re_im"],
             {"unfold_matmul_ms": stft_nums["serve"]["re_im"]["unfold_matmul_ms"],
              "magnitude": stft_nums["serve"]["magnitude"], "plan": stft_nums["serve"]["plan"],
-             "shape": stft_nums["serve"]["shape"], "features": stft_nums["features"]}),
+             "shape": stft_nums["serve"]["shape"], "features": stft_nums["features"],
+             "recipe": {k: recipe["kernels"][k] for k in ("stft_re_im", "stft_magnitude")}}),
         row("lstm_seq_fwd", "cuda", "speech_separation_tpu_torch/csrc/lstm_fwd.cu",
             "speech_separation_tpu/ops/lstm_pallas.py:175", lstm_train["fwd"][torch.bfloat16],
             {"dtype": "bfloat16", "float32": lstm_train["fwd"][torch.float32]}),
@@ -1362,6 +1708,8 @@ def main() -> int:
     print(f"  SepFormer train: {({k: v for k, v in trained_sf.items() if k != 'train_dir'})}",
           flush=True)
     print(f"  SepFormer step: {step_sf}", flush=True)
+    print(f"  recipe: {({k: v for k, v in recipe.items() if k != 'stage_launches'})}",
+          flush=True)
     print(f"  total {time.monotonic() - t_start:.1f} s", flush=True)
     if fails:
         print("chip_smoke FAILED:\n  " + "\n  ".join(fails), file=sys.stderr)

@@ -1,19 +1,30 @@
-"""CLI of the PyTorch port: ``train``, ``separate`` and ``serve``.
+"""CLI of the PyTorch port: the reference's staged recipe, training and
+serving.
 
 Run as ``python -m speech_separation_tpu_torch.cli.main <subcommand>``. The
-subcommands and flags are those of the JAX package's ``sepsep train``,
-``sepsep separate`` and ``sepsep serve`` (speech_separation_tpu/cli/main.py),
-without what is not ported yet (``train``: ``--reference-batching``,
-``--profile-dir``, ``--train-copy-location`` and the hang watchdog;
-``--no-plots`` is accepted and plots are not drawn; ``separate``/``serve``:
-``--data-parallel`` and ``--streaming-model``), and with ``--device``
-(default ``cuda``; without a card the command fails). The archs are uPIT
-(npz features, or ``--on-device-features``) and SepFormer (waveforms:
-``train SepFormer <data_dir> <exp_dir> --on-device-features``, ``wav.scp``
-input). Models are ``.mdl`` state dicts: ``train`` writes them with the arch
-and model config in the ``.state`` beside each, which ``separate``/``serve``
-read, and ``sepsep export-model`` turns the JAX package's uPIT/RSH
-checkpoints into reference ``.mdl`` files.
+subcommands and flags are those of the JAX package's CLI
+(speech_separation_tpu/cli/main.py), 13 of its 21: ``prepare``,
+``validate``, ``split``, ``extract``, ``train``, ``eval-masks``,
+``reconstruct``, ``stage-data``, ``separate``, ``serve``, ``score``,
+``run-train`` and ``run-eval``. The flags of what is not ported yet are left
+out, so argparse refuses them: ``--device-scoring``, ``--data-parallel``,
+``--pack-cache``/``--cache-dtype``, ``--hang-watchdog-sec``/
+``--hang-first-timeout-sec``, ``--profile-dir``, ``--train-copy-location``,
+``--reference-batching`` and ``--streaming-model`` (ROADMAP.md);
+``--no-plots`` is accepted and plots are not drawn. Every command that runs
+a model or a kernel takes ``--device`` (default ``cuda``; without a card it
+fails; ``cpu`` runs the plain PyTorch versions of the kernels).
+
+The recipe (the reference's run_train.sh / run_eval.sh): ``run-train`` does
+prepare (stage 0), extract (1) and train (2) into ``exp/<arch>_<train-set>``;
+``run-eval`` does prepare (0), extract (1), masks (2), reconstruct (3) and
+BSS-eval scoring (4) into ``<model-dir>/output_<model>/<set>``, or with
+``--on-device-features`` separates the wavs in one pass in place of stages
+1-3. The archs are uPIT (npz features, or ``--on-device-features``) and
+SepFormer (waveforms only). Models are ``.mdl`` state dicts: ``train`` writes
+them with the arch and model config in the ``.state`` beside each, which the
+evaluation commands read, and ``sepsep export-model`` turns the JAX
+package's uPIT/RSH checkpoints into reference ``.mdl`` files.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import signal
 import time
 
@@ -38,14 +50,102 @@ def read_model_config(path: str) -> dict:
     return kwargs
 
 
-def _pipeline(args):
+def _registry(args):
+    from ..datadir.registry import DatasetRegistry
+    return DatasetRegistry.load(args.registry or os.path.join(args.id_lists_dir, "path.json"))
+
+
+def _stft_cfg(args):
     from ..dsp.stft import STFTConfig
+    return STFTConfig(n_fft=args.fft_dim, hop=args.step_size, sample_rate=args.sample_rate)
+
+
+# ---------------------------------------------------------------- data dirs
+
+def cmd_prepare(args):
+    from ..datadir.prepare import prepare_data_dir
+    out = prepare_data_dir(args.dataset, _registry(args), data_root=args.data_root,
+                           id_lists_dir=args.id_lists_dir)
+    print(f"prepared {out}")
+
+
+def cmd_validate(args):
+    from ..datadir.validate import validate_data_dir
+    validate_data_dir(args.data_dir)
+    print(f"Data directory {args.data_dir} is OK.")
+
+
+def cmd_split(args):
+    from ..datadir.split import split_data_dir
+    print(split_data_dir(args.data_dir, args.num_shards))
+
+
+def cmd_stage_data(args):
+    from ..datadir.stage import stage_scp_data
+    stage_scp_data(args.scp, args.target_dir, args.bwlimit or None)
+
+
+def _extract(data_dir, data_type, feat_dir, args):
+    """Extract one data dir's features; with ``--nj N`` in N shards of a
+    split dir (then merged), ``--mj M`` of them at once in spawned worker
+    processes, each of which opens the card and loads the kernel itself."""
+    from ..datadir.split import split_data_dir
+    from ..datadir.validate import validate_data_dir
+    from ..dsp.extract import extract_features, merge_shard_outputs
+    from ..eval.infer import resolve_device
+    resolve_device(args.device)          # no card: fail before any shard is written
+    cfg = _stft_cfg(args)
+    kw = {"compress": not args.no_compress, "device": args.device}
+    if args.nj <= 1:
+        extract_features(data_dir, data_type, feat_dir, cfg, **kw)
+        return
+    validate_data_dir(data_dir)
+    split_dir = split_data_dir(data_dir, args.nj)
+    if args.mj > 1:
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+        # spawn, never fork: the parent may hold an initialized CUDA context
+        with ProcessPoolExecutor(max_workers=args.mj,
+                                 mp_context=mp.get_context("spawn")) as pool:
+            futures = [pool.submit(extract_features, split_dir, data_type, feat_dir, cfg,
+                                   f".{i}", **kw) for i in range(1, args.nj + 1)]
+            for f in futures:
+                f.result()
+    else:
+        for i in range(1, args.nj + 1):
+            extract_features(split_dir, data_type, feat_dir, cfg, f".{i}", **kw)
+    merge_shard_outputs(data_dir, split_dir, data_type, args.nj)
+
+
+def cmd_extract(args):
+    _extract(args.data_dir, args.data_type, args.feat_dir, args)
+
+
+# -------------------------------------------------------------- evaluation
+
+def cmd_eval_masks(args):
+    from ..eval.infer import generate_masks
+    generate_masks(args.model, args.data_dir, args.out_dir, arch_name=args.arch,
+                   model_kwargs=read_model_config(args.model_config),
+                   batch_size=args.batch_size, device=args.device)
+
+
+def cmd_reconstruct(args):
+    from ..eval.reconstruct import reconstruct_sources
+    reconstruct_sources(args.data_dir, args.exp_dir, hop=args.step_size,
+                        sample_rate=args.sample_rate, device=args.device)
+
+
+def cmd_score(args):
+    from ..eval.score import evaluate_sources
+    evaluate_sources(args.data_dir, args.exp_dir, num_workers=args.nj)
+
+
+def _pipeline(args):
     from ..eval.pipeline import SeparationPipeline
-    cfg = STFTConfig(n_fft=args.fft_dim, hop=args.step_size,
-                     sample_rate=args.sample_rate)
     return SeparationPipeline(args.model,
                               model_kwargs=read_model_config(args.model_config),
-                              stft_cfg=cfg, batch_size=args.batch_size,
+                              stft_cfg=_stft_cfg(args), batch_size=args.batch_size,
                               num_spk=args.num_spk or None, device=args.device)
 
 
@@ -151,11 +251,9 @@ def cmd_serve(args):
     server.serve_forever()
 
 
-def cmd_train(args):
-    """Train a separation model on npz features (``feats_train.scp``) or,
-    with ``--on-device-features``, on the waveforms of ``wav.scp``."""
-    from ..train.loop import TrainLoopConfig, train_with_restarts
-    loop_cfg = TrainLoopConfig(
+def _loop_cfg(args):
+    from ..train.loop import TrainLoopConfig
+    return TrainLoopConfig(
         arch=args.arch, batch_size=args.batch_size, num_epochs=args.num_epochs,
         learning_rate=args.learning_rate, grad_clip=args.grad_clip,
         lr_decay=args.lr_decay, start_epoch=args.start_epoch, seed=args.seed,
@@ -163,10 +261,201 @@ def cmd_train(args):
         bucket_by_length=args.bucket_by_length,
         reference_resume=args.reference_resume,
         on_device_features=args.on_device_features)
-    train_with_restarts(args.data_dir, args.exp_dir, loop_cfg,
-                        max_restarts=args.max_restarts, cv_data_dir=args.cv_data_dir,
+
+
+def _run_training(args, data_dir, exp_dir, cv_data_dir):
+    from ..train.loop import train_with_restarts
+    train_with_restarts(data_dir, exp_dir, _loop_cfg(args), max_restarts=args.max_restarts,
+                        cv_data_dir=cv_data_dir,
                         model_kwargs=read_model_config(args.model_config),
                         device=args.device)
+
+
+def cmd_train(args):
+    """Train a separation model on npz features (``feats_train.scp``) or,
+    with ``--on-device-features``, on the waveforms of ``wav.scp``."""
+    _run_training(args, args.data_dir, args.exp_dir, args.cv_data_dir)
+
+
+# ----------------------------------------------------------------- recipes
+
+def cmd_run_train(args):
+    """The staged training recipe (the reference's run_train.sh)."""
+    datasets = [args.train_set] + ([args.cv_set] if args.cv_set else [])
+    if args.stage <= 0:
+        print("### Preparing data directories (stage 0) ###")
+        from ..datadir.prepare import prepare_data_dir
+        for ds in datasets:
+            prepare_data_dir(ds, _registry(args), data_root=args.data_root,
+                             id_lists_dir=args.id_lists_dir)
+    if args.stage <= 1:
+        if args.on_device_features:
+            print("### Skipping feature extraction (on-device features) ###")
+        else:
+            print("### Extracting features (stage 1) ###")
+            for ds in datasets:
+                _extract(os.path.join(args.data_root, ds), "train",
+                         os.path.join(args.featdir, f"{ds}_train"), args)
+    if args.stage <= 2:
+        print("### Training model (stage 2) ###")
+        from ..models.registry import get_arch
+        exp_dir = os.path.join("exp", f"{args.arch}_{args.train_set}")
+        os.makedirs(exp_dir, exist_ok=True)
+        # snapshot the model config and the arch (its name and source)
+        if args.model_config:
+            shutil.copy(args.model_config, os.path.join(exp_dir, "conf"))
+        arch_mod = get_arch(args.arch)
+        with open(os.path.join(exp_dir, "arch.json"), "w") as f:
+            json.dump({"arch": arch_mod.NAME, "module": arch_mod.__name__}, f)
+        shutil.copy(arch_mod.__file__, os.path.join(exp_dir, "arch.py"))
+        cv_dir = os.path.join(args.data_root, args.cv_set) if args.cv_set else ""
+        _run_training(args, os.path.join(args.data_root, args.train_set), exp_dir, cv_dir)
+
+
+def _ensure_utt2num_spk(data_dir: str) -> None:
+    """Write utt2num_spk from the corpus layout (the /mix/ -> /*/ glob)
+    when no extraction stage wrote it."""
+    from ..datadir.scp import read_scp, source_wavs_for_mix, write_utt2num_spk
+    path = os.path.join(data_dir, "utt2num_spk")
+    if os.path.isfile(path):
+        return
+    entries = read_scp(os.path.join(data_dir, "wav.scp"))
+    write_utt2num_spk(path, ((u, max(len(source_wavs_for_mix(p)) - 1, 1))
+                             for u, p in entries))
+
+
+def _run_eval_fused(args, test_sets, model, model_path, model_config):
+    """Stages 1-3 in one pass: the mixtures stream through
+    SeparationPipeline.separate_stream (STFT, masks and masked iSTFT on the
+    card) into the staged path's wav layout; no feature or mask files."""
+    from ..datadir.scp import read_scp
+    from ..eval.pipeline import SeparationPipeline
+    from ..utils.audio import limit_peak, load_wav, wav_num_samples, write_wav_int16
+    cfg = _stft_cfg(args)
+    pipe = SeparationPipeline(model_path, model_kwargs=read_model_config(model_config),
+                              stft_cfg=cfg, batch_size=min(args.batch_size, 32),
+                              device=args.device)
+    for ds in test_sets:
+        out_dir = os.path.join(args.model_dir, f"output_{model}", ds)
+        entries = read_scp(os.path.join(args.data_root, ds, "wav.scp"))
+        lengths = [wav_num_samples(p) for _, p in entries]
+        loader = lambda i: load_wav(entries[i][1], sr=cfg.sample_rate)[0]
+        n = 0
+        for i, ests in pipe.separate_stream(loader, lengths):
+            # one gain per utterance keeps time-domain tracks inside int16
+            # (BSS-eval is scale-invariant)
+            for s, est in enumerate(limit_peak(ests)):
+                path = os.path.join(out_dir, "wav", f"s{s + 1}", entries[i][0] + ".wav")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                write_wav_int16(path, cfg.sample_rate, est)
+            n += 1
+        print(f"separated {n} mixtures -> {out_dir}/wav")
+
+
+def _models_to_eval(args):
+    """[(label, model path)]: final.mdl, or intermediate model N, or with
+    --sweep-intermediates every saved model and final."""
+    inter_dir = os.path.join(args.model_dir, "intermediate_models")
+    if args.sweep_intermediates:
+        models = []
+        if os.path.isdir(inter_dir):
+            for name in sorted(os.listdir(inter_dir)):
+                if name.endswith(".mdl"):
+                    epoch = os.path.splitext(name)[0]
+                    # the reference's output dirs use the unpadded epoch
+                    models.append((str(int(epoch)) if epoch.isdigit() else epoch,
+                                   os.path.join(inter_dir, name)))
+        final = os.path.join(args.model_dir, "final.mdl")
+        if os.path.isfile(final):
+            models.append(("final", final))
+        if not models:
+            raise SystemExit(f"--sweep-intermediates: no models under {args.model_dir}")
+        return models
+    if args.intermediate_model_num:
+        n = int(args.intermediate_model_num)
+        return [(args.intermediate_model_num, os.path.join(inter_dir, f"{n:03d}.mdl"))]
+    return [("final", os.path.join(args.model_dir, "final.mdl"))]
+
+
+def _write_sweep_results(model_dir, ds, rows):
+    """One table per test set, rows [(label, means)], the best model by
+    SDR flagged with '*'."""
+    out_dir = os.path.join(model_dir, "sweep_results")
+    os.makedirs(out_dir, exist_ok=True)
+    best = max(rows, key=lambda r: r[1]["SDR"])[0]
+    path = os.path.join(out_dir, f"{ds}.txt")
+    keys = ("SDR", "SIR", "SAR", "SI-SDR", "SI-SDRi")
+    with open(path, "w") as f:
+        f.write("model " + " ".join(keys) + " best\n")
+        for label, means in rows:
+            vals = " ".join(f"{means[k]:.4f}" for k in keys)
+            f.write(f"{label} {vals}{' *' if label == best else ''}\n")
+    print(f"{ds}: best model by SDR is {best} -> {path}")
+    return best
+
+
+def cmd_run_eval(args):
+    """The staged evaluation recipe (the reference's run_eval.sh)."""
+    from ..eval.infer import resolve_device
+    resolve_device(args.device)          # no card: fail before anything is written
+    test_sets = args.test_sets.split()
+    model_config = args.model_config
+    conf = os.path.join(args.model_dir, "conf")
+    if not model_config and os.path.isfile(conf):
+        model_config = conf              # the run-train snapshot
+    models = _models_to_eval(args)
+    fused = args.on_device_features
+
+    if args.stage <= 0:
+        print("### Preparing data directories (stage 0) ###")
+        from ..datadir.prepare import prepare_data_dir
+        for ds in test_sets:
+            prepare_data_dir(ds, _registry(args), data_root=args.data_root,
+                             id_lists_dir=args.id_lists_dir)
+    if not fused and args.stage <= 1:
+        print("### Extracting features (stage 1) ###")
+        for ds in test_sets:
+            _extract(os.path.join(args.data_root, ds), "test",
+                     os.path.join(args.featdir, f"{ds}_test"), args)
+
+    results = {ds: [] for ds in test_sets}
+    for model, model_path in models:
+        tag = f" [{model}]" if args.sweep_intermediates else ""
+        out_dirs = {ds: os.path.join(args.model_dir, f"output_{model}", ds) for ds in test_sets}
+        if fused:
+            if args.stage <= 3:
+                print(f"### Fused separation (stages 1-3 combined){tag} ###")
+                _run_eval_fused(args, test_sets, model, model_path, model_config)
+        else:
+            if args.stage <= 2:
+                print(f"### Generating masks (stage 2){tag} ###")
+                from ..eval.infer import generate_masks
+                for ds in test_sets:
+                    generate_masks(model_path, os.path.join(args.data_root, ds),
+                                   os.path.join(out_dirs[ds], "masks"),
+                                   model_kwargs=read_model_config(model_config),
+                                   batch_size=args.batch_size, device=args.device)
+            if args.stage <= 3:
+                print(f"### Generating estimated source wav files (stage 3){tag} ###")
+                from ..eval.reconstruct import reconstruct_sources
+                for ds in test_sets:
+                    reconstruct_sources(os.path.join(args.data_root, ds), out_dirs[ds],
+                                        hop=args.step_size, sample_rate=args.sample_rate,
+                                        device=args.device)
+        if args.stage <= 4:
+            print(f"### Evaluating estimated sources (stage 4){tag} ###")
+            from ..eval.score import evaluate_sources
+            for ds in test_sets:
+                data_dir = os.path.join(args.data_root, ds)
+                if fused:
+                    _ensure_utt2num_spk(data_dir)
+                means = evaluate_sources(data_dir, out_dirs[ds], num_workers=args.nj)
+                print(f"{ds} mean SDR: {means['SDR']:.2f}")
+                results[ds].append((model, means))
+
+    if args.sweep_intermediates and args.stage <= 4:
+        for ds in test_sets:
+            _write_sweep_results(args.model_dir, ds, results[ds])
 
 
 def _add_device(p):
@@ -175,26 +464,26 @@ def _add_device(p):
                         "of the kernels")
 
 
-def _add_model(p):
-    p.add_argument("--model-config", default="")
-    p.add_argument("--batch-size", type=int, default=16)
-    p.add_argument("--num-spk", type=int, default=0)
+def _add_common(p):
+    p.add_argument("--data-root", default="data")
+    p.add_argument("--id-lists-dir", default="id_lists")
+    p.add_argument("--registry", default="",
+                   help="dataset registry JSON (default <id-lists-dir>/path.json)")
+
+
+def _add_stft(p):
     p.add_argument("--fft-dim", type=int, default=512)
     p.add_argument("--step-size", type=int, default=128)
     p.add_argument("--sample-rate", type=int, default=8000)
-    _add_device(p)
+    p.add_argument("--nj", type=int, default=1,
+                   help="number of shards (extraction) and scoring workers")
+    p.add_argument("--mj", type=int, default=1,
+                   help="shards extracted at once, in worker processes (1 = in-process)")
+    p.add_argument("--no-compress", action="store_true",
+                   help="write stored (uncompressed) npz features")
 
 
-def build_parser():
-    ap = argparse.ArgumentParser(prog="speech_separation_tpu_torch",
-                                 description=__doc__)
-    sub = ap.add_subparsers(dest="command", required=True)
-
-    p = sub.add_parser("train", help="train a separation model")
-    p.add_argument("arch")
-    p.add_argument("data_dir")
-    p.add_argument("exp_dir")
-    p.add_argument("--cv-data-dir", default="")
+def _add_train(p):
     p.add_argument("--model-config", default="")
     p.add_argument("--batch-size", type=int, default=100)
     p.add_argument("--start-epoch", type=int, default=0)
@@ -221,7 +510,76 @@ def build_parser():
                    help="accepted for the JAX package's command lines; the "
                         "port draws no plots yet")
     _add_device(p)
+
+
+def _add_model(p):
+    p.add_argument("--model-config", default="")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--num-spk", type=int, default=0)
+    p.add_argument("--fft-dim", type=int, default=512)
+    p.add_argument("--step-size", type=int, default=128)
+    p.add_argument("--sample-rate", type=int, default=8000)
+    _add_device(p)
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(prog="speech_separation_tpu_torch",
+                                 description=__doc__)
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("prepare", help="build data/<set>/wav.scp")
+    p.add_argument("dataset")
+    _add_common(p)
+    p.set_defaults(fn=cmd_prepare)
+
+    p = sub.add_parser("validate", help="check data-dir consistency")
+    p.add_argument("data_dir")
+    p.set_defaults(fn=cmd_validate)
+
+    p = sub.add_parser("split", help="shard a data dir")
+    p.add_argument("data_dir")
+    p.add_argument("num_shards", type=int)
+    p.set_defaults(fn=cmd_split)
+
+    p = sub.add_parser("extract", help="extract STFT features")
+    p.add_argument("data_dir")
+    p.add_argument("data_type", choices=["train", "test"])
+    p.add_argument("feat_dir")
+    _add_stft(p)
+    _add_device(p)
+    p.set_defaults(fn=cmd_extract)
+
+    p = sub.add_parser("train", help="train a separation model")
+    p.add_argument("arch")
+    p.add_argument("data_dir")
+    p.add_argument("exp_dir")
+    p.add_argument("--cv-data-dir", default="")
+    _add_train(p)
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("eval-masks", help="generate masks for a test set")
+    p.add_argument("model")
+    p.add_argument("data_dir")
+    p.add_argument("out_dir")
+    p.add_argument("--arch", default="")
+    p.add_argument("--model-config", default="")
+    p.add_argument("--batch-size", type=int, default=100)
+    _add_device(p)
+    p.set_defaults(fn=cmd_eval_masks)
+
+    p = sub.add_parser("reconstruct", help="masked iSTFT -> wavs")
+    p.add_argument("data_dir")
+    p.add_argument("exp_dir")
+    p.add_argument("--step-size", type=int, default=128)
+    p.add_argument("--sample-rate", type=int, default=8000)
+    _add_device(p)
+    p.set_defaults(fn=cmd_reconstruct)
+
+    p = sub.add_parser("stage-data", help="copy scp-referenced files to fast local storage")
+    p.add_argument("scp")
+    p.add_argument("target_dir")
+    p.add_argument("--bwlimit", type=float, default=0, help="KiB/s cap (0 = none)")
+    p.set_defaults(fn=cmd_stage_data)
 
     p = sub.add_parser("separate", help="waveform->waveforms separation")
     p.add_argument("model")
@@ -251,6 +609,42 @@ def build_parser():
                    help="comma-separated audio lengths (seconds) to run "
                         "once at startup, e.g. '4,8'")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("score", help="BSS-eval + SI-SDR scoring (host, float64)")
+    p.add_argument("data_dir")
+    p.add_argument("exp_dir")
+    p.add_argument("--nj", type=int, default=0, help="scoring worker processes")
+    p.set_defaults(fn=cmd_score)
+
+    p = sub.add_parser("run-train", help="staged training recipe")
+    p.add_argument("--stage", type=int, default=0)
+    p.add_argument("--arch", default="uPIT")
+    p.add_argument("--train-set", required=True)
+    p.add_argument("--cv-set", default="")
+    p.add_argument("--featdir", default="feats")
+    _add_common(p)
+    _add_stft(p)
+    _add_train(p)
+    p.set_defaults(fn=cmd_run_train)
+
+    p = sub.add_parser("run-eval", help="staged evaluation recipe")
+    p.add_argument("--stage", type=int, default=0)
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--test-sets", required=True, help="space-separated dataset names")
+    p.add_argument("--intermediate-model-num", default="")
+    p.add_argument("--sweep-intermediates", action="store_true",
+                   help="evaluate every saved model (intermediate epochs and "
+                        "final); writes sweep_results/<set>.txt with the best "
+                        "model by SDR flagged")
+    p.add_argument("--model-config", default="")
+    p.add_argument("--batch-size", type=int, default=100)
+    p.add_argument("--featdir", default="feats")
+    p.add_argument("--on-device-features", action="store_true",
+                   help="fused wav->wav separation (no feature or mask files)")
+    _add_common(p)
+    _add_stft(p)
+    _add_device(p)
+    p.set_defaults(fn=cmd_run_eval)
     return ap
 
 

@@ -1,10 +1,14 @@
 """Kaldi-style scp files: one ``<key> <value>`` record per line.
 
-The port's own copy of what it needs from speech_separation_tpu/datadir/
-scp.py (``read_scp``, ``write_scp``, ``source_wavs_for_mix``). A data dir
-names its utterances' feature files in ``feats_train.scp`` /
-``feats_test.scp``, or their mixture wavs in ``wav.scp``; order matters, the
-readers keep the file's order.
+The port's own copy of speech_separation_tpu/datadir/scp.py. A data dir
+``data/<set>/`` holds
+
+- ``wav.scp``          ``<utt-id> <path-to-mix-wav>``
+- ``segments``         optional: ``<seg-id> <reco-id> <t-start> <t-end>``
+- ``feats_train.scp`` / ``feats_test.scp``  ``<utt-id> <path-to-npz>``
+- ``utt2num_spk``      ``<utt-id> <num-speakers>``
+
+Order matters: the readers keep the file's order.
 """
 
 from __future__ import annotations
@@ -31,6 +35,30 @@ def write_scp(path: str, entries) -> None:
     with open(path, "w") as f:
         for key, value in entries:
             f.write(f"{key} {value}\n")
+
+
+def read_utt2num_spk(path: str) -> dict[str, int]:
+    """utt2num_spk as a dict."""
+    return {k: int(v) for k, v in read_scp(path)}
+
+
+def write_utt2num_spk(path: str, mapping) -> None:
+    items = mapping.items() if isinstance(mapping, dict) else mapping
+    write_scp(path, ((k, str(v)) for k, v in items))
+
+
+def read_segments(path: str) -> dict[str, list[tuple[str, float, float]]]:
+    """A segments file grouped by recording: {reco_id: [(seg_id, t_start,
+    t_end), ...]}, in file order within each recording."""
+    segs: dict[str, list[tuple[str, float, float]]] = {}
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            seg_id, reco_id, t0, t1 = parts[0], parts[1], float(parts[2]), float(parts[3])
+            segs.setdefault(reco_id, []).append((seg_id, t0, t1))
+    return segs
 
 
 def source_wavs_for_mix(mix_path: str) -> list[str]:

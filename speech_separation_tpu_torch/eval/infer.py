@@ -1,6 +1,6 @@
-"""Model loading for the port: torch state-dict ``.mdl`` files.
+"""Model loading and mask inference for the port.
 
-The counterpart of speech_separation_tpu/eval/infer.py::load_model. The port
+The counterpart of speech_separation_tpu/eval/infer.py. ``load_model``: the port
 reads a ``.mdl`` state dict (``torch.save(model.state_dict())``): one that
 its own trainer wrote, with the arch and model kwargs in the ``.state`` meta
 beside it (train/checkpoint.py), or a reference SepDNN state dict (the JAX
@@ -8,12 +8,19 @@ package writes one with ``sepsep export-model``), whose arch and sizes are
 inferred from the weight shapes. ``model_kwargs`` (for example
 ``compute_dtype`` or ``zero_init_hidden``) apply on top. The JAX package's
 own msgpack checkpoints are not read yet (ROADMAP.md).
+
+``generate_masks`` streams a test set's features (``feats_test.scp``)
+through the eval-mode forward in padded batches and writes one mask npz per
+utterance: keys ``s1``..``sN``, (freq, time) float32, trimmed to the
+utterance's length, the format the reference's eval writes. For uPIT the
+recurrence runs through the hand-written inference kernel on CUDA.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from ..models.registry import get_arch
@@ -83,3 +90,43 @@ def load_model(model_path: str, arch_name: str = "",
         raise ValueError(f"{model_path}: state dict does not fit {arch.NAME} "
                          f"{cfg}: missing {missing}, unexpected {unexpected}")
     return arch, cfg, model.to(dev).eval()
+
+
+def generate_masks(model_path: str, data_dir: str, out_dir: str,
+                   arch_name: str = "", model_kwargs: dict | None = None,
+                   batch_size: int = 100, time_pad_multiple: int = 128,
+                   seed: int = 0, log=print, device=None) -> None:
+    """Write ``out_dir/<utt>.npz`` masks for every utterance of
+    ``data_dir/feats_test.scp``, on ``device`` (CUDA by default; it raises
+    when no card is visible). Every batch is padded to ``batch_size`` rows;
+    eval-mode BN uses its running statistics, so a row's masks do not depend
+    on the other rows. The initial LSTM state is the reference's N(0, 1)
+    draw, from a generator seeded with ``seed``, unless the model config
+    says ``zero_init_hidden``."""
+    from ..train.data import BatchPlan, FeatureDataset, make_device_batch, plan_batches
+    arch, cfg, model = load_model(model_path, arch_name, model_kwargs, device)
+    if arch.DOMAIN == "time":
+        raise ValueError(
+            f"{arch.NAME} is a time-domain architecture: it has no spectral "
+            "masks to write. Evaluate through the fused waveform path "
+            "(run-eval --on-device-features) or `separate`.")
+    dev = next(model.parameters()).device
+    os.makedirs(out_dir, exist_ok=True)
+
+    dataset = FeatureDataset(data_dir, "test")
+    plan = BatchPlan(batch_size=min(batch_size, len(dataset)),
+                     time_pad_multiple=time_pad_multiple, seed=seed)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    F, S = cfg.feat_dim, cfg.num_spk
+    for idxs in plan_batches(dataset, plan, 0, shuffle=False):
+        batch_np = make_device_batch([dataset.load(i) for i in idxs], plan)
+        batch = {k: torch.from_numpy(batch_np[k]).to(dev)
+                 for k in ("mix", "lengths", "row_mask")}
+        masks = arch.infer_masks(model, batch, generator).float().cpu().numpy()  # (B, T, F*S)
+        for row in range(len(idxs)):
+            T_i = int(batch_np["lengths"][row])
+            np.savez_compressed(
+                os.path.join(out_dir, batch_np["names"][row]),
+                **{f"s{s + 1}": masks[row, :T_i, s * F:(s + 1) * F].T.astype(np.float32)
+                   for s in range(S)})
+    log(f"wrote masks for {len(dataset)} utterances -> {out_dir}")

@@ -18,9 +18,10 @@ ported; they give the same arrays):
 - the collation is the caller's to choose: npz features here, or waveforms
   (train/wav_data.collate_wav_batch).
 
-Feature files are the reference's npz format: key ``mix`` plus ``s1``..``sN``,
-magnitudes of shape (freq, time). A file without sources maps source 1 to
-the mixture.
+Feature files are the reference's npz format: for training, key ``mix``
+plus ``s1``..``sN``, magnitudes of shape (freq, time), a file without
+sources mapping source 1 to the mixture; for test, key ``mix``, the complex
+spectrum (eval/infer.generate_masks reads it).
 """
 
 from __future__ import annotations
@@ -42,28 +43,46 @@ def _round_up(x: int, m: int) -> int:
 
 
 class FeatureDataset:
-    """Indexable view over a data dir's ``feats_train.scp``. ``num_frames``
-    holds each utterance's frame count when the dir has ``utt2num_frames``
-    for all of them (length bucketing reads it), else None."""
+    """Indexable view over a data dir's ``feats_train.scp`` (``kind``
+    "train") or ``feats_test.scp`` ("test"). ``num_frames`` and
+    ``num_spks`` hold each utterance's frame and speaker count when the dir
+    has ``utt2num_frames`` / ``utt2num_spk`` for all of them (length
+    bucketing reads the first), else None."""
 
-    def __init__(self, data_dir: str):
-        self.entries = read_scp(os.path.join(data_dir, "feats_train.scp"))
+    def __init__(self, data_dir: str, kind: str = "train"):
+        if kind not in ("train", "test"):
+            raise ValueError(f"kind must be 'train' or 'test', got {kind!r}")
+        self.kind = kind
+        self.entries = read_scp(os.path.join(data_dir, f"feats_{kind}.scp"))
         if not self.entries:
-            raise ValueError(f"empty feats_train.scp in {data_dir}")
-        self.num_frames = None
-        nf_path = os.path.join(data_dir, "utt2num_frames")
-        if os.path.isfile(nf_path):
-            nf = {k: int(v) for k, v in read_scp(nf_path)}
-            if all(utt in nf for utt, _ in self.entries):
-                self.num_frames = np.asarray([nf[utt] for utt, _ in self.entries], np.int32)
+            raise ValueError(f"empty feats_{kind}.scp in {data_dir}")
+        self.num_frames = self._per_utt(data_dir, "utt2num_frames")
+        self.num_spks = self._per_utt(data_dir, "utt2num_spk")
+
+    def _per_utt(self, data_dir: str, name: str) -> np.ndarray | None:
+        path = os.path.join(data_dir, name)
+        if not os.path.isfile(path):
+            return None
+        values = {k: int(v) for k, v in read_scp(path)}
+        if not all(utt in values for utt, _ in self.entries):
+            return None
+        return np.asarray([values[utt] for utt, _ in self.entries], np.int32)
 
     def __len__(self):
         return len(self.entries)
 
+    def utt_id(self, idx: int) -> str:
+        return self.entries[idx][0]
+
     def load(self, idx: int) -> dict:
-        """{'mix': (T, F) float32, 'sources': (S, T, F) float32, 'name'}."""
+        """Train: {'mix': (T, F) float32, 'sources': (S, T, F) float32,
+        'name'}; test: {'mix': (T, F) float32 magnitude, 'spec': (F, T)
+        complex64, 'name'}."""
         utt, path = self.entries[idx]
         with np.load(path) as feat:
+            if self.kind == "test":
+                spec = feat["mix"]
+                return {"mix": np.abs(spec).T.astype(np.float32), "spec": spec, "name": utt}
             mix = feat["mix"].T.astype(np.float32)
             src_keys = sorted(k for k in feat.files if k != "mix")
             sources = (np.stack([feat[k].T.astype(np.float32) for k in src_keys])
@@ -97,29 +116,33 @@ def plan_batches(dataset, plan: BatchPlan, epoch: int,
 
 def make_device_batch(samples: list[dict], plan: BatchPlan) -> dict:
     """Collate loaded samples into padded numpy arrays: {'mix': (B, T, F),
-    'sources': (B, S, T, F), 'lengths': (B,) int32, 'row_mask': (B,)
-    float32, 'names'}, B the plan's batch size and T the longest length
-    rounded up to time_pad_multiple."""
+    'lengths': (B,) int32, 'row_mask': (B,) float32, 'names'}, plus
+    'sources' (B, S, T, F) when the samples have sources (training
+    features); B is the plan's batch size and T the longest length rounded
+    up to time_pad_multiple."""
     B = plan.batch_size
     if len(samples) > B:
         raise ValueError(f"{len(samples)} samples for a batch of {B}")
     F = samples[0]["mix"].shape[1]
-    S = max(s["sources"].shape[0] for s in samples)
+    S = max(s["sources"].shape[0] for s in samples) if "sources" in samples[0] else 0
     T = _round_up(max(s["mix"].shape[0] for s in samples), plan.time_pad_multiple)
     mix = np.zeros((B, T, F), np.float32)
-    sources = np.zeros((B, S, T, F), np.float32)
+    sources = np.zeros((B, S, T, F), np.float32) if S else None
     lengths = np.zeros((B,), np.int32)
     row_mask = np.zeros((B,), np.float32)
     names = []
     for i, s in enumerate(samples):
         t = s["mix"].shape[0]
         mix[i, :t] = s["mix"]
-        sources[i, :s["sources"].shape[0], :t] = s["sources"]
+        if S:
+            sources[i, :s["sources"].shape[0], :t] = s["sources"]
         lengths[i] = t
         row_mask[i] = 1.0
         names.append(s.get("name", str(i)))
-    return {"mix": mix, "sources": sources, "lengths": lengths, "row_mask": row_mask,
-            "names": names}
+    out = {"mix": mix, "lengths": lengths, "row_mask": row_mask, "names": names}
+    if S:
+        out["sources"] = sources
+    return out
 
 
 class _EpochEnd:

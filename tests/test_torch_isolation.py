@@ -31,6 +31,10 @@ def test_importing_the_port_loads_no_jax():
         "import importlib, sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax'):\n"
         "    sys.modules[name] = None\n"
+        # the scorer's spawned workers import only this module: no torch,
+        # so they never touch the card
+        "import speech_separation_tpu_torch.eval.score\n"
+        "assert 'torch' not in sys.modules, 'eval.score loads torch'\n"
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [n for n in sys.modules if n == 'speech_separation_tpu'\n"
@@ -67,8 +71,11 @@ def test_no_source_names_jax_or_the_jax_package():
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
-    from speech_separation_tpu_torch.eval.infer import resolve_device
+    from speech_separation_tpu_torch.cli.main import main
+    from speech_separation_tpu_torch.dsp.extract import extract_features
+    from speech_separation_tpu_torch.eval.infer import generate_masks, resolve_device
     from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    from speech_separation_tpu_torch.eval.reconstruct import reconstruct_sources
     from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -79,3 +86,22 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         train(str(tmp_path / "data"), str(tmp_path / "exp"), TrainLoopConfig())
     assert not (tmp_path / "exp").exists()
     assert resolve_device("cpu").type == "cpu"
+
+    # the recipe's entry points: each raises and writes nothing
+    data = tmp_path / "data" / "tt"
+    data.mkdir(parents=True)
+    (data / "wav.scp").write_text("u1 /nowhere/mix/u1.wav\n")
+    before = sorted(str(p) for p in tmp_path.rglob("*"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extract_features(str(data), "test", str(tmp_path / "feats"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate_masks(str(tmp_path / "missing.mdl"), str(data), str(tmp_path / "masks"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        reconstruct_sources(str(data), str(tmp_path / "out"))
+    monkeypatch.chdir(tmp_path)
+    for argv in (["run-eval", "--model-dir", "exp", "--test-sets", "tt"],
+                 ["extract", "data/tt", "test", "feats", "--nj", "2"],
+                 ["eval-masks", "missing.mdl", "data/tt", "masks"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    assert sorted(str(p) for p in tmp_path.rglob("*")) == before

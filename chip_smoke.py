@@ -65,9 +65,11 @@ Phases, in order; any failure exits non-zero without the final line:
    2x600 bf16 uPIT at B=100 for 5 epochs with K3/K4); run-eval stages 0-4 on
    the test set at B=100 with --nj 8 (extract with K2 in re/im mode, masks
    with K1 at B=100, T=384, reconstruct, the host f64 scorer in 8 spawned
-   workers); run-eval --on-device-features into a second model dir. K2 and
+   workers); extract again in 4 spawned worker processes (--nj 4 --mj 4);
+   run-eval --on-device-features into a second model dir. K2 and
    K1 are first held against their plain versions at the recipe's shapes.
-   Checks: the files as the reference writes them, each kernel's launches in
+   Checks: the files as the reference writes them, the workers' features
+   against the in-process ones, each kernel's launches in
    the stage that should launch it (zeroed before each command, read at each
    stage's marker line), the staged and fused mean SDR, and the first 8 test
    utterances' run-eval on the card against the CPU (both with
@@ -1267,6 +1269,20 @@ def _scp(path: str) -> dict:
         return dict(line.rstrip("\n").split(" ", 1) for line in f if line.strip())
 
 
+def feature_err(ref_dir: str, got_dir: str) -> float:
+    """The largest max |error| / max |X| over the test features of two data
+    dirs (inf when their utterances differ)."""
+    ref = _scp(os.path.join(ref_dir, "feats_test.scp"))
+    got = _scp(os.path.join(got_dir, "feats_test.scp"))
+    if sorted(ref) != sorted(got):
+        return float("inf")
+    err = 0.0
+    for utt, path in ref.items():
+        with np.load(path) as a, np.load(got[utt]) as b:
+            err = max(err, float(np.max(np.abs(b["mix"] - a["mix"])) / np.max(np.abs(a["mix"]))))
+    return err
+
+
 def _source_sdrs(out_dir: str) -> dict:
     with open(os.path.join(out_dir, "results", "source_SDRs.txt")) as f:
         return {ln.split()[0]: [float(v) for v in ln.split()[1:]] for ln in f}
@@ -1385,6 +1401,19 @@ def recipe_phase(fails: Failures, counters) -> dict:
         walls["run-eval"] = ev.lines[-1][0] - ev.lines[0][0]
         staged = check_recipe_outputs(fails, "data/rtt", f"{exp}/output_final/rtt", True)
 
+        # extraction in 4 shards by 4 spawned workers, each opening the card
+        # and loading the kernel itself, against the in-process features
+        os.makedirs("data_mj/rtt")
+        shutil.copy("data/rtt/wav.scp", "data_mj/rtt")
+        mj = StageLog(counters)
+        mj.run(["extract", "data_mj/rtt", "test", "feats_mj", "--nj", "4", "--mj", "4",
+                "--device", "cuda"])
+        walls["extract rtt, 4 worker processes"] = mj.lines[-1][0] - mj.lines[0][0]
+        mj_err = feature_err("data/rtt", "data_mj/rtt")
+        fails.check(mj_err <= RECIPE_TOL["feat_rel"],
+                    f"test features of 4 spawned workers against in-process: max_abs_err / "
+                    f"max|X| {mj_err:.3e} <= {RECIPE_TOL['feat_rel']}")
+
         # the fused path into a model dir of its own (its outputs go under it)
         fused_exp = "exp/uPIT_rtr_fused"
         os.makedirs(fused_exp)
@@ -1415,6 +1444,7 @@ def recipe_phase(fails: Failures, counters) -> dict:
                      f"data_{dev}", "--featdir", f"feats_{dev}", "--device", dev])
             walls[f"{RECIPE_CPU_UTTS} utterances on {dev}"] = log.lines[-1][0] - log.lines[0][0]
         cpu_cmp = compare_recipe_devices(fails)
+        cpu_cmp["spawned_workers_feature_rel_err"] = mj_err
     finally:
         os.chdir(cwd)
 
@@ -1455,13 +1485,8 @@ def compare_recipe_devices(fails: Failures) -> dict:
     features, tracks and SDR (RECIPE_TOL, MIN_SNR_DB)."""
     from speech_separation_tpu_torch.utils.audio import load_wav
     feats = {dev: _scp(f"data_{dev}/rtt8/feats_test.scp") for dev in ("cuda", "cpu")}
-    feat_err = 0.0
-    for utt, path in feats["cpu"].items():
-        with np.load(path) as a, np.load(feats["cuda"][utt]) as b:
-            feat_err = max(feat_err, float(np.max(np.abs(b["mix"] - a["mix"]))
-                                           / np.max(np.abs(a["mix"]))))
-    fails.check(sorted(feats["cuda"]) == sorted(feats["cpu"])
-                and feat_err <= RECIPE_TOL["feat_rel"],
+    feat_err = feature_err("data_cpu/rtt8", "data_cuda/rtt8")
+    fails.check(feat_err <= RECIPE_TOL["feat_rel"],
                 f"test features card vs CPU: max_abs_err / max|X| {feat_err:.3e} <= "
                 f"{RECIPE_TOL['feat_rel']}")
     snrs = []

@@ -27,8 +27,7 @@ reference evaluate_oracle.py:118).
 
 The Gram matrix of delayed sources is block-Toeplitz; correlations are
 computed by FFT (host numpy — scoring is a host-side pipeline stage) and the
-512*nsrc linear system solved densely. A brute-force O(L * flen^2) explicit
-least-squares construction is kept for test cross-validation.
+512*nsrc linear system solved densely.
 """
 
 from __future__ import annotations
@@ -104,21 +103,6 @@ def _project(sources: np.ndarray, est: np.ndarray, flen: int) -> np.ndarray:
     except np.linalg.LinAlgError:
         C = np.linalg.lstsq(G, D, rcond=None)[0]
     return _filter_sum(sources, C.reshape(n, flen), out_len)
-
-
-def _project_brute(sources: np.ndarray, est: np.ndarray, flen: int) -> np.ndarray:
-    """Explicit delayed-matrix least squares — the obviously-correct oracle
-    used by the test suite (O(n*flen*L) memory; tiny signals only)."""
-    n, L = sources.shape
-    out_len = L + flen - 1
-    A = np.zeros((n * flen, out_len))
-    for i in range(n):
-        for a in range(flen):
-            A[i * flen + a, a: a + L] = sources[i]
-    e = np.zeros(out_len)
-    e[:L] = est
-    coefs, *_ = np.linalg.lstsq(A.T, e, rcond=None)
-    return A.T @ coefs
 
 
 def _decompose(sources: np.ndarray, est: np.ndarray, j: int, flen: int):

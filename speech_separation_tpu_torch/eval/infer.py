@@ -94,13 +94,14 @@ def load_model(model_path: str, arch_name: str = "",
 
 def generate_masks(model_path: str, data_dir: str, out_dir: str,
                    arch_name: str = "", model_kwargs: dict | None = None,
-                   batch_size: int = 100, time_pad_multiple: int = 128,
-                   seed: int = 0, log=print, device=None) -> None:
+                   batch_size: int = 100, seed: int = 0, log=print,
+                   device=None) -> None:
     """Write ``out_dir/<utt>.npz`` masks for every utterance of
     ``data_dir/feats_test.scp``, on ``device`` (CUDA by default; it raises
     when no card is visible). Every batch is padded to ``batch_size`` rows;
     eval-mode BN uses its running statistics, so a row's masks do not depend
-    on the other rows. The initial LSTM state is the reference's N(0, 1)
+    on the other rows. Frames are padded to a multiple of 128, as in
+    training. The initial LSTM state is the reference's N(0, 1)
     draw, from a generator seeded with ``seed``, unless the model config
     says ``zero_init_hidden``."""
     from ..train.data import BatchPlan, FeatureDataset, make_device_batch, plan_batches
@@ -114,15 +115,14 @@ def generate_masks(model_path: str, data_dir: str, out_dir: str,
     os.makedirs(out_dir, exist_ok=True)
 
     dataset = FeatureDataset(data_dir, "test")
-    plan = BatchPlan(batch_size=min(batch_size, len(dataset)),
-                     time_pad_multiple=time_pad_multiple, seed=seed)
+    plan = BatchPlan(batch_size=min(batch_size, len(dataset)))
     generator = torch.Generator(device=dev).manual_seed(seed)
     F, S = cfg.feat_dim, cfg.num_spk
     for idxs in plan_batches(dataset, plan, 0, shuffle=False):
         batch_np = make_device_batch([dataset.load(i) for i in idxs], plan)
         batch = {k: torch.from_numpy(batch_np[k]).to(dev)
                  for k in ("mix", "lengths", "row_mask")}
-        masks = arch.infer_masks(model, batch, generator).float().cpu().numpy()  # (B, T, F*S)
+        masks = arch.infer_masks(model, batch, generator).cpu().numpy()  # (B, T, F*S)
         for row in range(len(idxs)):
             T_i = int(batch_np["lengths"][row])
             np.savez_compressed(

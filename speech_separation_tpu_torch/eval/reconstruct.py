@@ -21,13 +21,17 @@ from ..dsp.stft import istft_batch, istft_output_length
 from ..utils.audio import write_wav_int16
 
 
+# rows of one iSTFT batch, and the multiple its frame count is padded to
+ROWS_PER_BATCH = 64
+TIME_PAD_MULTIPLE = 128
+
+
 def _round_up(x, m):
     return ((x + m - 1) // m) * m
 
 
 def reconstruct_sources(data_dir: str, exp_dir: str, hop: int = 128,
-                        sample_rate: int = 8000, rows_per_batch: int = 64,
-                        time_pad_multiple: int = 128, log=print, device=None) -> None:
+                        sample_rate: int = 8000, log=print, device=None) -> None:
     """Write the wavs of ``exp_dir/masks`` applied to the test spectra of
     ``data_dir``, on ``device`` (CUDA by default; it raises when no card is
     visible)."""
@@ -40,7 +44,7 @@ def reconstruct_sources(data_dir: str, exp_dir: str, hop: int = 128,
     def flush():
         if not pending:
             return
-        T_pad = _round_up(max(p[4] for p in pending), time_pad_multiple)
+        T_pad = _round_up(max(p[4] for p in pending), TIME_PAD_MULTIPLE)
         n_bins = pending[0][2].shape[1]
         B = len(pending)
         re = np.zeros((B, T_pad, n_bins), np.float32)
@@ -68,7 +72,7 @@ def reconstruct_sources(data_dir: str, exp_dir: str, hop: int = 128,
             for skey in masks.files:
                 m = masks[skey].T.astype(np.float32)     # (T, F)
                 pending.append((utt, skey, spec_re * m, spec_im * m, spec_re.shape[0]))
-                if len(pending) >= rows_per_batch:
+                if len(pending) >= ROWS_PER_BATCH:
                     flush()
     flush()
     log(f"reconstructed {len(entries)} utterances -> {os.path.join(exp_dir, 'wav')}")

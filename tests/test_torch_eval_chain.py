@@ -16,7 +16,9 @@ Tolerances:
 - reconstruction from the same mask npz: int16 samples within 1 LSB;
 - bss_eval_sources, si_sdr: within 1e-9 dB of the JAX scorer; the
   golden vectors within tests/test_bss_eval_golden.py's own 1e-3 dB;
-- evaluate_sources on one wav dir: every result file byte-identical.
+- evaluate_sources on one wav dir: every result file byte-identical;
+- eval-masks refuses RSH (not ported) and a time-domain arch, writing
+  nothing.
 """
 
 import os
@@ -167,6 +169,24 @@ def test_masks_do_not_depend_on_the_batch(chain, tmp_path):
                 with np.load(os.path.join(outs[bs], name)) as got:
                     for k in ref.files:
                         np.testing.assert_allclose(got[k], ref[k], atol=1e-6, rtol=0)
+
+
+def test_masks_refuse_rsh_and_time_domain_archs(chain, tmp_path):
+    """RSH is not ported yet; a time-domain arch has no masks to write (as
+    the JAX package's generate_masks says)."""
+    from speech_separation_tpu_torch.models import sepformer
+    from speech_separation_tpu_torch.train.checkpoint import save_checkpoint as save_port
+    with pytest.raises(NotImplementedError, match="RSH"):
+        generate_masks(chain["mdl"], chain["test_dir"], str(tmp_path / "rsh"),
+                       arch_name="RSH", device="cpu")
+    kw = {"n_filters": "8", "channels": "8", "heads": "2", "d_ff": "8", "chunk": "4",
+          "blocks": "1"}
+    mdl = str(tmp_path / "sepformer.mdl")
+    save_port(mdl, sepformer.SepFormer(sepformer.Config.from_kwargs(**kw)), epoch=0,
+              meta={"arch": "SepFormer", "model_kwargs": kw})
+    with pytest.raises(ValueError, match="time-domain"):
+        generate_masks(mdl, chain["test_dir"], str(tmp_path / "sf"), device="cpu")
+    assert not (tmp_path / "rsh").exists() and not (tmp_path / "sf").exists()
 
 
 def test_reconstruct_from_the_same_masks_matches_jax(chain, tmp_path):

@@ -7,8 +7,9 @@ and 4 test utterances of 0.6-1.4 s) and its registry.
   exported to a reference .mdl, against ``sepsep run-eval`` on the JAX
   checkpoint: each source's SDR within 0.05 dB, the same result files.
 - ``run-train`` stages 0-2 (2 epochs; extraction in 2 shards), then
-  ``run-eval``, both ``--device cpu`` (port only): the exp
-  dir's snapshot and models and the scores' summary are written.
+  ``run-eval`` and ``run-eval --sweep-intermediates``, all ``--device cpu``
+  (port only): the exp dir's snapshot and models, the scores' summary and
+  the sweep's table are written.
 - the flags of modules not ported yet are refused by the parser.
 """
 
@@ -119,6 +120,18 @@ def test_run_train_then_run_eval_on_the_cpu(workspace):
         summary = json.load(f)
     assert summary["n_utts"] == 4 and np.isfinite(summary["mean"]["SDR"])
     assert sorted(os.listdir(os.path.join(out, "wav"))) == ["s1", "s2"]
+
+    # every saved model (init and final) from the extracted features: one
+    # table, the best model by SDR flagged
+    main(["run-eval", "--model-dir", exp, "--test-sets", "toy_tt", "--batch-size", "3",
+          "--stage", "2", "--sweep-intermediates", "--device", "cpu"])
+    with open(os.path.join(exp, "sweep_results", "toy_tt.txt")) as f:
+        lines = f.read().splitlines()
+    assert lines[0] == "model SDR SIR SAR SI-SDR SI-SDRi best"
+    assert [r.split()[0] for r in lines[1:]] == ["init", "final"]
+    assert sum(r.endswith(" *") for r in lines[1:]) == 1
+    assert os.path.isfile(os.path.join(exp, "output_init", "toy_tt", "results",
+                                       "summary.json"))
 
 
 @pytest.mark.parametrize("argv", [

@@ -701,14 +701,15 @@ def snr_db(ref: np.ndarray, est: np.ndarray) -> float:
 
 
 def serve_requests(fails: Failures, pipe, work: str, wavs: list, groups, counters,
-                   want_len) -> tuple[dict, dict, float]:
+                   want_len, num_spks=(None, None, None)) -> tuple[dict, dict, float]:
     """Serve ``pipe`` through SeparationServer on a Unix socket (one 8 s
     bucket warmed up): request r1 with the wavs of ``groups[0]``, then r2
-    and r3 with ``groups[1]`` and ``groups[2]`` at once, then a ping. Launch
+    and r3 with ``groups[1]`` and ``groups[2]`` at once, then a ping; request
+    k asks for ``num_spks[k]`` sources where that is not None. Launch
     counts are zeroed just before the requests and read just after. Checks
     every reply and output wav (``want_len(n)`` samples for an n-sample
-    input) and that the server stopped; returns (replies, launches, wall
-    ms)."""
+    input, as many wavs as sources asked for) and that the server stopped;
+    returns (replies, launches, wall ms)."""
     from speech_separation_tpu_torch.eval.serve import SeparationServer, request
     from speech_separation_tpu_torch.utils.audio import load_wav
 
@@ -720,9 +721,11 @@ def serve_requests(fails: Failures, pipe, work: str, wavs: list, groups, counter
     thread.start()
     replies = {}
 
-    def send(name, idx):
-        replies[name] = request(sock, {"wavs": [wavs[i] for i in idx],
-                                       "out_dir": os.path.join(work, name)})
+    def send(name, idx, num_spk):
+        payload = {"wavs": [wavs[i] for i in idx], "out_dir": os.path.join(work, name)}
+        if num_spk is not None:
+            payload["num_spk"] = num_spk
+        replies[name] = request(sock, payload)
 
     try:
         deadline = time.monotonic() + 60
@@ -733,8 +736,9 @@ def serve_requests(fails: Failures, pipe, work: str, wavs: list, groups, counter
         for c in counters:
             c.launches = 0
         t0 = time.monotonic()
-        send("r1", groups[0])
-        pair = [threading.Thread(target=send, args=(f"r{k + 2}", groups[k + 1]))
+        send("r1", groups[0], num_spks[0])
+        pair = [threading.Thread(target=send, args=(f"r{k + 2}", groups[k + 1],
+                                                    num_spks[k + 1]))
                 for k in range(2)]
         for th in pair:
             th.start()
@@ -750,10 +754,12 @@ def serve_requests(fails: Failures, pipe, work: str, wavs: list, groups, counter
         shutil.rmtree(sock_dir, ignore_errors=True)
     fails.check(not thread.is_alive(), "server thread stopped")
 
-    for name in ("r1", "r2", "r3"):
+    for name, num_spk in zip(("r1", "r2", "r3"), num_spks):
         rep = replies.get(name, {})
         fails.check(bool(rep.get("ok")), f"request {name} ok ({rep.get('ms')} ms)")
         for wav, paths in rep.get("outputs", {}).items():
+            fails.check(len(paths) == (num_spk or pipe.num_spk),
+                        f"{name}: {len(paths)} tracks for {os.path.basename(wav)}")
             want = want_len(len(load_wav(wav)[0]))
             for p in paths:
                 y, sr = (load_wav(p) if os.path.exists(p) else (np.zeros(0), 0))
@@ -1506,6 +1512,575 @@ def compare_recipe_devices(fails: Failures) -> dict:
             "sdr_max_diff_db": d_sdr}
 
 
+# --------------------------------------------------------- recurrent archs
+
+# DPRNN's BLSTM shapes (H=128 over 64 channels) at B=32 utterances of 4 s,
+# padded to 32768 samples: 4095 encoder frames in 83 chunks of 100, so the
+# intra-chunk BLSTM runs 32 * 83 rows of 100 steps and the inter-chunk one
+# 32 * 100 rows of 83 steps. name -> (T, rows).
+DPRNN_SHAPES = {"intra": (100, 2656), "inter": (83, 3200)}
+RSH_KW = {"compute_dtype": "bfloat16"}
+DPRNN_KW = {"compute_dtype": "bfloat16"}
+# Set from the card's first readings (NVIDIA H100 80GB HBM3, 700 W) with about
+# ten times room: ... (filled in from the first run)
+RECURRENT_TOL = {"rsh_loss": 1e-3, "rsh_grad": 1e-1, "rsh_bn": 1e-2, "rsh_min_snr_db": 30.0,
+                 "dprnn_loss": 1e-2, "dprnn_grad": 1e-1, "dprnn_min_snr_db": 30.0}
+
+
+def ragged_lengths(T: int, B: int, rng) -> list:
+    """B lengths as a ragged DPRNN batch gives them: most rows full, an
+    eighth drawn from 0..T, and 0, 1, T, 0, 1 in the first five rows."""
+    lengths = np.full(B, T)
+    k = B // 8
+    lengths[:k] = rng.integers(0, T + 1, size=k)
+    lengths[:5] = [0, 1, T, 0, 1]
+    return lengths.tolist()
+
+
+def cudnn_lstm_ms(T: int, B: int, n_in: int, H: int, dtype, gen) -> dict:
+    """cuDNN's bidirectional nn.LSTM(n_in -> H) at the same T and B, a
+    yardstick only (it also does the input projection and its gradient):
+    inference, the training forward (median of five repeats) and the
+    backward (mean of three after a warm-up)."""
+    lstm = torch.nn.LSTM(n_in, H, bidirectional=True).to("cuda", dtype)
+    lstm.flatten_parameters()
+    x = torch.randn((T, B, n_in), generator=gen, device="cuda").to(dtype)
+    with torch.inference_mode():
+        infer = cuda_ms(lambda: lstm(x), 5)
+    x.requires_grad_(True)
+    fwd = [cuda_ms(lambda: lstm(x), 3) for _ in range(5)]
+    y, _ = lstm(x)
+    gy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+    bwd = []
+    for i in range(4):
+        y, _ = lstm(x)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        y.backward(gy)
+        e1.record()
+        e1.synchronize()
+        if i:
+            bwd.append(e0.elapsed_time(e1))
+    return {"infer": infer, "fwd": float(np.median(fwd)), "fwd_repeats": median_range(fwd),
+            "bwd": float(np.mean(bwd)), "bwd_repeats": median_range(bwd)}
+
+
+def check_recurrent_kernels(fails: Failures) -> dict:
+    """K1, K3 and K4 at DPRNN's two BLSTM shapes (H=128, bf16, thousands of
+    rows, length-0 and length-1 rows among them) against their plain
+    versions, each launched twice (bit-identical), with its plan, time,
+    bound and cuDNN's time; a length-0 row's state passes through every
+    kernel exactly. Then lstm_seq's gradients through two chained calls (the
+    first's h_last/c_last the second's h0/c0, as RSH carries its state from
+    pass to pass) against autograd through the plain forward at T=384,
+    B=100, H=600 bf16."""
+    from speech_separation_tpu_torch.ops.lstm_kernel import (
+        lstm_bwd_plan, lstm_fwd_plan, lstm_seq, lstm_seq_bwd, lstm_seq_bwd_plain,
+        lstm_seq_fwd, lstm_seq_fwd_plain, lstm_seq_infer, lstm_seq_infer_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rng = np.random.default_rng(SEED + 11)
+    sfx, dt, H = (False, True), torch.bfloat16, 128
+    out = {}
+    for shape, (T, B) in DPRNN_SHAPES.items():
+        lengths = ragged_lengths(T, B, rng)
+        args = lstm_inputs(T, B, H, dt, lengths, gen)
+        xw, w, h0, c0, lens = args
+        zero = lens == 0
+        label = f"DPRNN {shape} T={T} B={B} H={H} bf16"
+        runs = {
+            "lstm_seq_infer": (lambda: lstm_seq_infer(*args, suffix_dirs=sfx),
+                               lambda: lstm_seq_infer_plain(*args, suffix_dirs=sfx)),
+            "lstm_seq_fwd": (lambda: lstm_seq_fwd(*args, save_dtype=dt, suffix_dirs=sfx),
+                             lambda: lstm_seq_fwd_plain(*args, save_dtype=dt, suffix_dirs=sfx)),
+        }
+        ref_f = runs["lstm_seq_fwd"][1]()
+        bargs = (w, c0, lens, ref_f[1], ref_f[2],
+                 torch.randn(ref_f[1].shape, generator=gen, device="cuda").to(dt),
+                 torch.randn(c0.shape, generator=gen, device="cuda"),
+                 torch.randn(c0.shape, generator=gen, device="cuda"))
+        runs["lstm_seq_bwd"] = (lambda: lstm_seq_bwd(*bargs, save_dtype=dt, suffix_dirs=sfx),
+                                lambda: lstm_seq_bwd_plain(*bargs, save_dtype=dt,
+                                                           suffix_dirs=sfx))
+        lib = cudnn_lstm_ms(T, B, 64, H, dt, gen)
+        valid_steps = 2 * sum(lengths)
+        flops = valid_steps * 2 * H * 4 * H
+        nums = {}
+        for name, (kernel, plain) in runs.items():
+            got, again = kernel(), kernel()
+            ref = ref_f if name == "lstm_seq_fwd" else plain()
+            torch.cuda.synchronize()
+            if name == "lstm_seq_infer":
+                err, tol = max(float((g - r).abs().max()) for g, r in zip(got, ref)), TOL["lstm_bf16"]
+                state = [(got[1], h0), (got[2], c0)]
+            elif name == "lstm_seq_fwd":
+                err, tol = max(scaled_err(g, r) for g, r in zip(got, ref)), TRAIN_TOL["fwd_bf16"]
+                state = [(got[3], h0), (got[4], c0)]
+            else:
+                err, tol = max(scaled_err(g, r) for g, r in zip(got, ref)), TRAIN_TOL["bwd_bf16"]
+                state = [(got[1], bargs[6]), (got[2], bargs[7])]
+            fails.check(err <= tol, f"{name} {label}: max_abs_err {err:.3e} <= {tol}")
+            fails.check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                        f"{name} {label}: a second launch is bit-identical")
+            fails.check(all(torch.equal(s[:, zero], s0[:, zero]) for s, s0 in state),
+                        f"{name} {label}: the {int(zero.sum())} length-0 rows' final state "
+                        "is their initial one")
+            ms = cuda_ms(kernel, 5)
+            plain_ms = cuda_ms(plain, 1, warmup=0)
+            io = nbytes(*(bargs if name == "lstm_seq_bwd" else args), *got)
+            b_ms, b_by = bound_ms(io, flops, dt)
+            plan = (lstm_bwd_plan if name == "lstm_seq_bwd" else lstm_fwd_plan)(2, B, H, dt)
+            lib_ms = lib[{"lstm_seq_infer": "infer", "lstm_seq_fwd": "fwd",
+                          "lstm_seq_bwd": "bwd"}[name]]
+            nums[name] = {"max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                          "us_per_step": 1e3 * ms / T, **plan_keys(plan)}
+            print(f"  {name} {label}: {ms:.3f} ms ({1e3 * ms / T:.2f} us a step; plain "
+                  f"{plain_ms:.1f}, cuDNN {lib_ms:.3f}, bound {b_ms:.4f} by {b_by}); "
+                  f"{plan_text(plan)}", flush=True)
+            del got, again, ref
+        print(f"  cuDNN nn.LSTM(64->128, bidirectional) {label}: {lib}", flush=True)
+        out[shape] = {"T": T, "rows": B, "length_0_rows": int(zero.sum()), **nums}
+        del args, bargs, ref_f
+        torch.cuda.empty_cache()
+    out["chained"] = check_chained_gradients(fails, gen)
+    return out
+
+
+def check_chained_gradients(fails: Failures, gen) -> dict:
+    """Gradients of a loss through two chained lstm_seq calls (K3 forward,
+    K4 backward with the second call's dh0/dc0 as the first's non-zero
+    dh_last/dc_last) against autograd through the plain forward."""
+    from speech_separation_tpu_torch.ops.lstm_kernel import (lstm_seq, lstm_seq_bwd,
+                                                             lstm_seq_fwd, lstm_seq_fwd_plain)
+    T, B, H, dt, sfx = 384, 100, 600, torch.bfloat16, (False, True)
+    lengths = [T, 1] + np.random.default_rng(SEED + 12).integers(1, T + 1, size=B - 2).tolist()
+    xa, w, h0, c0, lens = lstm_inputs(T, B, H, dt, lengths, gen)
+    xb = (0.5 * torch.randn(xa.shape, generator=gen, device="cuda")).to(dt)
+    cot = torch.randn((T, 2, B, H), generator=gen, device="cuda")
+
+    def grads(fwd):
+        ts = [t.detach().clone().requires_grad_(True) for t in (xa, xb, w, h0, c0)]
+        ys1, h1, c1 = fwd(ts[0], ts[2], ts[3], ts[4])
+        ys2, h2, c2 = fwd(ts[1], ts[2], h1, c1)
+        (torch.sum(ys1.float() * cot) + torch.sum(ys2.float() ** 2) + torch.sum(torch.sin(h2))
+         + 0.1 * torch.sum(c2 ** 2)).backward()
+        return [t.grad for t in ts]
+
+    def plain(x, w_, h, c):
+        ys, _, _, h_last, c_last = lstm_seq_fwd_plain(x, w_, h, c, lens, dt, sfx)
+        return ys, h_last, c_last
+
+    before = (lstm_seq_fwd.launches, lstm_seq_bwd.launches)
+    got = grads(lambda x, w_, h, c: lstm_seq(x, w_, h, c, lens, dt, sfx))
+    torch.cuda.synchronize()
+    launched = (lstm_seq_fwd.launches - before[0], lstm_seq_bwd.launches - before[1])
+    ref = grads(plain)
+    errs = {n: scaled_err(g, r) for n, g, r in
+            zip(("dxw1", "dxw2", "dw_hh", "dh0", "dc0"), got, ref)}
+    fails.check(launched == (2, 2) and max(errs.values()) <= TRAIN_TOL["grad_bf16"],
+                f"lstm_seq gradients through two chained calls T={T} B={B} H={H} bf16 vs "
+                f"autograd through the plain forward ({launched[0]} K3, {launched[1]} K4 "
+                f"launches): {', '.join(f'{n} {e:.3e}' for n, e in errs.items())} <= "
+                f"{TRAIN_TOL['grad_bf16']}")
+    return errs
+
+
+def quiet(*_):
+    pass
+
+
+def write_feature_set(root: str, n: int, seed: int, prefix: str, counts) -> str:
+    """A corpus of n utterances of 4.5-6 s with the speaker counts ``counts``
+    in turn (utils/synthetic.make_synthetic_corpus_var, seeded) and its data
+    dir with training features extracted on the card (K2, stored npz);
+    returns the data dir."""
+    from speech_separation_tpu_torch.dsp.extract import extract_features
+    from speech_separation_tpu_torch.utils.synthetic import make_synthetic_corpus_var
+    corpus, data = os.path.join(root, "corpus"), os.path.join(root, "data")
+    ids = make_synthetic_corpus_var(corpus, n, min_sec=4.5, max_sec=6.0, seed=seed,
+                                    prefix=prefix, counts=counts)
+    os.makedirs(data)
+    with open(os.path.join(data, "wav.scp"), "w") as f:
+        f.writelines(f"{u} {os.path.join(corpus, 'mix', u + '.wav')}\n" for u in ids)
+    extract_features(data, "train", os.path.join(root, "feats"), compress=False, log=quiet,
+                     device="cuda")
+    return data
+
+
+def step_counts(data_dir: str, epochs: int, batch_size: int) -> list:
+    """The speaker count of each of train()'s steps on an RSH corpus (its
+    plan_batches with the trainer's plan)."""
+    from speech_separation_tpu_torch.train.data import BatchPlan, FeatureDataset, plan_batches
+    ds = FeatureDataset(data_dir)
+    plan = BatchPlan(batch_size=batch_size, group_by_num_spk=True, seed=SEED)
+    return [int(ds.num_spks[b[0]]) for e in range(epochs)
+            for b in plan_batches(ds, plan, e, lengths=ds.num_frames, num_spks=ds.num_spks)]
+
+
+def train_rsh_phase(fails: Failures, counters) -> dict:
+    """Phase 12: a 2x600 bf16 RSH trained through train() on the card at
+    B=100 (one speaker count a batch), then 2 steps of the reference's
+    mixed batches."""
+    from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
+
+    work = os.path.join(REPO, "build", "chip_smoke_rsh_train")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.monotonic()
+    tr = write_feature_set(os.path.join(work, "tr"), 200, SEED + 12, "tr", (2, 3))
+    cv = write_feature_set(os.path.join(work, "cv"), 40, SEED + 13, "cv", (2, 3))
+    mixed = write_feature_set(os.path.join(work, "mixed"), 100, SEED + 14, "mx", (1, 2, 3))
+    print(f"  corpora and features (200 + 40 of 2/3 speakers, 100 of 1/2/3): "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    exp = os.path.join(work, "exp")
+    cfg = TrainLoopConfig(arch="RSH", batch_size=100, num_epochs=5, seed=SEED)
+    for c in counters:
+        c.launches = 0
+    res = train(tr, exp, cfg, cv_data_dir=cv, model_kwargs=RSH_KW, device="cuda",
+                log=lambda m: print("  " + m, flush=True))
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    losses = check_trained(fails, res, exp)
+    counts = step_counts(tr, 5, 100)
+    steps = res["steps"]
+    fails.check(len(steps) == 10 and sorted(counts) == [2] * 5 + [3] * 5
+                and all(n == 100 for _, n in steps),
+                f"{len(steps)} training steps of 100 rows, speaker counts {counts}")
+    want = 2 * sum(counts)
+    for name in ("lstm_seq_fwd", "lstm_seq_bwd"):
+        fails.check(launches[name] == want, f"{name} launched {launches[name]} times while "
+                                            f"training (2 layers x S passes a step: {want})")
+    fails.check(launches["lstm_seq_infer"] == 2 * (2 + 3),
+                f"lstm_seq_infer launched {launches['lstm_seq_infer']} times in the CV pass "
+                "(2 layers x (2 + 3) passes)")
+    by_s = {S: [m for (m, _), c in zip(steps, counts) if c == S][1:] for S in (2, 3)}
+    print(f"  steps after each count's first: S=2 {np.mean(by_s[2]):.2f} ms/step (min "
+          f"{min(by_s[2]):.2f}, max {max(by_s[2]):.2f}); S=3 {np.mean(by_s[3]):.2f} "
+          f"(min {min(by_s[3]):.2f}, max {max(by_s[3]):.2f}); first step {steps[0][0]:.1f} ms "
+          f"(S={counts[0]}); epochs (wall s, steps s): "
+          f"{[(round(w, 3), round(st, 3)) for _, w, st in res['epoch_times']]}", flush=True)
+
+    # the reference's mixed batches: 100 utterances of 1, 2 and 3 speakers,
+    # two batches of 50, each split into three sub-batches (rows padded to 32)
+    for c in counters:
+        c.launches = 0
+    mres = train(mixed, os.path.join(work, "exp_mixed"),
+                 TrainLoopConfig(arch="RSH", batch_size=50, num_epochs=1, seed=SEED,
+                                 reference_batching=True),
+                 model_kwargs=RSH_KW, device="cuda", log=lambda m: print("  " + m, flush=True))
+    torch.cuda.synchronize()
+    mixed_launches = {c.__name__: c.launches for c in counters}
+    msteps = mres["steps"]
+    mloss = mres["epoch_losses"][0][1]
+    fails.check(len(msteps) == 2 and all(n == 50 for _, n in msteps) and np.isfinite(mloss),
+                f"mixed batches: {len(msteps)} steps of {[n for _, n in msteps]} rows, loss {mloss}")
+    for name in ("lstm_seq_fwd", "lstm_seq_bwd"):
+        fails.check(mixed_launches[name] == 2 * 2 * (1 + 2 + 3),
+                    f"{name} launched {mixed_launches[name]} times in 2 mixed steps "
+                    "(2 layers x (1 + 2 + 3) passes a step)")
+    print(f"  mixed-batch steps: {[round(m, 2) for m, _ in msteps]} ms", flush=True)
+    return {"launches": launches, "ms_per_step": {S: float(np.mean(v)) for S, v in by_s.items()},
+            "step_counts": counts, "epoch_losses": losses, "cv_loss": res["cv_losses"],
+            "epoch_times": res["epoch_times"], "mixed_launches": mixed_launches,
+            "mixed_step_ms": [m for m, _ in msteps], "mixed_loss": mloss,
+            "train_dir": tr, "exp": exp}
+
+
+def rsh_step_phase(fails: Failures, train_dir: str) -> dict:
+    """Phase 13: one RSH step (3 passes, 2x600 bf16, 4 rows of the training
+    corpus, zero initial state) on the card against the CPU: loss,
+    assignments, every gradient and BN's running statistics."""
+    import copy
+
+    from speech_separation_tpu_torch.models import rsh
+    from speech_separation_tpu_torch.train.data import (BatchPlan, FeatureDataset,
+                                                        make_device_batch)
+    from speech_separation_tpu_torch.utils.weights import fold_lstm_biases
+
+    ds = FeatureDataset(train_dir)
+    idxs = [i for i in range(len(ds)) if ds.num_spks[i] == 3][:4]
+    batch = make_device_batch([ds.load(i) for i in idxs],
+                              BatchPlan(batch_size=4, time_pad_multiple=128))
+    model = rsh.RSH(rsh.Config.from_kwargs(**RSH_KW, zero_init_hidden="1"))
+    model.reset_parameters(torch.Generator().manual_seed(SEED + 15))
+    fold_lstm_biases(model.blstm)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        b = {k: torch.from_numpy(batch[k]).to(dev) for k in ("mix", "sources", "lengths",
+                                                             "row_mask")}
+        t0 = time.monotonic()
+        loss, aux = rsh.loss_fn(m, b, None, True)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        print(f"  {dev} step: {(time.monotonic() - t0) * 1e3:.0f} ms, loss {loss.item():.6f}, "
+              f"assignments {aux['assignments'].tolist()}", flush=True)
+        out[dev] = (loss.detach(), {n: p.grad for n, p in m.named_parameters()
+                                    if p.grad is not None},
+                    aux["assignments"].cpu(), (m.bn.running_mean, m.bn.running_var))
+    loss_err = rel_l2(out["cuda"][0], out["cpu"][0])
+    grad_err = {n: rel_l2(g, out["cpu"][1][n]) for n, g in out["cuda"][1].items()}
+    worst = max(grad_err, key=grad_err.get)
+    bn_err = max(rel_l2(a, b) for a, b in zip(out["cuda"][3], out["cpu"][3]))
+    fails.check(torch.equal(out["cuda"][2], out["cpu"][2]),
+                "RSH step card vs CPU: the same greedy assignments")
+    fails.check(loss_err <= RECURRENT_TOL["rsh_loss"],
+                f"RSH step loss card vs CPU: rel err {loss_err:.3e} <= {RECURRENT_TOL['rsh_loss']}")
+    fails.check(len(grad_err) == 16 and grad_err[worst] <= RECURRENT_TOL["rsh_grad"],
+                f"RSH step gradients card vs CPU ({len(grad_err)} parameters): worst {worst} "
+                f"rel err {grad_err[worst]:.3e} <= {RECURRENT_TOL['rsh_grad']}")
+    fails.check(bn_err <= RECURRENT_TOL["rsh_bn"],
+                f"RSH BN running statistics after 3 passes card vs CPU: rel err {bn_err:.3e} "
+                f"<= {RECURRENT_TOL['rsh_bn']}")
+    print("  gradient rel errs: " + ", ".join(f"{n} {e:.2e}" for n, e in grad_err.items()),
+          flush=True)
+    return {"loss_rel_err": loss_err, "worst": worst, "worst_rel_err": grad_err[worst],
+            "bn_rel_err": bn_err}
+
+
+def check_rsh_outputs(fails: Failures, data_dir: str, out_dir: str) -> dict:
+    """One RSH run-eval's files: per utterance the masks s1..sS (S from
+    utt2num_spk; (257, T) float32) and S int16 tracks of hop * (T - 1)
+    samples, and summary.json over every utterance. Returns the summary."""
+    from scipy.io import wavfile
+
+    from speech_separation_tpu_torch.utils.audio import load_wav
+    wav = _scp(os.path.join(data_dir, "wav.scp"))
+    spk = {u: int(v) for u, v in _scp(os.path.join(data_dir, "utt2num_spk")).items()}
+    bad = []
+    for utt, path in wav.items():
+        frames = 1 + len(load_wav(path)[0]) // 128
+        keys = [f"s{k + 1}" for k in range(spk[utt])]
+        with np.load(os.path.join(out_dir, "masks", utt + ".npz")) as m:
+            if sorted(m.files) != keys or any(m[k].dtype != np.float32
+                                              or m[k].shape != (257, frames) for k in keys):
+                bad.append(f"masks {utt}")
+        for k in keys:
+            p = os.path.join(out_dir, "wav", k, utt + ".wav")
+            sr, y = wavfile.read(p) if os.path.isfile(p) else (0, np.zeros(0))
+            if sr != 8000 or y.dtype != np.int16 or len(y) != 128 * (frames - 1):
+                bad.append(f"wav {k}/{utt}")
+    with open(os.path.join(out_dir, "results", "summary.json")) as f:
+        summary = json.load(f)
+    fails.check(not bad and summary["n_utts"] == len(wav)
+                and all(np.isfinite(v) for v in summary["mean"].values()),
+                f"{out_dir}: {len(wav)} utterances' masks of S passes, S tracks each and "
+                f"finite means (counts {sorted(set(spk.values()))}; bad {bad[:4]})")
+    return summary
+
+
+def rsh_eval_phase(fails: Failures, counters, exp: str) -> dict:
+    """Phase 14: run-eval stages 0-4 through the CLI with phase 12's RSH on
+    100 test utterances of 2 and 3 speakers (masks of S passes with K1 in
+    batches of one count), then SeparationServer requests asking for 3, 2
+    and 3 sources, one request's tracks held against the CPU by SNR."""
+    from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    from speech_separation_tpu_torch.utils.audio import limit_peak, load_wav
+    from speech_separation_tpu_torch.utils.synthetic import make_synthetic_corpus_var, write_id_list
+
+    work = os.path.join(REPO, "build", "chip_smoke_rsh_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "exp", "RSH"))
+    for name in ("final.mdl", "final.state"):
+        shutil.copy(os.path.join(exp, name), os.path.join(work, "exp", "RSH"))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        root = os.path.join(work, "corpus", "rtt")
+        ids = make_synthetic_corpus_var(root, 100, min_sec=4.5, max_sec=6.0, seed=SEED + 16,
+                                        prefix="rtt", counts=(2, 3))
+        write_id_list("id_lists", "rtt", ids)
+        with open("id_lists/path.json", "w") as f:
+            json.dump({"rtt": root}, f)
+        ev = StageLog(counters)
+        ev.run(["run-eval", "--model-dir", "exp/RSH", "--test-sets", "rtt", "--batch-size",
+                "100", "--nj", "8", "--device", "cuda"])
+        spans = ev.spans([("prepare", "(stage 0)"), ("extract", "(stage 1)"),
+                          ("masks", "(stage 2)"), ("reconstruct", "(stage 3)"),
+                          ("score", "(stage 4)")])
+        walls = {k: w for k, (w, _) in spans.items()}
+        launches = {k: c for k, (_, c) in spans.items()}
+        summary = check_rsh_outputs(fails, "data/rtt", "exp/RSH/output_final/rtt")
+    finally:
+        os.chdir(cwd)
+    n = launches["masks"]["lstm_seq_infer"]
+    fails.check(n == 2 * (2 + 3), f"lstm_seq_infer launched {n} times in masks (2 layers x "
+                                  "(2 + 3) passes: one batch of each count)")
+    fails.check(launches["extract"]["stft"] > 0,
+                f"stft launched {launches['extract']['stft']} times in extract")
+    print(f"  stage walls (s): {', '.join(f'{k} {v:.2f}' for k, v in walls.items())}",
+          flush=True)
+    print(f"  means: {summary['mean']}", flush=True)
+
+    mdl = os.path.join(work, "exp", "RSH", "final.mdl")
+    kw = {"zero_init_hidden": "1"}
+    pipe = SeparationPipeline(mdl, model_kwargs=kw, batch_size=16, seed=SEED, device="cuda")
+    fails.check(pipe.arch.NAME == "RSH" and pipe.cfg.compute_dtype == "bfloat16",
+                f"the .state meta gives {pipe.arch.NAME} {pipe.cfg}")
+    rng = np.random.default_rng(SEED + 17)
+    wavs = []
+    from speech_separation_tpu_torch.utils.audio import write_wav_int16
+    for k, sec in enumerate((3.0, 5.5, 8.0, 6.2)):
+        path = os.path.join(work, f"mix{k}.wav")
+        write_wav_int16(path, 8000, mixture(int(sec * 8000), rng))
+        wavs.append(path)
+    from speech_separation_tpu_torch.dsp.stft import istft_output_length, num_frames
+    replies, serve_launches, wall_ms = serve_requests(
+        fails, pipe, work, wavs, ([0], [1, 2], [3]), counters,
+        lambda n: istft_output_length(num_frames(n, 128), 128), num_spks=(3, 2, 3))
+    fails.check(serve_launches["lstm_seq_infer"] > 0,
+                f"lstm_seq_infer launched {serve_launches['lstm_seq_infer']} times while serving")
+    cpu = SeparationPipeline(mdl, model_kwargs=kw, batch_size=16, seed=SEED, device="cpu")
+    x = load_wav(wavs[0])[0]
+    ref = limit_peak(cpu.separate([x], 3)[0])
+    snrs = [snr_db(np.asarray(r, np.float32) * (32767 / 32768), load_wav(p)[0])
+            for r, p in zip(ref, replies["r1"]["outputs"][wavs[0]])]
+    fails.check(len(snrs) == 3 and min(snrs) >= RECURRENT_TOL["rsh_min_snr_db"],
+                f"r1's 3 tracks vs CPU plain versions: SNR {', '.join(f'{v:.1f}' for v in snrs)} "
+                f"dB >= {RECURRENT_TOL['rsh_min_snr_db']}")
+    return {"walls_s": walls, "launches": {k: launches[k] for k in ("extract", "masks")},
+            "mean": summary["mean"], "serve_launches": serve_launches,
+            "request_ms": {k: v.get("ms") for k, v in replies.items()}, "snr_db": snrs}
+
+
+def train_dprnn_phase(fails: Failures, counters) -> dict:
+    """Phase 15: DPRNN at the JAX package's defaults in bf16 (6 blocks, 64
+    channels, H=128 BLSTMs, chunks of 100) trained through train() at B=32
+    on 4 s wavs with --on-device-features, 5 epochs (10 steps, CV at 5)."""
+    from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
+    from speech_separation_tpu_torch.utils.audio import load_wav
+
+    work = os.path.join(REPO, "build", "chip_smoke_dprnn_train")
+    shutil.rmtree(work, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 18)
+    t0 = time.monotonic()
+    tr = write_wav_corpus(os.path.join(work, "tr"), 64, rng, "tr")
+    cv = write_wav_corpus(os.path.join(work, "cv"), 16, rng, "cv")
+    print(f"  corpus: {time.monotonic() - t0:.1f} s", flush=True)
+    exp = os.path.join(work, "exp")
+    cfg = TrainLoopConfig(arch="DPRNN", batch_size=32, num_epochs=5, seed=SEED,
+                          on_device_features=True)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    res = train(tr, exp, cfg, cv_data_dir=cv, model_kwargs=DPRNN_KW, device="cuda",
+                log=lambda m: print("  " + m, flush=True))
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = check_trained(fails, res, exp)
+    steps = res["steps"]
+    fails.check(len(steps) == 10 and all(n == 32 for _, n in steps),
+                f"{len(steps)} training steps of 32 rows")
+    # 6 blocks x (intra, inter) BLSTMs: each step runs each one's training
+    # forward and backward once, the CV batch its inference forward
+    for name, want in (("lstm_seq_fwd", 120), ("lstm_seq_bwd", 120), ("lstm_seq_infer", 12)):
+        fails.check(launches[name] == want,
+                    f"{name} launched {launches[name]} times (12 BLSTMs x "
+                    f"{'1 CV batch' if name == 'lstm_seq_infer' else '10 steps'})")
+    ms = [m for m, _ in steps[1:]]
+    print(f"  steps after the first: {np.mean(ms):.2f} ms/step (min {min(ms):.2f}, max "
+          f"{max(ms):.2f}); first step {steps[0][0]:.1f} ms; peak memory {peak_gb:.2f} GB; "
+          f"epochs (wall s, steps s): "
+          f"{[(round(w, 3), round(st, 3)) for _, w, st in res['epoch_times']]}", flush=True)
+    pipe = SeparationPipeline(os.path.join(exp, "final.mdl"), device="cuda")
+    x = load_wav(os.path.join(work, "cv", "corpus", "mix", "cv0000.wav"))[0]
+    tracks = pipe.separate([x])[0]
+    fails.check(len(tracks) == 2 and all(len(t) == len(x) and np.all(np.isfinite(t))
+                                         for t in tracks),
+                "final.mdl separates a wav on the card into finite tracks")
+    return {"launches": launches, "ms_per_step": float(np.mean(ms)), "epoch_losses": losses,
+            "cv_loss": res["cv_losses"], "epoch_times": res["epoch_times"],
+            "peak_memory_gb": peak_gb, "train_dir": tr}
+
+
+def dprnn_step_phase(fails: Failures, train_dir: str) -> dict:
+    """Phase 16: one DPRNN step (bf16, B=4 of the training corpus) on the
+    card against the CPU: loss and every gradient."""
+    import copy
+
+    from speech_separation_tpu_torch.dsp.stft import STFTConfig
+    from speech_separation_tpu_torch.models import dprnn
+    from speech_separation_tpu_torch.train.wav_data import (WavDataset, audio_to_wave_batch,
+                                                            collate_wav_batch)
+    shipped = collate_wav_batch(WavDataset(train_dir), list(range(4)), 4)
+    model = dprnn.DPRNN(dprnn.Config.from_kwargs(**DPRNN_KW),
+                        torch.Generator().manual_seed(SEED + 19))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        b = audio_to_wave_batch({k: torch.from_numpy(shipped[k]).to(dev) for k in
+                                 ("audio", "sample_lengths", "row_mask")}, STFTConfig())
+        t0 = time.monotonic()
+        loss, _ = dprnn.loss_fn(m, b, None, True)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        print(f"  {dev} step, B=4: {(time.monotonic() - t0) * 1e3:.0f} ms, loss "
+              f"{loss.item():.6f}", flush=True)
+        out[dev] = (loss.detach(), {n: p.grad for n, p in m.named_parameters()
+                                    if p.grad is not None})
+    loss_err = rel_l2(out["cuda"][0], out["cpu"][0])
+    grad_err = {n: rel_l2(g, out["cpu"][1][n]) for n, g in out["cuda"][1].items()}
+    worst = max(grad_err, key=grad_err.get)
+    fails.check(loss_err <= RECURRENT_TOL["dprnn_loss"],
+                f"DPRNN step loss card vs CPU: rel err {loss_err:.3e} <= "
+                f"{RECURRENT_TOL['dprnn_loss']}")
+    fails.check(len(grad_err) == len([p for p in model.parameters()])
+                and grad_err[worst] <= RECURRENT_TOL["dprnn_grad"],
+                f"DPRNN step gradients card vs CPU ({len(grad_err)} parameters): worst {worst} "
+                f"rel err {grad_err[worst]:.3e} <= {RECURRENT_TOL['dprnn_grad']}")
+    return {"loss_rel_err": loss_err, "worst": worst, "worst_rel_err": grad_err[worst]}
+
+
+def serve_dprnn_phase(fails: Failures, counters) -> dict:
+    """Phase 17: the full-width bf16 DPRNN (random weights from the seed)
+    in SeparationServer, three requests of 3, 5.5 and 8 s: batches padded
+    with 1-sample rows, whose chunks past the first lie wholly in padding;
+    the three mixtures as one ragged batch on the card against the CPU."""
+    from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    from speech_separation_tpu_torch.models import dprnn
+    from speech_separation_tpu_torch.train.checkpoint import save_checkpoint
+    from speech_separation_tpu_torch.utils.audio import load_wav, write_wav_int16
+
+    work = os.path.join(REPO, "build", "chip_smoke_dprnn_serve")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    model = dprnn.DPRNN(dprnn.Config.from_kwargs(**DPRNN_KW),
+                        torch.Generator().manual_seed(SEED + 20))
+    mdl = os.path.join(work, "dprnn.mdl")
+    save_checkpoint(mdl, model, meta={"arch": "DPRNN", "model_kwargs": DPRNN_KW})
+    rng = np.random.default_rng(SEED + 21)
+    wavs = []
+    for k, sec in enumerate((3.0, 5.5, 8.0)):
+        path = os.path.join(work, f"mix{k}.wav")
+        write_wav_int16(path, 8000, mixture(int(sec * 8000), rng))
+        wavs.append(path)
+    pipe = SeparationPipeline(mdl, batch_size=16, seed=SEED, device="cuda")
+    fails.check(pipe.arch.NAME == "DPRNN", f"the .state meta gives {pipe.arch.NAME} {pipe.cfg}")
+    replies, launches, wall_ms = serve_requests(fails, pipe, work, wavs, ([0], [1], [2]),
+                                                counters, lambda n: n)
+    fails.check(launches["lstm_seq_infer"] > 0 and launches["lstm_seq_infer"] % 12 == 0,
+                f"lstm_seq_infer launched {launches['lstm_seq_infer']} times while serving "
+                "(12 a batch)")
+    xs = [load_wav(w)[0] for w in wavs]
+    for c in counters:
+        c.launches = 0
+    got = pipe.separate(xs)
+    ragged_launches = {c.__name__: c.launches for c in counters}
+    ref = SeparationPipeline(mdl, batch_size=16, seed=SEED, device="cpu").separate(xs)
+    snrs = [snr_db(np.asarray(r), np.asarray(g)) for rs, gs in zip(ref, got)
+            for r, g in zip(rs, gs)]
+    fails.check(ragged_launches["lstm_seq_infer"] == 12 and min(snrs) >= RECURRENT_TOL[
+        "dprnn_min_snr_db"],
+                f"3 s, 5.5 s and 8 s as one ragged batch ({ragged_launches['lstm_seq_infer']} "
+                f"K1 launches) vs CPU plain versions: SNR min {min(snrs):.1f} dB >= "
+                f"{RECURRENT_TOL['dprnn_min_snr_db']}")
+    return {"launches": launches, "request_ms": {k: v.get("ms") for k, v in replies.items()},
+            "wall_ms": wall_ms, "snr_db": snrs}
+
+
 def _kernel_group(name: str) -> str:
     if "attn_fwd_" in name:                 # attn_fwd_kernel (f32), _rows, _passes (bf16)
         return "K5 forward"
@@ -1692,11 +2267,44 @@ def main() -> int:
                                   *attn_counters])
     print(f"  phase 10: {time.monotonic() - t10:.1f} s", flush=True)
 
+    lstm_counters = [lstm_seq_infer, lstm_seq_fwd, lstm_seq_bwd]
+    print("== 11. K1, K3, K4 at DPRNN's shapes; gradients through chained calls", flush=True)
+    recurrent = check_recurrent_kernels(fails)
+
+    print("== 12. train (2x600 RSH, bf16, B=100; then mixed batches)", flush=True)
+    t12 = time.monotonic()
+    trained_rsh = train_rsh_phase(fails, lstm_counters)
+
+    print("== 13. one RSH step, card against CPU", flush=True)
+    step_rsh = rsh_step_phase(fails, trained_rsh["train_dir"])
+
+    print("== 14. RSH run-eval through the CLI, then served with 2 and 3 sources", flush=True)
+    eval_rsh = rsh_eval_phase(fails, [stft, *lstm_counters], trained_rsh["exp"])
+    print(f"  phases 12-14: {time.monotonic() - t12:.1f} s", flush=True)
+
+    print("== 15. train (DPRNN, bf16, B=32, 4 s)", flush=True)
+    t15 = time.monotonic()
+    trained_dprnn = train_dprnn_phase(fails, lstm_counters)
+
+    print("== 16. one DPRNN step, card against CPU", flush=True)
+    step_dprnn = dprnn_step_phase(fails, trained_dprnn["train_dir"])
+
+    print("== 17. serve (DPRNN, bf16): ragged batches with length-0 chunks", flush=True)
+    served_dprnn = serve_dprnn_phase(fails, lstm_counters)
+    print(f"  phases 15-17: {time.monotonic() - t15:.1f} s", flush=True)
+    paths = {"rsh_train": trained_rsh["launches"], "rsh_mixed": trained_rsh["mixed_launches"],
+             "rsh_masks": eval_rsh["launches"]["masks"], "rsh_serve": eval_rsh["serve_launches"],
+             "dprnn_train": trained_dprnn["launches"], "dprnn_serve": served_dprnn["launches"]}
+
     def row(name, route, source, replaces, nums, extra):
+        lstm_extra = {}
+        if name.startswith("lstm_seq"):
+            lstm_extra = {"dprnn": {shape: recurrent[shape][name] for shape in DPRNN_SHAPES},
+                          "path_launches": {p: c[name] for p, c in paths.items() if name in c}}
         return {"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **{k: nums[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-                "recipe_launches": recipe["launches"][name], **extra}
+                "recipe_launches": recipe["launches"][name], **extra, **lstm_extra}
 
     kernels = [
         row("lstm_seq_infer", "cuda", "speech_separation_tpu_torch/csrc/lstm_fwd.cu",
@@ -1735,6 +2343,15 @@ def main() -> int:
     print(f"  SepFormer step: {step_sf}", flush=True)
     print(f"  recipe: {({k: v for k, v in recipe.items() if k != 'stage_launches'})}",
           flush=True)
+    print(f"  lstm_seq gradients through chained calls: {recurrent['chained']}", flush=True)
+    print(f"  RSH train: {({k: v for k, v in trained_rsh.items() if k not in ('train_dir', 'exp')})}",
+          flush=True)
+    print(f"  RSH step: {step_rsh}", flush=True)
+    print(f"  RSH eval and serve: {eval_rsh}", flush=True)
+    print(f"  DPRNN train: {({k: v for k, v in trained_dprnn.items() if k != 'train_dir'})}",
+          flush=True)
+    print(f"  DPRNN step: {step_dprnn}", flush=True)
+    print(f"  DPRNN serve: {served_dprnn}", flush=True)
     print(f"  total {time.monotonic() - t_start:.1f} s", flush=True)
     if fails:
         print("chip_smoke FAILED:\n  " + "\n  ".join(fails), file=sys.stderr)

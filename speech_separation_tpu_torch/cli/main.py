@@ -9,8 +9,8 @@ subcommands and flags are those of the JAX package's CLI
 ``run-train`` and ``run-eval``. The flags of what is not ported yet are left
 out, so argparse refuses them: ``--device-scoring``, ``--data-parallel``,
 ``--pack-cache``/``--cache-dtype``, ``--hang-watchdog-sec``/
-``--hang-first-timeout-sec``, ``--profile-dir``, ``--train-copy-location``,
-``--reference-batching`` and ``--streaming-model`` (ROADMAP.md);
+``--hang-first-timeout-sec``, ``--profile-dir``, ``--train-copy-location``
+and ``--streaming-model`` (ROADMAP.md);
 ``--no-plots`` is accepted and plots are not drawn. Every command that runs
 a model or a kernel takes ``--device`` (default ``cuda``; without a card it
 fails; ``cpu`` runs the plain PyTorch versions of the kernels).
@@ -20,8 +20,11 @@ prepare (stage 0), extract (1) and train (2) into ``exp/<arch>_<train-set>``;
 ``run-eval`` does prepare (0), extract (1), masks (2), reconstruct (3) and
 BSS-eval scoring (4) into ``<model-dir>/output_<model>/<set>``, or with
 ``--on-device-features`` separates the wavs in one pass in place of stages
-1-3. The archs are uPIT (npz features, or ``--on-device-features``) and
-SepFormer (waveforms only). Models are ``.mdl`` state dicts: ``train`` writes
+1-3. The archs are uPIT and RSH (npz features, or ``--on-device-features``;
+RSH's batches hold one speaker count each, or with ``--reference-batching``
+the reference's mixed batches) and SepFormer and DPRNN (waveforms only). An
+RSH model separates each test utterance into as many sources as its
+``utt2num_spk`` says. Models are ``.mdl`` state dicts: ``train`` writes
 them with the arch and model config in the ``.state`` beside each, which the
 evaluation commands read, and ``sepsep export-model`` turns the JAX
 package's uPIT/RSH checkpoints into reference ``.mdl`` files.
@@ -260,7 +263,8 @@ def _loop_cfg(args):
         time_pad_multiple=args.time_pad_multiple,
         bucket_by_length=args.bucket_by_length,
         reference_resume=args.reference_resume,
-        on_device_features=args.on_device_features)
+        on_device_features=args.on_device_features,
+        reference_batching=args.reference_batching)
 
 
 def _run_training(args, data_dir, exp_dir, cv_data_dir):
@@ -327,8 +331,10 @@ def _ensure_utt2num_spk(data_dir: str) -> None:
 def _run_eval_fused(args, test_sets, model, model_path, model_config):
     """Stages 1-3 in one pass: the mixtures stream through
     SeparationPipeline.separate_stream (STFT, masks and masked iSTFT on the
-    card) into the staged path's wav layout; no feature or mask files."""
-    from ..datadir.scp import read_scp
+    card) into the staged path's wav layout; no feature or mask files. An
+    RSH model runs the utterances of each speaker count (``utt2num_spk``) as
+    a stream of its own, with that many passes."""
+    from ..datadir.scp import read_scp, read_utt2num_spk
     from ..eval.pipeline import SeparationPipeline
     from ..utils.audio import limit_peak, load_wav, wav_num_samples, write_wav_int16
     cfg = _stft_cfg(args)
@@ -336,19 +342,28 @@ def _run_eval_fused(args, test_sets, model, model_path, model_config):
                               stft_cfg=cfg, batch_size=min(args.batch_size, 32),
                               device=args.device)
     for ds in test_sets:
+        data_dir = os.path.join(args.data_root, ds)
         out_dir = os.path.join(args.model_dir, f"output_{model}", ds)
-        entries = read_scp(os.path.join(args.data_root, ds, "wav.scp"))
-        lengths = [wav_num_samples(p) for _, p in entries]
-        loader = lambda i: load_wav(entries[i][1], sr=cfg.sample_rate)[0]
+        entries = read_scp(os.path.join(data_dir, "wav.scp"))
+        groups = {None: entries}
+        if pipe.arch.NAME == "RSH":
+            _ensure_utt2num_spk(data_dir)
+            counts = read_utt2num_spk(os.path.join(data_dir, "utt2num_spk"))
+            groups = {}
+            for e in entries:
+                groups.setdefault(counts[e[0]], []).append(e)
         n = 0
-        for i, ests in pipe.separate_stream(loader, lengths):
-            # one gain per utterance keeps time-domain tracks inside int16
-            # (BSS-eval is scale-invariant)
-            for s, est in enumerate(limit_peak(ests)):
-                path = os.path.join(out_dir, "wav", f"s{s + 1}", entries[i][0] + ".wav")
-                os.makedirs(os.path.dirname(path), exist_ok=True)
-                write_wav_int16(path, cfg.sample_rate, est)
-            n += 1
+        for num_spk, group in groups.items():
+            lengths = [wav_num_samples(p) for _, p in group]
+            loader = lambda i, group=group: load_wav(group[i][1], sr=cfg.sample_rate)[0]
+            for i, ests in pipe.separate_stream(loader, lengths, num_spk):
+                # one gain per utterance keeps time-domain tracks inside
+                # int16 (BSS-eval is scale-invariant)
+                for s, est in enumerate(limit_peak(ests)):
+                    path = os.path.join(out_dir, "wav", f"s{s + 1}", group[i][0] + ".wav")
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                    write_wav_int16(path, cfg.sample_rate, est)
+                n += 1
         print(f"separated {n} mixtures -> {out_dir}/wav")
 
 
@@ -504,8 +519,13 @@ def _add_train(p):
     p.add_argument("--on-device-features", action="store_true",
                    help="read wav.scp (mix/ with s1/ s2/ beside it) and ship the "
                         "waveforms; the card computes the features, or feeds "
-                        "them as they are to a time-domain arch (SepFormer), "
-                        "which requires this")
+                        "them as they are to a time-domain arch (SepFormer, "
+                        "DPRNN), which requires this")
+    p.add_argument("--reference-batching", action="store_true",
+                   help="RSH: the reference's mixed batches, each shuffled batch "
+                        "split into speaker-count sub-batches with gradient "
+                        "accumulation and one optimizer step per batch "
+                        "(feature files only)")
     p.add_argument("--no-plots", action="store_true",
                    help="accepted for the JAX package's command lines; the "
                         "port draws no plots yet")

@@ -12,8 +12,11 @@ own msgpack checkpoints are not read yet (ROADMAP.md).
 ``generate_masks`` streams a test set's features (``feats_test.scp``)
 through the eval-mode forward in padded batches and writes one mask npz per
 utterance: keys ``s1``..``sN``, (freq, time) float32, trimmed to the
-utterance's length, the format the reference's eval writes. For uPIT the
-recurrence runs through the hand-written inference kernel on CUDA.
+utterance's length, the format the reference's eval writes. For RSH the
+batches hold one speaker count each (from ``utt2num_spk``), and an
+utterance of S speakers gets the masks of S passes, ``s1``..``sS`` in pass
+order. The recurrence runs through the hand-written inference kernel on
+CUDA.
 """
 
 from __future__ import annotations
@@ -83,7 +86,11 @@ def load_model(model_path: str, arch_name: str = "",
     kwargs.update(model_kwargs or {})
     cfg = arch.Config.from_kwargs(**kwargs)
     model = arch.Model(cfg)
-    missing, unexpected = model.load_state_dict(sd, strict=False)
+    try:
+        missing, unexpected = model.load_state_dict(sd, strict=False)
+    except RuntimeError as e:            # weight shapes that do not fit cfg
+        raise ValueError(f"{model_path}: state dict does not fit {arch.NAME} {cfg}: "
+                         f"{e}") from e
     # older torch writes no num_batches_tracked; eval never reads it
     missing = [k for k in missing if k != "bn.num_batches_tracked"]
     if missing or unexpected:
@@ -104,6 +111,7 @@ def generate_masks(model_path: str, data_dir: str, out_dir: str,
     training. The initial LSTM state is the reference's N(0, 1)
     draw, from a generator seeded with ``seed``, unless the model config
     says ``zero_init_hidden``."""
+    from ..datadir.scp import read_utt2num_spk
     from ..train.data import BatchPlan, FeatureDataset, make_device_batch, plan_batches
     arch, cfg, model = load_model(model_path, arch_name, model_kwargs, device)
     if arch.DOMAIN == "time":
@@ -115,18 +123,29 @@ def generate_masks(model_path: str, data_dir: str, out_dir: str,
     os.makedirs(out_dir, exist_ok=True)
 
     dataset = FeatureDataset(data_dir, "test")
-    plan = BatchPlan(batch_size=min(batch_size, len(dataset)))
+    rsh = arch.NAME == "RSH"
+    plan = BatchPlan(batch_size=min(batch_size, len(dataset)), group_by_num_spk=rsh)
+    num_spks = None
+    if rsh:
+        utt2num = read_utt2num_spk(os.path.join(data_dir, "utt2num_spk"))
+        num_spks = np.asarray([utt2num[dataset.utt_id(i)] for i in range(len(dataset))])
     generator = torch.Generator(device=dev).manual_seed(seed)
-    F, S = cfg.feat_dim, cfg.num_spk
-    for idxs in plan_batches(dataset, plan, 0, shuffle=False):
+    F = cfg.feat_dim
+    for idxs in plan_batches(dataset, plan, 0, num_spks=num_spks, shuffle=False):
         batch_np = make_device_batch([dataset.load(i) for i in idxs], plan)
         batch = {k: torch.from_numpy(batch_np[k]).to(dev)
                  for k in ("mix", "lengths", "row_mask")}
-        masks = arch.infer_masks(model, batch, generator).cpu().numpy()  # (B, T, F*S)
+        if rsh:
+            S = int(num_spks[idxs[0]])
+            masks = arch.infer_masks(model, batch, generator, S)          # (B, S, T, F)
+        else:
+            S = cfg.num_spk
+            masks = arch.infer_masks(model, batch, generator)             # (B, T, F*S)
+            masks = masks.reshape(*masks.shape[:2], S, F).transpose(1, 2)
+        masks = masks.cpu().numpy()
         for row in range(len(idxs)):
             T_i = int(batch_np["lengths"][row])
             np.savez_compressed(
                 os.path.join(out_dir, batch_np["names"][row]),
-                **{f"s{s + 1}": masks[row, :T_i, s * F:(s + 1) * F].T.astype(np.float32)
-                   for s in range(S)})
+                **{f"s{s + 1}": masks[row, s, :T_i].T.astype(np.float32) for s in range(S)})
     log(f"wrote masks for {len(dataset)} utterances -> {out_dir}")

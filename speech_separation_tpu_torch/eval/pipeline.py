@@ -1,12 +1,14 @@
 """Batched separation: waveforms in, separated waveforms out.
 
 The counterpart of speech_separation_tpu/eval/pipeline.py. Per batch the
-device runs, for a spectral arch (uPIT): STFT of the center-padded rows (the
-hand-written STFT kernel on CUDA), magnitude, masks (BLSTM through the
-hand-written recurrence kernel, eval-mode BN, head, sigmoid), then the masked
-iSTFT with per-row frame masking; for a time-domain arch (SepFormer): the
-arch's ``separate`` on the raw zero-padded samples (its attention through the
-hand-written attention kernel), each track trimmed to its input's length.
+device runs, for a spectral arch (uPIT, RSH): STFT of the center-padded rows
+(the hand-written STFT kernel on CUDA), magnitude, masks (BLSTM through the
+hand-written recurrence kernel, eval-mode BN, head, sigmoid; RSH one pass a
+speaker, its count given per call), then the masked iSTFT with per-row frame
+masking; for a time-domain arch (SepFormer, DPRNN): the arch's ``separate``
+on the raw zero-padded samples (SepFormer's attention through the
+hand-written attention kernel, DPRNN's BLSTMs through the recurrence
+kernel), each track trimmed to its input's length.
 Audio is bucketed by padded length; the pipeline counts the buckets it has
 run, (frame count or padded sample count, num_spk), which the server
 reports.
@@ -101,8 +103,11 @@ class SeparationPipeline:
         mag = torch.sqrt(re * re + im * im) * tmask
         batch = {"mix": mag, "lengths": counts_d,
                  "row_mask": torch.ones((B,), dtype=torch.float32, device=self.device)}
-        flat = self.arch.infer_masks(self.model, batch, self.generator)
-        masks = flat.reshape(B, n_t, num_spk, F).permute(0, 2, 1, 3)
+        if self.arch.NAME == "RSH":
+            masks = self.arch.infer_masks(self.model, batch, self.generator, num_spk)
+        else:
+            flat = self.arch.infer_masks(self.model, batch, self.generator)
+            masks = flat.reshape(B, n_t, num_spk, F).permute(0, 2, 1, 3)
         # masked iSTFT over (B*S) rows
         re_s = (re[:, None] * masks).reshape(B * num_spk, n_t, F)
         im_s = (im[:, None] * masks).reshape(B * num_spk, n_t, F)
@@ -125,7 +130,9 @@ class SeparationPipeline:
         statistics), so results do not depend on the padding."""
         scfg = self.stft_cfg
         S = num_spk or self.num_spk
-        if S != self.cfg.num_spk:
+        if self.arch.NAME != "RSH" and S != self.cfg.num_spk:
+            # a fixed head emits exactly cfg.num_spk masks; only RSH's
+            # iterative extraction takes a count per call
             raise ValueError(
                 f"this {self.arch.NAME} model separates exactly {self.cfg.num_spk} "
                 f"speakers (num_spk={S} requested); per-request speaker "

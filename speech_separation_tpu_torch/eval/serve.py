@@ -26,6 +26,10 @@ Responses (one JSON line per request, in request order per connection)::
 Live streaming (``stream_*`` commands) needs a streaming model, which the
 port does not have yet: those commands answer ``{"ok": false, ...}``.
 
+``num_spk`` is the count of sources to extract: any count for an RSH model
+(one pass each), a fixed-head model's own count otherwise. Requests of
+different counts run as different batches.
+
 Dynamic micro-batching: requests from concurrent connections are coalesced
 into one device batch. A file that fails to load fails only its own request.
 Output naming is ``<out_dir>/<input stem>_s<k>.wav``; inputs whose stems

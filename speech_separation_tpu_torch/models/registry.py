@@ -3,17 +3,18 @@
 Each arch module exposes ``NAME``, ``DOMAIN``, ``Config`` (with
 ``from_kwargs``), ``Model`` (the ``nn.Module`` built from a config, with
 ``reset_parameters(generator)``) and ``loss_fn(model, batch, generator,
-train)``. A ``DOMAIN = "spectrum"`` arch (uPIT) trains on STFT-magnitude
-batches and serves through ``infer_masks``; a ``DOMAIN = "time"`` arch
-(SepFormer) trains on waveform batches and serves through ``separate``. The
-other archs of the JAX package are queued in ROADMAP.md.
+train)``. A ``DOMAIN = "spectrum"`` arch (uPIT, RSH) trains on
+STFT-magnitude batches and serves through ``infer_masks`` (RSH's takes the
+speaker count of the call); a ``DOMAIN = "time"`` arch (SepFormer, DPRNN)
+trains on waveform batches and serves through ``separate``. The other archs
+of the JAX package (TCN, Conv-TasNet) are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
-from . import sepformer, upit
+from . import dprnn, rsh, sepformer, upit
 
-ARCHS = {"uPIT": upit, "SepFormer": sepformer}
+ARCHS = {"uPIT": upit, "RSH": rsh, "DPRNN": dprnn, "SepFormer": sepformer}
 
 
 def get_arch(name: str):

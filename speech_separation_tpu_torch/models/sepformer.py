@@ -44,14 +44,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .convtasnet import latent_frames, pairwise_neg_si_snr, valid_latent_frames
-from .dprnn import _chunk_lengths, _dot, _gln_nd, _merge, _segment, num_chunks
-from .tcn import _cln, _cln_init, _linear_draw_, _linear_init, _prelu
+from .dprnn import _chunk_lengths, _dot, _separate_core, pit_si_snr_loss
+from .tcn import _cln, _cln_init, _linear_draw_, _linear_init
 from .upit import _coerce_kwargs
-from ..dsp.stft import _overlap_add, frame_signal
 from ..ops.attention_kernel import chunk_attention
-from ..ops.mxu import head_dot
-from ..ops.pit import permutation_min_loss
 
 NAME = "SepFormer"
 DOMAIN = "time"
@@ -157,7 +153,7 @@ class SepFormer(nn.Module):
     def forward(self, wav: torch.Tensor, sample_lengths: torch.Tensor) -> torch.Tensor:
         """(B, L) padded waveforms -> (B, S, L) estimated sources (rows not
         trimmed to their lengths)."""
-        return _separate_core(self, wav, sample_lengths)
+        return _separate_core(self, wav, sample_lengths, _dual_path)
 
 
 def _sinusoid_pe(T: int, H: int) -> np.ndarray:
@@ -231,44 +227,12 @@ def _dual_path(model: SepFormer, h: torch.Tensor, vt: torch.Tensor, C: int):
     return h, cmask
 
 
-def _separate_core(model: SepFormer, wav: torch.Tensor, sample_lengths: torch.Tensor
-                   ) -> torch.Tensor:
-    cfg = model.cfg
-    B, L = wav.shape
-    md = cfg.torch_dtype
-    n_t = latent_frames(cfg, L)
-    frames = frame_signal(wav, cfg.filter_len, cfg.stride, n_t)
-    w = torch.relu(head_dot(frames, model.enc, md))
-    vt = valid_latent_frames(cfg, sample_lengths, n_t)
-    tmask = (torch.arange(n_t, device=wav.device)[None, :]
-             < vt[:, None]).float()[:, :, None]
-    w = w * tmask
-
-    h = _dot(_gln_nd(w.to(md), model.in_ln, tmask), model.bottleneck, md, md) * tmask.to(md)
-    C = num_chunks(cfg, n_t)
-    h, cmask = _dual_path(model, _segment(h, cfg.hop), vt, C)
-
-    out = _dot(_prelu(h, model.head_prelu), model.head, md) * cmask
-    out = _merge(out, cfg.hop, n_t)
-    out = out.reshape(B, n_t, cfg.num_spk, cfg.n_filters)
-    act = torch.relu if cfg.mask_act == "relu" else torch.sigmoid
-    masks = act(out) * tmask[:, :, None, :]
-
-    masked = (w[:, :, None, :] * masks).permute(0, 2, 1, 3)            # (B, S, T', N)
-    S = cfg.num_spk
-    dec_frames = head_dot(masked.reshape(B * S, n_t, cfg.n_filters), model.dec, md)
-    y = _overlap_add(dec_frames, cfg.stride)
-    if y.shape[-1] < L:
-        y = torch.nn.functional.pad(y, (0, L - y.shape[-1]))
-    return y[:, :L].reshape(B, S, L)
-
-
 @torch.inference_mode()
 def separate(model: SepFormer, wav: torch.Tensor, sample_lengths: torch.Tensor
              ) -> torch.Tensor:
     """Serving entry (DOMAIN='time'): (B, L) padded waveforms and their
     (B,) sample counts -> (B, S, L) estimated sources."""
-    return _separate_core(model, wav, sample_lengths)
+    return _separate_core(model, wav, sample_lengths, _dual_path)
 
 
 def loss_fn(model: SepFormer, batch: dict, generator: torch.Generator | None, train: bool):
@@ -276,20 +240,11 @@ def loss_fn(model: SepFormer, batch: dict, generator: torch.Generator | None, tr
     ``source_wavs`` (B, S, L), ``sample_lengths``, ``row_mask``): returns
     (total / norm, aux) with norm the number of real rows. The model has no
     randomness and no mode, so ``generator`` and ``train`` are unused."""
-    cfg = model.cfg
-    mix, srcs = batch["mix_wav"], batch["source_wavs"]
-    n, row_mask = batch["sample_lengths"], batch["row_mask"]
-    L = mix.shape[-1]
-    if cfg.remat and torch.is_grad_enabled():
-        est = checkpoint(_separate_core, model, mix, n, use_reentrant=False)
+    mix, n = batch["mix_wav"], batch["sample_lengths"]
+    if model.cfg.remat and torch.is_grad_enabled():
+        est = checkpoint(_separate_core, model, mix, n, _dual_path, use_reentrant=False)
     else:
-        est = _separate_core(model, mix, n)
-    smask = (torch.arange(L, device=mix.device)[None, :] < n[:, None]).float()
-    pair = pairwise_neg_si_snr(est * smask[:, None, :], srcs, smask)
-    min_losses, best_perm = permutation_min_loss(pair, cfg.num_spk)
-    total = torch.sum(min_losses * row_mask) / cfg.num_spk
-    norm = torch.sum(row_mask)
-    return total / norm, {"norm": norm, "total": total, "best_perm": best_perm}
-
+        est = _separate_core(model, mix, n, _dual_path)
+    return pit_si_snr_loss(est, batch, model.cfg.num_spk)
 
 Model = SepFormer

@@ -61,6 +61,10 @@ class Config:
         return self.feat_dim
 
     @property
+    def out_dim(self) -> int:
+        return self.feat_dim * self.num_spk
+
+    @property
     def torch_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
@@ -84,15 +88,15 @@ def _coerce_kwargs(cls, kwargs: dict) -> dict:
 
 
 class UPIT(nn.Module):
-    """BLSTM -> padded BN -> linear -> sigmoid."""
+    """BLSTM -> padded BN -> linear -> sigmoid, from ``cfg.input_dim`` to
+    ``cfg.out_dim`` features a frame (models/rsh.py's model too)."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg):
         super().__init__()
         self.cfg = cfg
-        out_dim = 2 * cfg.hidden
         self.blstm = BLSTM(cfg.input_dim, cfg.hidden, cfg.num_layers)
-        self.bn = BatchNorm(out_dim)
-        self.lin = nn.Linear(out_dim, cfg.feat_dim * cfg.num_spk)
+        self.bn = BatchNorm(2 * cfg.hidden)
+        self.lin = nn.Linear(2 * cfg.hidden, cfg.out_dim)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         """The JAX package's init: BLSTM as torch.nn.LSTM, the head
@@ -105,14 +109,14 @@ class UPIT(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 row_mask: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
-        """x: (B, T, feat_dim) magnitudes; returns masks
-        (B, T, feat_dim * num_spk)."""
+                train: bool = False, return_state: bool = False):
+        """x: (B, T, input_dim); returns masks (B, T, out_dim), and with
+        ``return_state`` also the BLSTM's final (h_n, c_n)."""
         dt = self.cfg.torch_dtype
-        y, _ = self.blstm(x, lengths, h0, c0, compute_dtype=dt)
+        y, state = self.blstm(x, lengths, h0, c0, compute_dtype=dt)
         y = self.bn(y, row_mask, train)
-        y = head_dot(y, self.lin.weight.t(), dt) + self.lin.bias
-        return torch.sigmoid(y)
+        y = torch.sigmoid(head_dot(y, self.lin.weight.t(), dt) + self.lin.bias)
+        return (y, state) if return_state else y
 
 
 def initial_state(cfg: Config, batch: int, generator: torch.Generator,

@@ -6,7 +6,10 @@ ported; they give the same arrays):
 
 - utterances are shuffled per epoch from ``seed * 100003 + epoch`` and
   grouped into fixed-size batches, optionally sorted by length first, in
-  the same order as the JAX package, so both see the same batches;
+  the same order as the JAX package, so both see the same batches; for RSH
+  the batches are also grouped by speaker count (one S per batch), or, in
+  the reference's mixed batching, each batch is split into speaker-count
+  sub-batches (``collate_mixed_batch``);
 - every batch is padded: time up to a multiple of ``time_pad_multiple`` and
   rows up to the batch size with dummy rows (``row_mask`` 0);
 - a collate thread loads and pads batches ahead of the consumer, and a
@@ -95,32 +98,63 @@ class BatchPlan:
     batch_size: int = 100
     time_pad_multiple: int = 128
     bucket_by_length: bool = False
+    group_by_num_spk: bool = False  # RSH: one speaker count per batch
     seed: int = 0
 
 
 def plan_batches(dataset, plan: BatchPlan, epoch: int,
                  lengths: np.ndarray | None = None,
+                 num_spks: np.ndarray | None = None,
                  shuffle: bool = True) -> list[list[int]]:
-    """The epoch's batches as lists of dataset indices."""
+    """The epoch's batches as lists of dataset indices; with
+    ``plan.group_by_num_spk`` and ``num_spks``, each batch holds utterances
+    of one speaker count, the groups in order of first appearance."""
     n = len(dataset)
     rng = np.random.default_rng(plan.seed * 100003 + epoch)
     order = rng.permutation(n) if shuffle else np.arange(n)
-    idxs = [int(i) for i in order]
-    if plan.bucket_by_length and lengths is not None:
-        idxs = sorted(idxs, key=lambda i: int(lengths[i]))
-    batches = [idxs[s: s + plan.batch_size] for s in range(0, len(idxs), plan.batch_size)]
+    groups: dict[int, list[int]] = {}
+    for i in order:
+        key = int(num_spks[i]) if plan.group_by_num_spk and num_spks is not None else 0
+        groups.setdefault(key, []).append(int(i))
+    batches = []
+    for idxs in groups.values():
+        if plan.bucket_by_length and lengths is not None:
+            idxs = sorted(idxs, key=lambda i: int(lengths[i]))
+        batches += [idxs[s: s + plan.batch_size] for s in range(0, len(idxs), plan.batch_size)]
     if shuffle and plan.bucket_by_length:
         rng.shuffle(batches)
     return batches
 
 
-def make_device_batch(samples: list[dict], plan: BatchPlan) -> dict:
+def _pow2_ceil(n: int, cap: int) -> int:
+    return min(1 << max(n - 1, 0).bit_length(), cap)
+
+
+def collate_mixed_batch(dataset: FeatureDataset, idxs: list[int], plan: BatchPlan,
+                        num_spks: np.ndarray | None) -> list[dict]:
+    """The reference's mixed batch: one shuffled batch split into
+    speaker-count sub-batches, in ascending count. Each sub-batch is padded
+    on its own: rows to the next power of two (at most the batch size), time
+    to time_pad_multiple. The trainer accumulates the sub-batches' gradients
+    and takes one optimizer step."""
+    samples = {i: dataset.load(i) for i in idxs}
+    groups: dict[int, list[int]] = {}
+    for i in idxs:
+        s = int(num_spks[i]) if num_spks is not None else samples[i]["sources"].shape[0]
+        groups.setdefault(s, []).append(i)
+    return [make_device_batch([samples[i] for i in groups[s]], plan,
+                              pad_rows_to=_pow2_ceil(len(groups[s]), plan.batch_size))
+            for s in sorted(groups)]
+
+
+def make_device_batch(samples: list[dict], plan: BatchPlan,
+                      pad_rows_to: int | None = None) -> dict:
     """Collate loaded samples into padded numpy arrays: {'mix': (B, T, F),
     'lengths': (B,) int32, 'row_mask': (B,) float32, 'names'}, plus
     'sources' (B, S, T, F) when the samples have sources (training
-    features); B is the plan's batch size and T the longest length rounded
-    up to time_pad_multiple."""
-    B = plan.batch_size
+    features); B is ``pad_rows_to`` (default the plan's batch size) and T
+    the longest length rounded up to time_pad_multiple."""
+    B = pad_rows_to or plan.batch_size
     if len(samples) > B:
         raise ValueError(f"{len(samples)} samples for a batch of {B}")
     F = samples[0]["mix"].shape[1]
@@ -194,16 +228,17 @@ def _default_collate(dataset: FeatureDataset, plan: BatchPlan):
 
 
 def iter_batches(dataset, plan: BatchPlan, epoch: int, shuffle: bool = True,
-                 collate_fn=None, transfer_fn=None):
+                 collate_fn=None, transfer_fn=None, num_spks=None):
     """Yield one epoch's collated batches (``collate_fn(idxs)``, by default
     npz features padded by ``make_device_batch``), loaded and handed to
     ``transfer_fn`` in background threads."""
     batches = plan_batches(dataset, plan, epoch, lengths=dataset.num_frames,
-                           shuffle=shuffle)
+                           num_spks=num_spks, shuffle=shuffle)
     yield from _pipeline(batches, collate_fn or _default_collate(dataset, plan), transfer_fn)
 
 
-def iter_epochs(dataset, plan: BatchPlan, epochs, collate_fn=None, transfer_fn=None):
+def iter_epochs(dataset, plan: BatchPlan, epochs, collate_fn=None, transfer_fn=None,
+                num_spks=None):
     """An iterator of ``(epoch, batches)`` for each of ``epochs``,
     ``batches`` iterating over that epoch's shuffled batches in
     ``plan_batches`` order. One loader spans all the epochs (each epoch's
@@ -219,7 +254,8 @@ def iter_epochs(dataset, plan: BatchPlan, epochs, collate_fn=None, transfer_fn=N
 
     def items():
         for e in epochs:
-            yield from plan_batches(dataset, plan, e, lengths=dataset.num_frames)
+            yield from plan_batches(dataset, plan, e, lengths=dataset.num_frames,
+                                    num_spks=num_spks)
             yield _EPOCH_END
 
     stream = _pipeline(items(), collate_fn or _default_collate(dataset, plan), transfer_fn)

@@ -1,9 +1,14 @@
 """The training loop: the reference's recipe, step by step on the card.
 
 The counterpart of speech_separation_tpu/train/loop.py, for every ported
-arch. Per batch: forward (uPIT's recurrence, or SepFormer's attention with
-``fused_attention=1``, through the hand-written training kernels on CUDA),
-PIT loss / norm, backward, global-norm clip at 0.25, Adam(1e-3). Input is
+arch. Per batch: forward (the LSTM recurrences of uPIT, RSH and DPRNN, or
+SepFormer's attention with ``fused_attention=1``, through the hand-written
+training kernels on CUDA), loss / norm, backward, global-norm clip at 0.25,
+Adam(1e-3). RSH's batches hold one speaker count each; with
+``reference_batching`` each shuffled batch is split into speaker-count
+sub-batches instead, every sub-batch backpropagates its unnormalised total,
+and the summed gradient, divided once by the batch's summed norm, takes one
+clip and one Adam step (the reference's mixed batches). Input is
 npz features (``feats_train.scp``) or, with ``on_device_features``, the
 waveforms of ``wav.scp`` (train/wav_data.py), which a time-domain arch
 requires; the card turns them into the arch's batch. Kept from the reference
@@ -26,8 +31,7 @@ while the model is built and checkpointed, and each later epoch's while the
 previous epoch ends.
 
 Not ported yet (ROADMAP.md): plots, the profiler, the packed feature cache,
-the hang watchdog, RSH's reference batching and data parallelism over
-several cards.
+the hang watchdog and data parallelism over several cards.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from ..eval.infer import resolve_device
@@ -45,7 +50,7 @@ from ..models.registry import get_arch
 from ..utils.weights import fold_lstm_biases
 from .checkpoint import (final_model_path, intermediate_model_path, load_checkpoint,
                          save_checkpoint)
-from .data import BatchPlan, FeatureDataset, iter_batches, iter_epochs
+from .data import BatchPlan, FeatureDataset, collate_mixed_batch, iter_batches, iter_epochs
 from .wav_data import (STFT, WavDataset, audio_to_feature_batch, audio_to_wave_batch,
                        collate_wav_batch)
 
@@ -74,6 +79,9 @@ class TrainLoopConfig:
     # read wav.scp and ship the waveforms; the card makes the arch's batch
     # (the only input of a time-domain arch)
     on_device_features: bool = False
+    # RSH: the reference's mixed batches (speaker-count sub-batches, one
+    # optimizer step per batch) in place of one speaker count per batch
+    reference_batching: bool = False
 
 
 class Optimizer:
@@ -140,6 +148,28 @@ def update_step(arch, model, optimizer: Optimizer, batch: dict,
     loss.backward()
     optimizer.step()
     return loss.detach(), aux["norm"]
+
+
+def accumulate_step(arch, model, optimizer: Optimizer, subs: list[dict],
+                    generator: torch.Generator):
+    """One training step over a mixed batch's speaker-count sub-batches:
+    each backpropagates its unnormalised total (BN's running statistics
+    moving sub-batch by sub-batch), the summed gradient is divided once by
+    the summed norm, then one clip and one Adam update. Returns (loss,
+    norm) as device scalars, loss = summed total / summed norm."""
+    optimizer.zero_grad()
+    total = norm = 0.0
+    for sb in subs:
+        _, aux = arch.loss_fn(model, sb, generator, True)
+        aux["total"].backward()
+        total = total + aux["total"].detach()
+        norm = norm + aux["norm"]
+    with torch.no_grad():
+        for p in optimizer.params:
+            if p.grad is not None:
+                p.grad.div_(norm)
+    optimizer.step()
+    return total / norm, norm
 
 
 def to_device(batch: dict, dev: torch.device, copy_stream=None,
@@ -322,6 +352,11 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
             f"{arch.NAME} is a time-domain architecture: it trains on "
             "waveforms, not spectral feature files. Run with "
             "--on-device-features (wav.scp input; no extraction stage).")
+    rsh = arch.NAME == "RSH"
+    mixed = rsh and loop_cfg.reference_batching
+    if mixed and loop_cfg.on_device_features:
+        raise ValueError("reference_batching needs feature-file input (the mixed-batch "
+                         "split is a collation rule)")
     meta = {"arch": arch.NAME,
             "model_kwargs": {k: str(v) for k, v in (model_kwargs or {}).items()}}
     for k, v in (model_kwargs or {}).items():
@@ -336,7 +371,8 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
 
     plan = BatchPlan(batch_size=loop_cfg.batch_size,
                      time_pad_multiple=loop_cfg.time_pad_multiple,
-                     bucket_by_length=loop_cfg.bucket_by_length, seed=loop_cfg.seed)
+                     bucket_by_length=loop_cfg.bucket_by_length,
+                     group_by_num_spk=rsh and not mixed, seed=loop_cfg.seed)
     if loop_cfg.on_device_features:
         dataset = WavDataset(data_dir)
         cv_dataset = WavDataset(cv_data_dir) if cv_data_dir else None
@@ -355,14 +391,34 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
             return batch
 
         def collate_for(ds):
+            if mixed:
+                return lambda idxs: collate_mixed_batch(ds, idxs, plan, _spk_counts(ds))
             return None                     # the loader's npz collation
+
+    def _spk_counts(ds):
+        """Each utterance's speaker count, for RSH's grouping (None for the
+        other archs): utt2num_spk, or the sources in the npz files."""
+        if not rsh or ds is None:
+            return None
+        if ds.num_spks is None:
+            ds.num_spks = np.asarray([ds.load(i)["sources"].shape[0] for i in range(len(ds))])
+        return ds.num_spks
 
     # the loader starts now, so epoch 1's first batches collate and copy
     # while the model is built, moved and checkpointed
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-    copy = functools.partial(to_device, dev=dev, copy_stream=copy_stream, keys=keys)
+    copy_one = functools.partial(to_device, dev=dev, copy_stream=copy_stream, keys=keys)
+
+    def copy(batch):
+        if isinstance(batch, list):         # a mixed batch's sub-batches
+            subs = [copy_one(sb) for sb in batch]
+            return {"subs": subs, "n_real": sum(sb["n_real"] for sb in subs),
+                    "names": [n for sb in subs for n in sb["names"]]}
+        return copy_one(batch)
+
     epochs = iter_epochs(dataset, plan, range(loop_cfg.start_epoch, loop_cfg.num_epochs),
-                         collate_fn=collate_for(dataset), transfer_fn=copy)
+                         collate_fn=collate_for(dataset), transfer_fn=copy,
+                         num_spks=_spk_counts(dataset))
 
     model = arch.Model(model_cfg)
     model.reset_parameters(torch.Generator().manual_seed(loop_cfg.seed))
@@ -408,8 +464,13 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
             for batch in batches:
                 n_steps += 1
                 t0 = time.perf_counter()
-                loss, norm = update_step(arch, model, optimizer,
-                                         prepare(_wait_for_copy(batch)), generator)
+                if "subs" in batch:
+                    loss, norm = accumulate_step(
+                        arch, model, optimizer,
+                        [prepare(_wait_for_copy(sb)) for sb in batch["subs"]], generator)
+                else:
+                    loss, norm = update_step(arch, model, optimizer,
+                                             prepare(_wait_for_copy(batch)), generator)
                 loss, norm = float(loss), float(norm)
                 steps.append(((time.perf_counter() - t0) * 1e3, batch["n_real"]))
                 epoch_loss += loss * norm
@@ -426,11 +487,13 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
                 cv_loss_sum, cv_norm_sum = 0.0, 0.0
                 for batch in iter_batches(cv_dataset, plan, 0, shuffle=False,
                                           collate_fn=collate_for(cv_dataset),
-                                          transfer_fn=copy):
-                    loss, norm = eval_step(arch, model, prepare(_wait_for_copy(batch)),
-                                           generator)
-                    cv_loss_sum += float(loss) * float(norm)
-                    cv_norm_sum += float(norm)
+                                          transfer_fn=copy,
+                                          num_spks=_spk_counts(cv_dataset)):
+                    for sb in batch.get("subs", [batch]):
+                        loss, norm = eval_step(arch, model, prepare(_wait_for_copy(sb)),
+                                               generator)
+                        cv_loss_sum += float(loss) * float(norm)
+                        cv_norm_sum += float(norm)
                 cv_avg = cv_loss_sum / cv_norm_sum
                 log(f"For epoch: {epoch + 1:03d} cv set loss is: {cv_avg}")
                 cv_lossF.write(f"{epoch + 1:03d} {cv_avg}\n")

@@ -1,6 +1,6 @@
 """Weights across the two packages: shape inference on reference state
-dicts, and the JAX parameter pytrees (uPIT/RSH, SepFormer) as state dicts of
-the port.
+dicts, and the JAX parameter pytrees (uPIT/RSH, SepFormer, DPRNN) as state
+dicts of the port.
 
 The layout rule is the one of speech_separation_tpu/utils/import_torch.py
 (a copy, not an import):
@@ -57,29 +57,45 @@ def infer_model_info(sd: dict) -> dict:
                      f"lin_out={lin_out}")
 
 
-def state_dict_from_jax(params_np, state_np) -> dict[str, torch.Tensor]:
-    """The JAX package's uPIT/RSH (params, state) pytree, as numpy arrays,
-    turned into the port's state dict of float32 tensors."""
-    blstm = params_np["blstm"]
-    if isinstance(blstm, dict):  # msgpack checkpoint layout: keys "0".."N-1"
-        blstm = [blstm[k] for k in sorted(blstm, key=int)]
-    f32 = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
-    tT = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).T))
+def _listed(node):
+    """A pytree list, or its msgpack-checkpoint form (a dict keyed "0".."N-1")."""
+    return [node[k] for k in sorted(node, key=int)] if isinstance(node, dict) else node
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _f32_t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).T))
+
+
+def _blstm_state_dict(layers, prefix: str) -> dict[str, torch.Tensor]:
+    """A JAX BLSTM's layers ({'fwd', 'bwd'} of w_ih, w_hh, b each) under
+    torch.nn.LSTM's names, the summed bias in bias_ih and bias_hh zero."""
     sd = {}
-    for li, directions in enumerate(blstm):
+    for li, directions in enumerate(_listed(layers)):
         for direction, sfx in (("fwd", ""), ("bwd", "_reverse")):
             d = directions[direction]
-            sd[f"blstm.weight_ih_l{li}{sfx}"] = tT(d["w_ih"])
-            sd[f"blstm.weight_hh_l{li}{sfx}"] = tT(d["w_hh"])
-            sd[f"blstm.bias_ih_l{li}{sfx}"] = f32(d["b"])
-            sd[f"blstm.bias_hh_l{li}{sfx}"] = torch.zeros_like(f32(d["b"]))
-    sd["bn.weight"] = f32(params_np["bn"]["gamma"])
-    sd["bn.bias"] = f32(params_np["bn"]["beta"])
-    sd["bn.running_mean"] = f32(state_np["bn"]["mean"])
-    sd["bn.running_var"] = f32(state_np["bn"]["var"])
+            sd[f"{prefix}weight_ih_l{li}{sfx}"] = _f32_t(d["w_ih"])
+            sd[f"{prefix}weight_hh_l{li}{sfx}"] = _f32_t(d["w_hh"])
+            sd[f"{prefix}bias_ih_l{li}{sfx}"] = _f32(d["b"])
+            sd[f"{prefix}bias_hh_l{li}{sfx}"] = torch.zeros_like(_f32(d["b"]))
+    return sd
+
+
+def state_dict_from_jax(params_np, state_np) -> dict[str, torch.Tensor]:
+    """The JAX package's uPIT or RSH (params, state) pytree, as numpy arrays,
+    turned into the port's state dict of float32 tensors (RSH's is uPIT's
+    layout with a 2F input and an F head)."""
+    sd = _blstm_state_dict(params_np["blstm"], "blstm.")
+    sd["bn.weight"] = _f32(params_np["bn"]["gamma"])
+    sd["bn.bias"] = _f32(params_np["bn"]["beta"])
+    sd["bn.running_mean"] = _f32(state_np["bn"]["mean"])
+    sd["bn.running_var"] = _f32(state_np["bn"]["var"])
     sd["bn.num_batches_tracked"] = torch.tensor(1, dtype=torch.long)
-    sd["lin.weight"] = tT(params_np["lin"]["w"])
-    sd["lin.bias"] = f32(params_np["lin"]["b"])
+    sd["lin.weight"] = _f32_t(params_np["lin"]["w"])
+    sd["lin.bias"] = _f32(params_np["lin"]["b"])
     return sd
 
 
@@ -100,9 +116,24 @@ def sepformer_state_dict_from_jax(params_np) -> dict[str, torch.Tensor]:
             for i, v in enumerate(node):
                 walk(f"{prefix}.{i}", v)
         else:
-            sd[prefix] = torch.from_numpy(np.array(node, dtype=np.float32))
+            sd[prefix] = _f32(node)
 
     walk("", params_np)
+    return sd
+
+
+def dprnn_state_dict_from_jax(params_np) -> dict[str, torch.Tensor]:
+    """The JAX package's DPRNN params pytree, as numpy arrays, turned into
+    the port's state dict of float32 tensors: every leaf by its pytree path,
+    as SepFormer's, except each block's ``intra_rnn`` and ``inter_rnn``,
+    which go under torch.nn.LSTM's names."""
+    blocks = _listed(params_np["blocks"])
+    sd = sepformer_state_dict_from_jax(
+        {k: v for k, v in params_np.items() if k != "blocks"}
+        | {"blocks": [{k: v for k, v in b.items() if not k.endswith("_rnn")} for b in blocks]})
+    for i, b in enumerate(blocks):
+        for path in ("intra_rnn", "inter_rnn"):
+            sd.update(_blstm_state_dict(b[path], f"blocks.{i}.{path}."))
     return sd
 
 

@@ -17,8 +17,8 @@ Tolerances:
 - bss_eval_sources, si_sdr: within 1e-9 dB of the JAX scorer; the
   golden vectors within tests/test_bss_eval_golden.py's own 1e-3 dB;
 - evaluate_sources on one wav dir: every result file byte-identical;
-- eval-masks refuses RSH (not ported) and a time-domain arch, writing
-  nothing.
+- eval-masks refuses RSH for a uPIT model's weights and a time-domain
+  arch, writing nothing.
 """
 
 import os
@@ -172,11 +172,13 @@ def test_masks_do_not_depend_on_the_batch(chain, tmp_path):
 
 
 def test_masks_refuse_rsh_and_time_domain_archs(chain, tmp_path):
-    """RSH is not ported yet; a time-domain arch has no masks to write (as
+    """RSH named for a uPIT model's weights does not fit them (the arch is
+    ported since; its masks are held against the JAX package in
+    tests/test_torch_rsh.py); a time-domain arch has no masks to write (as
     the JAX package's generate_masks says)."""
     from speech_separation_tpu_torch.models import sepformer
     from speech_separation_tpu_torch.train.checkpoint import save_checkpoint as save_port
-    with pytest.raises(NotImplementedError, match="RSH"):
+    with pytest.raises(ValueError, match="does not fit RSH"):
         generate_masks(chain["mdl"], chain["test_dir"], str(tmp_path / "rsh"),
                        arch_name="RSH", device="cpu")
     kw = {"n_filters": "8", "channels": "8", "heads": "2", "d_ff": "8", "chunk": "4",

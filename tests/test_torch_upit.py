@@ -161,9 +161,13 @@ def test_random_hidden_is_seeded_normal():
 
 
 def test_registry_knows_upit_only():
+    """uPIT resolves by any case; an arch not ported yet (TCN) raises,
+    pointing at ROADMAP.md (RSH and DPRNN resolve since their slice)."""
+    from speech_separation_tpu_torch.models import dprnn, rsh
     assert get_arch("upit") is tupit
+    assert get_arch("rsh") is rsh and get_arch("DPRNN") is dprnn
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_arch("RSH")
+        get_arch("TCN")
 
 
 def test_config_from_kwargs_coerces_strings():

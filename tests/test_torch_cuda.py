@@ -427,6 +427,42 @@ def test_lstm_bwd_refuses_a_grid_that_cannot_be_resident(cuda):
     assert lstm_seq_bwd.launches == before
 
 
+@pytest.mark.parametrize("T,B", [(100, 2656), (83, 3200)])
+def test_lstm_kernels_pass_length_zero_rows_through(cuda, T, B):
+    """K1, K3 and K4 at DPRNN's BLSTM shapes (H=128, bf16), where chunks that
+    lie wholly in a row's padding give rows of length 0 (and 1): such a row's
+    state passes through every kernel exactly, its gate gradients are zero,
+    and every output is within the tolerances above of the plain versions."""
+    dt, H = torch.bfloat16, 128
+    xw, w, h0, c0, _ = _fwd_args(cuda, dt, T, B, H, T + B)
+    lengths = torch.tensor(([0, 1, T, 0, T // 3] * B)[:B], dtype=torch.int32, device=cuda)
+    zero = lengths == 0
+    args = (xw, w, h0, c0, lengths)
+    ys, h_last, c_last = lstm_seq_infer(*args, suffix_dirs=SFX)
+    for name, a, b in zip(("ys", "h_last", "c_last"), (ys, h_last, c_last),
+                          lstm_seq_infer_plain(*args, suffix_dirs=SFX)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=INFER_TOL[dt],
+                                   err_msg=name)
+    got = lstm_seq_fwd(*args, save_dtype=dt, suffix_dirs=SFX)
+    ref = lstm_seq_fwd_plain(*args, save_dtype=dt, suffix_dirs=SFX)
+    for name, a, b in zip(("ys", "cs", "gates", "h_last", "c_last"), got, ref):
+        _scaled_close(a, b, FWD_TOL[dt], name)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    dh_last = torch.randn(c0.shape, generator=g, device=cuda)
+    dc_last = torch.randn(c0.shape, generator=g, device=cuda)
+    bargs = (w, c0, lengths, ref[1], ref[2],
+             torch.randn(ref[1].shape, generator=g, device=cuda).to(dt), dh_last, dc_last)
+    dxw, dh0, dc0 = lstm_seq_bwd(*bargs, save_dtype=dt, suffix_dirs=SFX)
+    for name, a, b in zip(("dxw", "dh0", "dc0"), (dxw, dh0, dc0),
+                          lstm_seq_bwd_plain(*bargs, save_dtype=dt, suffix_dirs=SFX)):
+        _scaled_close(a, b, 2e-2, name)
+    torch.cuda.synchronize()
+    for a, b in ((h_last, h0), (c_last, c0), (got[3], h0), (got[4], c0), (dh0, dh_last),
+                 (dc0, dc_last)):
+        assert torch.equal(a[:, zero], b[:, zero])
+    assert not dxw[:, :, zero].any()
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_lstm_seq_gradients_match_plain_autograd(cuda, dtype, tol):
     """lstm_seq (K3 forward, K4 backward, dW_hh outside) against autograd

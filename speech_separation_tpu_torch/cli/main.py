@@ -146,7 +146,7 @@ def cmd_score(args):
 
 def _pipeline(args):
     from ..eval.pipeline import SeparationPipeline
-    return SeparationPipeline(args.model,
+    return SeparationPipeline(args.model, arch_name=args.arch,
                               model_kwargs=read_model_config(args.model_config),
                               stft_cfg=_stft_cfg(args), batch_size=args.batch_size,
                               num_spk=args.num_spk or None, device=args.device)
@@ -158,6 +158,7 @@ def _separate_via_server(args):
     # the server's own model/STFT/batch configuration wins; say so instead
     # of silently producing output with other parameters
     ignored = [(f, v) for f, v, d in (
+        ("--arch", args.arch, ""),
         ("--model-config", args.model_config, ""),
         ("--batch-size", args.batch_size, 16),
         ("--fft-dim", args.fft_dim, 512),
@@ -533,6 +534,9 @@ def _add_train(p):
 
 
 def _add_model(p):
+    p.add_argument("--arch", default="",
+                   help="the model's arch (default: from its .state meta, or a bare "
+                        "reference .mdl's weight shapes)")
     p.add_argument("--model-config", default="")
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--num-spk", type=int, default=0)

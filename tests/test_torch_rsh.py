@@ -36,7 +36,7 @@ from speech_separation_tpu.train.checkpoint import save_checkpoint
 from speech_separation_tpu.train.loop import TrainLoopConfig as JaxLoopConfig
 from speech_separation_tpu.train.loop import train as jax_train
 from speech_separation_tpu.utils.import_torch import state_dict_from_params
-from speech_separation_tpu_torch.cli.main import main
+from speech_separation_tpu_torch.cli.main import build_parser, main
 from speech_separation_tpu_torch.dsp.extract import extract_features
 from speech_separation_tpu_torch.eval.infer import generate_masks, load_model
 from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
@@ -451,6 +451,14 @@ def test_run_train_and_run_eval_end_to_end(tmp_path, monkeypatch):
     assert len(os.listdir(os.path.join(fused, "wav", "s3"))) == 2
     with open(os.path.join(fused, "results", "summary.json")) as f:
         assert np.isfinite(json.load(f)["mean"]["SDR"])
+
+    # separate with a count of the call's own; serve takes the same flags
+    main(["separate", os.path.join(exp, "final.mdl"), "sep", "corpus/rtt/mix/rtt0000.wav",
+          "--arch", "RSH", "--num-spk", "3", "--device", "cpu"])
+    assert sorted(os.listdir("sep")) == [f"rtt0000_s{k}.wav" for k in (1, 2, 3)]
+    args = build_parser().parse_args(["serve", "m.mdl", "s.sock", "--arch", "RSH",
+                                      "--num-spk", "3"])
+    assert (args.arch, args.num_spk) == ("RSH", 3)
 
     res = loop.train("data/rtr", "exp/wav", loop.TrainLoopConfig(
         arch="RSH", batch_size=4, num_epochs=2, on_device_features=True),

@@ -78,12 +78,6 @@ def _make_combo(mix: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.cat([mix, atten[:, :, None].expand(B, T, F)], dim=-1)
 
 
-def _pass(model: RSH, combo, batch, state, train: bool):
-    """One extraction pass: (mask (B, T, F), the BLSTM's final (h, c))."""
-    return model(combo, batch["lengths"], batch["row_mask"], *state, train=train,
-                 return_state=True)
-
-
 def loss_fn(model: RSH, batch: dict, generator: torch.Generator, train: bool):
     """S greedy-assignment passes over a batch of one speaker count, S =
     ``sources.shape[1]``: returns (total / norm, aux) with aux ``norm`` (S *
@@ -101,7 +95,8 @@ def loss_fn(model: RSH, batch: dict, generator: torch.Generator, train: bool):
     total = 0.0
     assignments, masks = [], []
     for _ in range(S):
-        mask, state = _pass(model, combo, batch, state, train)
+        mask, state = model(combo, lengths, row_mask, *state, train=train,
+                            return_state=True)
         err = torch.sum(torch.square((mask * mix)[:, None] - sources), dim=(2, 3))
         err = torch.where(used, torch.full_like(err, float("inf")), err)
         # the first of tied values, as jnp.argmin (pad rows tie at 0)
@@ -130,7 +125,8 @@ def infer_masks(model: RSH, batch: dict, generator: torch.Generator,
     state = initial_state(model.cfg, mix.shape[0], generator, mix.device)
     masks = []
     for _ in range(num_spk):
-        mask, state = _pass(model, combo, batch, state, False)
+        mask, state = model(combo, batch["lengths"], batch["row_mask"], *state,
+                            return_state=True)
         masks.append(mask)
         combo = combo - torch.cat([torch.zeros_like(mask), mask], dim=-1)
     return torch.stack(masks, dim=1)

@@ -392,17 +392,14 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
 
         def collate_for(ds):
             if mixed:
-                return lambda idxs: collate_mixed_batch(ds, idxs, plan, _spk_counts(ds))
+                return lambda idxs: collate_mixed_batch(ds, idxs, plan, spk_counts[ds])
             return None                     # the loader's npz collation
 
-    def _spk_counts(ds):
-        """Each utterance's speaker count, for RSH's grouping (None for the
-        other archs): utt2num_spk, or the sources in the npz files."""
-        if not rsh or ds is None:
-            return None
-        if ds.num_spks is None:
-            ds.num_spks = np.asarray([ds.load(i)["sources"].shape[0] for i in range(len(ds))])
-        return ds.num_spks
+    # RSH: each utterance's speaker count, from utt2num_spk or else the
+    # sources in its npz file
+    spk_counts = {ds: ds.num_spks if ds.num_spks is not None else
+                  np.asarray([ds.load(i)["sources"].shape[0] for i in range(len(ds))])
+                  for ds in (dataset, cv_dataset) if rsh and ds is not None}
 
     # the loader starts now, so epoch 1's first batches collate and copy
     # while the model is built, moved and checkpointed
@@ -418,7 +415,7 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
 
     epochs = iter_epochs(dataset, plan, range(loop_cfg.start_epoch, loop_cfg.num_epochs),
                          collate_fn=collate_for(dataset), transfer_fn=copy,
-                         num_spks=_spk_counts(dataset))
+                         num_spks=spk_counts.get(dataset))
 
     model = arch.Model(model_cfg)
     model.reset_parameters(torch.Generator().manual_seed(loop_cfg.seed))
@@ -488,7 +485,7 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
                 for batch in iter_batches(cv_dataset, plan, 0, shuffle=False,
                                           collate_fn=collate_for(cv_dataset),
                                           transfer_fn=copy,
-                                          num_spks=_spk_counts(cv_dataset)):
+                                          num_spks=spk_counts.get(cv_dataset)):
                     for sb in batch.get("subs", [batch]):
                         loss, norm = eval_step(arch, model, prepare(_wait_for_copy(sb)),
                                                generator)

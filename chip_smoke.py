@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and recipe paths (uPIT,
-SepFormer, RSH, DPRNN) on one CUDA card and check them.
+"""Drive the PyTorch port's serving, training, recipe and streaming paths
+(uPIT, SepFormer, RSH, DPRNN, TCN, Conv-TasNet) on one CUDA card and check
+them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -103,10 +104,35 @@ Phases, in order; any failure exits non-zero without the final line:
    1-sample rows, whose chunks lie in padding: length-0 rows of the
    intra-chunk BLSTM), then the three as one ragged batch against the CPU
    by SNR; K1 launches counted (12 a batch);
-18. one JSON line with every kernel and its numbers (with the recipe's
+18. remat: one 2x600 bf16 uPIT step and one RSH step (S=2) at B=100, T=384
+   (phase 5's corpus) with remat=1 against remat=0, same weights, batch and
+   initial state: loss, every gradient and BN's running statistics against
+   the plain step's own rerun noise, both peak memories, and K3's launches
+   (twice as many with remat: the recompute runs the forward again);
+19. TCN at the JAX package's defaults in bf16 (257 -> 256 channels, hidden
+   512, kernel 3, 8 x 4 blocks): train() at B=100 on phase 5's npz corpus
+   (T=384), 10 epochs, the loss falling (ms per step, peak memory); 2 steps
+   of --on-device-features on phase 8's wavs (one K2 launch a step); one
+   step on the card against the CPU, with a sound and a faulty control;
+   three requests of 3, 5.5 and 8 s through
+   SeparationServer (K2 counted, one a batch) and the tracks against the CPU
+   by SNR;
+20. Conv-TasNet at the JAX package's defaults in bf16 (N=256, L=32, stride
+   16, B=128, H=512, 8 x 3 blocks, gLN, relu): train --on-device-features at
+   B=32 on phase 8's 4 s wavs (1999 latent frames), 5 epochs, without
+   remat; one step at B=4 (with the same controls) and three served
+   requests against the CPU;
+21. live streaming: a full-width causal TCN (16-frame chunks) and a
+   full-width causal Conv-TasNet (16 latent frames) each in a StreamingPool
+   of capacity 8: 8 concurrent streams of 3-8 s pushed in uneven blocks, and
+   a 9th opened in the slot of the first to close; in f32 each stream
+   against the offline pipeline on the card and against the same stream
+   alone; ms per chunk and the real-time factor at capacity 8 in bf16; one
+   stream through the server's stream_open/push/close on a Unix socket;
+22. one JSON line with every kernel and its numbers (with the recipe's
    launch counts, each LSTM kernel's numbers at DPRNN's shapes and its
-   launches on each RSH and DPRNN path), then {"ok": true, "device": {...}}
-   as the last line.
+   launches on each RSH, DPRNN and remat path, K2's on the TCN paths), then
+   {"ok": true, "device": {...}} as the last line.
 
 ``python3 chip_smoke.py --profile`` traces full-width SepFormer training
 steps with torch.profiler and prints where their time goes.
@@ -114,6 +140,7 @@ steps with torch.profiler and prints where their time goes.
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import shutil
@@ -894,17 +921,19 @@ def write_corpus(root: str, n: int, rng, prefix: str) -> tuple[str, np.ndarray]:
     return root, first
 
 
-def check_trained(fails: Failures, res: dict, exp: str) -> list:
-    """Checks on a 5-epoch train() run: epoch losses finite and falling, one
-    CV loss at epoch 5, the loss files and checkpoints written. Returns the
-    epoch losses."""
+def check_trained(fails: Failures, res: dict, exp: str, epochs: int = 5) -> list:
+    """Checks on a train() run of ``epochs`` epochs: epoch losses finite and
+    falling, a CV loss every 5 epochs, the loss files and checkpoints
+    written. Returns the epoch losses."""
     losses = [loss for _, loss in res["epoch_losses"]]
-    fails.check(len(losses) == 5 and all(np.isfinite(losses)) and losses[-1] < losses[0],
+    fails.check(len(losses) == epochs and all(np.isfinite(losses)) and losses[-1] < losses[0],
                 f"epoch losses finite and falling: {losses}")
-    fails.check(len(res["cv_losses"]) == 1 and np.isfinite(res["cv_losses"][0][1]),
-                f"cv loss at epoch 5: {res['cv_losses']}")
+    cv = res["cv_losses"]
+    fails.check([e for e, _ in cv] == list(range(5, epochs + 1, 5))
+                and all(np.isfinite(loss) for _, loss in cv), f"cv loss every 5 epochs: {cv}")
     for rel in ("train_stats/train_loss.txt", "train_stats/cv_loss.txt",
-                "intermediate_models/init.mdl", "intermediate_models/005.mdl", "final.mdl"):
+                "intermediate_models/init.mdl", "final.mdl",
+                *(f"intermediate_models/{e:03d}.mdl" for e in range(5, epochs + 1, 5))):
         fails.check(os.path.isfile(os.path.join(exp, rel)), f"{rel} written")
     return losses
 
@@ -2116,6 +2145,551 @@ def serve_dprnn_phase(fails: Failures, counters) -> dict:
             "wall_ms": wall_ms, "snr_db": snrs}
 
 
+# ------------------------------------------------------------------ remat
+
+# remat against no remat on the card (phase 18): the same step with the
+# forward recomputed in the backward, on the same weights, batch and initial
+# state. Only the order of a few sums may differ (the scatter-add behind the
+# permutation gather's backward runs on atomics), so each is held to the
+# step's own rerun noise, the plain step run twice, with a floor of 1e-6 rel
+# L2 (a few f32 roundings, 6e-8 each, of a reordered sum).
+REMAT_FLOOR = 1e-6
+
+
+def remat_phase(fails: Failures, counters, train_dir: str) -> dict:
+    """Phase 18: a 2x600 bf16 uPIT step and an RSH step (S=2) at B=100,
+    T=384 with remat=1 against remat=0: loss, every gradient, BN's running
+    statistics, each step's peak memory above the resident model and batch,
+    and the training kernels' launches."""
+    import copy
+
+    from speech_separation_tpu_torch.models import rsh, upit
+    from speech_separation_tpu_torch.train.data import (BatchPlan, FeatureDataset,
+                                                        make_device_batch)
+    from speech_separation_tpu_torch.utils.weights import fold_lstm_biases
+
+    ds = FeatureDataset(train_dir)
+    batch = make_device_batch([ds.load(i) for i in range(100)],
+                              BatchPlan(batch_size=100, time_pad_multiple=128))
+    b = {k: torch.from_numpy(batch[k]).cuda() for k in ("mix", "sources", "lengths",
+                                                           "row_mask")}
+    fails.check(tuple(b["mix"].shape[:2]) == (100, 384), f"remat batch {tuple(b['mix'].shape)}")
+    out = {}
+    for arch, mod in (("uPIT", upit), ("RSH", rsh)):
+        base = mod.Model(mod.Config(compute_dtype="bfloat16"))
+        base.reset_parameters(torch.Generator().manual_seed(SEED + 22))
+        fold_lstm_biases(base.blstm)
+        base.cuda()
+
+        def step(remat: bool):
+            m = copy.deepcopy(base)
+            m.cfg = mod.Config(compute_dtype="bfloat16", remat=remat)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            # the same N(0, 1) initial state each time, drawn on the card
+            loss, _ = mod.loss_fn(m, b, torch.Generator(device="cuda").manual_seed(SEED), True)
+            loss.backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            return {"loss": loss.detach(), "ms": ms,
+                    "grads": {n: p.grad for n, p in m.named_parameters() if p.grad is not None},
+                    "bn": torch.cat([m.bn.running_mean, m.bn.running_var]),
+                    "launches": {c.__name__: c.launches for c in counters},
+                    "peak_gb": (torch.cuda.max_memory_allocated() - resident) / 1e9}
+
+        # warm-ups: cuBLAS handles, the allocator, checkpoint's first call
+        # (6.4 s on the card)
+        step(False), step(True)
+        plain, rerun, remat = step(False), step(False), step(True)
+
+        def errs(a, c):
+            g = {n: rel_l2(a["grads"][n], c["grads"][n]) for n in c["grads"]}
+            return {"loss": rel_l2(a["loss"], c["loss"]), "grad": max(g.values()),
+                    "bn": rel_l2(a["bn"], c["bn"]), "n_grads": len(g)}
+
+        noise, err = errs(rerun, plain), errs(remat, plain)
+        for k in ("loss", "grad", "bn"):
+            bound = max(REMAT_FLOOR, 2 * noise[k])
+            fails.check(err[k] <= bound,
+                        f"{arch} remat vs plain {k}: rel err {err[k]:.3e} <= {bound:.1e} "
+                        f"(rerun noise {noise[k]:.3e})")
+        fails.check(err["n_grads"] == len(remat["grads"]) == 16,
+                    f"{arch}: {err['n_grads']} gradients compared")
+        S = 2 if arch == "RSH" else 1
+        for name, plain_n, remat_n in (("lstm_seq_fwd", 2 * S, 4 * S),
+                                       ("lstm_seq_bwd", 2 * S, 2 * S)):
+            fails.check(plain["launches"][name] == plain_n and remat["launches"][name] == remat_n,
+                        f"{arch} {name} launched {plain['launches'][name]} times without remat "
+                        f"(want {plain_n}), {remat['launches'][name]} with (want {remat_n}: "
+                        "the recompute runs the forward again)")
+        print(f"  {arch}: step {plain['ms']:.1f} ms, peak {plain['peak_gb']:.2f} GB above the "
+              f"resident model and batch; remat step {remat['ms']:.1f} ms, peak "
+              f"{remat['peak_gb']:.2f} GB", flush=True)
+        out[arch] = {"plain": {k: plain[k] for k in ("ms", "peak_gb", "launches")},
+                     "remat": {k: remat[k] for k in ("ms", "peak_gb", "launches")},
+                     "rel_err": err, "rerun_noise": noise}
+        del base, plain, rerun, remat
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------ TCN and Conv-TasNet
+
+# The full-width bf16 TCN and Conv-TasNet on the card against the CPU (plain
+# PyTorch, same weights and inputs): a training step's loss and each
+# gradient by relative L2, as the other card-against-CPU steps hold them;
+# served tracks by SNR. The trunks store bf16, so a value on the other side
+# of a bf16 rounding boundary moves by one bf16 step (3.9e-3 relative) and
+# the blocks carry it on: 1e-3 for the loss (a mean over every frame), and
+# 30 dB for served tracks (one bf16 step is 48 dB below the signal). The
+# gradient bound, 6e-2, sits between the sound readings and a fault's (an
+# H100, 700 W): card against CPU, the worst gradient 2.5e-2 (TCN
+# blocks.5.prelu1) and 4.3e-2 (Conv-TasNet in_ln.g, a per-channel gain
+# whose gradient sums every frame and cancels); the same weights in f32 on
+# the CPU, 3.0e-2 and 5.7e-2; the first block's depthwise kernel reversed
+# in time, the median gradient 8.2e-2 (TCN) and 2.2 (Conv-TasNet). Each
+# step runs both controls and checks that the fault fails the bound.
+TCN_KW = {"compute_dtype": "bfloat16"}
+CONVTASNET_KW = {"compute_dtype": "bfloat16"}
+CONV_TOL = {"step_loss": 1e-3, "step_grad": 6e-2, "min_snr_db": 30.0}
+
+
+def step_controls(model, cfg_cls, kw: dict) -> list:
+    """The card-against-CPU step's controls, each run on the CPU: the same
+    weights in f32 compute (sound: printed), and the same bf16 step with the
+    first block's depthwise kernel reversed in time, a convolution where the
+    reference cross-correlates (a fault: most gradients must fail the
+    bound)."""
+    f32 = type(model)(cfg_cls.from_kwargs(**{**kw, "compute_dtype": "float32"}))
+    f32.load_state_dict(model.state_dict())
+    fault = type(model)(cfg_cls.from_kwargs(**kw))
+    fault.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        fault.blocks[0].dw.copy_(fault.blocks[0].dw.flip(0))
+    return [("CPU f32", f32, False), ("blocks.0.dw reversed", fault, True)]
+
+
+def card_vs_cpu_step(fails: Failures, what: str, model, controls: list, loss_fn,
+                     make_batch) -> dict:
+    """One training step of ``model`` on the card and on the CPU (plain
+    versions) on the same batch: the loss and every gradient by relative L2.
+    Each control (``step_controls``) is a CPU step read against the card's
+    the same way; in one marked as a fault, most gradients must fail the
+    bound."""
+    import copy
+    runs = [("cuda", model, "cuda"), ("cpu", model, "cpu")]
+    runs += [(label, m, "cpu") for label, m, _ in controls]
+    out = {}
+    for run, src, dev in runs:
+        m = copy.deepcopy(src).to(dev)
+        b = make_batch(dev)
+        t0 = time.monotonic()
+        loss, _ = loss_fn(m, b, None, True)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        print(f"  {what} {run} step: {(time.monotonic() - t0) * 1e3:.0f} ms, loss "
+              f"{loss.item():.6f}", flush=True)
+        out[run] = (loss.detach(), {n: p.grad for n, p in m.named_parameters()
+                                    if p.grad is not None})
+    bound = CONV_TOL["step_grad"]
+
+    def against_card(run):
+        err = {n: rel_l2(g, out[run][1][n]) for n, g in out["cuda"][1].items()}
+        worst = max(err, key=err.get)
+        return {"worst": worst, "worst_err": err[worst],
+                "median_err": float(np.median(list(err.values()))),
+                "over_bound": sum(e > bound for e in err.values()), "n": len(err)}
+
+    loss_err = rel_l2(out["cuda"][0], out["cpu"][0])
+    grads = against_card("cpu")
+    # the last block's residual projection feeds nothing: no gradient
+    n_params = len(list(model.parameters())) - 2
+    fails.check(loss_err <= CONV_TOL["step_loss"],
+                f"{what} step loss card vs CPU: rel err {loss_err:.3e} <= "
+                f"{CONV_TOL['step_loss']}")
+    fails.check(grads["n"] == len(out["cpu"][1]) == n_params and grads["over_bound"] == 0,
+                f"{what} step gradients card vs CPU ({grads['n']} parameters): worst relative "
+                f"L2 {grads['worst']} {grads['worst_err']:.3e} <= {bound} (median "
+                f"{grads['median_err']:.3e})")
+    result = {"loss_rel_err": loss_err, **grads, "controls": {}}
+    for label, _, fault in controls:
+        c = result["controls"][label] = against_card(label)
+        line = (f"{what} control, {label}: worst relative L2 {c['worst']} "
+                f"{c['worst_err']:.3e}, median {c['median_err']:.3e}; {c['over_bound']} of "
+                f"{c['n']} gradients over {bound}")
+        if fault:
+            fails.check(c["over_bound"] > c["n"] // 2, line)
+        else:
+            print("  " + line, flush=True)
+    return result
+
+
+def served_against_cpu(fails: Failures, what: str, pipe, mdl: str, xs: list) -> list:
+    """The three mixtures as one ragged batch on the card against the same
+    pipeline on the CPU, by SNR."""
+    from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    got = pipe.separate(xs)
+    ref = SeparationPipeline(mdl, batch_size=16, seed=SEED, device="cpu").separate(xs)
+    snrs = [snr_db(np.asarray(r), np.asarray(g)) for rs, gs in zip(ref, got)
+            for r, g in zip(rs, gs)]
+    fails.check(min(snrs) >= CONV_TOL["min_snr_db"],
+                f"{what}: 3 s, 5.5 s and 8 s as one batch vs CPU plain versions: SNR min "
+                f"{min(snrs):.1f} dB >= {CONV_TOL['min_snr_db']}")
+    return snrs
+
+
+def write_mixtures(work: str, seed: int) -> list:
+    from speech_separation_tpu_torch.utils.audio import write_wav_int16
+    rng = np.random.default_rng(seed)
+    wavs = []
+    for k, sec in enumerate((3.0, 5.5, 8.0)):
+        path = os.path.join(work, f"mix{k}.wav")
+        write_wav_int16(path, 8000, mixture(int(sec * 8000), rng))
+        wavs.append(path)
+    return wavs
+
+
+def tcn_phase(fails: Failures, stft_counter, train_dir: str, wav_dir: str) -> dict:
+    """Phase 19: the JAX package's default TCN (257 -> 256 channels, hidden
+    512, 8 x 4 blocks) in bf16: train() at B=100 on phase 5's npz corpus
+    (T=384), 10 epochs; 2 steps of train --on-device-features on phase 8's
+    wavs (K2 a step); one step card against CPU; three served requests."""
+    from speech_separation_tpu_torch.dsp.stft import istft_output_length, num_frames
+    from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    from speech_separation_tpu_torch.models import tcn
+    from speech_separation_tpu_torch.train.checkpoint import save_checkpoint
+    from speech_separation_tpu_torch.train.data import (BatchPlan, FeatureDataset,
+                                                        make_device_batch)
+    from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
+    from speech_separation_tpu_torch.utils.audio import load_wav
+
+    work = os.path.join(REPO, "build", "chip_smoke_tcn")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.cuda.empty_cache()
+    n_params = sum(p.numel() for p in tcn.TCN(tcn.Config()).parameters())
+    exp = os.path.join(work, "exp")
+    torch.cuda.reset_peak_memory_stats()
+    res = train(train_dir, exp, TrainLoopConfig(arch="TCN", batch_size=100, num_epochs=10,
+                                                seed=SEED),
+                cv_data_dir=os.path.join(os.path.dirname(train_dir), "cv"),
+                model_kwargs=TCN_KW, device="cuda", log=lambda m: print("  " + m, flush=True))
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # Adam at the reference's 1e-3 from a random 13M-parameter init: the
+    # epoch losses rise over epochs 2-4 and are back at epoch 1's by epoch 5
+    # (3.77, 4.08, 4.59, 4.39, 3.81 on the card), so 10 epochs
+    losses = check_trained(fails, res, exp, epochs=10)
+    steps = res["steps"]
+    full = [m for m, n in steps[1:] if n == 100]
+    fails.check(len(steps) == 20 and len(full) == 9, f"{len(steps)} training steps")
+    ms_per_step = float(np.mean(full))
+    print(f"  {n_params} parameters; full-batch steps after the first: {ms_per_step:.2f} "
+          f"ms/step (min {min(full):.2f}, max {max(full):.2f}); first step "
+          f"{steps[0][0]:.1f} ms; peak memory {peak_gb:.2f} GB; epochs (wall s, steps s): "
+          f"{[(round(w, 3), round(st, 3)) for _, w, st in res['epoch_times']]}", flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+    # the waveform-direct input: K2 makes each batch's features on the card
+    stft_counter.launches = 0
+    wres = train(wav_dir, os.path.join(work, "exp_wav"),
+                 TrainLoopConfig(arch="TCN", batch_size=32, num_epochs=1, seed=SEED,
+                                 on_device_features=True),
+                 model_kwargs=TCN_KW, device="cuda", log=quiet)
+    torch.cuda.synchronize()
+    train_k2 = stft_counter.launches
+    wloss = wres["epoch_losses"][0][1]
+    fails.check(len(wres["steps"]) == 2 and np.isfinite(wloss) and train_k2 == 2,
+                f"TCN --on-device-features: {len(wres['steps'])} steps, loss {wloss:.4f}, "
+                f"K2 launched {train_k2} times (one a step)")
+    del wres
+
+    ds = FeatureDataset(train_dir)
+    fbatch = make_device_batch([ds.load(i) for i in range(8)],
+                               BatchPlan(batch_size=8, time_pad_multiple=128))
+    model = tcn.TCN(tcn.Config.from_kwargs(**TCN_KW), torch.Generator().manual_seed(SEED + 23))
+    step = card_vs_cpu_step(
+        fails, "TCN", model, step_controls(model, tcn.Config, TCN_KW), tcn.loss_fn,
+        lambda dev: {k: torch.from_numpy(fbatch[k]).to(dev)
+                     for k in ("mix", "sources", "lengths", "row_mask")})
+
+    mdl = os.path.join(work, "tcn.mdl")
+    save_checkpoint(mdl, model, meta={"arch": "TCN", "model_kwargs": TCN_KW})
+    wavs = write_mixtures(work, SEED + 24)
+    pipe = SeparationPipeline(mdl, batch_size=16, seed=SEED, device="cuda")
+    fails.check(pipe.arch.NAME == "TCN" and pipe.cfg.compute_dtype == "bfloat16",
+                f"the .state meta gives {pipe.arch.NAME} {pipe.cfg}")
+    replies, launches, wall_ms = serve_requests(
+        fails, pipe, work, wavs, ([0], [1], [2]), [stft_counter],
+        lambda n: istft_output_length(num_frames(n, 128), 128))
+    # one K2 launch a served batch: r1 alone, r2 and r3 together or apart
+    fails.check(launches["stft"] in (2, 3),
+                f"stft launched {launches['stft']} times for 3 requests (one a batch)")
+    snrs = served_against_cpu(fails, "TCN", pipe, mdl, [load_wav(w)[0] for w in wavs])
+    return {"params": n_params, "ms_per_step": ms_per_step, "peak_memory_gb": peak_gb,
+            "epoch_losses": losses, "train_k2_launches": train_k2, "step": step,
+            "serve_launches": launches, "wall_ms": wall_ms,
+            "request_ms": {k: v.get("ms") for k, v in replies.items()}, "snr_db": snrs}
+
+
+def convtasnet_phase(fails: Failures, wav_dir: str) -> dict:
+    """Phase 20: the JAX package's default Conv-TasNet (N=256, L=32, stride
+    16, B=128, H=512, 8 x 3 blocks, gLN, relu) in bf16: train
+    --on-device-features at B=32 on phase 8's 4 s wavs (1999 latent
+    frames), 5 epochs; one step card against CPU at B=4; three served
+    requests."""
+    from speech_separation_tpu_torch.dsp.stft import STFTConfig
+    from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    from speech_separation_tpu_torch.models import convtasnet
+    from speech_separation_tpu_torch.train.checkpoint import save_checkpoint
+    from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
+    from speech_separation_tpu_torch.train.wav_data import (WavDataset, audio_to_wave_batch,
+                                                            collate_wav_batch)
+    from speech_separation_tpu_torch.utils.audio import load_wav
+
+    work = os.path.join(REPO, "build", "chip_smoke_convtasnet")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.cuda.empty_cache()
+    cv_dir = os.path.join(os.path.dirname(os.path.dirname(wav_dir)), "cv", "data")
+    cfg = TrainLoopConfig(arch="ConvTasNet", batch_size=32, num_epochs=5, seed=SEED,
+                          on_device_features=True)
+    exp = os.path.join(work, "exp")
+    torch.cuda.reset_peak_memory_stats()
+    # B=32 fits without remat (the step's peak is printed below)
+    res = train(wav_dir, exp, cfg, cv_data_dir=cv_dir, model_kwargs=CONVTASNET_KW,
+                device="cuda", log=lambda m: print("  " + m, flush=True))
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = check_trained(fails, res, exp)
+    steps = res["steps"]
+    fails.check(len(steps) == 10 and all(n == 32 for _, n in steps),
+                f"{len(steps)} training steps of 32 rows")
+    ms = [m for m, _ in steps[1:]]
+    ms_per_step = float(np.mean(ms))
+    print(f"  remat off; steps after the first: "
+          f"{ms_per_step:.2f} ms/step (min {min(ms):.2f}, max {max(ms):.2f}); first step "
+          f"{steps[0][0]:.1f} ms; peak memory {peak_gb:.2f} GB; epochs (wall s, steps s): "
+          f"{[(round(w, 3), round(st, 3)) for _, w, st in res['epoch_times']]}", flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+    shipped = collate_wav_batch(WavDataset(wav_dir), list(range(4)), 4)
+    model = convtasnet.ConvTasNet(convtasnet.Config.from_kwargs(**CONVTASNET_KW),
+                                  torch.Generator().manual_seed(SEED + 25))
+    step = card_vs_cpu_step(
+        fails, "Conv-TasNet", model,
+        step_controls(model, convtasnet.Config, CONVTASNET_KW), convtasnet.loss_fn,
+        lambda dev: audio_to_wave_batch({k: torch.from_numpy(shipped[k]).to(dev) for k in
+                                         ("audio", "sample_lengths", "row_mask")},
+                                        STFTConfig()))
+
+    mdl = os.path.join(work, "convtasnet.mdl")
+    save_checkpoint(mdl, model, meta={"arch": "ConvTasNet", "model_kwargs": CONVTASNET_KW})
+    wavs = write_mixtures(work, SEED + 26)
+    pipe = SeparationPipeline(mdl, batch_size=16, seed=SEED, device="cuda")
+    fails.check(pipe.arch.NAME == "ConvTasNet" and pipe.domain == "time",
+                f"the .state meta gives {pipe.arch.NAME} {pipe.cfg}")
+    replies, _, wall_ms = serve_requests(fails, pipe, work, wavs, ([0], [1], [2]), [],
+                                         lambda n: n)
+    snrs = served_against_cpu(fails, "Conv-TasNet", pipe, mdl, [load_wav(w)[0] for w in wavs])
+    return {"remat": False, "ms_per_step": ms_per_step, "peak_memory_gb": peak_gb,
+            "epoch_losses": losses, "step": step, "wall_ms": wall_ms,
+            "request_ms": {k: v.get("ms") for k, v in replies.items()}, "snr_db": snrs}
+
+
+# --------------------------------------------------------------- streaming
+
+# Phase 21 holds, in f32 compute, each stream's output against the offline
+# pipeline on the card at the JAX package's 2e-5 (tests/test_streaming.py,
+# tests/test_streaming_time.py) and each pooled stream against the same stream
+# alone at its 2e-6 (TCN) and 1e-6 (Conv-TasNet), all scaled by max(1, max
+# |reference|): a random full-width model's tracks are not bounded by 1, and
+# an f32 rounding is relative. A served stream adds the pcm16 step, 1/32768.
+STREAM_TOL = {"offline": 2e-5, "pool": {"TCN": 2e-6, "ConvTasNet": 1e-6},
+              "pcm16": 1.0 / 32768}
+STREAM_CHUNK = 16              # frames a chunk: STFT frames (TCN), latent frames (Conv-TasNet)
+
+
+def max_err(got, ref) -> float:
+    """max |got - ref| / max(1, max |ref|) over S tracks."""
+    ref = np.stack(ref)
+    return float(np.abs(np.stack(got) - ref).max() / max(1.0, float(np.abs(ref).max())))
+
+
+def drive_pool(pool, xs: list, rng) -> tuple[dict, list]:
+    """Streams xs[:-1] open at once (at most the pool's capacity) and take
+    uneven blocks of 100-3000 samples a round, the pool stepping until no
+    slot has a full chunk; the first stream to end is closed and xs[-1]
+    opens in its freed slot. Returns ({stream: [S tracks]}, the slot each
+    stream had)."""
+    S = pool.S
+    slot_of = [pool.open() for _ in xs[:-1]] + [None]
+    pos = [0] * len(xs)
+    out = {i: [[] for _ in range(S)] for i in range(len(xs))}
+    stream_at = {slot: i for i, slot in enumerate(slot_of[:-1])}
+
+    def take(results):
+        for slot, tracks in results.items():
+            for s in range(S):
+                out[stream_at[slot]][s].append(tracks[s])
+
+    live = set(range(len(xs) - 1))
+    while live:
+        for i in sorted(live):
+            n = int(rng.integers(100, 3000))
+            pool.push(slot_of[i], xs[i][pos[i]: pos[i] + n])
+            pos[i] += n
+        while True:
+            r = pool.step()
+            if not r:
+                break
+            take(r)
+        for i in sorted(live):
+            if pos[i] >= len(xs[i]):
+                take({slot_of[i]: pool.close(slot_of[i])})
+                live.discard(i)
+                if slot_of[-1] is None:             # the late stream takes this slot
+                    slot_of[-1] = pool.open()
+                    stream_at[slot_of[-1]] = len(xs) - 1
+                    live.add(len(xs) - 1)
+    return {i: [np.concatenate(t) for t in o] for i, o in out.items()}, slot_of
+
+
+def stream_phase(fails: Failures, stft_counter) -> dict:
+    """Phase 21: a full-width causal TCN (16-frame chunks, 256 ms) and a
+    full-width causal Conv-TasNet (16 latent frames, 32 ms), each in a
+    StreamingPool of capacity 8: 8 concurrent streams of 3-8 s in uneven
+    blocks and a 9th in the slot the first to end frees, held in f32 against
+    the offline pipeline and against each stream alone; then ms per chunk
+    and the real-time factor at capacity 8 in bf16; then one stream through
+    the server's stream_open/push/close on a Unix socket."""
+    from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    from speech_separation_tpu_torch.eval.serve import SeparationServer, request
+    from speech_separation_tpu_torch.eval.streaming import StreamingPool, StreamingSeparator
+    from speech_separation_tpu_torch.models import convtasnet, tcn
+    from speech_separation_tpu_torch.train.checkpoint import save_checkpoint
+
+    work = os.path.join(REPO, "build", "chip_smoke_stream")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 27)
+    xs = [mixture(int(8000 * sec), rng) for sec in rng.uniform(3.0, 8.0, 9)]
+    out = {}
+    mdls = {}
+    for arch, mod, hop in (("TCN", tcn, 128), ("ConvTasNet", convtasnet, 16)):
+        kw = {"causal": "1"}
+        model = mod.Model(mod.Config.from_kwargs(**kw), torch.Generator().manual_seed(SEED + 28))
+        mdl = mdls[arch] = os.path.join(work, f"{arch}.mdl")
+        save_checkpoint(mdl, model, meta={"arch": arch, "model_kwargs": kw})
+        stft_counter.launches = 0
+        t0 = time.monotonic()
+        pool = StreamingPool(mdl, capacity=8, chunk_frames=STREAM_CHUNK, device="cuda")
+        got, slots = drive_pool(pool, xs, np.random.default_rng(SEED + 29))
+        pool_s = time.monotonic() - t0
+        solo = [_solo(StreamingSeparator(mdl, chunk_frames=STREAM_CHUNK, device="cuda"), x)
+                for x in xs]
+        stream_k2 = stft_counter.launches
+        off = SeparationPipeline(mdl, batch_size=16, device="cuda").separate(xs)
+        fails.check(slots[-1] in slots[:-1],
+                    f"{arch}: the late stream took freed slot {slots[-1]} (slots {slots})")
+        e_off = max(max_err(got[i], off[i]) for i in range(len(xs)))
+        e_solo = max(max_err(got[i], solo[i]) for i in range(len(xs)))
+        lens_ok = all(len(got[i][s]) == len(off[i][s]) == len(solo[i][s])
+                      for i in range(len(xs)) for s in range(2))
+        fails.check(lens_ok and e_off <= STREAM_TOL["offline"],
+                    f"{arch}: 9 pooled streams vs the offline pipeline: max err {e_off:.2e} <= "
+                    f"{STREAM_TOL['offline']} of max(1, max |ref|)")
+        fails.check(e_solo <= STREAM_TOL["pool"][arch],
+                    f"{arch}: pooled streams vs each stream alone: max err {e_solo:.2e} <= "
+                    f"{STREAM_TOL['pool'][arch]} of max(1, max |ref|)")
+        fails.check(stream_k2 == 0, f"{arch} streaming launched K2 {stream_k2} times (its "
+                                    "DFTs are products)")
+
+        # bf16 at capacity 8: every slot busy, steady chunks
+        bpool = StreamingPool(mdl, capacity=8, chunk_frames=STREAM_CHUNK, device="cuda",
+                              model_kwargs={"compute_dtype": "bfloat16"})
+        chunk_samples = STREAM_CHUNK * hop
+        slots8 = [bpool.open() for _ in range(8)]
+        feed = mixture(chunk_samples * 80 + 1024, rng)
+        for s in slots8:
+            bpool.push(s, feed)
+        for _ in range(5):
+            bpool.step()
+        t0 = time.perf_counter()
+        n_steps = 50
+        for _ in range(n_steps):
+            r = bpool.step()
+        ms_chunk = (time.perf_counter() - t0) * 1e3 / n_steps   # step() returns host arrays
+        fails.check(len(r) == 8, f"{arch} bf16: {len(r)} slots advanced a step")
+        rtf = 8 * chunk_samples / 8000 / (ms_chunk / 1e3)
+        print(f"  {arch}: f32 pool run {pool_s:.1f} s; bf16 at capacity 8: {ms_chunk:.2f} ms a "
+              f"chunk of {chunk_samples} samples ({1e3 * chunk_samples / 8000:.0f} ms) a slot: "
+              f"real-time factor {rtf:.1f} (audio s per card s)", flush=True)
+        out[arch] = {"offline_err": e_off, "pool_vs_solo_err": e_solo, "slots": slots,
+                     "bf16_ms_per_chunk": ms_chunk, "real_time_factor": rtf,
+                     "chunk_ms_audio": 1e3 * chunk_samples / 8000}
+        del pool, bpool
+
+    # one live stream through the server on a Unix socket (the TCN pool)
+    sock_dir = tempfile.mkdtemp(prefix="sepstream")
+    sock = os.path.join(sock_dir, "s.sock")
+    server = SeparationServer(SeparationPipeline(mdls["TCN"], batch_size=2, device="cuda"), sock,
+                              stream_pool=StreamingPool(mdls["TCN"], capacity=8,
+                                                        chunk_frames=STREAM_CHUNK,
+                                                        device="cuda"))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    x = (np.round(xs[0] * 32768) / 32768).astype(np.float32)     # pcm16-exact input
+    tracks = [[], []]
+    try:
+        deadline = time.monotonic() + 60
+        while not os.path.exists(sock):
+            if time.monotonic() > deadline:
+                raise RuntimeError("server never bound its socket")
+            time.sleep(0.02)
+        opened = request(sock, {"cmd": "stream_open"})
+        slot = opened.get("slot")
+        replies = [opened]
+        for i in range(0, len(x), 1500):
+            pcm = np.clip(np.rint(x[i: i + 1500] * 32768), -32768, 32767).astype("<i2")
+            replies.append(request(sock, {"cmd": "stream_push", "slot": slot,
+                                          "pcm16": base64.b64encode(pcm.tobytes()).decode()}))
+        replies.append(request(sock, {"cmd": "stream_close", "slot": slot}))
+        for rep in replies[1:]:
+            for s, t in enumerate(rep.get("tracks", [])):
+                tracks[s].append(np.frombuffer(base64.b64decode(t), "<i2") / 32768.0)
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    fails.check(not thread.is_alive() and all(r.get("ok") for r in replies),
+                f"served stream: {len(replies)} replies ok, server stopped")
+    ref = _solo(StreamingSeparator(mdls["TCN"], chunk_frames=STREAM_CHUNK, device="cuda"), x)
+    ref = [np.clip(r, -1.0, 32767 / 32768) for r in ref]
+    got = [np.concatenate(t) if t else np.zeros(0) for t in tracks]
+    ok = all(len(g) == len(r) for g, r in zip(got, ref))
+    e = max_err(got, ref) if ok else float("inf")
+    bound = STREAM_TOL["pool"]["TCN"] + STREAM_TOL["pcm16"]
+    fails.check(ok and e <= bound, f"served stream (TCN) vs the stream alone: max err {e:.2e} "
+                                   f"<= {bound:.2e} of max(1, max |ref|)")
+    out["served_stream_err"] = e
+    return out
+
+
+def _solo(sep, x) -> list:
+    """A whole stream through one StreamingSeparator: [S tracks]."""
+    first, tail = sep.push(x), sep.close()
+    return [np.concatenate([a, b]) for a, b in zip(first, tail)]
+
+
 def _kernel_group(name: str) -> str:
     if "attn_fwd_" in name:                 # attn_fwd_kernel (f32), _rows, _passes (bf16)
         return "K5 forward"
@@ -2327,9 +2901,33 @@ def main() -> int:
     print("== 17. serve (DPRNN, bf16): ragged batches with length-0 chunks", flush=True)
     served_dprnn = serve_dprnn_phase(fails, lstm_counters)
     print(f"  phases 15-17: {time.monotonic() - t15:.1f} s", flush=True)
+
+    print("== 18. remat: uPIT and RSH steps (2x600 bf16, B=100) with and without", flush=True)
+    t18 = time.monotonic()
+    remat = remat_phase(fails, lstm_counters, trained["train_dir"])
+    print(f"  phase 18: {time.monotonic() - t18:.1f} s", flush=True)
+
+    print("== 19. TCN (bf16, 257 -> 256 x 512, 8 x 4 blocks): train, step, serve", flush=True)
+    t19 = time.monotonic()
+    tcn_nums = tcn_phase(fails, stft, trained["train_dir"], trained_sf["train_dir"])
+    print(f"  phase 19: {time.monotonic() - t19:.1f} s", flush=True)
+
+    print("== 20. Conv-TasNet (bf16, N=256, H=512, 8 x 3 blocks, gLN): train (B=32, 4 s), "
+          "step, serve", flush=True)
+    t20 = time.monotonic()
+    convtasnet_nums = convtasnet_phase(fails, trained_sf["train_dir"])
+    print(f"  phase 20: {time.monotonic() - t20:.1f} s", flush=True)
+
+    print("== 21. live streaming: causal TCN and Conv-TasNet pools of 8, then the server",
+          flush=True)
+    t21 = time.monotonic()
+    streaming = stream_phase(fails, stft)
+    print(f"  phase 21: {time.monotonic() - t21:.1f} s", flush=True)
     paths = {"rsh_train": trained_rsh["launches"], "rsh_mixed": trained_rsh["mixed_launches"],
              "rsh_masks": eval_rsh["launches"]["masks"], "rsh_serve": eval_rsh["serve_launches"],
-             "dprnn_train": trained_dprnn["launches"], "dprnn_serve": served_dprnn["launches"]}
+             "dprnn_train": trained_dprnn["launches"], "dprnn_serve": served_dprnn["launches"],
+             **{f"{arch.lower()}_{mode}_step": remat[arch][mode]["launches"]
+                for arch in ("uPIT", "RSH") for mode in ("plain", "remat")}}
 
     def row(name, route, source, replaces, nums, extra):
         lstm_extra = {}
@@ -2351,7 +2949,9 @@ def main() -> int:
             {"unfold_matmul_ms": stft_nums["serve"]["re_im"]["unfold_matmul_ms"],
              "magnitude": stft_nums["serve"]["magnitude"], "plan": stft_nums["serve"]["plan"],
              "shape": stft_nums["serve"]["shape"], "features": stft_nums["features"],
-             "recipe": {k: recipe["kernels"][k] for k in ("stft_re_im", "stft_magnitude")}}),
+             "recipe": {k: recipe["kernels"][k] for k in ("stft_re_im", "stft_magnitude")},
+             "path_launches": {"tcn_serve": tcn_nums["serve_launches"]["stft"],
+                               "tcn_train_on_device_features": tcn_nums["train_k2_launches"]}}),
         row("lstm_seq_fwd", "cuda", "speech_separation_tpu_torch/csrc/lstm_fwd.cu",
             "speech_separation_tpu/ops/lstm_pallas.py:175", lstm_train["fwd"][torch.bfloat16],
             {"dtype": "bfloat16", "float32": lstm_train["fwd"][torch.float32]}),
@@ -2387,6 +2987,10 @@ def main() -> int:
           flush=True)
     print(f"  DPRNN step: {step_dprnn}", flush=True)
     print(f"  DPRNN serve: {served_dprnn}", flush=True)
+    print(f"  remat: {remat}", flush=True)
+    print(f"  TCN: {tcn_nums}", flush=True)
+    print(f"  Conv-TasNet: {convtasnet_nums}", flush=True)
+    print(f"  streaming: {streaming}", flush=True)
     print(f"  total {time.monotonic() - t_start:.1f} s", flush=True)
     if fails:
         print("chip_smoke FAILED:\n  " + "\n  ".join(fails), file=sys.stderr)

@@ -2,7 +2,7 @@
 
 A second package beside the JAX reference. It imports torch, never JAX, and
 nothing of speech_separation_tpu. Its entry points (eval.pipeline,
-eval.serve, train.loop, cli.main) run on a CUDA card unless the caller
+eval.serve, eval.streaming, train.loop, cli.main) run on a CUDA card unless the caller
 passes device="cpu"; the hand-written Hopper kernels live in csrc/ and build with
 nvcc at first use (ops/_build.py).
 """

@@ -9,8 +9,8 @@ subcommands and flags are those of the JAX package's CLI
 ``run-train`` and ``run-eval``. The flags of what is not ported yet are left
 out, so argparse refuses them: ``--device-scoring``, ``--data-parallel``,
 ``--pack-cache``/``--cache-dtype``, ``--hang-watchdog-sec``/
-``--hang-first-timeout-sec``, ``--profile-dir``, ``--train-copy-location``
-and ``--streaming-model`` (ROADMAP.md);
+``--hang-first-timeout-sec``, ``--profile-dir`` and
+``--train-copy-location`` (ROADMAP.md);
 ``--no-plots`` is accepted and plots are not drawn. Every command that runs
 a model or a kernel takes ``--device`` (default ``cuda``; without a card it
 fails; ``cpu`` runs the plain PyTorch versions of the kernels).
@@ -20,11 +20,13 @@ prepare (stage 0), extract (1) and train (2) into ``exp/<arch>_<train-set>``;
 ``run-eval`` does prepare (0), extract (1), masks (2), reconstruct (3) and
 BSS-eval scoring (4) into ``<model-dir>/output_<model>/<set>``, or with
 ``--on-device-features`` separates the wavs in one pass in place of stages
-1-3. The archs are uPIT and RSH (npz features, or ``--on-device-features``;
-RSH's batches hold one speaker count each, or with ``--reference-batching``
-the reference's mixed batches) and SepFormer and DPRNN (waveforms only). An
-RSH model separates each test utterance into as many sources as its
-``utt2num_spk`` says. Models are ``.mdl`` state dicts: ``train`` writes
+1-3. The archs are uPIT, RSH and TCN (npz features, or
+``--on-device-features``; RSH's batches hold one speaker count each, or with
+``--reference-batching`` the reference's mixed batches) and SepFormer, DPRNN
+and Conv-TasNet (waveforms only). An RSH model separates each test utterance
+into as many sources as its ``utt2num_spk`` says. ``serve
+--streaming-model`` adds the live-stream protocol with a causal TCN or
+Conv-TasNet (eval/streaming.py). Models are ``.mdl`` state dicts: ``train`` writes
 them with the arch and model config in the ``.state`` beside each, which the
 evaluation commands read, and ``sepsep export-model`` turns the JAX
 package's uPIT/RSH checkpoints into reference ``.mdl`` files.
@@ -233,7 +235,18 @@ def cmd_serve(args):
     eval/serve.py)."""
     from ..eval.serve import SeparationServer
     pipe = _pipeline(args)
-    server = SeparationServer(pipe, args.socket_path, coalesce=args.coalesce)
+    stream_pool = None
+    if args.streaming_model:
+        from ..eval.streaming import StreamingPool
+        stream_pool = StreamingPool(
+            args.streaming_model, capacity=args.stream_capacity,
+            chunk_frames=args.stream_chunk_frames,
+            model_kwargs=read_model_config(args.streaming_model_config),
+            n_fft=args.fft_dim, hop=args.step_size, device=args.device)
+        print(f"streaming: {args.streaming_model} ({args.stream_capacity} slots, "
+              f"{args.stream_chunk_frames}-frame chunks)", flush=True)
+    server = SeparationServer(pipe, args.socket_path, coalesce=args.coalesce,
+                              stream_pool=stream_pool)
 
     # SIGTERM and Ctrl-C go through the clean shutdown: in-flight requests
     # drain and the socket file is removed
@@ -629,6 +642,16 @@ def build_parser():
     _add_model(p)
     p.add_argument("--coalesce", type=int, default=32,
                    help="max queued requests merged into one device batch")
+    p.add_argument("--streaming-model", default="",
+                   help="causal .mdl (TCN or Conv-TasNet) enabling the live-stream "
+                        "protocol (stream_open/push/close, eval/serve.py)")
+    p.add_argument("--streaming-model-config", default="",
+                   help="key=value config for the streaming model")
+    p.add_argument("--stream-capacity", type=int, default=8,
+                   help="max concurrent live streams (one batched chunk program)")
+    p.add_argument("--stream-chunk-frames", type=int, default=16,
+                   help="chunk size in frames: STFT frames (TCN; latency = chunk + "
+                        "n_fft/2 samples) or encoder frames (Conv-TasNet)")
     p.add_argument("--warmup-sec", default="",
                    help="comma-separated audio lengths (seconds) to run "
                         "once at startup, e.g. '4,8'")

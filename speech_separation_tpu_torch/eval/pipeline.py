@@ -1,14 +1,15 @@
 """Batched separation: waveforms in, separated waveforms out.
 
 The counterpart of speech_separation_tpu/eval/pipeline.py. Per batch the
-device runs, for a spectral arch (uPIT, RSH): STFT of the center-padded rows
-(the hand-written STFT kernel on CUDA), magnitude, masks (BLSTM through the
-hand-written recurrence kernel, eval-mode BN, head, sigmoid; RSH one pass a
-speaker, its count given per call), then the masked iSTFT with per-row frame
-masking; for a time-domain arch (SepFormer, DPRNN): the arch's ``separate``
-on the raw zero-padded samples (SepFormer's attention through the
-hand-written attention kernel, DPRNN's BLSTMs through the recurrence
-kernel), each track trimmed to its input's length.
+device runs, for a spectral arch (uPIT, RSH, TCN): STFT of the center-padded
+rows (the hand-written STFT kernel on CUDA), magnitude, masks (uPIT and RSH:
+BLSTM through the hand-written recurrence kernel, eval-mode BN, head,
+sigmoid, RSH one pass a speaker, its count given per call; TCN: its dilated
+conv stack), then the masked iSTFT with per-row frame masking; for a
+time-domain arch (SepFormer, DPRNN, Conv-TasNet): the arch's ``separate`` on
+the raw zero-padded samples (SepFormer's attention through the hand-written
+attention kernel, DPRNN's BLSTMs through the recurrence kernel), each track
+trimmed to its input's length. Live streams go through eval/streaming.py.
 Audio is bucketed by padded length; the pipeline counts the buckets it has
 run, (frame count or padded sample count, num_spk), which the server
 reports.

@@ -23,8 +23,21 @@ Responses (one JSON line per request, in request order per connection)::
     {"ok": true, "uptime_s": ..., "served": N, "compiled_buckets": K}
     {"ok": false, "error": "..."}
 
-Live streaming (``stream_*`` commands) needs a streaming model, which the
-port does not have yet: those commands answer ``{"ok": false, ...}``.
+Live streaming (when the server is started with a causal TCN or
+Conv-TasNet streaming model, ``serve --streaming-model``): any JSON-capable
+client can run real-time separation over the socket::
+
+    {"cmd": "stream_open"}
+        -> {"ok": true, "slot": k, "sample_rate": 8000, "num_spk": S}
+    {"cmd": "stream_push", "slot": k, "pcm16": "<base64 int16 LE>"}
+        -> {"ok": true, "tracks": ["<base64 pcm16>", ...]}   # newly final
+    {"cmd": "stream_close", "slot": k}
+        -> {"ok": true, "tracks": [...]}                     # the tail
+
+Concurrent streams share one batched chunk program
+(eval/streaming.StreamingPool), behind one lock; what a step emits for slot
+A while serving slot B's push is kept and returned with A's next reply.
+Without a streaming model those commands answer ``{"ok": false, ...}``.
 
 ``num_spk`` is the count of sources to extract: any count for an RSH model
 (one pass each), a fixed-head model's own count otherwise. Requests of
@@ -38,6 +51,7 @@ collide within one request are rejected up front.
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import queue
@@ -101,10 +115,16 @@ class SeparationServer:
     group streams as several batches).
     """
 
-    def __init__(self, pipeline, socket_path: str, coalesce: int = 32):
+    def __init__(self, pipeline, socket_path: str, coalesce: int = 32, stream_pool=None):
         self.pipe = pipeline
         self.socket_path = socket_path
         self.coalesce = coalesce
+        # live streaming (optional): a streaming.StreamingPool, one lock
+        # around every call into it; emissions for other slots than the one
+        # served are parked per slot
+        self._pool = stream_pool
+        self._pool_lock = threading.Lock()
+        self._pool_pending: dict = {}   # slot -> [S lists of arrays]
         self._queue: "queue.Queue[_Pending]" = queue.Queue()
         self._stop = threading.Event()
         self._started = time.monotonic()
@@ -227,8 +247,7 @@ class SeparationServer:
             self.shutdown()
             return {"ok": True}
         if cmd in ("stream_open", "stream_push", "stream_close"):
-            return {"ok": False,
-                    "error": "server started without --streaming-model"}
+            return self._dispatch_stream(cmd, payload)
         if cmd is not None:
             return {"ok": False, "error": f"unknown cmd {cmd!r}"}
 
@@ -254,6 +273,82 @@ class SeparationServer:
         if pending.reply.get("ok"):
             self._latencies.append(time.monotonic() - t0)
         return pending.reply
+
+    # ------------------------------------------------------------- streaming
+
+    @staticmethod
+    def _b64_to_f32(b64: str) -> np.ndarray:
+        pcm = np.frombuffer(base64.b64decode(b64, validate=True), dtype="<i2")
+        return pcm.astype(np.float32) / 32768.0
+
+    @staticmethod
+    def _f32_to_b64(x: np.ndarray) -> str:
+        pcm = np.clip(np.rint(np.asarray(x) * 32768.0), -32768, 32767).astype("<i2")
+        return base64.b64encode(pcm.tobytes()).decode()
+
+    def _park(self, results: dict, keep: int | None) -> None:
+        """Keep step() emissions of every slot except ``keep``."""
+        for slot, tracks in results.items():
+            if slot == keep:
+                continue
+            bufs = self._pool_pending.setdefault(slot, [[] for _ in range(self._pool.S)])
+            for s, t in enumerate(tracks):
+                if len(t):
+                    bufs[s].append(t)
+
+    def _take_pending(self, slot: int, tracks=None) -> list:
+        """The slot's parked samples then ``tracks``, as S pcm16 strings."""
+        bufs = self._pool_pending.pop(slot, None)
+        S = self._pool.S
+        out = [[] for _ in range(S)]
+        if bufs:
+            for s in range(S):
+                out[s].extend(bufs[s])
+        if tracks:
+            for s in range(S):
+                if len(tracks[s]):
+                    out[s].append(tracks[s])
+        cat = [np.concatenate(o) if o else np.zeros(0, np.float32) for o in out]
+        return [self._f32_to_b64(t) for t in cat]
+
+    def _dispatch_stream(self, cmd: str, payload: dict) -> dict:
+        if self._pool is None:
+            return {"ok": False, "error": "server started without --streaming-model"}
+        with self._pool_lock:
+            if cmd == "stream_open":
+                try:
+                    slot = self._pool.open()
+                except RuntimeError as e:
+                    return {"ok": False, "error": str(e)}
+                return {"ok": True, "slot": slot,
+                        "sample_rate": self.pipe.stft_cfg.sample_rate,
+                        "num_spk": self._pool.S}
+            slot = payload.get("slot")
+            if (not isinstance(slot, int) or isinstance(slot, bool)
+                    or not 0 <= slot < self._pool.B or self._pool._io[slot] is None):
+                return {"ok": False, "error": f"slot {slot!r} is not open"}
+            if cmd == "stream_push":
+                b64 = payload.get("pcm16")
+                if not isinstance(b64, str):
+                    return {"ok": False,
+                            "error": "'pcm16' must be a base64 string of "
+                                     "little-endian int16 samples"}
+                try:
+                    samples = self._b64_to_f32(b64)
+                except ValueError as e:       # binascii.Error, odd byte count
+                    return {"ok": False, "error": f"bad pcm16: {e}"}
+                self._pool.push(slot, samples)
+                results = self._pool.step()
+                self._park(results, keep=slot)
+                return {"ok": True, "tracks": self._take_pending(slot, results.get(slot))}
+            # stream_close
+            try:
+                tracks = self._pool.close(slot)
+            except ValueError as e:           # stream too short
+                self._pool._io[slot] = None
+                self._pool_pending.pop(slot, None)
+                return {"ok": False, "error": str(e)}
+            return {"ok": True, "tracks": self._take_pending(slot, tracks)}
 
     # ---------------------------------------------------------------- worker
 

@@ -28,10 +28,9 @@ does not depend on the padding of the batch it rides in. ``remat`` recomputes
 one dual-path block at a time in the backward (torch.utils.checkpoint), as
 the JAX package checkpoints each block.
 
-Also kept here, for models/sepformer.py: ``_dot``, ``_gln_nd``,
-``num_chunks``, ``_segment``, ``_merge``, ``_chunk_lengths``,
-``_separate_core`` (the encoder, head and decoder around a dual-path
-function) and ``pit_si_snr_loss``.
+Also kept here, for models/sepformer.py: ``num_chunks``, ``_segment``,
+``_merge``, ``_chunk_lengths`` and ``_separate_core`` (the encoder, head and
+decoder of models/convtasnet.py around a dual-path function).
 
 Parameters are named as the JAX pytree's paths (``enc``, ``in_ln.g``,
 ``blocks.0.intra_proj.w``, ...) in its (in, out) layout, except the BLSTMs,
@@ -50,12 +49,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .blstm import BLSTM
-from .convtasnet import latent_frames, pairwise_neg_si_snr, valid_latent_frames
-from .tcn import _cln_init, _linear_draw_, _linear_init, _prelu
+from .convtasnet import (_gln, decode, encode, latent_frames, pit_si_snr_loss,  # noqa: F401
+                         valid_latent_frames)
+from .tcn import _cln_init, _dot, _linear_draw_, _linear_init, _prelu
 from .upit import _coerce_kwargs
-from ..dsp.stft import _overlap_add, frame_signal
-from ..ops.mxu import head_dot
-from ..ops.pit import permutation_min_loss
 
 NAME = "DPRNN"
 DOMAIN = "time"
@@ -155,28 +152,6 @@ class DPRNN(nn.Module):
 
 # ------------------------------------------------------- dual-path pieces
 
-def _dot(x: torch.Tensor, lin, dtype: torch.dtype, out_dtype: torch.dtype | None = None
-         ) -> torch.Tensor:
-    """x @ w + b with the product's inputs in ``dtype`` and a float32 sum;
-    ``out_dtype`` sets the storage dtype of the result."""
-    y = head_dot(x, lin["w"], dtype) + lin["b"]
-    return y if out_dtype is None else y.to(out_dtype)
-
-
-def _gln_nd(x: torch.Tensor, p, mask: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Masked global layer norm over all non-batch axes: one (mu, var) per
-    utterance over its true positions and all channels. x (B, ..., C); mask
-    broadcasts against x with 1.0 at true positions. Statistics in float32,
-    the result stored back in x's dtype."""
-    xf = x.float()
-    axes = tuple(range(1, x.dim()))
-    cnt = torch.clamp_min(torch.sum(mask, dim=axes, keepdim=True)
-                          * x.shape[-1] / mask.shape[-1], 1.0)
-    mu = torch.sum(xf * mask, dim=axes, keepdim=True) / cnt
-    var = torch.sum(torch.square((xf - mu) * mask), dim=axes, keepdim=True) / cnt
-    return (((xf - mu) * torch.rsqrt(var + eps)) * p["g"] + p["b"]).to(x.dtype)
-
-
 def num_chunks(cfg, n_t: int) -> int:
     """Chunks covering a T'-frame latent sequence after the segmentation
     pad (front hop + back pad to a hop multiple)."""
@@ -221,11 +196,11 @@ def _one_block(blk, h, cmask, klens, ilens, zeros_intra, zeros_inter):
     y, _ = blk["intra_rnn"](h.reshape(B * C, K, H), klens, zeros_intra, zeros_intra,
                             compute_dtype=dt)
     y = _dot(y, blk["intra_proj"], dt, dt).reshape(B, C, K, H)
-    h = (h + _gln_nd(y, blk["intra_ln"], cmask)) * cm
+    h = (h + _gln(y, blk["intra_ln"], cmask)) * cm
     y, _ = blk["inter_rnn"](h.transpose(1, 2).reshape(B * K, C, H), ilens, zeros_inter,
                             zeros_inter, compute_dtype=dt)
     y = _dot(y, blk["inter_proj"], dt, dt).reshape(B, K, C, H).transpose(1, 2)
-    return (h + _gln_nd(y, blk["inter_ln"], cmask)) * cm
+    return (h + _gln(y, blk["inter_ln"], cmask)) * cm
 
 
 def _dual_path(model: DPRNN, h: torch.Tensor, vt: torch.Tensor, C: int):
@@ -259,17 +234,10 @@ def _separate_core(model, wav: torch.Tensor, sample_lengths: torch.Tensor,
     PReLU and head -> merge -> masks -> decoder -> overlap-add. Rows are not
     trimmed to their lengths."""
     cfg = model.cfg
-    B, L = wav.shape
     md = cfg.torch_dtype
-    n_t = latent_frames(cfg, L)
-    frames = frame_signal(wav, cfg.filter_len, cfg.stride, n_t)
-    w = torch.relu(head_dot(frames, model.enc, md))
-    vt = valid_latent_frames(cfg, sample_lengths, n_t)
-    tmask = (torch.arange(n_t, device=wav.device)[None, :]
-             < vt[:, None]).float()[:, :, None]
-    w = w * tmask
-
-    h = _dot(_gln_nd(w.to(md), model.in_ln, tmask), model.bottleneck, md, md) * tmask.to(md)
+    w, tmask, vt = encode(model, wav, sample_lengths)
+    B, n_t, _ = w.shape
+    h = _dot(_gln(w.to(md), model.in_ln, tmask), model.bottleneck, md, md) * tmask.to(md)
     C = num_chunks(cfg, n_t)
     h, cmask = dual_path(model, _segment(h, cfg.hop), vt, C)
 
@@ -277,30 +245,7 @@ def _separate_core(model, wav: torch.Tensor, sample_lengths: torch.Tensor,
     out = _merge(out, cfg.hop, n_t)
     out = out.reshape(B, n_t, cfg.num_spk, cfg.n_filters)
     act = torch.relu if cfg.mask_act == "relu" else torch.sigmoid
-    masks = act(out) * tmask[:, :, None, :]
-
-    masked = (w[:, :, None, :] * masks).permute(0, 2, 1, 3)            # (B, S, T', N)
-    S = cfg.num_spk
-    dec_frames = head_dot(masked.reshape(B * S, n_t, cfg.n_filters), model.dec, md)
-    y = _overlap_add(dec_frames, cfg.stride)
-    if y.shape[-1] < L:
-        y = F.pad(y, (0, L - y.shape[-1]))
-    return y[:, :L].reshape(B, S, L)
-
-
-def pit_si_snr_loss(est: torch.Tensor, batch: dict, num_spk: int):
-    """uPIT over negative SI-SNR of (B, S, L) estimates against a waveform
-    batch (``source_wavs``, ``sample_lengths``, ``row_mask``): returns
-    (total / norm, aux) with norm the number of real rows, so an epoch's
-    mean reads as the mean per-utterance -SI-SNR in dB."""
-    n, row_mask = batch["sample_lengths"], batch["row_mask"]
-    L = est.shape[-1]
-    smask = (torch.arange(L, device=est.device)[None, :] < n[:, None]).float()
-    pair = pairwise_neg_si_snr(est * smask[:, None, :], batch["source_wavs"], smask)
-    min_losses, best_perm = permutation_min_loss(pair, num_spk)
-    total = torch.sum(min_losses * row_mask) / num_spk
-    norm = torch.sum(row_mask)
-    return total / norm, {"norm": norm, "total": total, "best_perm": best_perm}
+    return decode(model, w, act(out) * tmask[:, :, None, :], wav.shape[1])
 
 
 @torch.inference_mode()

@@ -1,20 +1,21 @@
-"""Architecture registry of the port.
+"""Architecture registry of the port: the JAX package's six archs.
 
 Each arch module exposes ``NAME``, ``DOMAIN``, ``Config`` (with
 ``from_kwargs``), ``Model`` (the ``nn.Module`` built from a config, with
 ``reset_parameters(generator)``) and ``loss_fn(model, batch, generator,
-train)``. A ``DOMAIN = "spectrum"`` arch (uPIT, RSH) trains on
+train)``. A ``DOMAIN = "spectrum"`` arch (uPIT, RSH, TCN) trains on
 STFT-magnitude batches and serves through ``infer_masks`` (RSH's takes the
-speaker count of the call); a ``DOMAIN = "time"`` arch (SepFormer, DPRNN)
-trains on waveform batches and serves through ``separate``. The other archs
-of the JAX package (TCN, Conv-TasNet) are queued in ROADMAP.md.
+speaker count of the call); a ``DOMAIN = "time"`` arch (SepFormer, DPRNN,
+Conv-TasNet) trains on waveform batches and serves through ``separate``. The
+causal TCN and Conv-TasNet also stream (eval/streaming.py).
 """
 
 from __future__ import annotations
 
-from . import dprnn, rsh, sepformer, upit
+from . import convtasnet, dprnn, rsh, sepformer, tcn, upit
 
-ARCHS = {"uPIT": upit, "RSH": rsh, "DPRNN": dprnn, "SepFormer": sepformer}
+ARCHS = {"uPIT": upit, "RSH": rsh, "TCN": tcn, "DPRNN": dprnn, "SepFormer": sepformer,
+         "ConvTasNet": convtasnet}
 
 
 def get_arch(name: str):
@@ -23,6 +24,4 @@ def get_arch(name: str):
         if k.lower() == name.lower():
             return v
     raise NotImplementedError(
-        f"architecture {name!r} is not ported to PyTorch yet (ported: "
-        f"{sorted(ARCHS)}); see ROADMAP.md for the order of the port")
-
+        f"unknown architecture {name!r} (the port has: {sorted(ARCHS)})")

@@ -23,7 +23,9 @@ The counterpart of speech_separation_tpu/models/rsh.py:
 The initial state of the first pass is the reference's N(0, 1) draw per
 batch, or zeros with ``zero_init_hidden``. Parameter names are those of the
 reference ``.mdl`` (``blstm.*``, ``bn.*``, ``lin.*``), the uPIT layout with a
-2F input.
+2F input. ``remat=True`` recomputes each pass in the backward, as the JAX
+package checkpoints each pass; the (h, c) carried from pass to pass crosses
+the boundary, and BN's running statistics move once a pass all the same.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import dataclasses
 import torch
 
 from .upit import UPIT, _coerce_kwargs, initial_state
+from ..ops.batchnorm import remat_checkpoint
 
 NAME = "RSH"
 DOMAIN = "spectrum"
@@ -48,6 +51,7 @@ class Config:
     # count a caller gets when it names none
     num_spk: int = 2
     compute_dtype: str = "float32"   # as upit.Config
+    remat: bool = False              # recompute each pass in the backward
 
     @classmethod
     def from_kwargs(cls, **kwargs):
@@ -94,9 +98,13 @@ def loss_fn(model: RSH, batch: dict, generator: torch.Generator, train: bool):
     used = torch.zeros((B, S), dtype=torch.bool, device=mix.device)
     total = 0.0
     assignments, masks = [], []
+    remat = cfg.remat and torch.is_grad_enabled()
     for _ in range(S):
-        mask, state = model(combo, lengths, row_mask, *state, train=train,
-                            return_state=True)
+        args = (combo, lengths, row_mask, *state)
+        if remat:
+            mask, state = remat_checkpoint(model, *args, train=train, return_state=True)
+        else:
+            mask, state = model(*args, train=train, return_state=True)
         err = torch.sum(torch.square((mask * mix)[:, None] - sources), dim=(2, 3))
         err = torch.where(used, torch.full_like(err, float("inf")), err)
         # the first of tied values, as jnp.argmin (pad rows tie at 0)

@@ -30,7 +30,7 @@ waveform batches (train/wav_data.audio_to_wave_batch) and serves through
 
 Parameters are named as the JAX pytree's paths (``enc``, ``in_ln.g``,
 ``blocks.0.intra.qkv.w``, ...) in its (in, out) layout
-(utils/weights.sepformer_state_dict_from_jax carries weights across).
+(utils/weights.pytree_state_dict_from_jax carries weights across).
 """
 
 from __future__ import annotations
@@ -44,8 +44,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .dprnn import _chunk_lengths, _dot, _separate_core, pit_si_snr_loss
-from .tcn import _cln, _cln_init, _linear_draw_, _linear_init
+from .convtasnet import pit_si_snr_loss
+from .dprnn import _chunk_lengths, _separate_core
+from .tcn import _cln, _cln_init, _dot, _linear_draw_, _linear_init
 from .upit import _coerce_kwargs
 from ..ops.attention_kernel import chunk_attention
 

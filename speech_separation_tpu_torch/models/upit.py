@@ -16,7 +16,10 @@ The counterpart of speech_separation_tpu/models/upit.py:
           slice [s*feat_dim : (s+1)*feat_dim] of the output.
 
 The initial LSTM state is drawn from N(0, 1) per batch (a reference quirk);
-``zero_init_hidden=True`` gives the deterministic variant.
+``zero_init_hidden=True`` gives the deterministic variant. ``remat=True``
+recomputes the whole forward in the backward (torch.utils.checkpoint), as the
+JAX package wraps it in ``jax.checkpoint``: the state is drawn before it, and
+BN's running statistics move once a step all the same.
 
 Parameter names follow the reference ``.mdl`` state dict: ``blstm.*``
 (torch.nn.LSTM names), ``bn.*`` (BatchNorm1d) and ``lin.*`` (Linear).
@@ -31,7 +34,7 @@ import torch
 from torch import nn
 
 from .blstm import BLSTM, random_hidden
-from ..ops.batchnorm import BatchNorm
+from ..ops.batchnorm import BatchNorm, remat_checkpoint
 from ..ops.mxu import head_dot
 from ..ops.pit import pairwise_mse, permutation_min_loss
 
@@ -50,6 +53,8 @@ class Config:
     # bf16 (f32 accumulation; gate/cell math stays f32); "float32" is the
     # bit-faithful default
     compute_dtype: str = "float32"
+    # recompute the forward in the backward: activation memory for compute
+    remat: bool = False
 
     @classmethod
     def from_kwargs(cls, **kwargs):
@@ -129,19 +134,25 @@ def initial_state(cfg: Config, batch: int, generator: torch.Generator,
     return random_hidden(generator, cfg.num_layers, batch, cfg.hidden)
 
 
-def contract_loss(model: nn.Module, batch: dict, h0: torch.Tensor, c0: torch.Tensor,
-                  train: bool):
-    """The uPIT objective (speech_separation_tpu/models/upit.py::
-    contract_loss) for a batch dict with ``mix`` (B, T, F), ``sources``
-    (B, S, T, F), ``lengths`` (B,) and ``row_mask`` (B,): returns
-    (total / norm, aux) with aux ``norm`` (for the norm-weighted epoch
-    average), ``total``, ``best_perm`` and ``masked`` (B, T, S, F). BN runs
-    in train mode, updating its running statistics, when ``train``."""
+def contract_loss(model: nn.Module, batch: dict, *state: torch.Tensor, train: bool):
+    """The uPIT-contract objective, one implementation for every arch whose
+    forward ``model(mix, lengths, row_mask, *state, train=train)`` gives
+    (B, T, feat_dim*num_spk) sigmoid masks (uPIT with its initial (h0, c0),
+    TCN with none), as speech_separation_tpu/models/upit.py::contract_loss:
+    for a batch dict with ``mix`` (B, T, F), ``sources`` (B, S, T, F),
+    ``lengths`` (B,) and ``row_mask`` (B,), returns (total / norm, aux) with
+    aux ``norm`` (for the norm-weighted epoch average), ``total``,
+    ``best_perm`` and ``masked`` (B, T, S, F). With ``cfg.remat`` and grad
+    enabled the forward is recomputed in the backward."""
     cfg = model.cfg
     mix, sources = batch["mix"], batch["sources"]
     lengths, row_mask = batch["lengths"], batch["row_mask"]
     B, T, F = mix.shape
-    masks = model(mix, lengths, row_mask, h0, c0, train=train)
+    args = (mix, lengths, row_mask, *state)
+    if cfg.remat and torch.is_grad_enabled():
+        masks = remat_checkpoint(model, *args, train=train)
+    else:
+        masks = model(*args, train=train)
     masked = masks.reshape(B, T, cfg.num_spk, F) * mix[:, :, None, :]
     min_losses, best_perm = permutation_min_loss(pairwise_mse(masked, sources),
                                                  cfg.num_spk)
@@ -156,7 +167,7 @@ def loss_fn(model: UPIT, batch: dict, generator: torch.Generator, train: bool):
     reference's N(0, 1) draw from ``generator``."""
     h0, c0 = initial_state(model.cfg, batch["mix"].shape[0], generator,
                            batch["mix"].device)
-    return contract_loss(model, batch, h0, c0, train)
+    return contract_loss(model, batch, h0, c0, train=train)
 
 
 @torch.inference_mode()

@@ -9,12 +9,20 @@ torch semantics: normalization uses the biased variance, the running
 variance update the unbiased one (n/(n-1)); running = (1 - momentum) *
 running + momentum * stat with momentum 0.1; eval mode normalizes with the
 running statistics.
+
+``remat_checkpoint`` recomputes a forward in the backward
+(torch.utils.checkpoint) without moving the running statistics a second
+time: the JAX package's ``jax.checkpoint`` takes the new BN state from the
+first forward only.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def batchnorm_apply(params: dict, state: dict, x: torch.Tensor,
@@ -54,15 +62,44 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_channels))
         self.register_buffer("running_var", torch.ones(num_channels))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        # set while a checkpointed forward is recomputed: the batch
+        # statistics normalize as before, the running ones stay as they are
+        self.frozen = False
 
     def forward(self, x: torch.Tensor, row_mask: torch.Tensor, train: bool = False):
         y, new_state = batchnorm_apply(
             {"gamma": self.weight, "beta": self.bias},
             {"mean": self.running_mean, "var": self.running_var},
             x, row_mask, train)
-        if train:
+        if train and not self.frozen:
             with torch.no_grad():
                 self.running_mean.copy_(new_state["mean"])
                 self.running_var.copy_(new_state["var"])
                 self.num_batches_tracked += 1
         return y
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within the block, the BatchNorms of ``module`` leave their running
+    statistics as they are."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen = False
+
+
+def remat_checkpoint(module: nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)`` under torch.utils.checkpoint
+    (non-reentrant): its activations are recomputed in the backward, where
+    its BatchNorms keep the running statistics that the forward left. The
+    module must draw nothing at random: the initial states are drawn
+    before."""
+    return checkpoint(module, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          frozen_running_stats(module)),
+                      **kwargs)

@@ -3,8 +3,8 @@
 The counterpart of speech_separation_tpu/train/loop.py, for every ported
 arch. Per batch: forward (the LSTM recurrences of uPIT, RSH and DPRNN, or
 SepFormer's attention with ``fused_attention=1``, through the hand-written
-training kernels on CUDA), loss / norm, backward, global-norm clip at 0.25,
-Adam(1e-3). RSH's batches hold one speaker count each; with
+training kernels on CUDA; TCN's and Conv-TasNet's convs as PyTorch ops),
+loss / norm, backward, global-norm clip at 0.25, Adam(1e-3). RSH's batches hold one speaker count each; with
 ``reference_batching`` each shuffled batch is split into speaker-count
 sub-batches instead, every sub-batch backpropagates its unnormalised total,
 and the summed gradient, divided once by the batch's summed norm, takes one

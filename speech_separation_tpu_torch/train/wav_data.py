@@ -9,11 +9,11 @@ own end and then zero-padded, the longest rounded up to a multiple of
 int16 (an exact round trip for PCM16 sources, half the bytes of float32),
 and the device turns it back into what the model consumes:
 
-- ``audio_to_wave_batch``: the raw samples of a time-domain arch (SepFormer):
-  the static n_fft//2 prefix sliced off and every sample past a row's length
-  zeroed;
-- ``audio_to_feature_batch``: the STFT magnitudes of a spectral arch (uPIT),
-  through the STFT kernel, frames past a row's count zeroed.
+- ``audio_to_wave_batch``: the raw samples of a time-domain arch (SepFormer,
+  DPRNN, Conv-TasNet): the static n_fft//2 prefix sliced off and every
+  sample past a row's length zeroed;
+- ``audio_to_feature_batch``: the STFT magnitudes of a spectral arch (uPIT,
+  RSH, TCN), through the STFT kernel, frames past a row's count zeroed.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Weights across the two packages: shape inference on reference state
-dicts, and the JAX parameter pytrees (uPIT/RSH, SepFormer, DPRNN) as state
-dicts of the port.
+dicts, and the JAX parameter pytrees (uPIT/RSH; SepFormer, TCN and
+Conv-TasNet, whose port names its parameters by the pytree's paths; DPRNN)
+as state dicts of the port.
 
 The layout rule is the one of speech_separation_tpu/utils/import_torch.py
 (a copy, not an import):
@@ -99,12 +100,13 @@ def state_dict_from_jax(params_np, state_np) -> dict[str, torch.Tensor]:
     return sd
 
 
-def sepformer_state_dict_from_jax(params_np) -> dict[str, torch.Tensor]:
-    """The JAX package's SepFormer params pytree, as numpy arrays, turned into
-    the port's state dict of float32 tensors. The port names its parameters
-    by the pytree's paths in the same (in, out) layout, so this flattens the
-    tree and copies: ``blocks`` is a list (or, in a msgpack checkpoint, a dict
-    keyed "0".."N-1")."""
+def pytree_state_dict_from_jax(params_np) -> dict[str, torch.Tensor]:
+    """A JAX params pytree, as numpy arrays, turned into the port's state
+    dict of float32 tensors, every leaf under its path (``in_ln.g``,
+    ``blocks.3.dw``): the layout of the port's SepFormer, TCN and Conv-TasNet,
+    which name their parameters by the pytree's paths in the same (in, out)
+    layout. ``blocks`` is a list (or, in a msgpack checkpoint, a dict keyed
+    "0".."N-1")."""
     sd = {}
 
     def walk(prefix, node):
@@ -122,13 +124,14 @@ def sepformer_state_dict_from_jax(params_np) -> dict[str, torch.Tensor]:
     return sd
 
 
+
 def dprnn_state_dict_from_jax(params_np) -> dict[str, torch.Tensor]:
     """The JAX package's DPRNN params pytree, as numpy arrays, turned into
-    the port's state dict of float32 tensors: every leaf by its pytree path,
-    as SepFormer's, except each block's ``intra_rnn`` and ``inter_rnn``,
-    which go under torch.nn.LSTM's names."""
+    the port's state dict of float32 tensors: every leaf by its pytree path
+    (``pytree_state_dict_from_jax``), except each block's ``intra_rnn`` and
+    ``inter_rnn``, which go under torch.nn.LSTM's names."""
     blocks = _listed(params_np["blocks"])
-    sd = sepformer_state_dict_from_jax(
+    sd = pytree_state_dict_from_jax(
         {k: v for k, v in params_np.items() if k != "blocks"}
         | {"blocks": [{k: v for k, v in b.items() if not k.endswith("_rnn")} for b in blocks]})
     for i, b in enumerate(blocks):

@@ -142,7 +142,6 @@ def test_run_train_then_run_eval_on_the_cpu(workspace):
     ["run-train", "--train-set", "t", "--hang-watchdog-sec", "60"],
     ["run-train", "--train-set", "t", "--profile-dir", "p"],
     ["run-train", "--train-set", "t", "--train-copy-location", "c"],
-    ["serve", "m", "s", "--streaming-model", "x"],
 ], ids=lambda a: a[-1] if a[-1].startswith("--") else a[-2])
 def test_flags_of_unported_modules_are_refused(argv, capsys):
     with pytest.raises(SystemExit) as e:

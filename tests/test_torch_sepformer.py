@@ -1,6 +1,6 @@
 """The port's SepFormer (speech_separation_tpu_torch/models/sepformer.py)
 against the JAX package's on the CPU, at tests/test_sepformer.py's TINY
-widths, with the same weights (utils/weights.sepformer_state_dict_from_jax)
+widths, with the same weights (utils/weights.pytree_state_dict_from_jax)
 and the same numpy waveforms.
 
 The JAX side runs its einsum path (fused_attention=False):
@@ -25,7 +25,7 @@ import jax.numpy as jnp
 from speech_separation_tpu.models import sepformer as jsf
 from speech_separation_tpu_torch.models import sepformer as tsf
 from speech_separation_tpu_torch.models.registry import get_arch
-from speech_separation_tpu_torch.utils.weights import sepformer_state_dict_from_jax
+from speech_separation_tpu_torch.utils.weights import pytree_state_dict_from_jax
 
 TINY = dict(n_filters=16, filter_len=16, stride=8, channels=16, heads=2,
             d_ff=24, chunk=8, blocks=2)
@@ -61,7 +61,7 @@ def _port_model(fused: bool, dtype: str = "float32", **extra):
     params, _, _, _ = _jax_reference()
     cfg = tsf.Config(num_spk=2, fused_attention=fused, compute_dtype=dtype, **TINY, **extra)
     model = tsf.SepFormer(cfg)
-    model.load_state_dict(sepformer_state_dict_from_jax(params), strict=True)
+    model.load_state_dict(pytree_state_dict_from_jax(params), strict=True)
     return model
 
 
@@ -81,7 +81,7 @@ def test_separate_loss_and_gradients_match_jax(fused):
     loss.backward()
     np.testing.assert_allclose(loss.item(), want_loss, rtol=1e-5)
     assert float(aux["norm"]) == 3.0
-    want = sepformer_state_dict_from_jax(want_grads)
+    want = pytree_state_dict_from_jax(want_grads)
     got = dict(model.named_parameters())
     assert sorted(got) == sorted(want)
     for name, p in got.items():
@@ -92,7 +92,7 @@ def test_separate_loss_and_gradients_match_jax(fused):
 
 def test_parameter_names_and_layout_mirror_the_jax_pytree():
     params, _, _, _ = _jax_reference()
-    sd = sepformer_state_dict_from_jax(params)
+    sd = pytree_state_dict_from_jax(params)
     model = tsf.SepFormer(tsf.Config(num_spk=2, **TINY))
     assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == {
         k: tuple(v.shape) for k, v in sd.items()}

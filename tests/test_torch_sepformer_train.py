@@ -34,7 +34,7 @@ from speech_separation_tpu_torch.train import data as tdata
 from speech_separation_tpu_torch.train import loop
 from speech_separation_tpu_torch.train import wav_data as twav
 from speech_separation_tpu_torch.utils.audio import load_wav
-from speech_separation_tpu_torch.utils.weights import sepformer_state_dict_from_jax
+from speech_separation_tpu_torch.utils.weights import pytree_state_dict_from_jax
 
 TINY = dict(n_filters=16, filter_len=16, stride=8, channels=16, heads=2,
             d_ff=24, chunk=8, blocks=2)
@@ -106,7 +106,7 @@ def test_three_step_trajectory_matches_jax_update_step(corpus):
     jcfg = jsf.Config(num_spk=2, **TINY)
     params, state = jax.jit(jsf.init, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
     model = tsf.SepFormer(tsf.Config(num_spk=2, fused_attention=True, **TINY))
-    model.load_state_dict(sepformer_state_dict_from_jax(jax.tree_util.tree_map(np.asarray,
+    model.load_state_dict(pytree_state_dict_from_jax(jax.tree_util.tree_map(np.asarray,
                                                                                 params)))
     optimizer = make_optimizer(JaxLoopConfig())
     opt_state = optimizer.init(params)
@@ -125,7 +125,7 @@ def test_three_step_trajectory_matches_jax_update_step(corpus):
         tl.append(loss.item())
     np.testing.assert_allclose(tl[0], jl[0], rtol=1e-5)
     np.testing.assert_allclose(tl, jl, rtol=2e-3)
-    ref = sepformer_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params))
+    ref = pytree_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params))
     for name, p in model.state_dict().items():
         np.testing.assert_allclose(p.numpy(), ref[name].numpy(), atol=5e-5, err_msg=name)
 

@@ -161,13 +161,14 @@ def test_random_hidden_is_seeded_normal():
 
 
 def test_registry_knows_upit_only():
-    """uPIT resolves by any case; an arch not ported yet (TCN) raises,
-    pointing at ROADMAP.md (RSH and DPRNN resolve since their slice)."""
-    from speech_separation_tpu_torch.models import dprnn, rsh
+    """uPIT resolves by any case; so do the other five archs, all ported
+    (TCN and Conv-TasNet since their slice); a name of no arch raises."""
+    from speech_separation_tpu_torch.models import convtasnet, dprnn, rsh, tcn
     assert get_arch("upit") is tupit
     assert get_arch("rsh") is rsh and get_arch("DPRNN") is dprnn
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_arch("TCN")
+    assert get_arch("TCN") is tcn and get_arch("convtasnet") is convtasnet
+    with pytest.raises(NotImplementedError, match="unknown architecture"):
+        get_arch("NoSuchArch")
 
 
 def test_config_from_kwargs_coerces_strings():

@@ -90,8 +90,11 @@ Phases, in order; any failure exits non-zero without the final line:
    B=100 with the reference's N(0, 1) initial state, 5 epochs: 10 steps of
    one speaker count each (ms per step by count, K3/K4 launches 2S a step);
    then 2 steps of the reference's mixed batches on a 1/2/3-speaker corpus;
-13. one RSH step (3 passes) on the card against the CPU, zero initial state:
-   loss, assignments, every gradient and BN's running statistics;
+13. one RSH step at S=2 and S=3 on the card against the CPU, zero initial
+   state, in bf16 and in f32: loss, assignments, every gradient and BN's
+   running statistics, each pass's loss and the (h, c) it carries on; the
+   CPU's bf16 step against its f32 one, and a fault control in each dtype
+   (the carried state zeroed between passes) that must fail the bounds;
 14. RSH eval: run-eval stages 0-4 through the CLI on 100 test utterances of 2
    and 3 speakers (masks of S passes with K1, reconstruction, the host
    scorer; stage walls and mean SDR), then SeparationServer requests asking
@@ -99,7 +102,9 @@ Phases, in order; any failure exits non-zero without the final line:
 15. train DPRNN: the JAX package's defaults in bf16 (6 blocks, H=128), B=32
    on 4 s wavs with --on-device-features, 5 epochs (10 steps, CV at epoch
    5); ms per step, peak memory, launches (K3/K4 12 a step);
-16. one DPRNN step on the card against the CPU at B=4;
+16. one DPRNN step on the card against the CPU at B=4, in bf16 and in f32,
+   with the same controls (the fault: block 0's intra-chunk forward
+   direction fed time-reversed);
 17. serve DPRNN: three requests of 3, 5.5 and 8 s (batches padded with
    1-sample rows, whose chunks lie in padding: length-0 rows of the
    intra-chunk BLSTM), then the three as one ragged batch against the CPU
@@ -113,7 +118,8 @@ Phases, in order; any failure exits non-zero without the final line:
    512, kernel 3, 8 x 4 blocks): train() at B=100 on phase 5's npz corpus
    (T=384), 10 epochs, the loss falling (ms per step, peak memory); 2 steps
    of --on-device-features on phase 8's wavs (one K2 launch a step); one
-   step on the card against the CPU, with a sound and a faulty control;
+   step on the card against the CPU in bf16 and in f32, with the CPU's bf16
+   step against its f32 one and a fault control in each dtype;
    three requests of 3, 5.5 and 8 s through
    SeparationServer (K2 counted, one a batch) and the tracks against the CPU
    by SNR;
@@ -129,9 +135,15 @@ Phases, in order; any failure exits non-zero without the final line:
    against the offline pipeline on the card and against the same stream
    alone; ms per chunk and the real-time factor at capacity 8 in bf16; one
    stream through the server's stream_open/push/close on a Unix socket;
-22. one JSON line with every kernel and its numbers (with the recipe's
+22. the port's tools through cli.main.main: doctor (the card, nvcc, every
+   kernel built), warmup (every arch's kernels from the build cache, their
+   launch plans at the training shapes) and bench with the phases
+   upit_bf16, sepformer, dprnn, dsp and serving, each in a child process:
+   the merged line's phases, numbers and build, and each child's launches;
+23. one JSON line with every kernel and its numbers (with the recipe's
    launch counts, each LSTM kernel's numbers at DPRNN's shapes and its
-   launches on each RSH, DPRNN and remat path, K2's on the TCN paths), then
+   launches on each RSH, DPRNN and remat path, K2's on the TCN paths, the
+   launches of each bench phase of phase 22), then
    {"ok": true, "device": {...}} as the last line.
 
 ``python3 chip_smoke.py --profile`` traces full-width SepFormer training
@@ -1580,16 +1592,36 @@ def compare_recipe_devices(fails: Failures) -> dict:
 DPRNN_SHAPES = {"intra": (100, 2656), "inter": (83, 3200)}
 RSH_KW = {"compute_dtype": "bfloat16"}
 DPRNN_KW = {"compute_dtype": "bfloat16"}
-# One RSH and one DPRNN training step card against CPU by relative L2 error
-# (loss, worst gradient, BN's running statistics), and their served tracks
-# against the CPU by SNR. Set from the card's first readings (NVIDIA H100 80GB
-# HBM3, 700 W) with about ten times room (20 dB for an SNR): RSH loss 1.4e-5,
-# gradients 8.9e-3, BN 7.0e-5, tracks 68.1 dB; DPRNN loss 1.8e-4, gradients
-# 6.6e-3, tracks 43.1 dB. K1, K3 and K4 at DPRNN's shapes read 1.4e-4, 3.9e-3
-# and 1.9e-3 against TOL's and TRAIN_TOL's limits; the chained gradients 5.6e-3
-# against TRAIN_TOL["grad_bf16"].
-RECURRENT_TOL = {"rsh_loss": 1.5e-4, "rsh_grad": 9e-2, "rsh_bn": 7e-4, "rsh_min_snr_db": 48.0,
-                 "dprnn_loss": 2e-3, "dprnn_grad": 7e-2, "dprnn_min_snr_db": 23.0}
+# One RSH and one DPRNN training step card against CPU by relative L2 error,
+# in bf16 and in f32 (loss; every gradient, and their median; RSH's BN running
+# statistics), and their served tracks against the CPU by SNR (set from the
+# card's first readings with 20 dB of room: RSH 68.1 dB, DPRNN 43.1 dB). Each
+# step bound is derived (NVIDIA H100 80GB HBM3, 700 W): the geometric mean of
+# the largest sound reading (card against CPU over weight seeds 0 and 1, RSH
+# at S=2 and S=3) and the smallest reading of a fault control against the
+# card's step (RSH: the carried state zeroed between passes; DPRNN: block 0's
+# intra-chunk forward direction fed time-reversed), so each bound sits as far
+# below the fault as above the sound step; never looser than before. Readings
+# (sound -> bound <- fault): RSH bf16 loss 2.7e-5 -> 3.3e-5 <- 4.1e-5, worst
+# gradient 1.6e-2 -> 2.2e-2 <- 3.0e-2, median 7.7e-3 -> 1.1e-2 <- 1.6e-2, BN
+# 7.3e-5 -> 5.6e-4 <- 4.3e-3; RSH f32 loss 1.1e-7 -> 2.5e-6 <- 5.5e-5, worst
+# 4.1e-6 -> 3.3e-4 <- 2.6e-2, median 2.0e-6 -> 1.7e-4 <- 1.5e-2, BN 1.6e-7 ->
+# 2.6e-5 <- 4.3e-3; DPRNN bf16 loss 1.8e-4 -> 1.7e-3 <- 1.7e-2, worst 6.6e-3 ->
+# 6.4e-2 <- 0.62, median 4.6e-3 -> 4.1e-2 <- 0.36; DPRNN f32 loss 1.4e-7 ->
+# 4.9e-5 <- 1.7e-2, worst 3.2e-5 -> 4.5e-3 <- 0.62, median 2.0e-5 -> 2.7e-3 <-
+# 0.36. In f32 the card's step is the order of sums alone (RSH's carried h and
+# c 3.3e-7 after each pass, not growing); in bf16 a value that lands on the
+# other side of a rounding boundary moves by a bf16 step, so the zeroed carry
+# stands 1.2-1.4x clear of the card's own bf16 gap in the loss and the
+# gradients and 7.7x in BN's statistics. K1, K3 and K4 at DPRNN's shapes read
+# 1.4e-4, 3.9e-3 and 1.9e-3 against TOL's and TRAIN_TOL's limits; the chained
+# gradients 5.6e-3 against TRAIN_TOL["grad_bf16"].
+RECURRENT_TOL = {"rsh": {"loss": 3.3e-5, "grad": 2.2e-2, "grad_median": 1.1e-2, "bn": 5.6e-4},
+                 "rsh_f32": {"loss": 2.5e-6, "grad": 3.3e-4, "grad_median": 1.7e-4,
+                             "bn": 2.6e-5},
+                 "dprnn": {"loss": 1.7e-3, "grad": 6.4e-2, "grad_median": 4.1e-2},
+                 "dprnn_f32": {"loss": 4.9e-5, "grad": 4.5e-3, "grad_median": 2.7e-3},
+                 "rsh_min_snr_db": 48.0, "dprnn_min_snr_db": 23.0}
 
 
 def ragged_lengths(T: int, B: int, rng) -> list:
@@ -1850,57 +1882,154 @@ def train_rsh_phase(fails: Failures, counters) -> dict:
             "train_dir": tr, "exp": exp}
 
 
-def rsh_step_phase(fails: Failures, train_dir: str) -> dict:
-    """Phase 13: one RSH step (3 passes, 2x600 bf16, 4 rows of the training
-    corpus, zero initial state) on the card against the CPU: loss,
-    assignments, every gradient and BN's running statistics."""
+def grad_errs(got: dict, ref: dict, bound: float) -> dict:
+    """Each gradient of ``got`` against ``ref`` by relative L2: the worst, the
+    median and how many lie over ``bound``."""
+    err = {n: rel_l2(g, ref[n]) for n, g in got.items()}
+    worst = max(err, key=err.get)
+    return {"worst": worst, "worst_err": err[worst],
+            "median_err": float(np.median(list(err.values()))),
+            "over_bound": sum(e > bound for e in err.values()), "n": len(err)}
+
+
+def step_errs(got: dict, ref: dict, tol: dict) -> dict:
+    """One training step's results (``model_step`` / ``rsh_step``) against
+    another's by relative L2: the loss, the gradients (``grad_errs``
+    against ``tol["grad"]``) and, where there are, BN's running
+    statistics."""
+    out = {"loss_rel_err": rel_l2(got["loss"], ref["loss"]),
+           **grad_errs(got["grads"], ref["grads"], tol["grad"])}
+    if "bn" in got:
+        out["bn_rel_err"] = max(rel_l2(a, b) for a, b in zip(got["bn"], ref["bn"]))
+    return out
+
+
+def check_step(fails: Failures, what: str, e: dict, tol: dict, n_params: int) -> None:
+    """A card step against the CPU's (``step_errs``) within ``tol``: the
+    loss, every gradient, the median gradient and BN's statistics."""
+    fails.check(e["loss_rel_err"] <= tol["loss"],
+                f"{what} loss: rel err {e['loss_rel_err']:.3e} <= {tol['loss']}")
+    fails.check(e["n"] == n_params and e["over_bound"] == 0
+                and e["median_err"] <= tol["grad_median"],
+                f"{what} gradients ({e['n']} parameters): worst {e['worst']} rel err "
+                f"{e['worst_err']:.3e} <= {tol['grad']}, median {e['median_err']:.3e} <= "
+                f"{tol['grad_median']}")
+    if "bn_rel_err" in e:
+        fails.check(e["bn_rel_err"] <= tol["bn"],
+                    f"{what} BN running statistics: rel err {e['bn_rel_err']:.3e} <= "
+                    f"{tol['bn']}")
+
+
+def check_fault(fails: Failures, what: str, e: dict, tol: dict) -> None:
+    """A fault control against the card's step (``step_errs``) must fail
+    the bounds the card's step is held to: its loss, its median gradient,
+    most of its gradients or BN's statistics over them."""
+    bn = e.get("bn_rel_err")
+    fails.check(e["loss_rel_err"] > tol["loss"] or e["median_err"] > tol["grad_median"]
+                or e["over_bound"] > e["n"] // 2 or (bn is not None and bn > tol["bn"]),
+                f"{what}: loss rel err {e['loss_rel_err']:.3e} (bound {tol['loss']}); "
+                f"median gradient {e['median_err']:.3e} (bound {tol['grad_median']}), worst "
+                f"{e['worst']} {e['worst_err']:.3e}, {e['over_bound']} of {e['n']} over "
+                f"{tol['grad']}" + (f"; BN {bn:.3e} (bound {tol['bn']})" if bn is not None
+                                    else "") + ": caught")
+
+
+def print_effect(what: str, e: dict) -> None:
+    """The sound control: how far bf16 storage itself moves the step (the
+    CPU's bf16 step against its f32 step)."""
+    print(f"  {what}, bf16 against f32 on the CPU: loss rel err {e['loss_rel_err']:.3e}, "
+          f"worst gradient {e['worst']} {e['worst_err']:.3e}, median {e['median_err']:.3e}"
+          + (f", BN {e['bn_rel_err']:.3e}" if "bn_rel_err" in e else ""), flush=True)
+
+
+def rsh_step(model, batch: dict, dev: str, zero_carry: bool = False) -> dict:
+    """One RSH training step (rsh.loss_fn) of a copy of ``model`` on ``dev``:
+    the loss, every gradient, the assignments, BN's running statistics, each
+    pass's share of the loss and the (h, c) each pass hands to the next (read
+    by a forward hook). With ``zero_carry`` a pre-hook zeroes the state each
+    pass starts from: the fault control."""
     import copy
 
+    from speech_separation_tpu_torch.models import rsh
+    m = copy.deepcopy(model).to(dev)
+    b = {k: torch.from_numpy(batch[k]).to(dev) for k in ("mix", "sources", "lengths",
+                                                         "row_mask")}
+    states = []
+    m.register_forward_hook(lambda _m, _a, out: states.append(
+        tuple(s.detach().cpu() for s in out[1])))
+    if zero_carry:
+        m.register_forward_pre_hook(lambda _m, a: (*a[:3], *(torch.zeros_like(s)
+                                                              for s in a[3:5])))
+    t0 = time.monotonic()
+    loss, aux = rsh.loss_fn(m, b, None, True)
+    loss.backward()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3
+    with torch.no_grad():
+        B, S = b["sources"].shape[:2]
+        idx = aux["assignments"]
+        claimed = b["sources"][torch.arange(B, device=dev)[:, None], idx]   # (B, S, T, F)
+        err = torch.sum(torch.square(aux["masks"] * b["mix"][:, None] - claimed), dim=(2, 3))
+        pass_loss = torch.sum(err * b["row_mask"][:, None], dim=0) / S / aux["norm"]
+    return {"ms": ms, "loss": loss.detach().cpu(), "assignments": idx.cpu(),
+            "grads": {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None},
+            "bn": (m.bn.running_mean.cpu(), m.bn.running_var.cpu()),
+            "pass_loss": pass_loss.cpu(), "states": states}
+
+
+def rsh_step_phase(fails: Failures, train_dir: str) -> dict:
+    """Phase 13: one RSH step (2x600, 4 rows of the training corpus, zero
+    initial state) at S=2 and S=3 on the card against the CPU, in bf16 and
+    in f32: loss, assignments, every gradient, BN's running statistics, and
+    each pass's loss and carried (h, c). Controls, on the CPU: the bf16 step
+    against the f32 one (printed), and in each dtype the carried state
+    zeroed between passes, a fault that must fail that dtype's bounds."""
     from speech_separation_tpu_torch.models import rsh
     from speech_separation_tpu_torch.train.data import (BatchPlan, FeatureDataset,
                                                         make_device_batch)
     from speech_separation_tpu_torch.utils.weights import fold_lstm_biases
 
     ds = FeatureDataset(train_dir)
-    idxs = [i for i in range(len(ds)) if ds.num_spks[i] == 3][:4]
-    batch = make_device_batch([ds.load(i) for i in idxs],
-                              BatchPlan(batch_size=4, time_pad_multiple=128))
-    model = rsh.RSH(rsh.Config.from_kwargs(**RSH_KW, zero_init_hidden="1"))
-    model.reset_parameters(torch.Generator().manual_seed(SEED + 15))
-    fold_lstm_biases(model.blstm)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        m = copy.deepcopy(model).to(dev)
-        b = {k: torch.from_numpy(batch[k]).to(dev) for k in ("mix", "sources", "lengths",
-                                                             "row_mask")}
-        t0 = time.monotonic()
-        loss, aux = rsh.loss_fn(m, b, None, True)
-        loss.backward()
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        print(f"  {dev} step: {(time.monotonic() - t0) * 1e3:.0f} ms, loss {loss.item():.6f}, "
-              f"assignments {aux['assignments'].tolist()}", flush=True)
-        out[dev] = (loss.detach(), {n: p.grad for n, p in m.named_parameters()
-                                    if p.grad is not None},
-                    aux["assignments"].cpu(), (m.bn.running_mean, m.bn.running_var))
-    loss_err = rel_l2(out["cuda"][0], out["cpu"][0])
-    grad_err = {n: rel_l2(g, out["cpu"][1][n]) for n, g in out["cuda"][1].items()}
-    worst = max(grad_err, key=grad_err.get)
-    bn_err = max(rel_l2(a, b) for a, b in zip(out["cuda"][3], out["cpu"][3]))
-    fails.check(torch.equal(out["cuda"][2], out["cpu"][2]),
-                "RSH step card vs CPU: the same greedy assignments")
-    fails.check(loss_err <= RECURRENT_TOL["rsh_loss"],
-                f"RSH step loss card vs CPU: rel err {loss_err:.3e} <= {RECURRENT_TOL['rsh_loss']}")
-    fails.check(len(grad_err) == 16 and grad_err[worst] <= RECURRENT_TOL["rsh_grad"],
-                f"RSH step gradients card vs CPU ({len(grad_err)} parameters): worst {worst} "
-                f"rel err {grad_err[worst]:.3e} <= {RECURRENT_TOL['rsh_grad']}")
-    fails.check(bn_err <= RECURRENT_TOL["rsh_bn"],
-                f"RSH BN running statistics after 3 passes card vs CPU: rel err {bn_err:.3e} "
-                f"<= {RECURRENT_TOL['rsh_bn']}")
-    print("  gradient rel errs: " + ", ".join(f"{n} {e:.2e}" for n, e in grad_err.items()),
-          flush=True)
-    return {"loss_rel_err": loss_err, "worst": worst, "worst_rel_err": grad_err[worst],
-            "bn_rel_err": bn_err}
+    result = {}
+    for S in (2, 3):
+        idxs = [i for i in range(len(ds)) if ds.num_spks[i] == S][:4]
+        batch = make_device_batch([ds.load(i) for i in idxs],
+                                  BatchPlan(batch_size=4, time_pad_multiple=128))
+        runs, res = {}, {}
+        for dtype, key in (("bfloat16", "rsh"), ("float32", "rsh_f32")):
+            m = rsh.RSH(rsh.Config.from_kwargs(**{**RSH_KW, "compute_dtype": dtype},
+                                               zero_init_hidden="1"))
+            m.reset_parameters(torch.Generator().manual_seed(SEED + 15))
+            fold_lstm_biases(m.blstm)
+            card, cpu = runs[("cuda", key)], runs[("cpu", key)] = (
+                rsh_step(m, batch, "cuda"), rsh_step(m, batch, "cpu"))
+            fault = runs[("fault", key)] = rsh_step(m, batch, "cpu", zero_carry=True)
+            for run in ("cuda", "cpu", "fault"):
+                r = runs[(run, key)]
+                print(f"  S={S} {dtype} {run} step: {r['ms']:.0f} ms, loss "
+                      f"{r['loss'].item():.6f}, passes "
+                      f"{[round(x, 6) for x in r['pass_loss'].tolist()]}", flush=True)
+            per_pass = [{"loss": rel_l2(card["pass_loss"][p], cpu["pass_loss"][p]),
+                         "h": rel_l2(card["states"][p][0], cpu["states"][p][0]),
+                         "c": rel_l2(card["states"][p][1], cpu["states"][p][1])}
+                        for p in range(S)]
+            print(f"  S={S} {dtype} card vs CPU, each pass (loss, carried h, c rel L2): "
+                  + "; ".join(f"pass {p + 1}: {e['loss']:.3e}, {e['h']:.3e}, {e['c']:.3e}"
+                              for p, e in enumerate(per_pass)), flush=True)
+            fails.check(torch.equal(card["assignments"], cpu["assignments"]),
+                        f"RSH S={S} {dtype} step card vs CPU: the same greedy assignments")
+            e = step_errs(card, cpu, RECURRENT_TOL[key])
+            check_step(fails, f"RSH S={S} {dtype} step card vs CPU", e, RECURRENT_TOL[key], 16)
+            fe = step_errs(card, fault, RECURRENT_TOL[key])
+            check_fault(fails, f"RSH S={S} {dtype} fault control, the carried state zeroed "
+                               "between passes", fe, RECURRENT_TOL[key])
+            res[dtype] = {**e, "per_pass": per_pass, "fault": fe}
+        res["bf16_effect"] = step_errs(runs[("cpu", "rsh")], runs[("cpu", "rsh_f32")],
+                                       RECURRENT_TOL["rsh"])
+        print_effect(f"RSH S={S}", res["bf16_effect"])
+        result[S] = res
+    return result
 
 
 def check_rsh_outputs(fails: Failures, data_dir: str, out_dir: str) -> dict:
@@ -2059,43 +2188,86 @@ def train_dprnn_phase(fails: Failures, counters) -> dict:
             "peak_memory_gb": peak_gb, "train_dir": tr}
 
 
-def dprnn_step_phase(fails: Failures, train_dir: str) -> dict:
-    """Phase 16: one DPRNN step (bf16, B=4 of the training corpus) on the
-    card against the CPU: loss and every gradient."""
+def model_step(model, dev: str, make_batch, loss_fn, prepare=None) -> dict:
+    """One training step of a copy of ``model`` on ``dev`` (``prepare`` may
+    register hooks on the copy first): the loss, every gradient, its ms."""
     import copy
+    m = copy.deepcopy(model).to(dev)
+    if prepare is not None:
+        prepare(m)
+    b = make_batch(dev)
+    t0 = time.monotonic()
+    loss, _ = loss_fn(m, b, None, True)
+    loss.backward()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return {"ms": (time.monotonic() - t0) * 1e3, "loss": loss.detach().cpu(),
+            "grads": {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None}}
 
+
+def reversed_within(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(B, T, ...) rows reversed in time within each row's length."""
+    t = torch.arange(x.shape[1], device=x.device)[None, :]
+    n = lengths.to(torch.long)[:, None]
+    idx = torch.where(t < n, n - 1 - t, t)
+    return torch.gather(x, 1, idx.view(*idx.shape, *[1] * (x.dim() - 2)).expand_as(x))
+
+
+def reverse_forward_direction(blstm) -> None:
+    """The fault control of the DPRNN step: ``blstm``'s forward direction is
+    fed its rows time-reversed (within each row's length), the reverse
+    direction as before. A forward hook runs the BLSTM again on the reversed
+    rows and puts that run's forward half, turned back, in place of the
+    forward half."""
+    def hook(mod, args, kwargs, out):
+        x, lengths, *rest = args
+        y_rev, _ = mod.forward(reversed_within(x, lengths), lengths, *rest, **kwargs)
+        y, state = out
+        H = mod.hidden
+        return torch.cat([reversed_within(y_rev[..., :H], lengths), y[..., H:]], dim=-1), state
+    blstm.register_forward_hook(hook, with_kwargs=True)
+
+
+def dprnn_step_phase(fails: Failures, train_dir: str) -> dict:
+    """Phase 16: one DPRNN step (B=4 of the training corpus) on the card
+    against the CPU, in bf16 and in f32: loss and every gradient. Controls,
+    on the CPU: the bf16 step against the f32 one (printed), and in each
+    dtype block 0's intra-chunk BLSTM with its forward direction fed
+    time-reversed, a fault that must fail that dtype's bounds."""
     from speech_separation_tpu_torch.dsp.stft import STFTConfig
     from speech_separation_tpu_torch.models import dprnn
     from speech_separation_tpu_torch.train.wav_data import (WavDataset, audio_to_wave_batch,
                                                             collate_wav_batch)
     shipped = collate_wav_batch(WavDataset(train_dir), list(range(4)), 4)
-    model = dprnn.DPRNN(dprnn.Config.from_kwargs(**DPRNN_KW),
-                        torch.Generator().manual_seed(SEED + 19))
-    out = {}
-    for dev in ("cuda", "cpu"):
-        m = copy.deepcopy(model).to(dev)
-        b = audio_to_wave_batch({k: torch.from_numpy(shipped[k]).to(dev) for k in
-                                 ("audio", "sample_lengths", "row_mask")}, STFTConfig())
-        t0 = time.monotonic()
-        loss, _ = dprnn.loss_fn(m, b, None, True)
-        loss.backward()
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        print(f"  {dev} step, B=4: {(time.monotonic() - t0) * 1e3:.0f} ms, loss "
-              f"{loss.item():.6f}", flush=True)
-        out[dev] = (loss.detach(), {n: p.grad for n, p in m.named_parameters()
-                                    if p.grad is not None})
-    loss_err = rel_l2(out["cuda"][0], out["cpu"][0])
-    grad_err = {n: rel_l2(g, out["cpu"][1][n]) for n, g in out["cuda"][1].items()}
-    worst = max(grad_err, key=grad_err.get)
-    fails.check(loss_err <= RECURRENT_TOL["dprnn_loss"],
-                f"DPRNN step loss card vs CPU: rel err {loss_err:.3e} <= "
-                f"{RECURRENT_TOL['dprnn_loss']}")
-    fails.check(len(grad_err) == len([p for p in model.parameters()])
-                and grad_err[worst] <= RECURRENT_TOL["dprnn_grad"],
-                f"DPRNN step gradients card vs CPU ({len(grad_err)} parameters): worst {worst} "
-                f"rel err {grad_err[worst]:.3e} <= {RECURRENT_TOL['dprnn_grad']}")
-    return {"loss_rel_err": loss_err, "worst": worst, "worst_rel_err": grad_err[worst]}
+
+    def make_batch(dev):
+        return audio_to_wave_batch({k: torch.from_numpy(shipped[k]).to(dev) for k in
+                                    ("audio", "sample_lengths", "row_mask")}, STFTConfig())
+
+    def fault(m):
+        reverse_forward_direction(m.blocks[0]["intra_rnn"])
+
+    result, cpu_runs = {}, {}
+    for dtype, key in (("bfloat16", "dprnn"), ("float32", "dprnn_f32")):
+        model = dprnn.DPRNN(dprnn.Config.from_kwargs(**{**DPRNN_KW, "compute_dtype": dtype}),
+                            torch.Generator().manual_seed(SEED + 19))
+        card = model_step(model, "cuda", make_batch, dprnn.loss_fn)
+        cpu = cpu_runs[dtype] = model_step(model, "cpu", make_batch, dprnn.loss_fn)
+        bad = model_step(model, "cpu", make_batch, dprnn.loss_fn, fault)
+        for run, r in (("cuda", card), ("cpu", cpu), ("fault", bad)):
+            print(f"  {dtype} {run} step, B=4: {r['ms']:.0f} ms, loss {r['loss'].item():.6f}",
+                  flush=True)
+        e = step_errs(card, cpu, RECURRENT_TOL[key])
+        check_step(fails, f"DPRNN {dtype} step card vs CPU", e, RECURRENT_TOL[key],
+                   len(list(model.parameters())))
+        fe = step_errs(card, bad, RECURRENT_TOL[key])
+        check_fault(fails, f"DPRNN {dtype} fault control, block 0's intra-chunk forward "
+                           "direction fed time-reversed", fe, RECURRENT_TOL[key])
+        result[dtype] = {**e, "fault": fe}
+    result["bf16_effect"] = step_errs(cpu_runs["bfloat16"], cpu_runs["float32"],
+                                      RECURRENT_TOL["dprnn"])
+    print_effect("DPRNN", result["bf16_effect"])
+    return result
 
 
 def serve_dprnn_phase(fails: Failures, counters) -> dict:
@@ -2251,81 +2423,67 @@ def remat_phase(fails: Failures, counters, train_dir: str) -> dict:
 # blocks.5.prelu1) and 4.3e-2 (Conv-TasNet in_ln.g, a per-channel gain
 # whose gradient sums every frame and cancels); the same weights in f32 on
 # the CPU, 3.0e-2 and 5.7e-2; the first block's depthwise kernel reversed
-# in time, the median gradient 8.2e-2 (TCN) and 2.2 (Conv-TasNet). Each
-# step runs both controls and checks that the fault fails the bound.
+# in time, the median gradient 8.2e-2 (TCN) and 2.2 (Conv-TasNet). The same
+# step in f32 on the card against f32 on the CPU moves by the order of sums
+# alone, so a fault smaller than bf16's own effect shows there; its bounds are
+# derived as RECURRENT_TOL's (the geometric mean of the largest sound reading,
+# TCN and Conv-TasNet at weight seeds 0 and 1, and the smallest reading of the
+# same fault in f32): loss 2.9e-7 -> 1.2e-5 <- 4.5e-4, worst gradient 6.1e-4
+# -> 9.8e-3 <- 0.16, median 2.5e-4 -> 4.2e-3 <- 7.0e-2. Each step runs the
+# controls and checks that each dtype's fault fails that dtype's bounds.
 TCN_KW = {"compute_dtype": "bfloat16"}
 CONVTASNET_KW = {"compute_dtype": "bfloat16"}
-CONV_TOL = {"step_loss": 1e-3, "step_grad": 6e-2, "min_snr_db": 30.0}
+CONV_TOL = {"step": {"loss": 1e-3, "grad": 6e-2, "grad_median": 6e-2},
+            "step_f32": {"loss": 1.2e-5, "grad": 9.8e-3, "grad_median": 4.2e-3},
+            "min_snr_db": 30.0}
 
 
-def step_controls(model, cfg_cls, kw: dict) -> list:
-    """The card-against-CPU step's controls, each run on the CPU: the same
-    weights in f32 compute (sound: printed), and the same bf16 step with the
-    first block's depthwise kernel reversed in time, a convolution where the
-    reference cross-correlates (a fault: most gradients must fail the
-    bound)."""
-    f32 = type(model)(cfg_cls.from_kwargs(**{**kw, "compute_dtype": "float32"}))
-    f32.load_state_dict(model.state_dict())
-    fault = type(model)(cfg_cls.from_kwargs(**kw))
-    fault.load_state_dict(model.state_dict())
-    with torch.no_grad():
-        fault.blocks[0].dw.copy_(fault.blocks[0].dw.flip(0))
-    return [("CPU f32", f32, False), ("blocks.0.dw reversed", fault, True)]
-
-
-def card_vs_cpu_step(fails: Failures, what: str, model, controls: list, loss_fn,
-                     make_batch) -> dict:
-    """One training step of ``model`` on the card and on the CPU (plain
-    versions) on the same batch: the loss and every gradient by relative L2.
-    Each control (``step_controls``) is a CPU step read against the card's
-    the same way; in one marked as a fault, most gradients must fail the
-    bound."""
-    import copy
-    runs = [("cuda", model, "cuda"), ("cpu", model, "cpu")]
-    runs += [(label, m, "cpu") for label, m, _ in controls]
+def step_controls(model, cfg_cls, kw: dict) -> dict:
+    """The card-against-CPU step's other models, same weights: the f32
+    compute model (``f32``: the f32 step's, and in bf16 the sound control),
+    and each dtype's fault, the first block's depthwise kernel reversed in
+    time, a convolution where the reference cross-correlates (``fault``,
+    ``fault_f32``: most gradients must fail the bound)."""
     out = {}
-    for run, src, dev in runs:
-        m = copy.deepcopy(src).to(dev)
-        b = make_batch(dev)
-        t0 = time.monotonic()
-        loss, _ = loss_fn(m, b, None, True)
-        loss.backward()
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        print(f"  {what} {run} step: {(time.monotonic() - t0) * 1e3:.0f} ms, loss "
-              f"{loss.item():.6f}", flush=True)
-        out[run] = (loss.detach(), {n: p.grad for n, p in m.named_parameters()
-                                    if p.grad is not None})
-    bound = CONV_TOL["step_grad"]
+    for key, dtype, fault in (("f32", "float32", False), ("fault", kw["compute_dtype"], True),
+                              ("fault_f32", "float32", True)):
+        m = type(model)(cfg_cls.from_kwargs(**{**kw, "compute_dtype": dtype}))
+        m.load_state_dict(model.state_dict())
+        if fault:
+            with torch.no_grad():
+                m.blocks[0].dw.copy_(m.blocks[0].dw.flip(0))
+        out[key] = m
+    return out
 
-    def against_card(run):
-        err = {n: rel_l2(g, out[run][1][n]) for n, g in out["cuda"][1].items()}
-        worst = max(err, key=err.get)
-        return {"worst": worst, "worst_err": err[worst],
-                "median_err": float(np.median(list(err.values()))),
-                "over_bound": sum(e > bound for e in err.values()), "n": len(err)}
 
-    loss_err = rel_l2(out["cuda"][0], out["cpu"][0])
-    grads = against_card("cpu")
+def card_vs_cpu_step(fails: Failures, what: str, model, controls: dict, loss_fn,
+                     make_batch) -> dict:
+    """One training step of ``model`` (bf16) on the card and on the CPU
+    (plain versions) on the same batch, the loss and every gradient by
+    relative L2 within CONV_TOL["step"]; then the same in f32
+    (``controls["f32"]``) within CONV_TOL["step_f32"]. The CPU's bf16 step
+    against its f32 one is printed (the bf16 effect); each dtype's fault
+    control must fail that dtype's bounds."""
+    runs = {"cuda": (model, "cuda"), "cpu": (model, "cpu"), "fault": (controls["fault"], "cpu"),
+            "cuda f32": (controls["f32"], "cuda"), "cpu f32": (controls["f32"], "cpu"),
+            "fault f32": (controls["fault_f32"], "cpu")}
+    out = {}
+    for run, (m, dev) in runs.items():
+        out[run] = model_step(m, dev, make_batch, loss_fn)
+        print(f"  {what} {run} step: {out[run]['ms']:.0f} ms, loss "
+              f"{out[run]['loss'].item():.6f}", flush=True)
     # the last block's residual projection feeds nothing: no gradient
     n_params = len(list(model.parameters())) - 2
-    fails.check(loss_err <= CONV_TOL["step_loss"],
-                f"{what} step loss card vs CPU: rel err {loss_err:.3e} <= "
-                f"{CONV_TOL['step_loss']}")
-    fails.check(grads["n"] == len(out["cpu"][1]) == n_params and grads["over_bound"] == 0,
-                f"{what} step gradients card vs CPU ({grads['n']} parameters): worst relative "
-                f"L2 {grads['worst']} {grads['worst_err']:.3e} <= {bound} (median "
-                f"{grads['median_err']:.3e})")
-    result = {"loss_rel_err": loss_err, **grads, "controls": {}}
-    for label, _, fault in controls:
-        c = result["controls"][label] = against_card(label)
-        line = (f"{what} control, {label}: worst relative L2 {c['worst']} "
-                f"{c['worst_err']:.3e}, median {c['median_err']:.3e}; {c['over_bound']} of "
-                f"{c['n']} gradients over {bound}")
-        if fault:
-            fails.check(c["over_bound"] > c["n"] // 2, line)
-        else:
-            print("  " + line, flush=True)
+    result = {}
+    for sfx, key in (("", "step"), (" f32", "step_f32")):
+        tol = CONV_TOL[key]
+        e = step_errs(out["cuda" + sfx], out["cpu" + sfx], tol)
+        check_step(fails, f"{what}{sfx} step card vs CPU", e, tol, n_params)
+        fe = step_errs(out["cuda" + sfx], out["fault" + sfx], tol)
+        check_fault(fails, f"{what}{sfx} fault control, blocks.0.dw reversed", fe, tol)
+        result["bfloat16" if not sfx else "float32"] = {**e, "fault": fe}
+    result["bf16_effect"] = step_errs(out["cpu"], out["cpu f32"], CONV_TOL["step"])
+    print_effect(what, result["bf16_effect"])
     return result
 
 
@@ -2690,6 +2848,93 @@ def _solo(sep, x) -> list:
     return [np.concatenate([a, b]) for a, b in zip(first, tail)]
 
 
+# ------------------------------------------------------------------ tools
+
+# Phase 22's bench subset: one phase for each kernel (K3/K4 upit_bf16, K5
+# sepformer, K3/K4 at H=128 dprnn, K2 dsp, K1 and K2 serving), and the
+# launches each child must report: per training step K3 and K4 twice (uPIT,
+# 2 layers) or 12 times (DPRNN, 6 blocks x 2 BLSTMs), K5 forward and backward
+# 8 times (SepFormer, 4 blocks x 2 layers); K2 in dsp's round trips. A
+# training phase runs 1 + iters + 3 steps (the first, the timed loop, the
+# idle-share window); dsp a second of round trips, then 20.
+BENCH_SUBSET = ("upit_bf16", "sepformer", "dprnn", "dsp", "serving")
+BENCH_LAUNCHES = {
+    "upit_bf16": {"lstm_seq_fwd": 2 * 24, "lstm_seq_bwd": 2 * 24},
+    "sepformer": {"chunk_attention_fwd": 8 * 14, "chunk_attention_bwd": 8 * 14},
+    "dprnn": {"lstm_seq_fwd": 12 * 14, "lstm_seq_bwd": 12 * 14},
+    "dsp": {"stft": None},
+    "serving": {"lstm_seq_infer": None, "stft": None},      # None: any number above 0
+}
+
+
+def _cli(argv: list) -> tuple[int, str]:
+    """cli.main.main(argv) in this process: (exit code, its standard
+    output)."""
+    import contextlib
+    import io
+
+    from speech_separation_tpu_torch.cli.main import main as cli_main
+    buf = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli_main(argv)
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+    return code, buf.getvalue()
+
+
+def tools_phase(fails: Failures) -> dict:
+    """Phase 22: the port's doctor, warmup and bench through cli.main.main.
+    doctor exits 0 with the card, nvcc and every kernel built; warmup finds
+    each arch's kernels in the build cache (phase 2 built them) and checks
+    their plans at the training shapes; bench runs BENCH_SUBSET in child
+    processes, each its own CUDA context: its merged line holds the five
+    phases with finite numbers and no failed or skipped phase, the build from
+    the cache in under a second, and each child's kernel launches."""
+    torch.cuda.empty_cache()          # the children need the card's memory
+    t0 = time.monotonic()
+    code, out = _cli(["doctor"])
+    print("  " + out.strip().replace("\n", "\n  "), flush=True)
+    fails.check(code == 0 and "PROBE FAILED" not in out
+                and out.count("built (") == 4,
+                f"doctor exits {code}, the card probed and 4 kernel sources built")
+    doctor_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    code, out = _cli(["warmup"])
+    print("  " + out.strip().replace("\n", "\n  "), flush=True)
+    warm = [ln for ln in out.splitlines() if ln.startswith("warmup ")]
+    fails.check(code == 0 and len(warm) == 6 and all("cache hit" in ln for ln in warm),
+                f"warmup exits {code}: {len(warm)} archs ready, each from the cache")
+    warmup_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    code, out = _cli(["bench", "--phases", ",".join(BENCH_SUBSET)])
+    bench_s = time.monotonic() - t0
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    line = json.loads(lines[-1]) if lines else {"detail": {}}
+    d = line["detail"]
+    print(f"  bench ({bench_s:.1f} s): {json.dumps(line)}", flush=True)
+    fails.check(code == 0 and sorted(d.get("phases", {})) == sorted(BENCH_SUBSET)
+                and "failed_phases" not in d and "skipped_phases" not in d,
+                f"bench exits {code} with phases {sorted(d.get('phases', {}))}, failed "
+                f"{d.get('failed_phases')}, skipped {d.get('skipped_phases')}")
+    numbers = [line.get("value")] + [v for k, v in d.items()
+                                     if isinstance(v, (int, float)) and k != "build_s"]
+    fails.check(len(numbers) > 10 and all(np.isfinite(v) and v > 0 for v in numbers),
+                f"bench: {len(numbers)} numbers, each finite and above 0")
+    fails.check(d.get("build") == "cache" and d.get("build_s", 1.0) < 1.0,
+                f"bench's build after warmup: {d.get('build')}, {d.get('build_s')} s (< 1 s)")
+    launches = {p: s.get("launches", {}) for p, s in d.get("phases", {}).items()}
+    for phase, want in BENCH_LAUNCHES.items():
+        got = launches.get(phase, {})
+        ok = all((got.get(k, 0) > 0) if n is None else got.get(k) == n
+                 for k, n in want.items())
+        ok = ok and all(n == 0 for k, n in got.items() if k not in want)
+        fails.check(ok, f"bench {phase}'s child launched {got} (want {want}, others 0)")
+    return {"line": line, "launches": launches, "doctor_s": doctor_s, "warmup_s": warmup_s,
+            "bench_s": bench_s}
+
+
 def _kernel_group(name: str) -> str:
     if "attn_fwd_" in name:                 # attn_fwd_kernel (f32), _rows, _passes (bf16)
         return "K5 forward"
@@ -2923,6 +3168,11 @@ def main() -> int:
     t21 = time.monotonic()
     streaming = stream_phase(fails, stft)
     print(f"  phase 21: {time.monotonic() - t21:.1f} s", flush=True)
+
+    print("== 22. tools: doctor, warmup and bench (5 phases) through the CLI", flush=True)
+    t22 = time.monotonic()
+    tools = tools_phase(fails)
+    print(f"  phase 22: {time.monotonic() - t22:.1f} s", flush=True)
     paths = {"rsh_train": trained_rsh["launches"], "rsh_mixed": trained_rsh["mixed_launches"],
              "rsh_masks": eval_rsh["launches"]["masks"], "rsh_serve": eval_rsh["serve_launches"],
              "dprnn_train": trained_dprnn["launches"], "dprnn_serve": served_dprnn["launches"],
@@ -2937,7 +3187,9 @@ def main() -> int:
         return {"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **{k: nums[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-                "recipe_launches": recipe["launches"][name], **extra, **lstm_extra}
+                "recipe_launches": recipe["launches"][name],
+                "bench_launches": {p: c[name] for p, c in tools["launches"].items()
+                                   if c.get(name)}, **extra, **lstm_extra}
 
     kernels = [
         row("lstm_seq_infer", "cuda", "speech_separation_tpu_torch/csrc/lstm_fwd.cu",
@@ -2991,6 +3243,8 @@ def main() -> int:
     print(f"  TCN: {tcn_nums}", flush=True)
     print(f"  Conv-TasNet: {convtasnet_nums}", flush=True)
     print(f"  streaming: {streaming}", flush=True)
+    print(f"  tools: doctor {tools['doctor_s']:.1f} s, warmup {tools['warmup_s']:.1f} s, "
+          f"bench {tools['bench_s']:.1f} s", flush=True)
     print(f"  total {time.monotonic() - t_start:.1f} s", flush=True)
     if fails:
         print("chip_smoke FAILED:\n  " + "\n  ".join(fails), file=sys.stderr)

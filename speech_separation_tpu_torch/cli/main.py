@@ -3,10 +3,13 @@ serving.
 
 Run as ``python -m speech_separation_tpu_torch.cli.main <subcommand>``. The
 subcommands and flags are those of the JAX package's CLI
-(speech_separation_tpu/cli/main.py), 13 of its 21: ``prepare``,
+(speech_separation_tpu/cli/main.py), 16 of its 21: ``prepare``,
 ``validate``, ``split``, ``extract``, ``train``, ``eval-masks``,
 ``reconstruct``, ``stage-data``, ``separate``, ``serve``, ``score``,
-``run-train`` and ``run-eval``. The flags of what is not ported yet are left
+``run-train``, ``run-eval``, and the tools ``doctor`` (the card, nvcc and
+the kernel builds), ``warmup`` (each arch's kernels built and their launch
+plans checked at its shapes) and ``bench`` (speech_separation_tpu_torch/
+bench.py, one JSON line). The flags of what is not ported yet are left
 out, so argparse refuses them: ``--device-scoring``, ``--data-parallel``,
 ``--pack-cache``/``--cache-dtype``, ``--hang-watchdog-sec``/
 ``--hang-first-timeout-sec``, ``--profile-dir`` and
@@ -487,6 +490,141 @@ def cmd_run_eval(args):
             _write_sweep_results(args.model_dir, ds, results[ds])
 
 
+# ------------------------------------------------------------------- tools
+
+def cmd_doctor(args):
+    """The card and the toolchain: Python, torch and CUDA versions; the card
+    probed in a killable child (name, power limit, device count, a trivial
+    op's latency with CUDA's initialisation); nvcc; each kernel source
+    built for its current hash or not; the build directory. Exits non-zero
+    if the probe fails or hangs, or if nvcc is missing."""
+    import platform
+    import subprocess
+
+    import torch
+
+    from ..bench import card_name, probe_device
+    from ..ops import _build
+
+    ok = True
+    print(f"python: {platform.python_version()}")
+    print(f"torch: {torch.__version__} (CUDA {torch.version.cuda})")
+    probe = probe_device(args.probe_timeout)
+    if probe["ok"]:
+        try:
+            card = card_name()
+        except (OSError, RuntimeError, subprocess.TimeoutExpired) as e:
+            card = f"{probe['name']} (nvidia-smi: {e})"
+        print(f"card: {card}; {probe['count']} device(s), trivial-op latency "
+              f"{probe['latency_s']}s (incl. init)")
+    else:
+        ok = False
+        print(f"card: PROBE FAILED ({probe['error']})")
+    try:
+        nvcc = _build._nvcc()
+        version = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                                 timeout=60).stdout.strip().splitlines()[-1:]
+        print(f"nvcc: {nvcc} ({version[0] if version else '?'})")
+    except (RuntimeError, OSError, subprocess.TimeoutExpired) as e:
+        ok = False
+        print(f"nvcc: MISSING ({e})")
+    for name in _build.SOURCES:
+        state = (f"built ({_build._target(name).name})" if _build.is_built(name)
+                 else "not built for its current source")
+        print(f"kernel {name}.cu: {state}")
+    print("native io: not ported (ROADMAP A.5.3)")
+    n = len(os.listdir(_build.BUILD_DIR)) if os.path.isdir(_build.BUILD_DIR) else 0
+    print(f"build dir: {_build.BUILD_DIR} ({n} entries)")
+    if not ok:
+        raise SystemExit(1)
+
+
+def _time_domain_framing(cfg, seconds: float) -> tuple[int, int]:
+    """(latent frames, chunks) of a time-domain arch's utterance of
+    ``seconds`` at 8 kHz."""
+    from ..models.convtasnet import latent_frames
+    from ..models.dprnn import num_chunks
+    n_t = latent_frames(cfg, int(seconds * 8000))
+    return n_t, num_chunks(cfg, n_t)
+
+
+def kernel_plans(arch, cfg, batch_size: int, frames: int, seconds: float) -> list:
+    """Each kernel launch plan of the arch's training step at these shapes
+    (ops/lstm_kernel.lstm_fwd_plan / lstm_bwd_plan, ops/attention_kernel.
+    attention_plan, ops/stft_kernel.stft_plan; the STFT at the
+    on-device-features shape), as (what, plan) pairs. Raises ValueError
+    for a shape a kernel refuses."""
+    from ..ops import attention_kernel, lstm_kernel, stft_kernel
+    dt, B, plans = cfg.torch_dtype, batch_size, []
+    if arch.NAME in ("uPIT", "RSH"):
+        for what, fn in (("lstm_fwd", lstm_kernel.lstm_fwd_plan),
+                         ("lstm_bwd", lstm_kernel.lstm_bwd_plan)):
+            plans.append((f"{what} H={cfg.hidden}", fn(2, B, cfg.hidden, dt)))
+    if arch.NAME == "DPRNN":
+        _, C = _time_domain_framing(cfg, seconds)
+        for rows in (B * C, B * cfg.chunk):
+            for what, fn in (("lstm_fwd", lstm_kernel.lstm_fwd_plan),
+                             ("lstm_bwd", lstm_kernel.lstm_bwd_plan)):
+                plans.append((f"{what} H={cfg.rnn_hidden} rows={rows}",
+                              fn(2, rows, cfg.rnn_hidden, dt)))
+    if arch.NAME == "SepFormer":
+        _, C = _time_domain_framing(cfg, seconds)
+        dh = cfg.channels // cfg.heads
+        for rows, T in ((B * C, cfg.chunk), (B * cfg.chunk, C)):
+            for backward in (False, True):
+                plans.append((f"attention {'bwd' if backward else 'fwd'} T={T}",
+                              attention_kernel.attention_plan(rows * cfg.heads, T, dh, dt,
+                                                              backward)))
+    if arch.NAME in ("uPIT", "RSH", "TCN"):
+        n_fft, hop = 512, 128
+        plans.append((f"stft n_t={frames}", stft_kernel.stft_plan(
+            B, (frames - 1) * hop + n_fft, frames, n_fft, hop)))
+    return plans
+
+
+def cmd_warmup(args):
+    """Get each arch ready for its first training step: build the kernel
+    sources it launches (models/registry.ARCH_KERNELS; ops/_build caches
+    them by source hash, the one cache that outlives a process: torch keeps
+    no compiled program across processes) and check each kernel's launch
+    plan at the given shapes, so a configuration the kernels refuse fails
+    here and not at step 1. One line per arch: ready in N s, cold build or
+    cache hit."""
+    from ..models.registry import ARCH_KERNELS, ARCHS, get_arch
+    from ..ops import _build
+
+    names = [n.strip() for n in args.archs.split(",") if n.strip()] or list(ARCHS)
+    model_kwargs = read_model_config(args.model_config)
+    for name in names:
+        arch = get_arch(name)
+        cfg = arch.Config.from_kwargs(**{**model_kwargs, "compute_dtype": args.compute_dtype})
+        sources = list(ARCH_KERNELS[arch.NAME])
+        t0 = time.time()
+        cold = [n for n in sources if not _build.is_built(n)]
+        _build.build(sources)
+        try:
+            plans = kernel_plans(arch, cfg, args.batch_size, args.frames, args.seconds)
+        except ValueError as e:
+            raise SystemExit(f"warmup {arch.NAME}: the kernels refuse this configuration: {e}")
+        status = f"cold build of {', '.join(cold)}" if cold else "cache hit"
+        print(f"warmup {arch.NAME}: kernels {sources or 'none'} ready in "
+              f"{time.time() - t0:.1f}s ({status}); plans: "
+              + ("; ".join(f"{w} {p.get('ctas')} CTAs" for w, p in plans) or "none"),
+              flush=True)
+    print(f"build cache: {_build.BUILD_DIR}")
+
+
+def cmd_bench(args):
+    """The port's benchmark (speech_separation_tpu_torch/bench.py): one JSON
+    line after each phase, the last the full merge; exits non-zero when a
+    phase fails or no card is visible."""
+    from ..bench import main as bench_main
+    rc = bench_main((["--rsh"] if args.rsh else [])
+                    + (["--phases", args.phases] if args.phases else []))
+    if rc:
+        raise SystemExit(rc)
+
+
 def _add_device(p):
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch versions "
@@ -692,6 +830,34 @@ def build_parser():
     _add_stft(p)
     _add_device(p)
     p.set_defaults(fn=cmd_run_eval)
+
+    p = sub.add_parser("doctor", help="the card (probed in a killable child), nvcc and "
+                                      "the kernel builds")
+    p.add_argument("--probe-timeout", type=float, default=60.0,
+                   help="seconds before declaring the card's probe hung")
+    p.set_defaults(fn=cmd_doctor)
+
+    p = sub.add_parser("bench", help="reference-scale benchmark on the card (one JSON "
+                                     "line; speech_separation_tpu_torch/bench.py)")
+    p.add_argument("--rsh", action="store_true",
+                   help="measure the RSH full train step instead of the phases")
+    p.add_argument("--phases", default="",
+                   help="comma list of phases (default all ten, in bench.PHASES order)")
+    p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("warmup", help="build each arch's kernels and check their launch "
+                                      "plans at the given shapes")
+    p.add_argument("--archs", default="",
+                   help="comma-separated arch names (default: all registered)")
+    p.add_argument("--batch-size", type=int, default=100)
+    p.add_argument("--frames", type=int, default=384,
+                   help="padded frame count for spectral archs")
+    p.add_argument("--seconds", type=float, default=4.0,
+                   help="utterance length for time-domain archs")
+    p.add_argument("--compute-dtype", default="bfloat16")
+    p.add_argument("--model-config", default="",
+                   help="key=value file of model hyperparameters")
+    p.set_defaults(fn=cmd_warmup)
     return ap
 
 

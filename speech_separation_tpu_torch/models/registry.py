@@ -17,6 +17,19 @@ from . import convtasnet, dprnn, rsh, sepformer, tcn, upit
 ARCHS = {"uPIT": upit, "RSH": rsh, "TCN": tcn, "DPRNN": dprnn, "SepFormer": sepformer,
          "ConvTasNet": convtasnet}
 
+# The kernel sources (csrc/<name>.cu, ops/_build.SOURCES) each arch's
+# training and serving launch: the BLSTM archs the LSTM recurrences (K1, K3
+# lstm_fwd; K4 lstm_bwd), the spectral ones the STFT (K2) for on-device
+# features and serving, SepFormer the chunk attention (K5, with
+# fused_attention=1). DPRNN works on waveforms and Conv-TasNet runs no
+# hand-written kernel. warmup, doctor and bench read this map.
+ARCH_KERNELS = {"uPIT": ("lstm_fwd", "lstm_bwd", "stft"),
+                "RSH": ("lstm_fwd", "lstm_bwd", "stft"),
+                "DPRNN": ("lstm_fwd", "lstm_bwd"),
+                "TCN": ("stft",),
+                "SepFormer": ("attention",),
+                "ConvTasNet": ()}
+
 
 def get_arch(name: str):
     """Resolve an arch by registry name (case-insensitive)."""

@@ -24,6 +24,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# every source of csrc/ with a plain C interface, one library each
+SOURCES = ("lstm_fwd", "lstm_bwd", "stft", "attention")
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas' report (registers, shared memory, spills) of each build, by source
@@ -48,6 +51,11 @@ def _target(name: str) -> Path:
                                             *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def is_built(name: str) -> bool:
+    """Whether ``csrc/<name>.cu`` is built for its current hash."""
+    return _target(name).exists()
 
 
 def build(names) -> dict[str, Path]:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, recipe and streaming paths
-(uPIT, SepFormer, RSH, DPRNN, TCN, Conv-TasNet) on one CUDA card and check
-them.
+"""Drive the PyTorch port's serving, training, recipe, streaming and
+evaluation paths (uPIT, SepFormer, RSH, DPRNN, TCN, Conv-TasNet; the
+float64 device scorer, the oracle, the JAX package's checkpoints) on one
+CUDA card and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -140,10 +141,26 @@ Phases, in order; any failure exits non-zero without the final line:
    launch plans at the training shapes) and bench with the phases
    upit_bf16, sepformer, dprnn, dsp and serving, each in a child process:
    the merged line's phases, numbers and build, and each child's launches;
-23. one JSON line with every kernel and its numbers (with the recipe's
+23. device scoring: the linalg backend and one 64-utterance LU under
+   cuSOLVER and MAGMA; copies of phase 10's uPIT tracks and phase 14's RSH
+   tracks (2 and 3 sources) rescored by `score --device-scoring` (float64
+   on the card, eval/bss_eval_device.py), every result row held to the host
+   scorer's within SCORE_DB with the same permutation, the walls side by
+   side with the anatomy line and the fallbacks; `run-eval --stage 4
+   --device-scoring` on a copy of phase 10's model dir; phase 10's model
+   written as the JAX package's SEPTPU01 checkpoint (the script's own
+   msgpack encoder) and run through `run-eval --stage 2 --device-scoring`
+   (masks identical to phase 10's, K1 counted); a fault control scoring the
+   same tracks with flen=511, which must miss SCORE_DB on every utterance;
+24. oracle: `oracle` soft and hard on phase 10's 100 test utterances with
+   --device-scoring (K2 counted, one launch an utterance) and with the host
+   scorer in 8 spawned workers, rows within SCORE_DB; the soft mask again
+   with --device cpu (the plain STFT), each row within a bound derived from
+   K2's contract;
+25. one JSON line with every kernel and its numbers (with the recipe's
    launch counts, each LSTM kernel's numbers at DPRNN's shapes and its
-   launches on each RSH, DPRNN and remat path, K2's on the TCN paths, the
-   launches of each bench phase of phase 22), then
+   launches on each RSH, DPRNN, remat and SEPTPU01 path, K2's on the TCN
+   and oracle paths, the launches of each bench phase of phase 22), then
    {"ok": true, "device": {...}} as the last line.
 
 ``python3 chip_smoke.py --profile`` traces full-width SepFormer training
@@ -2935,6 +2952,334 @@ def tools_phase(fails: Failures) -> dict:
             "bench_s": bench_s}
 
 
+# --------------------------------------------------------- device scoring
+
+# The float64 device scorer (phase 23) against the host f64 scorer's rows of
+# phases 10 and 14: every SDR/SIR/SAR/SI-SDR/SI-SDRi within SCORE_DB with the
+# same permutation. The scorer's trust gate sends to the host whatever its
+# residuals say may miss 1e-7 dB (eval/bss_eval_device.GATE_DB); a row that
+# misses SCORE_DB calls for that gate, not for this bound. The fault control
+# scores the same utterances with flen = 511 and must miss SCORE_DB on every
+# one. The oracle (phase 24): device-scored rows against host-scored rows
+# within SCORE_DB; the card's soft-mask rows against the same command with
+# --device cpu (the plain STFT) within a bound derived per row from K2's
+# contract (stft_perturbation): the estimate may move by rho of the source's
+# norm; the error signal of a row at x dB is 10^(-x/20) of the signal, so its
+# norm moves by at most rho * 10^(x/20) relative, its energy by twice that,
+# and x by 10/ln(10) times the energy's relative change.
+SCORE_DB = 1e-6
+ORACLE_UTTS = 100
+
+
+def msgpack_bytes(x) -> bytes:
+    """msgpack as flax.serialization writes a checkpoint payload: maps with
+    str keys, ints, str, and arrays as ext type 1 of [shape, dtype name,
+    C-order bytes]. The script's own encoder (no msgpack on this machine)."""
+    import struct
+
+    def sized(n, small, codes, small_limit):
+        if n < small_limit:
+            return bytes([small | n])
+        for code, fmt in codes:
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                return bytes([code]) + struct.pack(fmt, n)
+        raise ValueError(n)
+
+    if isinstance(x, dict):
+        out = sized(len(x), 0x80, ((0xDE, ">H"), (0xDF, ">I")), 16)
+        return out + b"".join(msgpack_bytes(k) + msgpack_bytes(v) for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        return sized(len(x), 0x90, ((0xDC, ">H"), (0xDD, ">I")), 16) + b"".join(
+            msgpack_bytes(v) for v in x)
+    if isinstance(x, str):
+        b = x.encode()
+        return sized(len(b), 0xA0, ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")), 32) + b
+    if isinstance(x, bytes):
+        return sized(len(x), 0x00, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")), 0) + x
+    if isinstance(x, (int, np.integer)) and not isinstance(x, bool):
+        return bytes([int(x)]) if 0 <= x < 128 else b"\xd3" + struct.pack(">q", int(x))
+    if isinstance(x, np.ndarray):
+        data = msgpack_bytes([list(x.shape), x.dtype.name, np.ascontiguousarray(x).tobytes()])
+        for code, fmt in ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")):
+            if len(data) < 1 << (8 * struct.calcsize(fmt)):
+                return bytes([code]) + struct.pack(fmt, len(data)) + b"\x01" + data
+    raise TypeError(type(x))
+
+
+def write_septpu01(path: str, mdl: str, meta: dict, epoch: int) -> None:
+    """A port uPIT checkpoint written as the JAX package's SEPTPU01 file: the
+    magic, a <I header length, the JSON header, then the params and state
+    trees in the JAX layout (w_ih, w_hh transposed; one summed bias b)."""
+    import struct
+    sd = {k: v.float().numpy() for k, v in torch.load(mdl, weights_only=True).items()
+          if k != "bn.num_batches_tracked"}
+    n_layers = len([k for k in sd if k.startswith("blstm.weight_ih_l") and "reverse" not in k])
+    blstm = {str(i): {d: {"w_ih": np.ascontiguousarray(sd[f"blstm.weight_ih_l{i}{s}"].T),
+                          "w_hh": np.ascontiguousarray(sd[f"blstm.weight_hh_l{i}{s}"].T),
+                          "b": sd[f"blstm.bias_ih_l{i}{s}"] + sd[f"blstm.bias_hh_l{i}{s}"]}
+                      for d, s in (("fwd", ""), ("bwd", "_reverse"))} for i in range(n_layers)}
+    payload = {"params": {"blstm": blstm,
+                          "bn": {"gamma": sd["bn.weight"], "beta": sd["bn.bias"]},
+                          "lin": {"w": np.ascontiguousarray(sd["lin.weight"].T),
+                                  "b": sd["lin.bias"]}},
+               "state": {"bn": {"mean": sd["bn.running_mean"], "var": sd["bn.running_var"]}}}
+    header = json.dumps({"epoch": epoch, "meta": meta}).encode()
+    with open(path, "wb") as f:
+        f.write(b"SEPTPU01" + struct.pack("<I", len(header)) + header + msgpack_bytes(payload))
+
+
+def _result_rows(exp: str) -> dict:
+    """{metric: {utt: values}} of a scored output dir."""
+    rows = {}
+    for m in ("SDR", "SIR", "SAR", "SI-SDR", "SI-SDRi"):
+        with open(os.path.join(exp, "results", f"source_{m}s.txt")) as f:
+            rows[m] = {ln.split()[0]: np.array(ln.split()[1:], float) for ln in f}
+    return rows
+
+
+def row_diff(got: dict, want: dict) -> float:
+    """The largest |difference| over every metric and row (inf when the
+    utterances differ)."""
+    d = 0.0
+    for m in want:
+        if sorted(got[m]) != sorted(want[m]):
+            return float("inf")
+        for utt, w in want[m].items():
+            g = got[m][utt]
+            same_inf = (np.isinf(g) & (g == w))
+            d = max(d, float(np.max(np.where(same_inf, 0.0, np.abs(g - w)), initial=0.0)))
+    return d
+
+
+def _copy_wavs(src_out: str, dst_out: str) -> None:
+    shutil.rmtree(dst_out, ignore_errors=True)
+    shutil.copytree(os.path.join(src_out, "wav"), os.path.join(dst_out, "wav"))
+
+
+def _anatomy(log) -> str:
+    return next((ln.strip() for _, ln, _ in log.lines if "device scoring anatomy" in ln), "")
+
+
+def linalg_timing() -> dict:
+    """The linalg backend PyTorch picks, and one joint solve's LU of a
+    64-utterance sub-batch (64 x 1024 x 1024 f64, 2 sources) under each
+    backend, CUDA-event means."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    A = torch.randn((64, 1024, 1024), generator=gen, device="cuda", dtype=torch.float64)
+    G = A @ A.transpose(1, 2) + 1024 * torch.eye(1024, device="cuda", dtype=torch.float64)
+    D = torch.randn((64, 1024, 2), generator=gen, device="cuda", dtype=torch.float64)
+    default = torch.backends.cuda.preferred_linalg_library()
+    out = {"preferred_linalg_library": str(default)}
+    try:
+        for lib in ("cusolver", "magma"):
+            torch.backends.cuda.preferred_linalg_library(lib)
+            out[f"{lib}_lu_ms"] = cuda_ms(lambda: torch.linalg.lu_factor_ex(G), iters=5)
+            LU, piv, _ = torch.linalg.lu_factor_ex(G)
+            out[f"{lib}_lu_solve_ms"] = cuda_ms(lambda: torch.linalg.lu_solve(LU, piv, D),
+                                                iters=5)
+    finally:
+        torch.backends.cuda.preferred_linalg_library(default)
+    return out
+
+
+def device_scoring_phase(fails: Failures, counters, recipe: dict, eval_rsh: dict) -> dict:
+    """Phase 23: the float64 device scorer on the card. Copies of phase 10's
+    uPIT tracks and phase 14's RSH tracks rescored by `score
+    --device-scoring`; `run-eval --stage 4 --device-scoring` on a copy of
+    phase 10's model dir; phase 10's model written as the JAX package's
+    SEPTPU01 checkpoint and run through `run-eval --stage 2
+    --device-scoring`; the flen=511 fault control."""
+    from speech_separation_tpu_torch.eval.bss_eval_device import bss_eval_sources_batch
+    from speech_separation_tpu_torch.eval.score import _load_case, pack_signals
+    from speech_separation_tpu_torch.datadir.scp import read_scp, read_utt2num_spk
+    out = {"linalg": linalg_timing()}
+    print(f"  linalg: {out['linalg']}", flush=True)
+    recipe_dir = os.path.join(REPO, "build", "chip_smoke_recipe")
+    rsh_dir = os.path.join(REPO, "build", "chip_smoke_rsh_eval")
+    cases = (("uPIT", recipe_dir, "exp/uPIT_rtr/output_final/rtt", recipe["walls_s"]["score"]),
+             ("RSH", rsh_dir, "exp/RSH/output_final/rtt", eval_rsh["walls_s"]["score"]))
+    cwd = os.getcwd()
+    try:
+        for arch, work, host_out, host_wall in cases:
+            os.chdir(work)
+            want = _result_rows(host_out)
+            dev_out = host_out.replace("exp/", "exp_device/")
+            _copy_wavs(host_out, dev_out)
+            log = StageLog(counters)
+            log.run(["score", "data/rtt", dev_out, "--device-scoring", "--device", "cuda"])
+            wall = log.lines[-1][0] - log.lines[0][0]
+            with open(os.path.join(dev_out, "results", "summary.json")) as f:
+                summary = json.load(f)
+            d = row_diff(_result_rows(dev_out), want)
+            fails.check(d <= SCORE_DB and summary["scorer"] == "device-f64",
+                        f"{arch}: score --device-scoring rows against the host's "
+                        f"(phase {10 if arch == 'uPIT' else 14}): max |difference| {d:.3e} dB "
+                        f"<= {SCORE_DB}, the same permutation")
+            print(f"  {arch}: device scorer {wall:.2f} s ({summary['host_fallbacks']} host-f64 "
+                  f"fallbacks) against the host scorer's {host_wall:.2f} s (8 spawned "
+                  f"workers); {_anatomy(log)}", flush=True)
+            out[arch] = {"wall_s": wall, "host_wall_s": host_wall, "max_diff_db": d,
+                         "fallbacks": summary["host_fallbacks"], "anatomy": _anatomy(log)}
+
+        os.chdir(recipe_dir)
+        # run-eval stage 4 with --device-scoring, on a copy of phase 10's model dir
+        exp4 = "exp/uPIT_rtr_stage4"
+        shutil.rmtree(exp4, ignore_errors=True)
+        os.makedirs(exp4)
+        for name in ("final.mdl", "final.state", "conf"):
+            shutil.copy(os.path.join("exp/uPIT_rtr", name), exp4)
+        _copy_wavs("exp/uPIT_rtr/output_final/rtt", f"{exp4}/output_final/rtt")
+        log = StageLog(counters)
+        log.run(["run-eval", "--model-dir", exp4, "--test-sets", "rtt", "--stage", "4",
+                 "--device-scoring", "--device", "cuda"])
+        want = _result_rows("exp/uPIT_rtr/output_final/rtt")
+        d = row_diff(_result_rows(f"{exp4}/output_final/rtt"), want)
+        fails.check(d <= SCORE_DB, f"run-eval --stage 4 --device-scoring rows against the "
+                                   f"host's: max |difference| {d:.3e} dB <= {SCORE_DB}")
+        out["run_eval_stage4"] = {"wall_s": log.lines[-1][0] - log.lines[0][0], "max_diff_db": d}
+
+        # phase 10's model as the JAX package's checkpoint: run-eval stages 2-4
+        from speech_separation_tpu_torch.train.checkpoint import load_checkpoint
+        meta = load_checkpoint("exp/uPIT_rtr/final.mdl")["meta"]
+        exp_j = "exp/uPIT_rtr_septpu01"
+        shutil.rmtree(exp_j, ignore_errors=True)
+        os.makedirs(exp_j)
+        write_septpu01(os.path.join(exp_j, "final.mdl"), "exp/uPIT_rtr/final.mdl", meta, 5)
+        log = StageLog(counters)
+        log.run(["run-eval", "--model-dir", exp_j, "--test-sets", "rtt", "--stage", "2",
+                 "--batch-size", "100", "--device-scoring", "--device", "cuda"])
+        spans = log.spans([("masks", "(stage 2)"), ("reconstruct", "(stage 3)"),
+                           ("score", "(stage 4)")])
+        mask_err = 0.0
+        for utt, _ in read_scp("data/rtt/wav.scp"):
+            with np.load(f"exp/uPIT_rtr/output_final/rtt/masks/{utt}.npz") as a, \
+                    np.load(f"{exp_j}/output_final/rtt/masks/{utt}.npz") as b:
+                mask_err = max(mask_err, max(float(np.abs(a[k] - b[k]).max()) for k in a.files))
+        d = row_diff(_result_rows(f"{exp_j}/output_final/rtt"), want)
+        k1 = spans["masks"][1]["lstm_seq_infer"]
+        fails.check(mask_err == 0.0 and d <= SCORE_DB and k1 == 2,
+                    f"run-eval --stage 2 --device-scoring on a SEPTPU01 checkpoint of phase "
+                    f"10's model: masks max |difference| {mask_err:.3e} (0: the same weights "
+                    f"and initial state), rows {d:.3e} dB <= {SCORE_DB}, K1 launched {k1} "
+                    f"times in masks (2)")
+        out["septpu01"] = {"walls_s": {k: w for k, (w, _) in spans.items()},
+                           "mask_max_diff": mask_err, "max_diff_db": d, "k1_launches": k1}
+
+        # the fault control: the same utterances scored with flen = 511
+        entries = read_scp("data/rtt/wav.scp")
+        n_src = read_utt2num_spk("data/rtt/utt2num_spk")
+        est_dir = "exp/uPIT_rtr/output_final/rtt/wav"
+        loaded = [_load_case(u, p, n_src[u], est_dir) for u, p in entries]
+        sdr, sir, sar, _ = bss_eval_sources_batch(pack_signals([c[0] for c in loaded], 2),
+                                                  pack_signals([c[1] for c in loaded], 2),
+                                                  flen=511, device="cuda")
+        dev = [max(np.max(np.abs(x[i] - want[m][u])) for x, m in ((sdr, "SDR"), (sir, "SIR"),
+                                                                     (sar, "SAR")))
+               for i, (u, _) in enumerate(entries)]
+        fails.check(min(dev) > SCORE_DB, f"fault control (flen=511): every utterance misses "
+                                         f"{SCORE_DB} dB, the smallest deviation "
+                                         f"{min(dev):.3e} dB")
+        out["fault_flen511_min_dev_db"] = float(min(dev))
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def oracle_rows(data_dir: str, kind: str) -> dict:
+    rows = {}
+    for m in ("SDR", "SIR", "SAR"):
+        with open(os.path.join(data_dir, f"oracle_{kind}_mask_eval", f"source_{m}s.txt")) as f:
+            rows[m] = {ln.split()[0]: np.array(ln.split()[1:], float) for ln in f}
+    return rows
+
+
+def stft_perturbation(data_dir: str) -> dict:
+    """{utt: rho_i per source}: the relative perturbation of each soft-mask
+    estimate that K2's contract allows. K2 is within TOL["stft_rel"] of
+    max |X| in every bin, so a bin of mask * X = |S_i| e^(j arg X) moves by
+    at most 2 TOL max|X| (|S_i| and the phase's X); over F*T bins the
+    estimate moves by 2 TOL max|X| sqrt(F T) in norm (the iSTFT is close
+    to a tight frame), against the source's ||S_i||. The STFTs here are
+    numpy float64 on the host."""
+    from speech_separation_tpu_torch.datadir.scp import read_scp, source_wavs_for_mix
+    from speech_separation_tpu_torch.dsp.stft import hann_periodic
+    from speech_separation_tpu_torch.utils.audio import load_wav
+    w = hann_periodic(512, np.float64)
+
+    def spec(x):
+        xp = np.pad(x.astype(np.float64), 256, mode="reflect")
+        n_t = 1 + len(x) // 128
+        frames = np.lib.stride_tricks.sliding_window_view(xp, 512)[::128][:n_t]
+        return np.abs(np.fft.rfft(frames * w, axis=1))
+
+    rho = {}
+    for utt, mix_path in read_scp(os.path.join(data_dir, "wav.scp")):
+        mix, *srcs = [spec(load_wav(p)[0]) for p in source_wavs_for_mix(mix_path)]
+        peak = 2 * TOL["stft_rel"] * mix.max() * np.sqrt(mix.size)
+        rho[utt] = np.array([peak / np.linalg.norm(s) for s in srcs])
+    return rho
+
+
+def oracle_phase(fails: Failures, stft_counter) -> dict:
+    """Phase 24: `oracle` soft and hard on phase 10's 100 test utterances,
+    with --device-scoring in process (K2 counted) and with the host scorer in
+    8 spawned workers (--nj 8 --mj 8); the soft mask again with --device cpu
+    (the plain STFT), against the card."""
+    recipe_dir = os.path.join(REPO, "build", "chip_smoke_recipe")
+    cwd = os.getcwd()
+    out = {}
+    try:
+        os.chdir(recipe_dir)
+        for kind in ("soft", "hard"):
+            flag = ["--hard-mask"] if kind == "hard" else []
+            stft_counter.launches = 0
+            t0 = time.monotonic()
+            code, text = _cli(["oracle", "data/rtt", "--device-scoring", "--device", "cuda",
+                               *flag])
+            dev_wall = time.monotonic() - t0
+            launches = stft_counter.launches
+            dev_rows = oracle_rows("data/rtt", kind)
+            mean_sdr = float(np.mean(np.concatenate(list(dev_rows["SDR"].values()))))
+            fb = sum(int(ln.split("(")[1].split()[0]) for ln in text.splitlines()
+                     if "host-f64 fallbacks" in ln)
+            t0 = time.monotonic()
+            code_h, _ = _cli(["oracle", "data/rtt", "--nj", "8", "--mj", "8", "--device",
+                              "cuda", *flag])
+            host_wall = time.monotonic() - t0
+            d = row_diff(dev_rows, oracle_rows("data/rtt", kind))
+            fails.check(code == 0 and code_h == 0 and d <= SCORE_DB
+                        and launches == ORACLE_UTTS,
+                        f"oracle {kind}: device-scored rows against host-scored: max "
+                        f"|difference| {d:.3e} dB <= {SCORE_DB}; K2 launched {launches} "
+                        f"times ({ORACLE_UTTS}: one an utterance)")
+            print(f"  oracle {kind}: --device-scoring {dev_wall:.2f} s ({fb} host-f64 "
+                  f"fallbacks), host scorer (8 workers) {host_wall:.2f} s; mean SDR "
+                  f"{mean_sdr:.4f} dB; K2 launches {launches}", flush=True)
+            out[kind] = {"device_wall_s": dev_wall, "host_wall_s": host_wall,
+                         "max_diff_db": d, "k2_launches": launches, "mean_sdr": mean_sdr,
+                         "fallbacks": fb}
+            if kind == "soft":
+                card_rows = dev_rows
+        t0 = time.monotonic()
+        code, _ = _cli(["oracle", "data/rtt", "--nj", "8", "--mj", "8", "--device", "cpu"])
+        cpu_wall = time.monotonic() - t0
+        cpu_rows = oracle_rows("data/rtt", "soft")
+        rho = stft_perturbation("data/rtt")
+        worst = 0.0        # the largest difference as a share of its derived bound
+        for m in cpu_rows:
+            for utt, w in cpu_rows[m].items():
+                bound = 10 / np.log(10) * 2 * rho[utt][:len(w)] * 10 ** (w / 20)
+                worst = max(worst, float(np.max(np.abs(card_rows[m][utt] - w) / bound)))
+        fails.check(code == 0 and sorted(cpu_rows["SDR"]) == sorted(card_rows["SDR"])
+                    and worst <= 1.0,
+                    f"oracle soft on the card against --device cpu (plain STFT): every row "
+                    f"within its derived bound (the largest share of it {worst:.3f})")
+        out["soft_cpu"] = {"wall_s": cpu_wall, "worst_share_of_bound": worst}
+    finally:
+        os.chdir(cwd)
+    return out
+
+
 def _kernel_group(name: str) -> str:
     if "attn_fwd_" in name:                 # attn_fwd_kernel (f32), _rows, _passes (bf16)
         return "K5 forward"
@@ -3173,11 +3518,24 @@ def main() -> int:
     t22 = time.monotonic()
     tools = tools_phase(fails)
     print(f"  phase 22: {time.monotonic() - t22:.1f} s", flush=True)
+
+    print("== 23. device scoring: score and run-eval --device-scoring (float64 on the card), "
+          "a SEPTPU01 checkpoint through run-eval", flush=True)
+    t23 = time.monotonic()
+    scoring = device_scoring_phase(fails, [stft, *lstm_counters], recipe, eval_rsh)
+    print(f"  phase 23: {time.monotonic() - t23:.1f} s", flush=True)
+
+    print("== 24. oracle: soft and hard masks, device and host scoring, card and CPU",
+          flush=True)
+    t24 = time.monotonic()
+    oracle = oracle_phase(fails, stft)
+    print(f"  phase 24: {time.monotonic() - t24:.1f} s", flush=True)
     paths = {"rsh_train": trained_rsh["launches"], "rsh_mixed": trained_rsh["mixed_launches"],
              "rsh_masks": eval_rsh["launches"]["masks"], "rsh_serve": eval_rsh["serve_launches"],
              "dprnn_train": trained_dprnn["launches"], "dprnn_serve": served_dprnn["launches"],
              **{f"{arch.lower()}_{mode}_step": remat[arch][mode]["launches"]
-                for arch in ("uPIT", "RSH") for mode in ("plain", "remat")}}
+                for arch in ("uPIT", "RSH") for mode in ("plain", "remat")},
+             "septpu01_masks": {"lstm_seq_infer": scoring["septpu01"]["k1_launches"]}}
 
     def row(name, route, source, replaces, nums, extra):
         lstm_extra = {}
@@ -3203,7 +3561,9 @@ def main() -> int:
              "shape": stft_nums["serve"]["shape"], "features": stft_nums["features"],
              "recipe": {k: recipe["kernels"][k] for k in ("stft_re_im", "stft_magnitude")},
              "path_launches": {"tcn_serve": tcn_nums["serve_launches"]["stft"],
-                               "tcn_train_on_device_features": tcn_nums["train_k2_launches"]}}),
+                               "tcn_train_on_device_features": tcn_nums["train_k2_launches"],
+                               "oracle_soft": oracle["soft"]["k2_launches"],
+                               "oracle_hard": oracle["hard"]["k2_launches"]}}),
         row("lstm_seq_fwd", "cuda", "speech_separation_tpu_torch/csrc/lstm_fwd.cu",
             "speech_separation_tpu/ops/lstm_pallas.py:175", lstm_train["fwd"][torch.bfloat16],
             {"dtype": "bfloat16", "float32": lstm_train["fwd"][torch.float32]}),
@@ -3245,6 +3605,8 @@ def main() -> int:
     print(f"  streaming: {streaming}", flush=True)
     print(f"  tools: doctor {tools['doctor_s']:.1f} s, warmup {tools['warmup_s']:.1f} s, "
           f"bench {tools['bench_s']:.1f} s", flush=True)
+    print(f"  device scoring: {scoring}", flush=True)
+    print(f"  oracle: {oracle}", flush=True)
     print(f"  total {time.monotonic() - t_start:.1f} s", flush=True)
     if fails:
         print("chip_smoke FAILED:\n  " + "\n  ".join(fails), file=sys.stderr)

@@ -3,20 +3,25 @@ serving.
 
 Run as ``python -m speech_separation_tpu_torch.cli.main <subcommand>``. The
 subcommands and flags are those of the JAX package's CLI
-(speech_separation_tpu/cli/main.py), 16 of its 21: ``prepare``,
+(speech_separation_tpu/cli/main.py), 20 of its 21: ``prepare``,
 ``validate``, ``split``, ``extract``, ``train``, ``eval-masks``,
 ``reconstruct``, ``stage-data``, ``separate``, ``serve``, ``score``,
-``run-train``, ``run-eval``, and the tools ``doctor`` (the card, nvcc and
-the kernel builds), ``warmup`` (each arch's kernels built and their launch
-plans checked at its shapes) and ``bench`` (speech_separation_tpu_torch/
-bench.py, one JSON line). The flags of what is not ported yet are left
-out, so argparse refuses them: ``--device-scoring``, ``--data-parallel``,
+``oracle`` (the oracle-mask upper bound), ``run-train``, ``run-eval``, the
+checkpoint tools ``info``, ``import-model`` and ``export-model``, and the
+tools ``doctor`` (the card, nvcc and the kernel builds), ``warmup`` (each
+arch's kernels built and their launch plans checked at its shapes) and
+``bench`` (speech_separation_tpu_torch/bench.py, one JSON line).
+``pack-features`` is not ported yet. The flags of what is not ported yet
+are left out, so argparse refuses them: ``--data-parallel``,
 ``--pack-cache``/``--cache-dtype``, ``--hang-watchdog-sec``/
 ``--hang-first-timeout-sec``, ``--profile-dir`` and
 ``--train-copy-location`` (ROADMAP.md);
 ``--no-plots`` is accepted and plots are not drawn. Every command that runs
 a model or a kernel takes ``--device`` (default ``cuda``; without a card it
 fails; ``cpu`` runs the plain PyTorch versions of the kernels).
+``--device-scoring`` on ``score``, ``oracle`` and ``run-eval`` runs BSS-eval
+in float64 on that device (eval/bss_eval_device.py), held to the host
+scorer.
 
 The recipe (the reference's run_train.sh / run_eval.sh): ``run-train`` does
 prepare (stage 0), extract (1) and train (2) into ``exp/<arch>_<train-set>``;
@@ -31,8 +36,11 @@ into as many sources as its ``utt2num_spk`` says. ``serve
 --streaming-model`` adds the live-stream protocol with a causal TCN or
 Conv-TasNet (eval/streaming.py). Models are ``.mdl`` state dicts: ``train`` writes
 them with the arch and model config in the ``.state`` beside each, which the
-evaluation commands read, and ``sepsep export-model`` turns the JAX
-package's uPIT/RSH checkpoints into reference ``.mdl`` files.
+evaluation commands read. The evaluation commands also read the JAX
+package's own checkpoints (``SEPTPU01``, any arch) and a reference's bare
+``.mdl``; ``import-model`` writes either as a port checkpoint and
+``export-model`` writes a uPIT/RSH model as a reference ``.mdl``, all
+without JAX.
 """
 
 from __future__ import annotations
@@ -93,10 +101,27 @@ def cmd_stage_data(args):
     stage_scp_data(args.scp, args.target_dir, args.bwlimit or None)
 
 
+def _in_shards(fn, head: tuple, nj: int, mj: int, **kw) -> None:
+    """fn(*head, ".<i>", **kw) for each of nj shards; with mj > 1, mj at once
+    in spawned worker processes, each of which opens the card and loads its
+    kernels itself (spawn, never fork: the parent may hold an initialized
+    CUDA context)."""
+    if mj > 1:
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+        with ProcessPoolExecutor(max_workers=mj, mp_context=mp.get_context("spawn")) as pool:
+            futures = [pool.submit(fn, *head, f".{i}", **kw) for i in range(1, nj + 1)]
+            for f in futures:
+                f.result()
+    else:
+        for i in range(1, nj + 1):
+            fn(*head, f".{i}", **kw)
+
+
 def _extract(data_dir, data_type, feat_dir, args):
     """Extract one data dir's features; with ``--nj N`` in N shards of a
-    split dir (then merged), ``--mj M`` of them at once in spawned worker
-    processes, each of which opens the card and loads the kernel itself."""
+    split dir (then merged), ``--mj M`` of them at once in worker
+    processes."""
     from ..datadir.split import split_data_dir
     from ..datadir.validate import validate_data_dir
     from ..dsp.extract import extract_features, merge_shard_outputs
@@ -109,19 +134,7 @@ def _extract(data_dir, data_type, feat_dir, args):
         return
     validate_data_dir(data_dir)
     split_dir = split_data_dir(data_dir, args.nj)
-    if args.mj > 1:
-        import multiprocessing as mp
-        from concurrent.futures import ProcessPoolExecutor
-        # spawn, never fork: the parent may hold an initialized CUDA context
-        with ProcessPoolExecutor(max_workers=args.mj,
-                                 mp_context=mp.get_context("spawn")) as pool:
-            futures = [pool.submit(extract_features, split_dir, data_type, feat_dir, cfg,
-                                   f".{i}", **kw) for i in range(1, args.nj + 1)]
-            for f in futures:
-                f.result()
-    else:
-        for i in range(1, args.nj + 1):
-            extract_features(split_dir, data_type, feat_dir, cfg, f".{i}", **kw)
+    _in_shards(extract_features, (split_dir, data_type, feat_dir, cfg), args.nj, args.mj, **kw)
     merge_shard_outputs(data_dir, split_dir, data_type, args.nj)
 
 
@@ -146,7 +159,58 @@ def cmd_reconstruct(args):
 
 def cmd_score(args):
     from ..eval.score import evaluate_sources
-    evaluate_sources(args.data_dir, args.exp_dir, num_workers=args.nj)
+    evaluate_sources(args.data_dir, args.exp_dir, num_workers=args.nj,
+                     device_scoring=args.device_scoring, device=args.device)
+
+
+def cmd_oracle(args):
+    """Oracle-mask upper bound of a data dir; with ``--nj N`` in N shards of
+    a split dir (their outputs moved up and merged), ``--mj M`` of them at
+    once in worker processes."""
+    from ..datadir.split import split_data_dir
+    from ..datadir.validate import validate_data_dir
+    from ..eval.infer import resolve_device
+    from ..eval.oracle import evaluate_oracle, merge_oracle_shards
+    resolve_device(args.device)          # no card: fail before any shard is written
+    cfg = _stft_cfg(args)
+    kw = {"device_scoring": args.device_scoring, "device": args.device}
+    if args.nj > 1:
+        validate_data_dir(args.data_dir)
+        split_dir = split_data_dir(args.data_dir, args.nj)
+        _in_shards(evaluate_oracle, (split_dir, args.hard_mask, cfg), args.nj, args.mj, **kw)
+        # the shards read the split dir and write under it: move them up
+        kind = "hard" if args.hard_mask else "soft"
+        src = os.path.join(split_dir, f"oracle_{kind}_mask_eval")
+        dst = os.path.join(args.data_dir, f"oracle_{kind}_mask_eval")
+        os.makedirs(dst, exist_ok=True)
+        for name in os.listdir(src):
+            shutil.move(os.path.join(src, name), os.path.join(dst, name))
+        means = merge_oracle_shards(args.data_dir, args.hard_mask, args.nj)
+    else:
+        evaluate_oracle(args.data_dir, args.hard_mask, cfg, **kw)
+        means = merge_oracle_shards(args.data_dir, args.hard_mask, 1)
+    print(" ".join(f"oracle mean {k}: {v:.2f}" for k, v in means.items()))
+
+
+# ------------------------------------------------------------- checkpoints
+
+def cmd_info(args):
+    """Inspect a checkpoint (a ``SEPTPU01`` file or a port ``.mdl``): arch,
+    hyperparameters, training state."""
+    from ..utils.import_reference import checkpoint_info
+    print("\n".join(checkpoint_info(args.model)))
+
+
+def cmd_import_model(args):
+    """A reference ``.mdl`` or a ``SEPTPU01`` file -> a port checkpoint."""
+    from ..utils.import_reference import import_reference_model
+    import_reference_model(args.mdl_path, args.out_path)
+
+
+def cmd_export_model(args):
+    """A port checkpoint or a ``SEPTPU01`` file -> the reference's ``.mdl``."""
+    from ..utils.import_reference import export_reference_model
+    export_reference_model(args.ckpt_path, args.out_path)
 
 
 def _pipeline(args):
@@ -481,7 +545,9 @@ def cmd_run_eval(args):
                 data_dir = os.path.join(args.data_root, ds)
                 if fused:
                     _ensure_utt2num_spk(data_dir)
-                means = evaluate_sources(data_dir, out_dirs[ds], num_workers=args.nj)
+                means = evaluate_sources(data_dir, out_dirs[ds], num_workers=args.nj,
+                                         device_scoring=args.device_scoring,
+                                         device=args.device)
                 print(f"{ds} mean SDR: {means['SDR']:.2f}")
                 results[ds].append((model, means))
 
@@ -629,6 +695,12 @@ def _add_device(p):
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch versions "
                         "of the kernels")
+
+
+def _add_device_scoring(p):
+    p.add_argument("--device-scoring", action="store_true",
+                   help="batched float64 BSS-eval on --device (held to the host "
+                        "scorer; utterances its trust gate rejects go to the host)")
 
 
 def _add_common(p):
@@ -795,11 +867,40 @@ def build_parser():
                         "once at startup, e.g. '4,8'")
     p.set_defaults(fn=cmd_serve)
 
-    p = sub.add_parser("score", help="BSS-eval + SI-SDR scoring (host, float64)")
+    p = sub.add_parser("score", help="BSS-eval + SI-SDR scoring (float64; host, or "
+                                     "the card with --device-scoring)")
     p.add_argument("data_dir")
     p.add_argument("exp_dir")
     p.add_argument("--nj", type=int, default=0, help="scoring worker processes")
+    _add_device_scoring(p)
+    _add_device(p)
     p.set_defaults(fn=cmd_score)
+
+    p = sub.add_parser("oracle", help="oracle-mask upper bound eval")
+    p.add_argument("data_dir")
+    p.add_argument("--hard-mask", action="store_true")
+    _add_device_scoring(p)
+    _add_stft(p)
+    _add_device(p)
+    p.set_defaults(fn=cmd_oracle)
+
+    p = sub.add_parser("info", help="inspect a checkpoint (arch, hyperparameters, state)")
+    p.add_argument("model")
+    p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser("import-model",
+                       help="convert a reference torch .mdl or the JAX package's "
+                            "checkpoint into a port checkpoint (.mdl and .state)")
+    p.add_argument("mdl_path")
+    p.add_argument("out_path")
+    p.set_defaults(fn=cmd_import_model)
+
+    p = sub.add_parser("export-model",
+                       help="convert a port checkpoint or the JAX package's checkpoint "
+                            "(uPIT/RSH) into a reference torch .mdl state-dict")
+    p.add_argument("ckpt_path")
+    p.add_argument("out_path")
+    p.set_defaults(fn=cmd_export_model)
 
     p = sub.add_parser("run-train", help="staged training recipe")
     p.add_argument("--stage", type=int, default=0)
@@ -826,6 +927,7 @@ def build_parser():
     p.add_argument("--featdir", default="feats")
     p.add_argument("--on-device-features", action="store_true",
                    help="fused wav->wav separation (no feature or mask files)")
+    _add_device_scoring(p)
     _add_common(p)
     _add_stft(p)
     _add_device(p)

@@ -3,11 +3,13 @@
 The counterpart of speech_separation_tpu/eval/infer.py. ``load_model``: the port
 reads a ``.mdl`` state dict (``torch.save(model.state_dict())``): one that
 its own trainer wrote, with the arch and model kwargs in the ``.state`` meta
-beside it (train/checkpoint.py), or a reference SepDNN state dict (the JAX
-package writes one with ``sepsep export-model``), whose arch and sizes are
-inferred from the weight shapes. ``model_kwargs`` (for example
-``compute_dtype`` or ``zero_init_hidden``) apply on top. The JAX package's
-own msgpack checkpoints are not read yet (ROADMAP.md).
+beside it (train/checkpoint.py), or a reference SepDNN state dict, whose
+arch and sizes are inferred from the weight shapes; and the JAX package's
+own ``SEPTPU01`` checkpoints, read without JAX (train/checkpoint.
+read_septpu01, utils/import_reference.py), the arch and model kwargs from
+their header's meta. A uPIT or RSH model's sizes come from its weight
+shapes, the meta's kwargs on top; ``model_kwargs`` (for example
+``compute_dtype`` or ``zero_init_hidden``) apply on top of both.
 
 ``generate_masks`` streams a test set's features (``feats_test.scp``)
 through the eval-mode forward in padded batches and writes one mask npz per
@@ -27,10 +29,8 @@ import numpy as np
 import torch
 
 from ..models.registry import get_arch
-from ..train.checkpoint import state_path
+from ..train.checkpoint import is_septpu01, load_checkpoint, read_septpu01, state_path
 from ..utils.weights import infer_model_info
-
-_SEPTPU_MAGIC = b"SEPTPU01"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -43,45 +43,39 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def load_state_dict(model_path: str) -> dict:
-    with open(model_path, "rb") as f:
-        magic = f.read(len(_SEPTPU_MAGIC))
-    if magic == _SEPTPU_MAGIC:
-        raise ValueError(
-            f"{model_path} is a speech_separation_tpu (JAX) checkpoint; the "
-            "PyTorch port reads reference .mdl state dicts: convert it with "
-            "`python -m speech_separation_tpu.cli.main export-model "
-            f"{model_path} <out.mdl>`")
-    return torch.load(model_path, map_location="cpu", weights_only=True)
-
-
-def _checkpoint_meta(model_path: str) -> dict:
-    """The meta (arch, model kwargs) that the port's trainer writes beside a
-    ``.mdl`` in ``<name>.state``; {} when there is none (a reference
-    ``.mdl``)."""
-    path = state_path(model_path)
-    if not os.path.isfile(path):
-        return {}
-    return torch.load(path, map_location="cpu", weights_only=True).get("meta") or {}
+def read_checkpoint(model_path: str) -> tuple[dict, dict]:
+    """(state dict, meta) of a model file: a ``SEPTPU01`` checkpoint's
+    weights converted to the port's layout with its header's meta, or a
+    ``.mdl`` with the meta (arch, model kwargs) that the port's trainer
+    writes beside it in ``<name>.state`` ({} when there is none, as for a
+    reference ``.mdl``)."""
+    if is_septpu01(model_path):
+        from ..utils.import_reference import state_dict_from_septpu01
+        payload = read_septpu01(model_path)
+        return state_dict_from_septpu01(payload), {"arch": "uPIT", **payload["meta"]}
+    ckpt = load_checkpoint(model_path,
+                           reference_resume=not os.path.isfile(state_path(model_path)))
+    return ckpt["model"], ckpt["meta"] or {}
 
 
 def load_model(model_path: str, arch_name: str = "",
                model_kwargs: dict | None = None, device=None):
-    """Load (arch, cfg, model) from a ``.mdl``, the model in eval mode on
-    ``device`` (CUDA by default). The arch and its kwargs come from the
-    port's ``.state`` meta when it is there, else from the shapes of a
-    reference uPIT/RSH state dict; ``arch_name`` and ``model_kwargs``
-    override both."""
+    """Load (arch, cfg, model) from a ``.mdl`` or a ``SEPTPU01`` checkpoint,
+    the model in eval mode on ``device`` (CUDA by default). The arch and its
+    kwargs come from the meta (the port's ``.state``, a ``SEPTPU01``
+    header) when there is one, a uPIT/RSH model's sizes from its weight
+    shapes; ``arch_name`` and ``model_kwargs`` override both."""
     dev = resolve_device(device)
-    sd = load_state_dict(model_path)
-    meta = _checkpoint_meta(model_path)
-    if meta.get("arch"):
-        name, kwargs = meta["arch"], dict(meta.get("model_kwargs") or {})
-    else:
+    sd, meta = read_checkpoint(model_path)
+    name, kwargs = meta.get("arch"), {}
+    if name in (None, "uPIT", "RSH") and "blstm.weight_ih_l0" in sd:
         info = infer_model_info(sd)
-        name = info["arch"]
+        name = name or info["arch"]
         kwargs = {k: str(info[k]) for k in ("feat_dim", "num_spk", "hidden", "num_layers")
                   if info.get(k) is not None}
+    if name is None:
+        infer_model_info(sd)             # raises: not a reference state dict
+    kwargs.update(meta.get("model_kwargs") or {})
     arch = get_arch(arch_name or name)
     kwargs.update(model_kwargs or {})
     cfg = arch.Config.from_kwargs(**kwargs)

@@ -1,11 +1,11 @@
 """Scoring: BSS-eval of the estimated against the oracle sources, in the
 reference's result files.
 
-The counterpart of the host path of speech_separation_tpu/eval/score.py
-(the device scorer is not ported yet, ROADMAP.md). For each utterance of
-wav.scp, the oracle sources are found by the /mix/ -> /s<i>/ substitution,
-everything is cut to the first estimate's length, BSS-eval runs with the
-permutation search (eval/bss_eval.py, float64 on the host), and
+The counterpart of speech_separation_tpu/eval/score.py. For each utterance
+of wav.scp, the oracle sources are found by the /mix/ -> /s<i>/
+substitution, everything is cut to the first estimate's length, BSS-eval
+runs with the permutation search (eval/bss_eval.py, float64 on the host;
+with ``device_scoring``, eval/bss_eval_device.py, float64 on the card), and
 
   results/session_{SDR,SIR,SAR,SI-SDR,SI-SDRi}s.txt   per utterance, mean over sources
   results/source_{...}s.txt                           per utterance, per source
@@ -13,8 +13,8 @@ permutation search (eval/bss_eval.py, float64 on the host), and
   results/summary.json                                n_utts, means, scorer
 
 are written. ``num_workers > 1`` scores utterances in a pool of spawned
-processes; this module imports numpy and scipy only, so they never touch
-the card.
+processes; this module imports numpy and scipy only (the device scorer
+is imported where it is called), so they never touch the card.
 """
 
 from __future__ import annotations
@@ -48,14 +48,115 @@ def _load_case(utt, mix_path, num_src, est_dir):
     return oracle, est, mix[:est.shape[1]]
 
 
+def _si_metrics(oracle, est, mix, perm):
+    """SI-SDR and SI-SDRi of each estimate against its assigned source."""
+    num_src = oracle.shape[0]
+    sisdr = np.array([si_sdr(est[k], oracle[perm[k]]) for k in range(num_src)])
+    sisdri = np.array([si_sdr_improvement(est[k], oracle[perm[k]], mix)
+                       for k in range(num_src)])
+    return sisdr, sisdri
+
+
 def _score_one(args):
     utt, mix_path, num_src, est_dir = args
     oracle, est, mix = _load_case(utt, mix_path, num_src, est_dir)
     sdr, sir, sar, perm = bss_eval_sources(oracle, est)
-    sisdr = np.array([si_sdr(est[k], oracle[perm[k]]) for k in range(num_src)])
-    sisdri = np.array([si_sdr_improvement(est[k], oracle[perm[k]], mix)
-                       for k in range(num_src)])
-    return utt, sdr, sir, sar, sisdr, sisdri
+    return (utt, sdr, sir, sar, *_si_metrics(oracle, est, mix, perm))
+
+
+def _case_int16(x: np.ndarray) -> np.ndarray | None:
+    """Exact int16 repacking of float audio when every sample is k/32768
+    (true of un-resampled PCM16 wavs, which the pipeline writes); None if
+    any sample is inexact. Every BSS-eval quantity is invariant to the
+    common 2^15 scale, and a power-of-two scale is exact in float64."""
+    y = np.rint(x * 32768.0)
+    if (np.all(y >= -32768.0) and np.all(y < 32768.0)
+            and np.array_equal(y / 32768.0, x)):
+        return y.astype(np.int16)
+    return None
+
+
+def pack_signals(signals, num_src: int) -> np.ndarray:
+    """(B, n, Lmax) zero-padded from a list of (n, L_b) arrays: int16 when
+    every one repacks exactly (a quarter of float64's bytes to the card),
+    else float64. References and estimates are packed apart: the metrics
+    are invariant to a scale of either."""
+    Lmax = max(x.shape[1] for x in signals)
+    packed = [_case_int16(x) for x in signals]
+    exact = all(x is not None for x in packed)
+    out = np.zeros((len(signals), num_src, Lmax), np.int16 if exact else np.float64)
+    for i, x in enumerate(packed if exact else signals):
+        out[i, :, :x.shape[1]] = x
+    return out
+
+
+def _score_device(jobs, log, device, slab: int = 64):
+    """BSS-eval on the card in float64 (eval/bss_eval_device.py), the
+    counterpart of the JAX package's slab path. Utterances are grouped by
+    source count, length-sorted by their RIFF headers (no audio read) and
+    scored in slabs; two loader threads read the next slabs while one scores
+    on the card; SI-SDR stays on the host. Utterances the scorer's trust
+    gate rejects are rescored by the host f64 scorer, counted and logged.
+    Returns (results in wav.scp order, fallback count)."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..utils.audio import wav_num_samples
+    from .bss_eval_device import bss_eval_sources_batch
+    from .infer import resolve_device
+    dev = resolve_device(device)
+
+    hdr_len = {job[0]: wav_num_samples(os.path.join(job[3], "s1", job[0] + ".wav"))
+               for job in jobs}
+    by_count: dict[int, list] = {}
+    for job in jobs:
+        by_count.setdefault(job[2], []).append(job)
+    slabs = []
+    for num_src, group in by_count.items():
+        group = sorted(group, key=lambda job: hdr_len[job[0]])
+        slabs += [(num_src, group[s:s + slab]) for s in range(0, len(group), slab)]
+
+    def load_slab(chunk):
+        return [_load_case(utt, mp, n, ed) for utt, mp, n, ed in chunk]
+
+    results, stats = [], {}
+    t_sweep0 = time.monotonic()
+    t_loadwait = t_pack = t_dev = t_post = 0.0
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        depth = 2
+        futs = [pool.submit(load_slab, slabs[k][1]) for k in range(min(depth, len(slabs)))]
+        for k, (num_src, chunk) in enumerate(slabs):
+            t0 = time.monotonic()
+            cases = futs[k].result()
+            t_loadwait += time.monotonic() - t0
+            if k + depth < len(slabs):
+                futs.append(pool.submit(load_slab, slabs[k + depth][1]))
+            t0 = time.monotonic()
+            refs = pack_signals([c[0] for c in cases], num_src)
+            ests = pack_signals([c[1] for c in cases], num_src)
+            t_pack += time.monotonic() - t0
+            n_before, fb_before = stats.get("fallbacks", 0), stats.get("fallback_s", 0.0)
+            t0 = time.monotonic()
+            sdr, sir, sar, perm = bss_eval_sources_batch(refs, ests, device=dev, stats=stats)
+            fb_s = stats["fallback_s"] - fb_before
+            t_dev += time.monotonic() - t0 - fb_s
+            t0 = time.monotonic()
+            for i, ((utt, *_r), (oracle, est, mix)) in enumerate(zip(chunk, cases)):
+                results.append((utt, sdr[i], sir[i], sar[i],
+                                *_si_metrics(oracle, est, mix, perm[i])))
+            futs[k] = None                       # release the slab's audio
+            t_post += time.monotonic() - t0 + fb_s
+            n_host = stats["fallbacks"] - n_before
+            log(f"scored {len(results)}/{len(jobs)} on {dev.type}"
+                + (f" ({n_host} host-f64 fallbacks: "
+                   + ", ".join(f"{chunk[b][0]} {why}" for b, why in stats["reasons"][-n_host:])
+                   + ")" if n_host else ""))
+    total = time.monotonic() - t_sweep0
+    log(f"device scoring anatomy: total {total:.2f}s = load-wait {t_loadwait:.2f} + pack "
+        f"{t_pack:.2f} + device {t_dev:.2f} + host-SI/fallback {t_post:.2f}; "
+        f"{stats.get('fallbacks', 0)} host-f64 fallbacks of {len(jobs)}")
+    order = {job[0]: i for i, job in enumerate(jobs)}
+    return sorted(results, key=lambda r: order[r[0]]), stats.get("fallbacks", 0)
 
 
 def _write_stats(path: str, values: np.ndarray) -> None:
@@ -67,17 +168,21 @@ def _write_stats(path: str, values: np.ndarray) -> None:
 
 
 def evaluate_sources(data_dir: str, exp_dir: str, num_workers: int = 0,
-                     log=print) -> dict:
+                     device_scoring: bool = False, device=None, log=print) -> dict:
     """Score exp_dir/wav against the oracle sources of data_dir. Returns
     the mean of each metric: {'SDR': ..., 'SIR', 'SAR', 'SI-SDR',
-    'SI-SDRi'}."""
+    'SI-SDRi'}. ``device_scoring`` runs BSS-eval batched in float64 on
+    ``device`` (CUDA by default; it raises when no card is visible), held
+    to the host scorer; ``num_workers`` then does not apply."""
     results_dir = os.path.join(exp_dir, "results")
-    os.makedirs(results_dir, exist_ok=True)
     num_src = read_utt2num_spk(os.path.join(data_dir, "utt2num_spk"))
     entries = read_scp(os.path.join(data_dir, "wav.scp"))
     est_dir = os.path.join(exp_dir, "wav")
     jobs = [(utt, path, num_src[utt], est_dir) for utt, path in entries]
-    if num_workers and num_workers > 1:
+    fallbacks = None
+    if device_scoring:
+        results, fallbacks = _score_device(jobs, log, device)
+    elif num_workers and num_workers > 1:
         import multiprocessing as mp
         # spawn: the parent may hold an initialized CUDA context
         with ProcessPoolExecutor(max_workers=num_workers,
@@ -86,6 +191,7 @@ def evaluate_sources(data_dir: str, exp_dir: str, num_workers: int = 0,
     else:
         results = [_score_one(j) for j in jobs]
 
+    os.makedirs(results_dir, exist_ok=True)
     values = {name: [] for name in METRICS}
     files = {}
     for name in METRICS:
@@ -104,7 +210,11 @@ def evaluate_sources(data_dir: str, exp_dir: str, num_workers: int = 0,
         vals = np.asarray(vals)
         _write_stats(os.path.join(results_dir, f"{name}_stats.txt"), vals)
         means[name] = float(np.mean(vals))
+    summary = {"n_utts": len(entries), "mean": means,
+               "scorer": "device-f64" if device_scoring else "host-f64"}
+    if device_scoring:
+        summary["host_fallbacks"] = fallbacks
     with open(os.path.join(results_dir, "summary.json"), "w") as f:
-        json.dump({"n_utts": len(entries), "mean": means, "scorer": "host-f64"}, f, indent=1)
+        json.dump(summary, f, indent=1)
     log(" ".join(f"mean {k}: {v:.2f}" for k, v in means.items()))
     return means

@@ -11,13 +11,24 @@ the generator that draws the initial LSTM states, the epoch and the meta
 (arch, model kwargs). With both, a resumed run continues bit for bit;
 ``reference_resume`` reads the weights only, as the reference does, so it
 also resumes from a reference's bare ``.mdl``.
+
+``read_septpu01`` reads the JAX package's own checkpoint format (its
+train/checkpoint.py): the magic ``SEPTPU01``, a little-endian u32 header
+length, a JSON header ``{"epoch", "meta"}``, then flax's msgpack payload
+``{"params", "state"[, "opt_state"][, "rng"]}``, decoded by
+utils/msgpack_lite.py into nested dicts of numpy arrays (a pytree's
+tuples and lists are dicts keyed "0".."N-1" there).
 """
 
 from __future__ import annotations
 
+import json
 import os
+import struct
 
 import torch
+
+SEPTPU_MAGIC = b"SEPTPU01"
 
 
 def state_path(mdl_path: str) -> str:
@@ -60,6 +71,44 @@ def load_checkpoint(mdl_path: str, *, reference_resume: bool = False) -> dict:
             "(--reference-resume)")
     extra = torch.load(path, map_location="cpu", weights_only=True)
     return {"model": model, **extra}
+
+
+def save_state_dict(mdl_path: str, state_dict: dict, *, epoch: int = 0,
+                    meta: dict | None = None) -> None:
+    """Write a converted state dict as a port checkpoint: the ``.mdl`` and
+    a ``.state`` beside it with the epoch and meta and no optimizer or
+    generator state."""
+    os.makedirs(os.path.dirname(os.path.abspath(mdl_path)), exist_ok=True)
+    _save_atomic(state_dict, mdl_path)
+    _save_atomic({"epoch": int(epoch), "meta": meta or {}, "optimizer": None,
+                  "generator": None}, state_path(mdl_path))
+
+
+def is_septpu01(path: str) -> bool:
+    """Whether ``path`` starts with the JAX package's checkpoint magic."""
+    with open(path, "rb") as f:
+        return f.read(len(SEPTPU_MAGIC)) == SEPTPU_MAGIC
+
+
+def read_septpu01(path: str) -> dict:
+    """The JAX package's checkpoint as {'params', 'state', 'opt_state',
+    'rng', 'epoch', 'meta'}, numpy leaves (opt_state and rng None when the
+    file has none), read without JAX, flax or msgpack."""
+    from ..utils.msgpack_lite import unchunk, unpackb
+    with open(path, "rb") as f:
+        if f.read(len(SEPTPU_MAGIC)) != SEPTPU_MAGIC:
+            raise ValueError(f"{path}: not a speech_separation_tpu checkpoint")
+        (hlen,) = struct.unpack("<I", f.read(4))
+        header = json.loads(f.read(hlen).decode())
+        try:
+            payload = unchunk(unpackb(f.read()))
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from e
+    for key in ("opt_state", "rng"):
+        payload.setdefault(key, None)
+    payload["epoch"] = header["epoch"]
+    payload["meta"] = header["meta"]
+    return payload
 
 
 def intermediate_model_path(exp_dir: str, epoch: int | str) -> str:

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: none of its modules, and not
-chip_smoke.py, imports JAX or the JAX package, and its entry points run on
-CUDA unless the caller asks for the CPU."""
+chip_smoke.py, imports JAX or the JAX package, every top-level import of
+theirs is on an allowlist of what the card's machine has (the standard
+library, torch, numpy, scipy and the port itself: no msgpack, no flax), and
+its entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -8,6 +10,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -70,6 +73,21 @@ def test_no_source_names_jax_or_the_jax_package():
                                "speech_separation_tpu"), (path, name)
 
 
+# the top-level packages the port and chip_smoke.py may import besides the
+# standard library: the card's machine has these and not msgpack or flax
+ALLOWED_IMPORTS = {"torch", "numpy", "scipy", "speech_separation_tpu_torch"}
+
+
+def test_every_import_is_on_the_allowlist():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in files:
+        for name in _imported_roots(path):
+            top = name.split(".")[0]
+            assert top in sys.stdlib_module_names or top in ALLOWED_IMPORTS, (path, name)
+
+
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     from speech_separation_tpu_torch.cli.main import main
     from speech_separation_tpu_torch.dsp.extract import extract_features
@@ -91,6 +109,7 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     data = tmp_path / "data" / "tt"
     data.mkdir(parents=True)
     (data / "wav.scp").write_text("u1 /nowhere/mix/u1.wav\n")
+    (data / "utt2num_spk").write_text("u1 2\n")
     before = sorted(str(p) for p in tmp_path.rglob("*"))
     with pytest.raises(RuntimeError, match="CUDA"):
         extract_features(str(data), "test", str(tmp_path / "feats"))
@@ -98,10 +117,22 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         generate_masks(str(tmp_path / "missing.mdl"), str(data), str(tmp_path / "masks"))
     with pytest.raises(RuntimeError, match="CUDA"):
         reconstruct_sources(str(data), str(tmp_path / "out"))
+    from speech_separation_tpu_torch.eval.bss_eval_device import bss_eval_sources_batch
+    from speech_separation_tpu_torch.eval.oracle import evaluate_oracle
+    from speech_separation_tpu_torch.eval.score import evaluate_sources
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bss_eval_sources_batch(np.zeros((1, 2, 8)), np.zeros((1, 2, 8)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_oracle(str(data))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_sources(str(data), str(tmp_path / "exp_score"), device_scoring=True)
     monkeypatch.chdir(tmp_path)
     for argv in (["run-eval", "--model-dir", "exp", "--test-sets", "tt"],
+                 ["run-eval", "--model-dir", "exp", "--test-sets", "tt", "--device-scoring"],
                  ["extract", "data/tt", "test", "feats", "--nj", "2"],
-                 ["eval-masks", "missing.mdl", "data/tt", "masks"]):
+                 ["eval-masks", "missing.mdl", "data/tt", "masks"],
+                 ["score", "data/tt", "exp_score", "--device-scoring"],
+                 ["oracle", "data/tt"], ["oracle", "data/tt", "--nj", "2", "--mj", "2"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(argv)
     assert sorted(str(p) for p in tmp_path.rglob("*")) == before

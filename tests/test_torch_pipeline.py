@@ -102,10 +102,24 @@ def test_cli_separate_writes_the_pipeline_tracks(models, tmp_path):
         np.testing.assert_allclose(y, track, atol=2.0 / 32767)
 
 
-def test_jax_checkpoint_is_refused_with_a_pointer(models):
-    _, ckpt, _ = models
-    with pytest.raises(ValueError, match="export-model"):
-        load_model(ckpt, device="cpu")
+def test_jax_checkpoint_is_refused_with_a_pointer(models, tmp_path):
+    """The JAX package's checkpoint loads natively (train/checkpoint.
+    read_septpu01) into the model its exported .mdl gives; a SEPTPU01 file
+    whose payload holds what flax never writes is refused with a pointer to
+    the file and the msgpack ext type."""
+    _, ckpt, mdl = models
+    _, _, from_ckpt = load_model(ckpt, model_kwargs=KW, device="cpu")
+    _, _, from_mdl = load_model(mdl, model_kwargs=KW, device="cpu")
+    want = from_mdl.state_dict()
+    for k, v in from_ckpt.state_dict().items():
+        torch.testing.assert_close(v, want[k], rtol=0, atol=0)
+    bad = tmp_path / "bad.ckpt"
+    with open(ckpt, "rb") as f:
+        head = f.read(12)
+        head += f.read(int.from_bytes(head[8:12], "little"))
+    bad.write_bytes(head + b"\xd4\x05\x00")          # fixext1 of ext type 5
+    with pytest.raises(ValueError, match="bad.ckpt.*ext type 5"):
+        load_model(str(bad), device="cpu")
 
 
 def test_server_answers_requests_and_ping(models, tmp_path):

@@ -134,10 +134,12 @@ def test_run_train_then_run_eval_on_the_cpu(workspace):
                                        "summary.json"))
 
 
+# --device-scoring is ported (eval/bss_eval_device.py); --data-parallel, the
+# JAX package's companion to it, is not, and is refused beside it
 @pytest.mark.parametrize("argv", [
-    ["run-eval", "--model-dir", "x", "--test-sets", "y", "--device-scoring"],
+    ["run-eval", "--model-dir", "x", "--test-sets", "y", "--data-parallel", "--device-scoring"],
     ["run-eval", "--model-dir", "x", "--test-sets", "y", "--data-parallel"],
-    ["score", "d", "e", "--device-scoring"],
+    ["score", "d", "e", "--data-parallel", "--device-scoring"],
     ["extract", "d", "train", "f", "--pack-cache"],
     ["run-train", "--train-set", "t", "--hang-watchdog-sec", "60"],
     ["run-train", "--train-set", "t", "--profile-dir", "p"],
@@ -148,3 +150,14 @@ def test_flags_of_unported_modules_are_refused(argv, capsys):
         main(argv)
     assert e.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["run-eval", "--model-dir", "x", "--test-sets", "y", "--device-scoring"],
+    ["score", "d", "e", "--device-scoring"],
+    ["oracle", "d", "--device-scoring", "--hard-mask", "--nj", "2", "--mj", "2"],
+], ids=lambda a: a[0])
+def test_device_scoring_flags_parse(argv):
+    from speech_separation_tpu_torch.cli.main import build_parser
+    args = build_parser().parse_args(argv)
+    assert args.device_scoring and args.device == "cuda"

@@ -13,13 +13,13 @@ Tolerances:
   by far less than 1e-3. A hard mask can flip where two sources' magnitudes
   tie within that rounding; the synthetic voices are spectrally disjoint,
   so no bin of this corpus comes near a tie, and the hard rows hold the
-  same bound;
-- except the one-speaker rows' SDR and SAR: there the soft mask is exactly
-  1 and the hard mask all ones, so the "error" is the float32 STFT round
-  trip's own rounding, ~130 dB below the source, and its dB value is that
-  rounding (two float32 STFTs read 130.577 and 130.596 dB on one segment).
-  Those rows are held to lie above the noise floor, 100 dB, on both sides;
-  their SIR is +inf in both (no interference);
+  same bound (readings: soft 2.6e-6 to 3.8e-6 dB, hard 2.1e-6 to 3.6e-6);
+- except a one-speaker row whose SDR and SAR lie above 100 dB: there the
+  soft mask is exactly 1 and the hard mask all ones, so the "error" is the
+  float32 STFT round trip's own rounding, and its dB value is that rounding
+  (two float32 STFTs read 130.577 and 130.596 dB on one segment). Such rows
+  are held to lie above that noise floor, 100 dB, on both sides; the
+  one-speaker rows' SIR is +inf in both (no interference);
 - ``--nj 2`` merged against the single run: identical rows;
 - the port's device-scoring rows against its host rows: within 1e-6 dB.
 """

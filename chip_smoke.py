@@ -68,7 +68,8 @@ Phases, in order; any failure exits non-zero without the final line:
    the test set at B=100 with --nj 8 (extract with K2 in re/im mode, masks
    with K1 at B=100, T=384, reconstruct, the host f64 scorer in 8 spawned
    workers); extract again in 4 spawned worker processes (--nj 4 --mj 4);
-   run-eval --on-device-features into a second model dir. K2 and
+   run-eval --on-device-features --device-scoring into a second model
+   dir (the float64 device scorer of phase 23). K2 and
    K1 are first held against their plain versions at the recipe's shapes.
    Checks: the files as the reference writes them, the workers' features
    against the in-process ones, each kernel's launches in
@@ -154,9 +155,10 @@ Phases, in order; any failure exits non-zero without the final line:
    same tracks with flen=511, which must miss SCORE_DB on every utterance;
 24. oracle: `oracle` soft and hard on phase 10's 100 test utterances with
    --device-scoring (K2 counted, one launch an utterance) and with the host
-   scorer in 8 spawned workers, rows within SCORE_DB; the soft mask again
-   with --device cpu (the plain STFT), each row within a bound derived from
-   K2's contract;
+   scorer in 8 spawned workers, rows within SCORE_DB; the soft mask's
+   --device-scoring command again with --device cpu (the plain STFT and the
+   same scorer on the CPU), each row within a bound derived from K2's
+   contract;
 25. one JSON line with every kernel and its numbers (with the recipe's
    launch counts, each LSTM kernel's numbers at DPRNN's shapes and its
    launches on each RSH, DPRNN, remat and SEPTPU01 path, K2's on the TCN
@@ -1433,8 +1435,9 @@ def check_recipe_outputs(fails: Failures, data_dir: str, out_dir: str, staged: b
 def recipe_phase(fails: Failures, counters) -> dict:
     """Phase 10: the reference's staged recipe through the port's CLI, in
     process: run-train stages 0-2 (2x600 bf16 uPIT, B=100, 5 epochs) and
-    run-eval stages 0-4 on the card, then run-eval --on-device-features, then
-    the first test utterances' recipe on the card against the CPU."""
+    run-eval stages 0-4 on the card, then run-eval --on-device-features
+    --device-scoring, then the first test utterances' recipe on the card
+    against the CPU."""
     from speech_separation_tpu_torch.utils.synthetic import make_synthetic_corpus, write_id_list
 
     kernels = check_recipe_kernels(fails)
@@ -1508,14 +1511,16 @@ def recipe_phase(fails: Failures, counters) -> dict:
                     f"test features of 4 spawned workers against in-process: max_abs_err / "
                     f"max|X| {mj_err:.3e} <= {RECIPE_TOL['feat_rel']}")
 
-        # the fused path into a model dir of its own (its outputs go under it)
+        # the fused path into a model dir of its own (its outputs go under it),
+        # scored by the float64 device scorer (phase 23 holds it to the host's)
         fused_exp = "exp/uPIT_rtr_fused"
         os.makedirs(fused_exp)
         for name in ("final.mdl", "final.state", "conf"):
             shutil.copy(os.path.join(exp, name), fused_exp)
         fu = StageLog(counters)
         fu.run(["run-eval", "--model-dir", fused_exp, "--test-sets", "rtt", "--batch-size", "100",
-                "--nj", "8", "--stage", "1", "--on-device-features", "--device", "cuda"])
+                "--nj", "8", "--stage", "1", "--on-device-features", "--device-scoring",
+                "--device", "cuda"])
         for name, (wall, counts) in fu.spans([("fused separate", "(stages 1-3 combined)"),
                                               ("fused score", "(stage 4)")]).items():
             walls[name], launches[name] = wall, counts
@@ -2962,7 +2967,8 @@ def tools_phase(fails: Failures) -> dict:
 # scores the same utterances with flen = 511 and must miss SCORE_DB on every
 # one. The oracle (phase 24): device-scored rows against host-scored rows
 # within SCORE_DB; the card's soft-mask rows against the same command with
-# --device cpu (the plain STFT) within a bound derived per row from K2's
+# --device cpu (the plain STFT; the same float64 scorer, so the STFT is all
+# that differs) within a bound derived per row from K2's
 # contract (stft_perturbation): the estimate may move by rho of the source's
 # norm; the error signal of a row at x dB is 10^(-x/20) of the signal, so its
 # norm moves by at most rho * 10^(x/20) relative, its energy by twice that,
@@ -3223,8 +3229,9 @@ def stft_perturbation(data_dir: str) -> dict:
 def oracle_phase(fails: Failures, stft_counter) -> dict:
     """Phase 24: `oracle` soft and hard on phase 10's 100 test utterances,
     with --device-scoring in process (K2 counted) and with the host scorer in
-    8 spawned workers (--nj 8 --mj 8); the soft mask again with --device cpu
-    (the plain STFT), against the card."""
+    8 spawned workers (--nj 8 --mj 8); the soft mask's --device-scoring
+    command again with --device cpu (the plain STFT, the same float64
+    scorer on the CPU), against the card."""
     recipe_dir = os.path.join(REPO, "build", "chip_smoke_recipe")
     cwd = os.getcwd()
     out = {}
@@ -3261,7 +3268,7 @@ def oracle_phase(fails: Failures, stft_counter) -> dict:
             if kind == "soft":
                 card_rows = dev_rows
         t0 = time.monotonic()
-        code, _ = _cli(["oracle", "data/rtt", "--nj", "8", "--mj", "8", "--device", "cpu"])
+        code, _ = _cli(["oracle", "data/rtt", "--device-scoring", "--device", "cpu"])
         cpu_wall = time.monotonic() - t0
         cpu_rows = oracle_rows("data/rtt", "soft")
         rho = stft_perturbation("data/rtt")

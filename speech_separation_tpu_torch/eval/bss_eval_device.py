@@ -100,11 +100,21 @@ def _lag_index(n: int, flen: int, device) -> torch.Tensor:
     return torch.from_numpy(idx.reshape(-1)).to(device)
 
 
+def _lu_factor(G: torch.Tensor):
+    """``torch.linalg.lu_factor_ex``, on the CPU one matrix at a time:
+    PyTorch's batched CPU LU (MKL) can hang once ``torch.set_num_threads``
+    has changed the intra-op thread count, and one matrix alone does not."""
+    if G.device.type != "cpu":
+        return torch.linalg.lu_factor_ex(G)
+    parts = zip(*(torch.linalg.lu_factor_ex(g) for g in G.reshape(-1, *G.shape[-2:])))
+    return tuple(torch.stack(p).reshape(*G.shape[:-2], *p[0].shape) for p in parts)
+
+
 def _solve(G: torch.Tensor, D: torch.Tensor):
     """X = G^-1 D by one LU, with the residual r = G X - D, the second-order
     term r.G^-1 r per right-hand side, and the LU's pivot report (info > 0:
     a zero pivot). G (..., m, m), D (..., m, k)."""
-    LU, piv, info = torch.linalg.lu_factor_ex(G)
+    LU, piv, info = _lu_factor(G)
     X = torch.linalg.lu_solve(LU, piv, D)
     r = G @ X - D
     second = (r * torch.linalg.lu_solve(LU, piv, r)).sum(-2).abs()     # (..., k)

@@ -122,17 +122,15 @@ def export_reference_model(in_path: str, out_path: str, log=print) -> dict:
         payload = read_septpu01(in_path)
         arch = _arch_name(payload["meta"])
     else:
+        payload = None
         ckpt = _port_checkpoint(in_path)
-        sd = ckpt["model"]
-        arch = _arch_name(ckpt["meta"] or {"arch": infer_model_info(sd)["arch"]})
+        arch = _arch_name(ckpt["meta"] or {"arch": infer_model_info(ckpt["model"])["arch"]})
     if arch not in ("uPIT", "RSH"):
         raise ValueError(
             f"{in_path} holds a {arch!r} model; only the reference archs "
             "(uPIT, RSH) can be exported to the reference .mdl format")
-    if is_septpu01(in_path):
-        sd = state_dict_from_septpu01(payload)
-    else:
-        sd = state_dict_from_jax(*params_from_reference(sd)[:2])
+    sd = (state_dict_from_septpu01(payload) if payload is not None
+          else state_dict_from_jax(*params_from_reference(ckpt["model"])[:2]))
     info = infer_model_info(sd)
     torch.save(sd, out_path)
     log(f"exported {_describe(info)} -> {out_path} (reference torch state-dict)")
@@ -165,8 +163,8 @@ def checkpoint_info(path: str) -> list[str]:
         ckpt = read_septpu01(path)
         meta = ckpt.get("meta") or {}
         leaves = [np.asarray(x) for x in _leaves(ckpt["params"])]
-        epoch, has_opt, has_rng = ckpt.get("epoch"), ckpt["opt_state"] is not None, \
-            ckpt["rng"] is not None
+        epoch = ckpt["epoch"]
+        has_opt, has_rng = ckpt["opt_state"] is not None, ckpt["rng"] is not None
     else:
         ckpt = _port_checkpoint(path)
         meta = ckpt["meta"]
@@ -174,8 +172,8 @@ def checkpoint_info(path: str) -> list[str]:
             info = infer_model_info(ckpt["model"])
             meta = {"arch": info["arch"], "model_kwargs": _sizes(info)}
         leaves = list(ckpt["model"].values())
-        epoch, has_opt, has_rng = ckpt["epoch"], ckpt["optimizer"] is not None, \
-            ckpt["generator"] is not None
+        epoch = ckpt["epoch"]
+        has_opt, has_rng = ckpt["optimizer"] is not None, ckpt["generator"] is not None
     lines = [f"arch: {meta.get('arch', '?')}"]
     lines += [f"  {k} = {v}" for k, v in sorted((meta.get("model_kwargs") or {}).items())]
     if meta.get("imported_from"):

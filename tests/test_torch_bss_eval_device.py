@@ -18,13 +18,20 @@ Tolerances:
   sub-batch to its longest signal, so the transforms match; the batched
   products and LU sum in another order, ~4e-13 dB);
 - an all-zero reference source and two identical sources go through the
-  trust gate's host fallback and equal the host exactly;
+  trust gate's host fallback and equal the host exactly (at flen 64: the
+  host's least-squares fallback on a singular 1024 x 1024 Gram costs
+  seconds alone and minutes beside other test workers, and the gate does
+  not depend on flen);
+- scoring on the CPU after a change of torch's thread count finishes
+  (PyTorch's batched CPU LU can hang there);
 - on the e2e corpus (make_synthetic_corpus(seed=1), 4 utterances, the
   noisy remixes of tests/test_e2e.py): every SDR/SIR/SAR row within 1e-6
   dB of the host path, SI-SDR and SI-SDRi within 1e-9, the same row order.
 """
 
 import os
+import subprocess
+import sys
 import warnings
 
 import numpy as np
@@ -109,12 +116,33 @@ def test_degenerate_grams_fall_back_to_the_host(case):
     stats = {}
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
-        got = bd.bss_eval_sources_batch(refs[None], ests[None], perm, device="cpu",
+        got = bd.bss_eval_sources_batch(refs[None], ests[None], perm, flen=64, device="cpu",
                                         stats=stats)
-        want = jax_host(refs, ests, perm)
+        want = jax_host(refs, ests, perm, 64)
     assert stats["fallbacks"] == 1 and stats["reasons"][0][0] == 0, stats
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g[0], w)
+
+
+def test_cpu_scoring_after_a_thread_count_change():
+    """PyTorch's batched CPU LU (MKL) can hang once torch.set_num_threads has
+    changed the intra-op thread count, as the port's other test modules do
+    (one thread, then restored); the scorer factors one matrix at a time on
+    the CPU. In a process of its own, so that a hang fails by its timeout."""
+    code = ("import numpy as np, torch\n"
+            "from speech_separation_tpu_torch.eval.bss_eval_device import "
+            "bss_eval_sources_batch\n"
+            "n = torch.get_num_threads()\n"
+            "torch.set_num_threads(1)\n"
+            "torch.ones(64, 64) @ torch.ones(64, 64)\n"
+            "torch.set_num_threads(max(n, 2))\n"
+            "rng = np.random.default_rng(0)\n"
+            "s = rng.standard_normal((4, 2, 3000))\n"
+            "sdr = bss_eval_sources_batch(s, s + 0.1 * rng.standard_normal(s.shape), "
+            "device='cpu')[0]\n"
+            "assert np.all(np.isfinite(sdr)), sdr\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=repo)
 
 
 def test_batch_size_follows_the_working_set():

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, recipe, streaming and
 evaluation paths (uPIT, SepFormer, RSH, DPRNN, TCN, Conv-TasNet; the
-float64 device scorer, the oracle, the JAX package's checkpoints) on one
-CUDA card and check them.
+float64 device scorer, the oracle, the JAX package's checkpoints; the
+training extras: the packed feature cache, the native loader, the hang
+watchdog, the profiler) on one CUDA card and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero without the final line:
 1. device report (nvidia-smi name and power limit, torch device name);
-2. build every kernel of the paths from csrc/ with nvcc for sm_90a, one nvcc
-   per source, all at once;
+2. build every kernel of the paths from csrc/ with nvcc for sm_90a, and the
+   native loader (csrc/sepio.cpp) with g++, one compiler per source, all at
+   once;
 3. each kernel against its plain PyTorch version on the card, with the
    kernel's time, the plain version's time, one PyTorch library call's time
    (a yardstick the port never calls) and the least time the card could
@@ -138,10 +140,12 @@ Phases, in order; any failure exits non-zero without the final line:
    alone; ms per chunk and the real-time factor at capacity 8 in bf16; one
    stream through the server's stream_open/push/close on a Unix socket;
 22. the port's tools through cli.main.main: doctor (the card, nvcc, every
-   kernel built), warmup (every arch's kernels from the build cache, their
-   launch plans at the training shapes) and bench with the phases
-   upit_bf16, sepformer, dprnn, dsp and serving, each in a child process:
-   the merged line's phases, numbers and build, and each child's launches;
+   kernel built, the native loader loaded), warmup (every arch's kernels
+   from the build cache, their launch plans at the training shapes) and
+   bench with the phases upit_bf16, dsp and serving (SepFormer's and
+   DPRNN's bench phases left out: phases 8 and 15 train both),
+   each in a child process: the merged line's phases, numbers and build,
+   and each child's launches;
 23. device scoring: the linalg backend and one 64-utterance LU under
    cuSOLVER and MAGMA; copies of phase 10's uPIT tracks and phase 14's RSH
    tracks (2 and 3 sources) rescored by `score --device-scoring` (float64
@@ -159,10 +163,22 @@ Phases, in order; any failure exits non-zero without the final line:
    --device-scoring command again with --device cpu (the plain STFT and the
    same scorer on the CPU), each row within a bound derived from K2's
    contract;
-25. one JSON line with every kernel and its numbers (with the recipe's
+25. training extras on phase 5's corpus: pack-features at f32 and f16; one
+   batch of 100 by the numpy, native (csrc/sepio.cpp, built with g++ in
+   phase 2) and cache collations, bit-equal (f16 within 1e-3), each timed;
+   a 2x600 bf16 uPIT trained at B=100 from each (the same epoch losses; the
+   f16 cache's within 2e-3, its batches crossing at half the bytes; K3/K4
+   counted; each epoch's wall against its step time); `train
+   --hang-watchdog-sec --profile-dir --train-copy-location` through the CLI
+   (a spawned CUDA child: 0 restarts, final.mdl equal to the unsupervised
+   run's, the features staged, the trace naming K3 and K4); and a fault
+   control whose child is stopped after its epoch-5 checkpoint, killed by
+   the watchdog and restarted from it (1 restart, the same final.mdl);
+   phase 22's doctor reports the native loader loaded;
+26. one JSON line with every kernel and its numbers (with the recipe's
    launch counts, each LSTM kernel's numbers at DPRNN's shapes and its
-   launches on each RSH, DPRNN, remat and SEPTPU01 path, K2's on the TCN
-   and oracle paths, the launches of each bench phase of phase 22), then
+   launches on each RSH, DPRNN, remat, SEPTPU01 and phase 25 path, K2's on
+   the TCN and oracle paths, the launches of each bench phase of phase 22), then
    {"ok": true, "device": {...}} as the last line.
 
 ``python3 chip_smoke.py --profile`` traces full-width SepFormer training
@@ -2879,11 +2895,11 @@ def _solo(sep, x) -> list:
 # 8 times (SepFormer, 4 blocks x 2 layers); K2 in dsp's round trips. A
 # training phase runs 1 + iters + 3 steps (the first, the timed loop, the
 # idle-share window); dsp a second of round trips, then 20.
-BENCH_SUBSET = ("upit_bf16", "sepformer", "dprnn", "dsp", "serving")
+# bench's SepFormer and DPRNN phases are left to the bench itself: phases 8
+# and 15 train both here, and the script has a time limit
+BENCH_SUBSET = ("upit_bf16", "dsp", "serving")
 BENCH_LAUNCHES = {
     "upit_bf16": {"lstm_seq_fwd": 2 * 24, "lstm_seq_bwd": 2 * 24},
-    "sepformer": {"chunk_attention_fwd": 8 * 14, "chunk_attention_bwd": 8 * 14},
-    "dprnn": {"lstm_seq_fwd": 12 * 14, "lstm_seq_bwd": 12 * 14},
     "dsp": {"stft": None},
     "serving": {"lstm_seq_infer": None, "stft": None},      # None: any number above 0
 }
@@ -2911,7 +2927,7 @@ def tools_phase(fails: Failures) -> dict:
     doctor exits 0 with the card, nvcc and every kernel built; warmup finds
     each arch's kernels in the build cache (phase 2 built them) and checks
     their plans at the training shapes; bench runs BENCH_SUBSET in child
-    processes, each its own CUDA context: its merged line holds the five
+    processes, each its own CUDA context: its merged line holds the three
     phases with finite numbers and no failed or skipped phase, the build from
     the cache in under a second, and each child's kernel launches."""
     torch.cuda.empty_cache()          # the children need the card's memory
@@ -2921,6 +2937,8 @@ def tools_phase(fails: Failures) -> dict:
     fails.check(code == 0 and "PROBE FAILED" not in out
                 and out.count("built (") == 4,
                 f"doctor exits {code}, the card probed and 4 kernel sources built")
+    fails.check("native io (csrc/sepio.cpp): loaded" in out,
+                "doctor reports the native loader loaded")
     doctor_s = time.monotonic() - t0
     t0 = time.monotonic()
     code, out = _cli(["warmup"])
@@ -3287,6 +3305,215 @@ def oracle_phase(fails: Failures, stft_counter) -> dict:
     return out
 
 
+# ------------------------------------------------------- training extras
+
+def _count_lines(data_dir: str) -> None:
+    """utt2num_frames and utt2num_spk of a dir of npz training features."""
+    frames, spks = [], []
+    with open(os.path.join(data_dir, "feats_train.scp")) as f:
+        for ln in f:
+            utt, path = ln.split()
+            with np.load(path) as feat:
+                frames.append(f"{utt} {feat['mix'].shape[1]}\n")
+                spks.append(f"{utt} {len(feat.files) - 1}\n")
+    for name, lines in (("utt2num_frames", frames), ("utt2num_spk", spks)):
+        with open(os.path.join(data_dir, name), "w") as f:
+            f.writelines(lines)
+
+
+def _same_tensors(a: str, b: str) -> bool:
+    x, y = torch.load(a, weights_only=True), torch.load(b, weights_only=True)
+    return x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+
+
+def _input_reading(res: dict) -> dict:
+    """Each epoch's wall against its summed step time, and the bytes each
+    step's batch sent to the card."""
+    walls = [(round(w, 3), round(st, 3)) for _, w, st in res["epoch_times"]]
+    ms = [m for m, _ in res["steps"][1:]]
+    return {"epochs_wall_steps_s": walls, "mean_step_ms": float(np.mean(ms)),
+            "h2d_bytes_full_batch": max(res["h2d_bytes"])}
+
+
+def extras_phase(fails: Failures, counters, train_dir: str) -> dict:
+    """Phase 25: the training extras on phase 5's uPIT npz corpus (120
+    training utterances of 4.5-6 s, T=384; its 40 CV utterances). Three data
+    dirs over the same npz files pick the three collations: no utt2num
+    files (numpy), utt2num_frames and utt2num_spk (native, csrc/sepio.cpp
+    built with g++), and packed caches (pack-features at f32 and f16). One
+    batch of each is held bit-equal (f16 within 1e-3 of the batch's largest
+    magnitude) and timed; then a 2x600 bf16 uPIT trains at B=100 on each:
+    numpy, native and f16 for 5 epochs, the f32 cache for 10 with CV; the
+    per-epoch losses equal (f16 within 2e-3 relative), the f16 batches
+    crossing at half the bytes, K3/K4 counted. Then `train
+    --hang-watchdog-sec` through the CLI with --profile-dir and
+    --train-copy-location: a spawned CUDA child, 0 restarts, final.mdl
+    equal to the f32-cache run's, the features staged, the trace naming K3
+    and K4; and a fault control: a supervised run whose child is stopped
+    (SIGSTOP) after its epoch-5 checkpoint, killed by the watchdog and
+    restarted from that checkpoint, ending in the same final.mdl."""
+    import dataclasses
+    import re
+    import signal
+
+    from speech_separation_tpu_torch.datadir.stage import staged_path
+    from speech_separation_tpu_torch.train import data as tdata
+    from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
+    from speech_separation_tpu_torch.train.watchdog import train_supervised
+    from speech_separation_tpu_torch.utils import native
+
+    work = os.path.join(REPO, "build", "chip_smoke_extras")
+    shutil.rmtree(work, ignore_errors=True)
+    cv = os.path.join(os.path.dirname(train_dir), "cv")
+    status = native.status()
+    fails.check(native.available(), f"native loader: {status}")
+    dirs = {name: os.path.join(work, name) for name in ("numpy", "native", "cache32", "cache16")}
+    for name, d in dirs.items():
+        os.makedirs(d)
+        shutil.copy(os.path.join(train_dir, "feats_train.scp"), d)
+        if name != "numpy":
+            _count_lines(d)
+    pack_s = {}
+    for name, dtype in (("cache32", "float32"), ("cache16", "float16")):
+        t0 = time.monotonic()
+        code, out = _cli(["pack-features", dirs[name], "train", "--dtype", dtype,
+                          "--cache-path", os.path.join(work, f"{name}.bin")])
+        pack_s[name] = time.monotonic() - t0
+        print(f"  {out.strip()} ({pack_s[name]:.2f} s)", flush=True)
+        fails.check(code == 0, f"pack-features --dtype {dtype} exits {code}")
+
+    # one batch of 100 by each collation
+    logs = []
+    sets = {name: tdata.FeatureDataset(d, log=logs.append) for name, d in dirs.items()}
+    print("  " + "\n  ".join(logs), flush=True)
+    want = {"numpy": "numpy", "native": "native", "cache32": "cache", "cache16": "cache"}
+    for name, ds in sets.items():
+        fails.check(ds.collation == want[name], f"{name} dir collates by {ds.collation}")
+    plan = tdata.BatchPlan(batch_size=100, time_pad_multiple=128, seed=SEED)
+    idxs = tdata.plan_batches(sets["numpy"], plan, 0)[0]
+    batches, collate_ms = {}, {}
+    for name, ds in sets.items():
+        tdata.collate(ds, idxs, plan)                       # warm the page cache
+        t0 = time.perf_counter()
+        batches[name] = tdata.collate(ds, idxs, plan)
+        collate_ms[name] = (time.perf_counter() - t0) * 1e3
+    ref = batches["numpy"]
+    for name in ("native", "cache32"):
+        b = batches[name]
+        fails.check(b["names"] == ref["names"] and all(
+            b[k].dtype == ref[k].dtype and np.array_equal(b[k], ref[k])
+            for k in ("mix", "sources", "lengths", "row_mask")),
+            f"{name} batch bit-equal to the numpy one ({b['mix'].shape})")
+    b16 = batches["cache16"]
+    f16_err = max(float(np.abs(b16[k].astype(np.float32) - ref[k]).max() / np.abs(ref[k]).max())
+                  for k in ("mix", "sources"))
+    fails.check(b16["mix"].dtype == np.float16 and b16["sources"].dtype == np.float16
+                and f16_err <= 1e-3, f"f16 batch in float16, {f16_err:.2e} of the largest "
+                                     "magnitude from the f32 one (<= 1e-3)")
+    print(f"  one batch of 100 (ms, page cache warm): "
+          f"{ {k: round(v, 2) for k, v in collate_ms.items()} }", flush=True)
+
+    kw = {"compute_dtype": "bfloat16"}
+    cfg = TrainLoopConfig(batch_size=100, num_epochs=5, time_pad_multiple=128, seed=SEED,
+                          make_plots=False)
+
+    def run(name, data_dir, epochs, cv_dir=""):
+        for c in counters:
+            c.launches = 0
+        lines = []
+        res = train(data_dir, os.path.join(work, f"exp_{name}"),
+                    dataclasses.replace(cfg, num_epochs=epochs), cv_data_dir=cv_dir,
+                    model_kwargs=kw, device="cuda", log=lines.append)
+        torch.cuda.synchronize()
+        res["launches"] = {c.__name__: c.launches for c in counters}
+        res["reading"] = _input_reading(res)
+        how = next(ln for ln in lines if ln.startswith("feature collation"))
+        print(f"  {name}: {how}; {res['reading']}; launches {res['launches']}", flush=True)
+        return res
+
+    runs = {"numpy": run("numpy", dirs["numpy"], 5), "native": run("native", dirs["native"], 5),
+            "cache32": run("cache32", dirs["cache32"], 10, cv),
+            "cache16": run("cache16", dirs["cache16"], 5)}
+    losses = {k: [loss for _, loss in r["epoch_losses"]][:5] for k, r in runs.items()}
+    for name, r in runs.items():
+        fails.check(r["collation"] == want[name], f"{name} run collated by {r['collation']}")
+    for name in ("native", "cache32"):
+        fails.check(losses[name] == losses["numpy"],
+                    f"{name} epoch losses equal the numpy path's: {losses[name]}")
+    f16_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cache16"], losses["cache32"]))
+    fails.check(f16_rel <= 2e-3, f"f16-cache losses within {f16_rel:.2e} of the f32 cache's "
+                                 "(<= 2e-3 relative)")
+    h32 = runs["cache32"]["reading"]["h2d_bytes_full_batch"]
+    h16 = runs["cache16"]["reading"]["h2d_bytes_full_batch"]
+    fails.check(h16 < 0.51 * h32, f"f16 batch crosses in {h16} bytes, f32 in {h32}")
+    for name, steps in (("cache32", 20), ("cache16", 10)):
+        got = runs[name]["launches"]
+        fails.check(got["lstm_seq_fwd"] == got["lstm_seq_bwd"] == 2 * steps,
+                    f"{name}: K3 {got['lstm_seq_fwd']}, K4 {got['lstm_seq_bwd']} launches "
+                    f"(2 layers x {steps} steps)")
+    fails.check(runs["cache32"]["launches"]["lstm_seq_infer"] > 0, "K1 launched in the CV pass")
+
+    # the watchdog with the profiler and staging, through the CLI
+    conf = os.path.join(work, "model.conf")
+    with open(conf, "w") as f:
+        f.write("compute_dtype=bfloat16\n")
+    prof, stage = os.path.join(work, "profile"), os.path.join(work, "staged")
+    t0 = time.monotonic()
+    code, out = _cli(["train", "uPIT", dirs["native"], os.path.join(work, "exp_watchdog"),
+                      "--cv-data-dir", cv, "--model-config", conf, "--batch-size", "100",
+                      "--num-epochs", "10", "--time-pad-multiple", "128", "--seed", str(SEED),
+                      "--no-plots", "--hang-watchdog-sec", "60",
+                      "--hang-first-timeout-sec", "300", "--profile-dir", prof,
+                      "--train-copy-location", stage, "--device", "cuda"])
+    watchdog_s = time.monotonic() - t0
+    print(f"  supervised run ({watchdog_s:.1f} s): {out.strip()}", flush=True)
+    final = os.path.join(work, "exp_cache32", "final.mdl")
+    fails.check(code == 0 and "after 0 restart(s)" in out, f"supervised run exits {code}, "
+                                                            "0 restarts")
+    fails.check(_same_tensors(os.path.join(work, "exp_watchdog", "final.mdl"), final),
+                "the supervised child's final.mdl equals the unsupervised run's")
+    staged = [staged_path(path, stage) for _, path in sets["numpy"].entries]
+    fails.check(all(os.path.isfile(p) for p in staged), f"{len(staged)} feature files staged")
+    trace = ""
+    if os.path.isfile(os.path.join(prof, "trace.json")):
+        with open(os.path.join(prof, "trace.json")) as f:
+            trace = f.read()
+    k3 = len(re.findall(r"lstm_fwd_kernel<[^>]*true>", trace))
+    k4 = len(re.findall(r"lstm_bwd_kernel<", trace))
+    fails.check(k3 > 0 and k4 > 0, f"the profile trace names K3 ({k3} events) and K4 ({k4})")
+
+    # the fault control: the child stopped after its epoch-5 checkpoint
+    exp = os.path.join(work, "exp_fault")
+    log, result = [], {}
+    th = threading.Thread(target=lambda: result.update(train_supervised(
+        dirs["cache32"], exp, dataclasses.replace(cfg, num_epochs=10), hang_timeout_s=3.0,
+        first_timeout_s=300.0, max_restarts=1, cv_data_dir=cv, model_kwargs=kw,
+        device="cuda", poll_s=0.25, log=log.append)))
+    t0 = time.monotonic()
+    th.start()
+    state5 = os.path.join(exp, "intermediate_models", "005.state")
+    while th.is_alive() and not os.path.isfile(state5):
+        time.sleep(0.02)
+    stopped = None
+    if th.is_alive():
+        with open(os.path.join(exp, ".train.lock")) as f:
+            stopped = int(f.read())
+        os.kill(stopped, signal.SIGSTOP)
+    th.join(600)
+    print(f"  fault control ({time.monotonic() - t0:.1f} s): child {stopped} stopped; "
+          f"{log}", flush=True)
+    fails.check(stopped is not None and result.get("restarts") == 1
+                and "watchdog: resuming from epoch 5" in log,
+                f"the stopped child killed and restarted from epoch 5: {result}")
+    fails.check(_same_tensors(os.path.join(exp, "final.mdl"), final),
+                "the restarted run's final.mdl equals the uninterrupted run's")
+    return {"native": status, "pack_s": pack_s, "collate_ms": collate_ms,
+            "f16_batch_err": f16_err, "f16_loss_rel": f16_rel,
+            "readings": {k: r["reading"] for k, r in runs.items()},
+            "launches": {k: r["launches"] for k, r in runs.items()},
+            "losses": losses, "watchdog_s": watchdog_s, "trace_k3_k4": (k3, k4)}
+
+
 def _kernel_group(name: str) -> str:
     if "attn_fwd_" in name:                 # attn_fwd_kernel (f32), _rows, _passes (bf16)
         return "K5 forward"
@@ -3412,8 +3639,8 @@ def main() -> int:
 
     print("== 2. build", flush=True)
     t0 = time.monotonic()
-    _build.build(["lstm_fwd", "lstm_bwd", "stft", "attention"])
-    print(f"  nvcc (parallel): {time.monotonic() - t0:.1f} s", flush=True)
+    _build.build(["lstm_fwd", "lstm_bwd", "stft", "attention", "sepio"])
+    print(f"  nvcc and g++ (parallel): {time.monotonic() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():       # each kernel's name, then its registers and spills
             if "Function properties for" in line:
@@ -3521,7 +3748,7 @@ def main() -> int:
     streaming = stream_phase(fails, stft)
     print(f"  phase 21: {time.monotonic() - t21:.1f} s", flush=True)
 
-    print("== 22. tools: doctor, warmup and bench (5 phases) through the CLI", flush=True)
+    print("== 22. tools: doctor, warmup and bench (3 phases) through the CLI", flush=True)
     t22 = time.monotonic()
     tools = tools_phase(fails)
     print(f"  phase 22: {time.monotonic() - t22:.1f} s", flush=True)
@@ -3537,12 +3764,19 @@ def main() -> int:
     t24 = time.monotonic()
     oracle = oracle_phase(fails, stft)
     print(f"  phase 24: {time.monotonic() - t24:.1f} s", flush=True)
+
+    print("== 25. training extras: pack-features, the three collations, the f16 cache, "
+          "the watchdog, the profiler, staging", flush=True)
+    t25 = time.monotonic()
+    extras = extras_phase(fails, lstm_counters, trained["train_dir"])
+    print(f"  phase 25: {time.monotonic() - t25:.1f} s", flush=True)
     paths = {"rsh_train": trained_rsh["launches"], "rsh_mixed": trained_rsh["mixed_launches"],
              "rsh_masks": eval_rsh["launches"]["masks"], "rsh_serve": eval_rsh["serve_launches"],
              "dprnn_train": trained_dprnn["launches"], "dprnn_serve": served_dprnn["launches"],
              **{f"{arch.lower()}_{mode}_step": remat[arch][mode]["launches"]
                 for arch in ("uPIT", "RSH") for mode in ("plain", "remat")},
-             "septpu01_masks": {"lstm_seq_infer": scoring["septpu01"]["k1_launches"]}}
+             "septpu01_masks": {"lstm_seq_infer": scoring["septpu01"]["k1_launches"]},
+             **{f"extras_{k}_train": c for k, c in extras["launches"].items()}}
 
     def row(name, route, source, replaces, nums, extra):
         lstm_extra = {}
@@ -3614,6 +3848,7 @@ def main() -> int:
           f"bench {tools['bench_s']:.1f} s", flush=True)
     print(f"  device scoring: {scoring}", flush=True)
     print(f"  oracle: {oracle}", flush=True)
+    print(f"  training extras: {extras}", flush=True)
     print(f"  total {time.monotonic() - t_start:.1f} s", flush=True)
     if fails:
         print("chip_smoke FAILED:\n  " + "\n  ".join(fails), file=sys.stderr)

@@ -3,20 +3,25 @@ serving.
 
 Run as ``python -m speech_separation_tpu_torch.cli.main <subcommand>``. The
 subcommands and flags are those of the JAX package's CLI
-(speech_separation_tpu/cli/main.py), 20 of its 21: ``prepare``,
-``validate``, ``split``, ``extract``, ``train``, ``eval-masks``,
+(speech_separation_tpu/cli/main.py), all 21: ``prepare``, ``validate``,
+``split``, ``extract``, ``pack-features``, ``train``, ``eval-masks``,
 ``reconstruct``, ``stage-data``, ``separate``, ``serve``, ``score``,
 ``oracle`` (the oracle-mask upper bound), ``run-train``, ``run-eval``, the
 checkpoint tools ``info``, ``import-model`` and ``export-model``, and the
-tools ``doctor`` (the card, nvcc and the kernel builds), ``warmup`` (each
-arch's kernels built and their launch plans checked at its shapes) and
-``bench`` (speech_separation_tpu_torch/bench.py, one JSON line).
-``pack-features`` is not ported yet. The flags of what is not ported yet
-are left out, so argparse refuses them: ``--data-parallel``,
-``--pack-cache``/``--cache-dtype``, ``--hang-watchdog-sec``/
-``--hang-first-timeout-sec``, ``--profile-dir`` and
-``--train-copy-location`` (ROADMAP.md);
-``--no-plots`` is accepted and plots are not drawn. Every command that runs
+tools ``doctor`` (the card, nvcc, the kernel builds and the native loader),
+``warmup`` (each arch's kernels built and their launch plans checked at its
+shapes) and ``bench`` (speech_separation_tpu_torch/bench.py, one JSON
+line). ``pack-features``, or ``--pack-cache`` (``--cache-dtype float16``
+for half the bytes) on ``extract`` and ``run-train``, packs the training
+features into one flat cache that training then reads
+(train/feature_cache.py). ``train`` and ``run-train`` take
+``--hang-watchdog-sec`` / ``--hang-first-timeout-sec`` (training in a
+supervised child, restarted from the newest checkpoint when it stops
+beating; train/watchdog.py), ``--profile-dir`` (a torch.profiler trace of
+the steps after the first), ``--train-copy-location`` (the features staged
+there first) and draw the reference's plots unless ``--no-plots`` (or
+matplotlib is missing). The one flag of the JAX CLI left out, so argparse
+refuses it, is ``--data-parallel`` (ROADMAP.md). Every command that runs
 a model or a kernel takes ``--device`` (default ``cuda``; without a card it
 fails; ``cpu`` runs the plain PyTorch versions of the kernels).
 ``--device-scoring`` on ``score``, ``oracle`` and ``run-eval`` runs BSS-eval
@@ -131,15 +136,25 @@ def _extract(data_dir, data_type, feat_dir, args):
     kw = {"compress": not args.no_compress, "device": args.device}
     if args.nj <= 1:
         extract_features(data_dir, data_type, feat_dir, cfg, **kw)
-        return
-    validate_data_dir(data_dir)
-    split_dir = split_data_dir(data_dir, args.nj)
-    _in_shards(extract_features, (split_dir, data_type, feat_dir, cfg), args.nj, args.mj, **kw)
-    merge_shard_outputs(data_dir, split_dir, data_type, args.nj)
+    else:
+        validate_data_dir(data_dir)
+        split_dir = split_data_dir(data_dir, args.nj)
+        _in_shards(extract_features, (split_dir, data_type, feat_dir, cfg), args.nj,
+                   args.mj, **kw)
+        merge_shard_outputs(data_dir, split_dir, data_type, args.nj)
+    if data_type == "train" and args.pack_cache:      # extract and run-train
+        from ..train.feature_cache import pack_features
+        pack_features(data_dir, data_type, dtype=args.cache_dtype)
 
 
 def cmd_extract(args):
     _extract(args.data_dir, args.data_type, args.feat_dir, args)
+
+
+def cmd_pack_features(args):
+    from ..train.feature_cache import pack_features
+    pack_features(args.data_dir, args.data_type, cache_path=args.cache_path or None,
+                  dtype=args.dtype)
 
 
 # -------------------------------------------------------------- evaluation
@@ -345,15 +360,27 @@ def _loop_cfg(args):
         bucket_by_length=args.bucket_by_length,
         reference_resume=args.reference_resume,
         on_device_features=args.on_device_features,
-        reference_batching=args.reference_batching)
+        reference_batching=args.reference_batching,
+        make_plots=not args.no_plots, profile_dir=args.profile_dir,
+        train_copy_location=args.train_copy_location)
 
 
 def _run_training(args, data_dir, exp_dir, cv_data_dir):
-    from ..train.loop import train_with_restarts
-    train_with_restarts(data_dir, exp_dir, _loop_cfg(args), max_restarts=args.max_restarts,
-                        cv_data_dir=cv_data_dir,
-                        model_kwargs=read_model_config(args.model_config),
-                        device=args.device)
+    """Training that resumes after a crash, or with ``--hang-watchdog-sec``
+    in a supervised child, which also recovers hangs (train/watchdog.py)."""
+    kw = {"cv_data_dir": cv_data_dir, "model_kwargs": read_model_config(args.model_config),
+          "device": args.device}
+    if args.hang_watchdog_sec > 0:
+        from ..train.watchdog import train_supervised
+        res = train_supervised(data_dir, exp_dir, _loop_cfg(args),
+                               hang_timeout_s=args.hang_watchdog_sec,
+                               first_timeout_s=args.hang_first_timeout_sec,
+                               max_restarts=args.max_restarts, **kw)
+        print(f"watchdog: training finished after {res['restarts']} restart(s)")
+    else:
+        from ..train.loop import train_with_restarts
+        train_with_restarts(data_dir, exp_dir, _loop_cfg(args),
+                            max_restarts=args.max_restarts, **kw)
 
 
 def cmd_train(args):
@@ -598,7 +625,8 @@ def cmd_doctor(args):
         state = (f"built ({_build._target(name).name})" if _build.is_built(name)
                  else "not built for its current source")
         print(f"kernel {name}.cu: {state}")
-    print("native io: not ported (ROADMAP A.5.3)")
+    from ..utils import native
+    print(f"native io (csrc/sepio.cpp): {native.status()}")
     n = len(os.listdir(_build.BUILD_DIR)) if os.path.isdir(_build.BUILD_DIR) else 0
     print(f"build dir: {_build.BUILD_DIR} ({n} entries)")
     if not ok:
@@ -751,9 +779,26 @@ def _add_train(p):
                         "accumulation and one optimizer step per batch "
                         "(feature files only)")
     p.add_argument("--no-plots", action="store_true",
-                   help="accepted for the JAX package's command lines; the "
-                        "port draws no plots yet")
+                   help="draw no loss curves or CV spectrograms (they need matplotlib)")
+    p.add_argument("--profile-dir", default="",
+                   help="write a torch.profiler trace of the steps after the first here")
+    p.add_argument("--train-copy-location", default="",
+                   help="stage the training features here first (the reference's flag)")
+    p.add_argument("--hang-watchdog-sec", type=float, default=0.0,
+                   help="train in a supervised child process, killed and restarted "
+                        "from the newest checkpoint when no optimizer step, CV batch "
+                        "or checkpoint completes for N seconds (a hang, which "
+                        "--max-restarts alone cannot see). 0 = off")
+    p.add_argument("--hang-first-timeout-sec", type=float, default=2400.0,
+                   help="the watchdog's allowance before an attempt's first heartbeat "
+                        "(kernel builds and the first batch)")
     _add_device(p)
+
+
+def _add_pack(p):
+    p.add_argument("--pack-cache", action="store_true",
+                   help="also pack the training features into one flat cache file")
+    p.add_argument("--cache-dtype", default="float32", choices=["float32", "float16"])
 
 
 def _add_model(p):
@@ -793,8 +838,18 @@ def build_parser():
     p.add_argument("data_type", choices=["train", "test"])
     p.add_argument("feat_dir")
     _add_stft(p)
+    _add_pack(p)
     _add_device(p)
     p.set_defaults(fn=cmd_extract)
+
+    p = sub.add_parser("pack-features",
+                       help="pack npz training features into one flat cache file "
+                            "(repeated-epoch input at memcpy speed)")
+    p.add_argument("data_dir")
+    p.add_argument("data_type", choices=["train"])
+    p.add_argument("--cache-path", default="")
+    p.add_argument("--dtype", default="float32", choices=["float32", "float16"])
+    p.set_defaults(fn=cmd_pack_features)
 
     p = sub.add_parser("train", help="train a separation model")
     p.add_argument("arch")
@@ -910,6 +965,7 @@ def build_parser():
     p.add_argument("--featdir", default="feats")
     _add_common(p)
     _add_stft(p)
+    _add_pack(p)
     _add_train(p)
     p.set_defaults(fn=cmd_run_train)
 

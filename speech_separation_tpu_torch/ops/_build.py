@@ -1,12 +1,16 @@
-"""Build the port's CUDA sources (``csrc/*.cu``) with nvcc and load them.
+"""Build the port's native sources with nvcc or g++ and load them.
 
-Each source has a plain C interface and is compiled on its own into a shared
-library under ``build/torch_kernels/`` of the checkout, named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-reused. The first call that launches a kernel builds it; ``build`` starts one
-nvcc per source, all at once, for callers that want every kernel up front.
-Nothing here runs when a module is imported: the CPU tests import every
-module on a machine without nvcc.
+The CUDA sources (``csrc/*.cu``) hold the kernels; one host C++ source,
+``csrc/sepio.cpp`` (the npz and wav loader, utils/native.py), is built with
+g++ and zlib. Each source has a plain C interface and is compiled on its own
+into a shared library under ``build/torch_kernels/`` of the checkout, named
+by a hash of the source and the flags, so an edited source is rebuilt and an
+unchanged one is reused. A build writes a name of its own and renames it
+into place, so processes that build one source at once never load a file
+half written. The first call that needs a library builds it; ``build``
+starts one compiler per source, all at once, for callers that want every
+library up front. Nothing here runs when a module is imported: the CPU tests
+import every module on a machine without nvcc.
 """
 
 from __future__ import annotations
@@ -24,8 +28,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# every source of csrc/ with a plain C interface, one library each
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
+
+# every CUDA source of csrc/ with a plain C interface, one library each
 SOURCES = ("lstm_fwd", "lstm_bwd", "stft", "attention")
+# the host C++ sources of csrc/, built with g++ (and linked with zlib)
+HOST_SOURCES = ("sepio",)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -45,40 +53,59 @@ def _nvcc() -> str:
                        "source at first use")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found on PATH: csrc/sepio.cpp builds from source "
+                           "at first use")
+    return found
+
+
 def _target(name: str) -> Path:
-    # the headers every source may include count in every source's hash
-    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
-                                            *sorted(CSRC.glob("*.cuh"))])
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    if name in HOST_SOURCES:
+        src, flags = (CSRC / f"{name}.cpp").read_bytes(), GXX_FLAGS
+    else:
+        # the headers every CUDA source may include count in its hash
+        src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                                *sorted(CSRC.glob("*.cuh"))])
+        flags = NVCC_FLAGS
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
+def _command(name: str, out: Path) -> list[str]:
+    if name in HOST_SOURCES:
+        return [_gxx(), *GXX_FLAGS, "-o", str(out), str(CSRC / f"{name}.cpp"), "-lz"]
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
 def is_built(name: str) -> bool:
-    """Whether ``csrc/<name>.cu`` is built for its current hash."""
+    """Whether ``csrc/<name>.cu`` (or ``.cpp``) is built for its current hash."""
     return _target(name).exists()
 
 
 def build(names) -> dict[str, Path]:
-    """Compile every named source that is not built yet, one nvcc process
-    each, all started together. Returns the library path of each name."""
+    """Compile every named source that is not built yet, one compiler
+    process each, all started together, each into a name of its own that is
+    renamed into place when it is whole. Returns the library path of each
+    name."""
     targets = {n: _target(n) for n in names}
     todo = {n: p for n, p in targets.items() if not p.exists()}
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
         procs = {}
         for n, p in todo.items():
-            tmp = p.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            tmp = p.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+            cmd = _command(n, tmp)
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT, text=True),
-                        tmp, p)
+                        tmp, p, os.path.basename(cmd[0]))
         failed = []
-        for n, (proc, tmp, p) in procs.items():
+        for n, (proc, tmp, p, compiler) in procs.items():
             out, _ = proc.communicate()
             build_logs[n] = out
             if proc.returncode != 0:
-                failed.append(f"nvcc {n}.cu failed ({proc.returncode}):\n{out}")
+                failed.append(f"{compiler} {n} failed ({proc.returncode}):\n{out}")
                 continue
             os.replace(tmp, p)
         if failed:
@@ -87,7 +114,8 @@ def build(names) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built on
+    first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

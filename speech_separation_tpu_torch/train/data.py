@@ -1,8 +1,6 @@
 """Host-side input pipeline: npz features -> padded batches on the device.
 
-The counterpart of speech_separation_tpu/train/data.py, for npz feature
-files (the packed cache and the native loader of the JAX package are not
-ported; they give the same arrays):
+The counterpart of speech_separation_tpu/train/data.py:
 
 - utterances are shuffled per epoch from ``seed * 100003 + epoch`` and
   grouped into fixed-size batches, optionally sorted by length first, in
@@ -18,6 +16,13 @@ ported; they give the same arrays):
   host-to-device copy overlap the device's compute; for training one such
   loader spans all the epochs (``iter_epochs``), so the next epoch's first
   batches are ready before the current epoch ends;
+- a training dataset collates in the first of three ways open to it, and
+  logs which once (``FeatureDataset.collation``): ``cache``, preadv copies
+  out of a packed feature cache (train/feature_cache.py) in the cache's
+  dtype; ``native``, each npz member inflated by the C++ runtime straight
+  into the padded batch (utils/native.py; needs ``utt2num_frames`` and
+  ``utt2num_spk``); ``numpy``, np.load and a copy. The three give the same
+  float32 batches bit for bit; a float16 cache gives float16 batches;
 - the collation is the caller's to choose: npz features here, or waveforms
   (train/wav_data.collate_wav_batch).
 
@@ -30,6 +35,7 @@ spectrum (eval/infer.generate_masks reads it).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import queue
 import threading
@@ -50,17 +56,52 @@ class FeatureDataset:
     "train") or ``feats_test.scp`` ("test"). ``num_frames`` and
     ``num_spks`` hold each utterance's frame and speaker count when the dir
     has ``utt2num_frames`` / ``utt2num_spk`` for all of them (length
-    bucketing reads the first), else None."""
+    bucketing reads the first), else None.
 
-    def __init__(self, data_dir: str, kind: str = "train"):
+    With ``copy_location`` the feature files are first staged there
+    (datadir/stage.stage_scp_data, the reference's --train-copy-location)
+    and read from there. A training dataset's ``collation`` is "cache",
+    "native" or "numpy" (module docstring), logged once through ``log``."""
+
+    def __init__(self, data_dir: str, kind: str = "train", copy_location: str = "",
+                 log=print):
         if kind not in ("train", "test"):
             raise ValueError(f"kind must be 'train' or 'test', got {kind!r}")
         self.kind = kind
         self.entries = read_scp(os.path.join(data_dir, f"feats_{kind}.scp"))
         if not self.entries:
             raise ValueError(f"empty feats_{kind}.scp in {data_dir}")
-        self.num_frames = self._per_utt(data_dir, "utt2num_frames")
-        self.num_spks = self._per_utt(data_dir, "utt2num_spk")
+        if copy_location:
+            from ..datadir.stage import stage_scp_data
+            staged = stage_scp_data(os.path.join(data_dir, f"feats_{kind}.scp"),
+                                    copy_location, log=log)
+            self.entries = [(utt, staged.get(path, path)) for utt, path in self.entries]
+        self.cache = None
+        if kind == "train" and not copy_location:
+            from .feature_cache import open_cache
+            self.cache = open_cache(data_dir, kind)
+        if self.cache is not None:
+            self.num_frames = self.cache.num_frames
+            self.num_spks = self.cache.num_spk
+        else:
+            self.num_frames = self._per_utt(data_dir, "utt2num_frames")
+            self.num_spks = self._per_utt(data_dir, "utt2num_spk")
+        self.collation = "numpy"
+        if kind == "train":
+            self.collation, how = self._fastest_collation()
+            log(f"feature collation for {data_dir}: {self.collation}, {how}")
+
+    def _fastest_collation(self) -> tuple[str, str]:
+        """(collation, how it reads): the cache, else the native loader where
+        the per-utterance counts are known, else numpy."""
+        from ..utils import native
+        if self.cache is not None:
+            return "cache", f"packed cache {self.cache.bin_path} ({self.cache.dtype.name})"
+        if native.available():
+            if self.num_frames is not None and self.num_spks is not None:
+                return "native", "npz members inflated into the batch by csrc/sepio.cpp"
+            return "numpy", "np.load (no utt2num_frames/utt2num_spk)"
+        return "numpy", f"np.load (native loader {native.status()})"
 
     def _per_utt(self, data_dir: str, name: str) -> np.ndarray | None:
         path = os.path.join(data_dir, name)
@@ -77,10 +118,19 @@ class FeatureDataset:
     def utt_id(self, idx: int) -> str:
         return self.entries[idx][0]
 
+    @functools.cached_property
+    def feat_dim(self) -> int:
+        if self.cache is not None:
+            return self.cache.feat_dim
+        with np.load(self.entries[0][1]) as feat:
+            return int(feat["mix"].shape[0])
+
     def load(self, idx: int) -> dict:
         """Train: {'mix': (T, F) float32, 'sources': (S, T, F) float32,
         'name'}; test: {'mix': (T, F) float32 magnitude, 'spec': (F, T)
         complex64, 'name'}."""
+        if self.cache is not None:
+            return self.cache.load(idx)
         utt, path = self.entries[idx]
         with np.load(path) as feat:
             if self.kind == "test":
@@ -179,6 +229,45 @@ def make_device_batch(samples: list[dict], plan: BatchPlan,
     return out
 
 
+def collate_native(dataset: FeatureDataset, idxs: list[int], plan: BatchPlan) -> dict:
+    """make_device_batch's batch of a training dataset's ``idxs``, each npz
+    member inflated by the native runtime straight into its padded row (the
+    batch is bit-equal to the numpy path's). Needs the dataset's
+    ``num_frames`` and ``num_spks``."""
+    from ..utils import native
+    B, F = plan.batch_size, dataset.feat_dim
+    T = _round_up(max(int(dataset.num_frames[i]) for i in idxs), plan.time_pad_multiple)
+    n_spk = [max(1, int(dataset.num_spks[i])) for i in idxs]
+    mix = np.zeros((B, T, F), np.float32)
+    sources = np.zeros((B, max(n_spk), T, F), np.float32)
+    lengths = np.zeros((B,), np.int32)
+    row_mask = np.zeros((B,), np.float32)
+    names = []
+    for row, i in enumerate(idxs):
+        utt, path = dataset.entries[i]
+        lengths[row], _ = native.load_npz_2d_transposed(path, "mix", mix[row])
+        row_mask[row] = 1.0
+        names.append(utt)
+        for s in range(n_spk[row]):
+            try:
+                native.load_npz_2d_transposed(path, f"s{s + 1}", sources[row, s])
+            except IOError:
+                if s:
+                    raise
+                sources[row, 0] = mix[row]      # no sources: source 1 is the mixture
+    return {"mix": mix, "sources": sources, "lengths": lengths, "row_mask": row_mask,
+            "names": names}
+
+
+def collate(dataset: FeatureDataset, idxs: list[int], plan: BatchPlan) -> dict:
+    """The padded batch of ``idxs`` by the dataset's ``collation``."""
+    if dataset.collation == "cache":
+        return dataset.cache.collate(idxs, plan.time_pad_multiple, pad_rows_to=plan.batch_size)
+    if dataset.collation == "native":
+        return collate_native(dataset, idxs, plan)
+    return make_device_batch([dataset.load(i) for i in idxs], plan)
+
+
 class _EpochEnd:
     """The marker between two epochs' batches in a loader that spans epochs."""
 
@@ -224,13 +313,13 @@ def _pipeline(items, collate_fn, transfer_fn=None):
 
 
 def _default_collate(dataset: FeatureDataset, plan: BatchPlan):
-    return lambda idxs: make_device_batch([dataset.load(i) for i in idxs], plan)
+    return lambda idxs: collate(dataset, idxs, plan)
 
 
 def iter_batches(dataset, plan: BatchPlan, epoch: int, shuffle: bool = True,
                  collate_fn=None, transfer_fn=None, num_spks=None):
     """Yield one epoch's collated batches (``collate_fn(idxs)``, by default
-    npz features padded by ``make_device_batch``), loaded and handed to
+    the dataset's own ``collate``), loaded and handed to
     ``transfer_fn`` in background threads."""
     batches = plan_batches(dataset, plan, epoch, lengths=dataset.num_frames,
                            num_spks=num_spks, shuffle=shuffle)

@@ -28,10 +28,23 @@ and the JAX package:
 One loader spans all the epochs (train/data.iter_epochs) and starts before
 the model is built, so epoch 1's first batches are collated and copied
 while the model is built and checkpointed, and each later epoch's while the
-previous epoch ends.
+previous epoch ends. The feature batches come from a packed cache, the
+native loader or numpy (train/data.py logs which); an f16 cache's batches
+cross to the card as f16 and the step upcasts them there. The training
+extras, as in the JAX package:
 
-Not ported yet (ROADMAP.md): plots, the profiler, the packed feature cache,
-the hang watchdog and data parallelism over several cards.
+- ``make_plots``: loss curves at each checkpoint and at the end, and the
+  first CV batch's spectrograms (utils/plot.py, the reference's file names)
+  under ``train_stats/plots/``; without matplotlib one line says so and
+  training goes on;
+- ``profile_dir``: a torch.profiler trace of steps 2 to ``profile_steps``
+  + 1 (the first step, which builds the kernels, is left out), written as
+  a Chrome trace with a table of the device time by kernel;
+- ``train_copy_location``: the training features staged there first;
+- ``heartbeat_file``: touched after every optimizer step, CV batch and
+  checkpoint, for the hang watchdog (train/watchdog.py).
+
+Not ported yet (ROADMAP.md): data parallelism over several cards.
 """
 
 from __future__ import annotations
@@ -82,6 +95,16 @@ class TrainLoopConfig:
     # RSH: the reference's mixed batches (speaker-count sub-batches, one
     # optimizer step per batch) in place of one speaker count per batch
     reference_batching: bool = False
+    make_plots: bool = True
+    # stage the training features here first (the reference's
+    # --train-copy-location)
+    train_copy_location: str = ""
+    # a trace of the steps after the first, up to profile_steps of them
+    profile_dir: str = ""
+    profile_steps: int = 5
+    # touched after every optimizer step, CV batch and checkpoint; set by
+    # train/watchdog.train_supervised, not by hand
+    heartbeat_file: str = ""
 
 
 class Optimizer:
@@ -174,11 +197,13 @@ def accumulate_step(arch, model, optimizer: Optimizer, subs: list[dict],
 
 def to_device(batch: dict, dev: torch.device, copy_stream=None,
               keys=FEATURE_KEYS) -> dict:
-    """The collated arrays named by ``keys`` as tensors on ``dev``, plus
-    ``n_real`` and the utterance ``names``. With a CUDA ``copy_stream`` (the
-    trainer's transfer thread passes one) the arrays are pinned and copied
-    on it, so the copy overlaps the kernels of the running step;
-    ``_wait_for_copy`` orders it before the step that reads it."""
+    """The collated arrays named by ``keys`` as tensors on ``dev``, in their
+    own dtypes (an f16 cache's batch crosses as f16), plus ``n_real``, the
+    utterance ``names`` and ``h2d_bytes``, the bytes copied. With a CUDA
+    ``copy_stream`` (the trainer's transfer thread passes one) the arrays
+    are pinned and copied on it, so the copy overlaps the kernels of the
+    running step; ``_wait_for_copy`` orders it before the step that reads
+    it."""
     host = {k: torch.from_numpy(batch[k]) for k in keys}
     if copy_stream is None:
         out = {k: v.to(dev) for k, v in host.items()}
@@ -188,7 +213,16 @@ def to_device(batch: dict, dev: torch.device, copy_stream=None,
             out["ready"] = copy_stream.record_event()
     out["n_real"] = int(batch["row_mask"].sum())
     out["names"] = batch["names"]
+    out["h2d_bytes"] = sum(v.nbytes for v in host.values())
     return out
+
+
+def upcast_features(batch: dict) -> dict:
+    """The batch with half-precision features (an f16 cache's) in float32,
+    cast on the batch's device: the loss runs in float32, as the JAX
+    package's ``_upcast_features``."""
+    return {k: v.float() if k in ("mix", "sources") and v.dtype == torch.float16 else v
+            for k, v in batch.items()}
 
 
 def _wait_for_copy(batch: dict) -> dict:
@@ -383,12 +417,11 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
         def collate_for(ds):
             return lambda idxs: collate_wav_batch(ds, idxs, loop_cfg.batch_size)
     else:
-        dataset = FeatureDataset(data_dir)
-        cv_dataset = FeatureDataset(cv_data_dir) if cv_data_dir else None
+        dataset = FeatureDataset(data_dir, copy_location=loop_cfg.train_copy_location,
+                                 log=log)
+        cv_dataset = FeatureDataset(cv_data_dir, log=log) if cv_data_dir else None
         keys = FEATURE_KEYS
-
-        def prepare(batch):
-            return batch
+        prepare = upcast_features
 
         def collate_for(ds):
             if mixed:
@@ -410,7 +443,8 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
         if isinstance(batch, list):         # a mixed batch's sub-batches
             subs = [copy_one(sb) for sb in batch]
             return {"subs": subs, "n_real": sum(sb["n_real"] for sb in subs),
-                    "names": [n for sb in subs for n in sb["names"]]}
+                    "names": [n for sb in subs for n in sb["names"]],
+                    "h2d_bytes": sum(sb["h2d_bytes"] for sb in subs)}
         return copy_one(batch)
 
     epochs = iter_epochs(dataset, plan, range(loop_cfg.start_epoch, loop_cfg.num_epochs),
@@ -448,9 +482,15 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
         epoch_losses = _truncate_loss_file(loss_file, loop_cfg.start_epoch)
         cv_losses = _truncate_loss_file(cv_loss_file, loop_cfg.start_epoch)
 
+    plot_dir = os.path.join(stats_dir, "plots")
+    plots = loop_cfg.make_plots and _plots_available(log)
+    beat = _heartbeat(loop_cfg.heartbeat_file)
+    profiler = _StepProfiler(loop_cfg.profile_dir, loop_cfg.profile_steps, dev, log)
+
     lossF = open(loss_file, "a")
     cv_lossF = open(cv_loss_file, "a") if cv_dataset else None
     steps: list[tuple[float, int]] = []
+    h2d_bytes: list[int] = []
     epoch_times: list[tuple[int, float, float]] = []
     utts_seen = 0
     t_start = time.time()
@@ -460,6 +500,7 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
             t_epoch = time.time()
             for batch in batches:
                 n_steps += 1
+                profiler.before_step(len(steps))
                 t0 = time.perf_counter()
                 if "subs" in batch:
                     loss, norm = accumulate_step(
@@ -470,6 +511,9 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
                                              prepare(_wait_for_copy(batch)), generator)
                 loss, norm = float(loss), float(norm)
                 steps.append(((time.perf_counter() - t0) * 1e3, batch["n_real"]))
+                h2d_bytes.append(batch["h2d_bytes"])
+                profiler.after_step(len(steps))
+                beat()
                 epoch_loss += loss * norm
                 epoch_norm += norm
                 epoch_utts += batch["n_real"]
@@ -482,15 +526,22 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
 
             if cv_dataset and (epoch + 1) % CV_EVERY == 0:
                 cv_loss_sum, cv_norm_sum = 0.0, 0.0
+                first = plots
                 for batch in iter_batches(cv_dataset, plan, 0, shuffle=False,
                                           collate_fn=collate_for(cv_dataset),
                                           transfer_fn=copy,
                                           num_spks=spk_counts.get(cv_dataset)):
                     for sb in batch.get("subs", [batch]):
-                        loss, norm = eval_step(arch, model, prepare(_wait_for_copy(sb)),
-                                               generator)
+                        sb = prepare(_wait_for_copy(sb))
+                        loss, norm = eval_step(arch, model, sb, generator)
                         cv_loss_sum += float(loss) * float(norm)
                         cv_norm_sum += float(norm)
+                        beat()
+                        if first:
+                            _plot_cv_batch(arch, model, sb, generator,
+                                           os.path.join(plot_dir, f"epoch{epoch + 1:03d}"),
+                                           log)
+                            first = False
                 cv_avg = cv_loss_sum / cv_norm_sum
                 log(f"For epoch: {epoch + 1:03d} cv set loss is: {cv_avg}")
                 cv_lossF.write(f"{epoch + 1:03d} {cv_avg}\n")
@@ -508,17 +559,145 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
                 save_checkpoint(intermediate_model_path(exp_dir, epoch + 1), model,
                                 optimizer=optimizer, generator=generator,
                                 epoch=epoch + 1, meta=meta)
+                beat()
+                if plots:
+                    _plot_losses(epoch_losses, cv_losses, os.path.join(
+                        plot_dir, f"epoch{epoch + 1:03d}",
+                        f"Loss_{epoch_losses[0][0]:03d}-{epoch + 1:03d}.png"), log)
             sys.stdout.flush()
     finally:
+        profiler.stop()
         lossF.close()
         if cv_lossF:
             cv_lossF.close()
 
     save_checkpoint(final_model_path(exp_dir), model, optimizer=optimizer,
                     generator=generator, epoch=loop_cfg.num_epochs, meta=meta)
+    beat()
+    if plots and epoch_losses:
+        _plot_losses(epoch_losses, cv_losses, os.path.join(
+            plot_dir, f"Loss_{epoch_losses[0][0]:03d}-{loop_cfg.num_epochs:03d}.png"), log)
     wall = time.time() - t_start
     log(f"trained {utts_seen} utterance-steps in {wall:.1f}s "
         f"({utts_seen / max(wall, 1e-9):.2f} utts/sec)")
     return {"model": model, "model_cfg": model_cfg, "epoch_losses": epoch_losses,
-            "cv_losses": cv_losses, "steps": steps, "epoch_times": epoch_times,
-            "utts_per_sec": utts_seen / max(wall, 1e-9)}
+            "cv_losses": cv_losses, "steps": steps, "h2d_bytes": h2d_bytes,
+            "epoch_times": epoch_times, "utts_per_sec": utts_seen / max(wall, 1e-9),
+            "collation": getattr(dataset, "collation", "wav")}
+
+
+def _heartbeat(path: str):
+    """A function that touches ``path`` (nothing without one)."""
+    if not path:
+        return lambda: None
+    open(path, "a").close()
+
+    def beat():
+        try:
+            os.utime(path, None)
+        except OSError:
+            pass
+    return beat
+
+
+class _StepProfiler:
+    """torch.profiler over the steps after the first (which builds the
+    kernels and waits for the first batch), ``steps`` of them, as the JAX
+    package skips its compile batch. On stop it writes ``trace.json`` (a
+    Chrome trace) and ``kernels.txt`` (device time by kernel) into
+    ``out_dir``. Without ``out_dir`` it does nothing."""
+
+    def __init__(self, out_dir: str, steps: int, dev: torch.device, log):
+        self.out_dir, self.steps, self.dev, self.log = out_dir, steps, dev, log
+        self.prof = None
+        self.done = not out_dir
+
+    def before_step(self, n_done: int) -> None:
+        if self.done or self.prof is not None or n_done < 1:
+            return
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.dev.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities)
+        self.prof.__enter__()
+
+    def after_step(self, n_done: int) -> None:
+        if self.prof is not None and n_done >= 1 + self.steps:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        prof, self.prof, self.done = self.prof, None, True
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        prof.__exit__(None, None, None)
+        os.makedirs(self.out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.out_dir, "trace.json"))
+        sort = "self_cuda_time_total" if self.dev.type == "cuda" else "self_cpu_time_total"
+        with open(os.path.join(self.out_dir, "kernels.txt"), "w") as f:
+            f.write(prof.key_averages().table(sort_by=sort, row_limit=60) + "\n")
+        self.log(f"profiler trace written to {self.out_dir}")
+
+
+def _plots_available(log) -> bool:
+    from ..utils import plot
+    if plot.available():
+        return True
+    log("plots skipped: matplotlib is not installed")
+    return False
+
+
+def _plot_losses(epoch_losses, cv_losses, path: str, log) -> None:
+    from ..utils.plot import plot_loss
+    try:
+        plot_loss(list(zip(*epoch_losses)), list(zip(*cv_losses)) if cv_losses else None,
+                  path)
+    except Exception as e:  # a plot must never end a training run
+        log(f"warning: loss plot failed: {e!r}")
+
+
+def _plot_cv_batch(arch, model, batch: dict, generator: torch.Generator, plot_dir: str,
+                   log) -> None:
+    """The reference's CV plots of the first CV utterance (uPIT.py:199-204,
+    RSH.py:243-252): for the uPIT contract (uPIT, TCN) the mixture, the
+    masked mixture and the chosen permutation of the sources; for RSH the
+    mixture and, each pass, its input, attention mask, mask, masked mixture
+    and chosen source. Other archs (waveform batches) draw none. The loss
+    runs again on a copy of the generator, so training's draws are kept."""
+    if "mix" not in batch or arch.NAME not in ("uPIT", "TCN", "RSH"):
+        return
+    from ..ops.pit import make_permutations
+    from ..utils.plot import plot_spec
+    try:
+        g = torch.Generator(device=generator.device)
+        g.set_state(generator.get_state())
+        with torch.no_grad():
+            _, aux = arch.loss_fn(model, batch, g, False)
+        mix = batch["mix"][0].float().cpu().numpy()
+        sources = batch["sources"][0].float().cpu().numpy()          # (S, T, F)
+        if arch.NAME != "RSH":
+            plot_spec(mix, os.path.join(plot_dir, "Mixture.png"))
+            masked = aux["masked"][0].float().cpu().numpy()          # (T, S, F)
+            T, S, F = masked.shape
+            plot_spec(masked.reshape(T, S * F), os.path.join(plot_dir, "Masked_Mixture.png"))
+            perm = make_permutations(S)[int(aux["best_perm"][0])]
+            plot_spec(np.concatenate([sources[i] for i in perm], axis=1),
+                      os.path.join(plot_dir, "Chosen_Permutation.png"))
+            return
+        masks = aux["masks"][0].float().cpu().numpy()                # (S, T, F)
+        assigns = aux["assignments"][0].cpu().numpy()
+        n = sources.shape[0]
+        plot_spec(mix, os.path.join(plot_dir, f"{n}-Spk_Mix.png"))
+        atten = np.ones_like(mix)
+        for p in range(masks.shape[0]):
+            prefix = os.path.join(plot_dir, f"{n}-Spk_Pass-{p + 1}_")
+            plot_spec(np.concatenate([mix, atten], axis=1), prefix + "Input.png")
+            plot_spec(atten, prefix + "Attenmask.png")
+            plot_spec(masks[p], prefix + "Mask_Out.png")
+            plot_spec(masks[p] * mix, prefix + "Masked_Mix.png")
+            plot_spec(sources[assigns[p]], prefix + "Chosen_Source.png")
+            atten = np.maximum(atten - masks[p], 0.0)
+    except Exception as e:  # a plot must never end a training run
+        log(f"warning: cv plotting failed: {e!r}")

@@ -1,5 +1,6 @@
 """Host-side audio I/O (a copy of speech_separation_tpu/utils/audio.py's
-serving helpers, on scipy.io.wavfile):
+serving helpers, on the native decoder of utils/native.py when it is
+available, else scipy.io.wavfile):
 
 - integer PCM is normalized to float32 the way librosa does it (int16 /
   32768, int32 / 2**31, uint8 -> [-1, 1)); multi-channel is averaged;
@@ -23,18 +24,34 @@ from scipy.signal import resample_poly
 def load_wav(path: str, sr: int | None = None,
              offset: float = 0.0, duration: float | None = None
              ) -> tuple[np.ndarray, int]:
-    """Load a wav file as float32 in [-1, 1), optionally resampled."""
-    file_sr, data = wavfile.read(path)
-    if data.dtype == np.int16:
-        x = data.astype(np.float32) / 32768.0
-    elif data.dtype == np.int32:
-        x = data.astype(np.float32) / 2147483648.0
-    elif data.dtype == np.uint8:
-        x = (data.astype(np.float32) - 128.0) / 128.0
-    else:  # float32 / float64 wavs are already normalized
-        x = data.astype(np.float32)
-    if x.ndim > 1:
-        x = x.mean(axis=1)
+    """Load a wav file as float32 in [-1, 1), optionally resampled.
+
+    PCM16, PCM32 and float32 files decode through the native runtime when
+    it is available: for a mono file the samples are those of the scipy
+    path bit for bit (tested); a multi-channel file is averaged in double
+    precision there, within one float32 rounding of numpy's mean. Other
+    formats, or no native library, take the scipy path."""
+    from . import native
+    got = None
+    if native.available():
+        try:
+            got = native.read_wav_f32(path)
+        except IOError:          # a format the decoder does not take (uint8, f64)
+            got = None
+    if got is not None:
+        x, file_sr = got
+    else:
+        file_sr, data = wavfile.read(path)
+        if data.dtype == np.int16:
+            x = data.astype(np.float32) / 32768.0
+        elif data.dtype == np.int32:
+            x = data.astype(np.float32) / 2147483648.0
+        elif data.dtype == np.uint8:
+            x = (data.astype(np.float32) - 128.0) / 128.0
+        else:  # float32 / float64 wavs are already normalized
+            x = data.astype(np.float32)
+        if x.ndim > 1:
+            x = x.mean(axis=1)
 
     if offset or duration is not None:
         start = int(round(offset * file_sr))

@@ -24,6 +24,8 @@ from speech_separation_tpu_torch.ops.attention_kernel import (
     DH_SUPPORTED, MAX_T_BWD, REG_CAP, SMEM_MAX, attention_plan, chunk_attention,
     chunk_attention_bwd, chunk_attention_fwd)
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 TOL = {"float32": (1e-5, 2e-4), "bfloat16": (2e-2, 5e-2)}
 
 

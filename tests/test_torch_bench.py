@@ -28,6 +28,8 @@ from speech_separation_tpu_torch.models.registry import ARCH_KERNELS, ARCHS
 from speech_separation_tpu_torch.ops import _build, lstm_kernel
 from speech_separation_tpu_torch.utils.weights import state_dict_from_jax
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 TINY = {"uPIT": {"hidden": 8, "num_layers": 1},
         "RSH": {"hidden": 8, "num_layers": 1},
         "TCN": {"channels": 8, "hidden": 12, "blocks": 2, "repeats": 1},
@@ -36,14 +38,6 @@ TINY = {"uPIT": {"hidden": 8, "num_layers": 1},
         "DPRNN": {"channels": 8, "rnn_hidden": 8, "chunk": 8, "blocks": 1, "n_filters": 8},
         "ConvTasNet": {"n_filters": 8, "channels": 8, "hidden": 12, "blocks": 2,
                        "repeats": 1}}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------- merged line
@@ -298,7 +292,7 @@ def test_bench_and_doctor_exit_non_zero_without_a_card(cmd, capsys, tmp_path, mo
     if cmd == "bench":
         assert "no CUDA device is visible" in out.err and out.out == ""
     else:
-        assert "PROBE FAILED" in out.out and "native io: not ported" in out.out
+        assert "PROBE FAILED" in out.out and "native io (csrc/sepio.cpp): loaded" in out.out
 
 
 # -------------------------------------------------------------------- warmup

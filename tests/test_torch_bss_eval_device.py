@@ -36,6 +36,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 from speech_separation_tpu.datadir import DatasetRegistry, prepare_data_dir
 from speech_separation_tpu.eval.bss_eval import bss_eval_sources as jax_host
@@ -45,6 +46,8 @@ from speech_separation_tpu_torch.datadir.scp import read_scp
 from speech_separation_tpu_torch.eval import bss_eval_device as bd
 from speech_separation_tpu_torch.eval.score import evaluate_sources
 from speech_separation_tpu_torch.utils.audio import load_wav, write_wav_int16
+
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
 
 METRIC_DB = 1e-8
 E2E_DB = 1e-6

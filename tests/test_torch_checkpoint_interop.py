@@ -47,6 +47,10 @@ from speech_separation_tpu_torch.train.checkpoint import read_septpu01
 from speech_separation_tpu_torch.utils import msgpack_lite
 from speech_separation_tpu_torch.utils.weights import state_dict_from_jax
 
+from torch_session import built_once
+
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 SMALL = {
     "uPIT": {"feat_dim": "257", "hidden": "16", "num_layers": "2"},
     "RSH": {"feat_dim": "257", "hidden": "12", "num_layers": "1"},
@@ -77,12 +81,12 @@ def write_jax_checkpoint(path, arch, seed=0):
 
 @pytest.fixture(scope="module")
 def ckpts(tmp_path_factory):
-    root = tmp_path_factory.mktemp("septpu01")
-    out = {}
-    for k, arch in enumerate(SMALL):
-        out[arch] = str(root / f"{arch}.ckpt")
-        write_jax_checkpoint(out[arch], arch, seed=k)
-    return out
+    """One JAX checkpoint of each arch, written once per session."""
+    def build(root):
+        for k, arch in enumerate(SMALL):
+            write_jax_checkpoint(str(root / f"{arch}.ckpt"), arch, seed=k)
+    root = built_once(tmp_path_factory, "septpu01", build)
+    return {arch: str(root / f"{arch}.ckpt") for arch in SMALL}
 
 
 def flax_payload(path):

@@ -47,20 +47,12 @@ from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
 from speech_separation_tpu_torch.utils.audio import load_wav
 from speech_separation_tpu_torch.utils.weights import pytree_state_dict_from_jax
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 TINY = dict(n_filters=32, filter_len=16, stride=8, channels=16, hidden=24, kernel=3,
             blocks=3, repeats=2)
 TINY_KW = {k: str(v) for k, v in TINY.items()}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread: these are many small ops, and several test
-    processes share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(seed=0, **over):

@@ -29,6 +29,8 @@ from speech_separation_tpu_torch.ops.lstm_kernel import (lstm_seq, lstm_seq_bwd,
                                                          lstm_seq_infer_plain)
 from speech_separation_tpu_torch.ops.stft_kernel import stft, stft_plain
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 pytestmark = pytest.mark.cuda
 
 

@@ -12,6 +12,7 @@ package's; every value read or raised is equal.
 import os
 
 import pytest
+import torch
 
 from speech_separation_tpu.datadir import prepare as jprepare
 from speech_separation_tpu.datadir import registry as jregistry
@@ -28,6 +29,8 @@ from speech_separation_tpu_torch.datadir import split as tsplit
 from speech_separation_tpu_torch.datadir import stage as tstage
 from speech_separation_tpu_torch.datadir import validate as tvalidate
 from speech_separation_tpu_torch.utils import synthetic as tsynth
+
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
 
 
 def _tree(root):

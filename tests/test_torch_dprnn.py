@@ -39,19 +39,11 @@ from speech_separation_tpu_torch.train.checkpoint import save_checkpoint
 from speech_separation_tpu_torch.utils.audio import load_wav
 from speech_separation_tpu_torch.utils.weights import dprnn_state_dict_from_jax, fold_lstm_biases
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 TINY = dict(n_filters=16, filter_len=16, stride=8, channels=12, rnn_hidden=10, chunk=8,
             blocks=2)
 TINY_KW = {k: str(v) for k, v in TINY.items()}
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread: these are many small ops, and several test
-    processes share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(dtype="float32", seed=0, **over):

@@ -47,6 +47,8 @@ from speech_separation_tpu_torch.eval.reconstruct import reconstruct_sources
 from speech_separation_tpu_torch.eval.score import evaluate_sources
 from speech_separation_tpu_torch.utils.audio import load_wav
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = {"hidden": "16", "num_layers": "1", "zero_init_hidden": "1"}
 REL_TOL = 1e-5

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: none of its modules, and not
 chip_smoke.py, imports JAX or the JAX package, every top-level import of
 theirs is on an allowlist of what the card's machine has (the standard
-library, torch, numpy, scipy and the port itself: no msgpack, no flax), and
+library, torch, numpy, scipy and the port itself: no msgpack, no flax; and
+matplotlib in utils/plot.py alone, imported only when a plot is drawn), and
 its entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
@@ -15,6 +16,8 @@ import pytest
 import torch
 
 import speech_separation_tpu_torch
+
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(speech_separation_tpu_torch.__file__)
@@ -76,6 +79,8 @@ def test_no_source_names_jax_or_the_jax_package():
 # the top-level packages the port and chip_smoke.py may import besides the
 # standard library: the card's machine has these and not msgpack or flax
 ALLOWED_IMPORTS = {"torch", "numpy", "scipy", "speech_separation_tpu_torch"}
+# matplotlib, which the card's machine lacks, in the plotting module alone
+PLOT_MODULE = os.path.join(PKG, "utils", "plot.py")
 
 
 def test_every_import_is_on_the_allowlist():
@@ -83,9 +88,29 @@ def test_every_import_is_on_the_allowlist():
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for path in files:
+        allowed = ALLOWED_IMPORTS | ({"matplotlib"} if path == PLOT_MODULE else set())
         for name in _imported_roots(path):
             top = name.split(".")[0]
-            assert top in sys.stdlib_module_names or top in ALLOWED_IMPORTS, (path, name)
+            assert top in sys.stdlib_module_names or top in allowed, (path, name)
+
+
+def test_the_trainer_and_the_cli_do_not_import_matplotlib():
+    """The card's machine has no matplotlib: importing the trainer, the CLI
+    and the plotting module itself loads none of it (a plot imports it when
+    it is drawn)."""
+    code = ("import sys\n"
+            "import speech_separation_tpu_torch.train.loop, speech_separation_tpu_torch.cli.main\n"
+            "import speech_separation_tpu_torch.train.watchdog\n"
+            "import speech_separation_tpu_torch.utils.plot as plot\n"
+            "plot.available()\n"
+            "assert 'matplotlib' not in sys.modules\n"
+            "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):

@@ -17,6 +17,8 @@ from speech_separation_tpu.ops.lstm_pallas import lstm_seq_infer as jax_infer
 from speech_separation_tpu_torch.ops.lstm_kernel import (lstm_seq_infer,
                                                          lstm_seq_infer_plain)
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 
 def _inputs(T=16, D=2, B=4, H=24, seed=0):
     rng = np.random.default_rng(seed)

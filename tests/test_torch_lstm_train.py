@@ -29,6 +29,8 @@ from speech_separation_tpu_torch.ops.lstm_kernel import (lstm_seq, lstm_seq_bwd_
                                                          lstm_seq_infer_plain)
 from speech_separation_tpu_torch.utils.weights import state_dict_from_jax
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 SFX = (False, True)
 # (weight dtype, save dtype, tolerance): f32 saves are exact up to summation
 # order; bf16 saves round every saved value (see the module docstring)

@@ -28,6 +28,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from speech_separation_tpu.datadir import DatasetRegistry, prepare_data_dir
 from speech_separation_tpu.eval.oracle import evaluate_oracle as jax_oracle
@@ -35,6 +36,8 @@ from speech_separation_tpu.eval.oracle import merge_oracle_shards as jax_merge
 from speech_separation_tpu.utils.synthetic import make_synthetic_corpus_var, write_id_list
 from speech_separation_tpu_torch.cli.main import main
 from speech_separation_tpu_torch.eval.oracle import evaluate_oracle, merge_oracle_shards
+
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
 
 JAX_DB = 1e-3
 DEVICE_DB = 1e-6

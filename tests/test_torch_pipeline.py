@@ -27,6 +27,8 @@ from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
 from speech_separation_tpu_torch.eval.serve import SeparationServer, request
 from speech_separation_tpu_torch.utils.audio import load_wav, write_wav_int16
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 KW = {"hidden": "16", "num_layers": "1", "zero_init_hidden": "1"}
 WAVE_ATOL = 2e-4
 

@@ -10,7 +10,8 @@ and 4 test utterances of 0.6-1.4 s) and its registry.
   ``run-eval`` and ``run-eval --sweep-intermediates``, all ``--device cpu``
   (port only): the exp dir's snapshot and models, the scores' summary and
   the sweep's table are written.
-- the flags of modules not ported yet are refused by the parser.
+- the flags of modules not ported yet are refused by the parser, and those
+  of the training extras parse.
 """
 
 import json
@@ -28,6 +29,8 @@ from speech_separation_tpu.train.checkpoint import save_checkpoint
 from speech_separation_tpu.utils.import_torch import state_dict_from_params
 from speech_separation_tpu.utils.synthetic import make_synthetic_corpus, write_id_list
 from speech_separation_tpu_torch.cli.main import main
+
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
 
 SDR_TOL_DB = 0.05
 CONF = "hidden=16\nnum_layers=1\nzero_init_hidden=1\n"
@@ -135,21 +138,45 @@ def test_run_train_then_run_eval_on_the_cpu(workspace):
 
 
 # --device-scoring is ported (eval/bss_eval_device.py); --data-parallel, the
-# JAX package's companion to it, is not, and is refused beside it
+# JAX package's companion to it, is not, and is refused on every command that
+# has it there
 @pytest.mark.parametrize("argv", [
     ["run-eval", "--model-dir", "x", "--test-sets", "y", "--data-parallel", "--device-scoring"],
     ["run-eval", "--model-dir", "x", "--test-sets", "y", "--data-parallel"],
     ["score", "d", "e", "--data-parallel", "--device-scoring"],
-    ["extract", "d", "train", "f", "--pack-cache"],
-    ["run-train", "--train-set", "t", "--hang-watchdog-sec", "60"],
-    ["run-train", "--train-set", "t", "--profile-dir", "p"],
-    ["run-train", "--train-set", "t", "--train-copy-location", "c"],
+    ["score", "d", "e", "--data-parallel"],
+    ["separate", "m", "o", "a.wav", "--data-parallel"],
+    ["serve", "m", "s.sock", "--data-parallel"],
+    ["oracle", "d", "--data-parallel"],
 ], ids=lambda a: a[-1] if a[-1].startswith("--") else a[-2])
 def test_flags_of_unported_modules_are_refused(argv, capsys):
     with pytest.raises(SystemExit) as e:
         main(argv)
     assert e.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+# the training extras (train/feature_cache.py, train/watchdog.py, the
+# profiler, staging) are ported: their flags parse into the command's args
+@pytest.mark.parametrize("argv,want", [
+    (["extract", "d", "train", "f", "--pack-cache", "--cache-dtype", "float16"],
+     {"pack_cache": True, "cache_dtype": "float16"}),
+    (["run-train", "--train-set", "t", "--pack-cache"],
+     {"pack_cache": True, "cache_dtype": "float32"}),
+    (["pack-features", "d", "train", "--dtype", "float16", "--cache-path", "c.bin"],
+     {"dtype": "float16", "cache_path": "c.bin"}),
+    (["run-train", "--train-set", "t", "--hang-watchdog-sec", "60",
+      "--hang-first-timeout-sec", "30"],
+     {"hang_watchdog_sec": 60.0, "hang_first_timeout_sec": 30.0}),
+    (["run-train", "--train-set", "t", "--profile-dir", "p"], {"profile_dir": "p"}),
+    (["train", "uPIT", "d", "e", "--train-copy-location", "c", "--no-plots"],
+     {"train_copy_location": "c", "no_plots": True}),
+], ids=["extract", "run-train", "pack-features", "hang-watchdog", "profile-dir",
+        "train-copy-location"])
+def test_flags_of_the_training_extras_parse(argv, want):
+    from speech_separation_tpu_torch.cli.main import build_parser
+    args = vars(build_parser().parse_args(argv))
+    assert {k: args[k] for k in want} == want
 
 
 @pytest.mark.parametrize("argv", [

@@ -29,17 +29,9 @@ from speech_separation_tpu_torch.models import rsh as trsh
 from speech_separation_tpu_torch.models import upit as tupit
 from speech_separation_tpu_torch.utils.weights import fold_lstm_biases, state_dict_from_jax
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 F, H, L = 9, 6, 2
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread: these are many small ops, and several test
-    processes share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 ARCHS = {"uPIT": (jupit, tupit, {"num_spk": 2}), "RSH": (jrsh, trsh, {})}

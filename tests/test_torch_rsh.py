@@ -50,18 +50,10 @@ from speech_separation_tpu_torch.utils.synthetic import (make_synthetic_corpus_v
 from speech_separation_tpu_torch.utils.weights import (fold_lstm_biases, infer_model_info,
                                                        state_dict_from_jax)
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 F, H, L = 9, 6, 2
 KW = {"hidden": "16", "num_layers": "1", "zero_init_hidden": "1"}
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread: these are many small ops, and several test
-    processes share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def quiet(*_):

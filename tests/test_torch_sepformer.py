@@ -27,6 +27,8 @@ from speech_separation_tpu_torch.models import sepformer as tsf
 from speech_separation_tpu_torch.models.registry import get_arch
 from speech_separation_tpu_torch.utils.weights import pytree_state_dict_from_jax
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 TINY = dict(n_filters=16, filter_len=16, stride=8, channels=16, heads=2,
             d_ff=24, chunk=8, blocks=2)
 LENGTHS = (400, 333, 200)

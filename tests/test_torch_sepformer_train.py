@@ -36,20 +36,10 @@ from speech_separation_tpu_torch.train import wav_data as twav
 from speech_separation_tpu_torch.utils.audio import load_wav
 from speech_separation_tpu_torch.utils.weights import pytree_state_dict_from_jax
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 TINY = dict(n_filters=16, filter_len=16, stride=8, channels=16, heads=2,
             d_ff=24, chunk=8, blocks=2)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread: these steps are many small ops, and when several
-    test processes share the cores, each one's full thread pool spins
-    against the others' (the CLI test: 5 s alone, about 10x that under a
-    6-process run with the default pool)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,8 @@ from speech_separation_tpu_torch.dsp import stft as tstft
 from speech_separation_tpu_torch.ops.stft_kernel import (DIRECT_N_FFT_CAP, N_FFT_CAP, fft_table,
                                                          stft, stft_plain, stft_plan)
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 SPEC_ATOL = 1e-4
 WAVE_ATOL = 2e-5
 

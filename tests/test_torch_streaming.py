@@ -44,6 +44,10 @@ from speech_separation_tpu_torch.models import upit as tupit
 from speech_separation_tpu_torch.train.checkpoint import save_checkpoint
 from speech_separation_tpu_torch.utils.weights import pytree_state_dict_from_jax
 
+from torch_session import built_once
+
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 S = 2
 TCN_KW = {"channels": "16", "hidden": "24", "blocks": "3", "repeats": "2", "causal": "1"}
 CT_TINY = dict(n_filters=32, filter_len=16, stride=8, channels=16, hidden=24, kernel=3,
@@ -53,35 +57,28 @@ CT_KW = {k: str(v) for k, v in dict(CT_TINY, causal=1).items()}
 DOMAINS = {"TCN": (TCN_KW, 128, 2e-6), "ConvTasNet": (CT_KW, CT_TINY["stride"], 1e-6)}
 
 
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread: these are many small ops, and several test
-    processes share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def models(tmp_path_factory):
-    """{arch: (the port's .mdl, the JAX checkpoint)} with the same weights."""
-    root = tmp_path_factory.mktemp("stream")
-    out = {}
-    for name, jmod, tmod, jcfg in (
-            ("TCN", jtcn, ttcn, jtcn.Config.from_kwargs(**TCN_KW)),
-            ("ConvTasNet", jct, tct, jct.Config.from_kwargs(**CT_KW))):
-        kw = DOMAINS[name][0]
-        params, state = jmod.init(jax.random.PRNGKey(0), jcfg)
-        ckpt = str(root / f"{name}.ckpt")
-        jax_save(ckpt, params=params, state=state, meta={"arch": name, "model_kwargs": kw})
-        model = tmod.Model(tmod.Config.from_kwargs(**kw))
-        model.load_state_dict(pytree_state_dict_from_jax(
-            jax.tree_util.tree_map(np.asarray, params)))
-        mdl = str(root / f"{name}.mdl")
-        save_checkpoint(mdl, model, meta={"arch": name, "model_kwargs": kw})
-        out[name] = (mdl, ckpt)
-    return out
+    """{arch: (the port's .mdl, the JAX checkpoint)} with the same weights,
+    written once per session."""
+    archs = (("TCN", jtcn, ttcn, jtcn.Config.from_kwargs(**TCN_KW)),
+             ("ConvTasNet", jct, tct, jct.Config.from_kwargs(**CT_KW)))
+
+    def build(root):
+        for name, jmod, tmod, jcfg in archs:
+            kw = DOMAINS[name][0]
+            params, state = jmod.init(jax.random.PRNGKey(0), jcfg)
+            jax_save(str(root / f"{name}.ckpt"), params=params, state=state,
+                     meta={"arch": name, "model_kwargs": kw})
+            model = tmod.Model(tmod.Config.from_kwargs(**kw))
+            model.load_state_dict(pytree_state_dict_from_jax(
+                jax.tree_util.tree_map(np.asarray, params)))
+            save_checkpoint(str(root / f"{name}.mdl"), model,
+                            meta={"arch": name, "model_kwargs": kw})
+
+    root = built_once(tmp_path_factory, "stream", build)
+    return {name: (str(root / f"{name}.mdl"), str(root / f"{name}.ckpt"))
+            for name, *_ in archs}
 
 
 def _audio(n, seed):

@@ -49,18 +49,10 @@ from speech_separation_tpu_torch.train.checkpoint import load_checkpoint, save_c
 from speech_separation_tpu_torch.utils.audio import load_wav
 from speech_separation_tpu_torch.utils.weights import pytree_state_dict_from_jax
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 TINY = dict(feat_dim=33, num_spk=2, channels=16, hidden=24, blocks=3, repeats=2)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread: these are many small ops, and several test
-    processes share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(seed=0, **over):

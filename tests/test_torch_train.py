@@ -38,6 +38,8 @@ from speech_separation_tpu_torch.train.loop import (Optimizer, TrainLoopConfig,
 from speech_separation_tpu_torch.utils.weights import (fold_lstm_biases,
                                                        state_dict_from_jax)
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 
 # ---------------------------------------------------------------------- PIT
 

@@ -23,6 +23,8 @@ from speech_separation_tpu_torch.models.registry import get_arch
 from speech_separation_tpu_torch.utils.weights import (infer_model_info,
                                                        state_dict_from_jax)
 
+torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
+
 F, H, L = 20, 16, 2
 
 

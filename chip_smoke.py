@@ -142,8 +142,7 @@ Phases, in order; any failure exits non-zero without the final line:
 22. the port's tools through cli.main.main: doctor (the card, nvcc, every
    kernel built, the native loader loaded), warmup (every arch's kernels
    from the build cache, their launch plans at the training shapes) and
-   bench with the phases upit_bf16, dsp and serving (SepFormer's and
-   DPRNN's bench phases left out: phases 8 and 15 train both),
+   bench with the phases upit_bf16, sepformer, dprnn, dsp and serving,
    each in a child process: the merged line's phases, numbers and build,
    and each child's launches;
 23. device scoring: the linalg backend and one 64-utterance LU under
@@ -2895,11 +2894,11 @@ def _solo(sep, x) -> list:
 # 8 times (SepFormer, 4 blocks x 2 layers); K2 in dsp's round trips. A
 # training phase runs 1 + iters + 3 steps (the first, the timed loop, the
 # idle-share window); dsp a second of round trips, then 20.
-# bench's SepFormer and DPRNN phases are left to the bench itself: phases 8
-# and 15 train both here, and the script has a time limit
-BENCH_SUBSET = ("upit_bf16", "dsp", "serving")
+BENCH_SUBSET = ("upit_bf16", "sepformer", "dprnn", "dsp", "serving")
 BENCH_LAUNCHES = {
     "upit_bf16": {"lstm_seq_fwd": 2 * 24, "lstm_seq_bwd": 2 * 24},
+    "sepformer": {"chunk_attention_fwd": 8 * 14, "chunk_attention_bwd": 8 * 14},
+    "dprnn": {"lstm_seq_fwd": 12 * 14, "lstm_seq_bwd": 12 * 14},
     "dsp": {"stft": None},
     "serving": {"lstm_seq_infer": None, "stft": None},      # None: any number above 0
 }
@@ -2927,7 +2926,7 @@ def tools_phase(fails: Failures) -> dict:
     doctor exits 0 with the card, nvcc and every kernel built; warmup finds
     each arch's kernels in the build cache (phase 2 built them) and checks
     their plans at the training shapes; bench runs BENCH_SUBSET in child
-    processes, each its own CUDA context: its merged line holds the three
+    processes, each its own CUDA context: its merged line holds the five
     phases with finite numbers and no failed or skipped phase, the build from
     the cache in under a second, and each child's kernel launches."""
     torch.cuda.empty_cache()          # the children need the card's memory
@@ -3349,9 +3348,10 @@ def extras_phase(fails: Failures, counters, train_dir: str) -> dict:
     --hang-watchdog-sec` through the CLI with --profile-dir and
     --train-copy-location: a spawned CUDA child, 0 restarts, final.mdl
     equal to the f32-cache run's, the features staged, the trace naming K3
-    and K4; and a fault control: a supervised run whose child is stopped
-    (SIGSTOP) after its epoch-5 checkpoint, killed by the watchdog and
-    restarted from that checkpoint, ending in the same final.mdl."""
+    and K4; and beside it on the card a fault control: a supervised run
+    whose child is stopped (SIGSTOP) after its epoch-5 checkpoint, killed by
+    the watchdog and restarted from that checkpoint, ending in the same
+    final.mdl."""
     import dataclasses
     import re
     import signal
@@ -3453,12 +3453,34 @@ def extras_phase(fails: Failures, counters, train_dir: str) -> dict:
                     f"(2 layers x {steps} steps)")
     fails.check(runs["cache32"]["launches"]["lstm_seq_infer"] > 0, "K1 launched in the CV pass")
 
-    # the watchdog with the profiler and staging, through the CLI
+    # the watchdog with the profiler and staging, through the CLI; beside it
+    # on the card, so that the children's start-up overlaps, the fault
+    # control: a supervised run whose child is stopped after its epoch-5
+    # checkpoint
+    exp = os.path.join(work, "exp_fault")
+    log, result, stopped = [], {}, []
+    th = threading.Thread(target=lambda: result.update(train_supervised(
+        dirs["cache32"], exp, dataclasses.replace(cfg, num_epochs=10), hang_timeout_s=5.0,
+        first_timeout_s=300.0, max_restarts=1, cv_data_dir=cv, model_kwargs=kw,
+        device="cuda", poll_s=0.25, log=log.append)))
+
+    def stop_after_epoch5():
+        state5 = os.path.join(exp, "intermediate_models", "005.state")
+        while th.is_alive() and not os.path.isfile(state5):
+            time.sleep(0.02)
+        if th.is_alive():
+            with open(os.path.join(exp, ".train.lock")) as f:
+                stopped.append(int(f.read()))
+            os.kill(stopped[0], signal.SIGSTOP)
+
+    stopper = threading.Thread(target=stop_after_epoch5)
+    t0 = time.monotonic()
+    th.start()
+    stopper.start()
     conf = os.path.join(work, "model.conf")
     with open(conf, "w") as f:
         f.write("compute_dtype=bfloat16\n")
     prof, stage = os.path.join(work, "profile"), os.path.join(work, "staged")
-    t0 = time.monotonic()
     code, out = _cli(["train", "uPIT", dirs["native"], os.path.join(work, "exp_watchdog"),
                       "--cv-data-dir", cv, "--model-config", conf, "--batch-size", "100",
                       "--num-epochs", "10", "--time-pad-multiple", "128", "--seed", str(SEED),
@@ -3482,26 +3504,12 @@ def extras_phase(fails: Failures, counters, train_dir: str) -> dict:
     k4 = len(re.findall(r"lstm_bwd_kernel<", trace))
     fails.check(k3 > 0 and k4 > 0, f"the profile trace names K3 ({k3} events) and K4 ({k4})")
 
-    # the fault control: the child stopped after its epoch-5 checkpoint
-    exp = os.path.join(work, "exp_fault")
-    log, result = [], {}
-    th = threading.Thread(target=lambda: result.update(train_supervised(
-        dirs["cache32"], exp, dataclasses.replace(cfg, num_epochs=10), hang_timeout_s=3.0,
-        first_timeout_s=300.0, max_restarts=1, cv_data_dir=cv, model_kwargs=kw,
-        device="cuda", poll_s=0.25, log=log.append)))
-    t0 = time.monotonic()
-    th.start()
-    state5 = os.path.join(exp, "intermediate_models", "005.state")
-    while th.is_alive() and not os.path.isfile(state5):
-        time.sleep(0.02)
-    stopped = None
-    if th.is_alive():
-        with open(os.path.join(exp, ".train.lock")) as f:
-            stopped = int(f.read())
-        os.kill(stopped, signal.SIGSTOP)
     th.join(600)
-    print(f"  fault control ({time.monotonic() - t0:.1f} s): child {stopped} stopped; "
-          f"{log}", flush=True)
+    stopper.join(60)
+    fault_s = time.monotonic() - t0
+    stopped = stopped[0] if stopped else None
+    print(f"  fault control ({fault_s:.1f} s, from the same start): child {stopped} "
+          f"stopped; {log}", flush=True)
     fails.check(stopped is not None and result.get("restarts") == 1
                 and "watchdog: resuming from epoch 5" in log,
                 f"the stopped child killed and restarted from epoch 5: {result}")
@@ -3511,7 +3519,8 @@ def extras_phase(fails: Failures, counters, train_dir: str) -> dict:
             "f16_batch_err": f16_err, "f16_loss_rel": f16_rel,
             "readings": {k: r["reading"] for k, r in runs.items()},
             "launches": {k: r["launches"] for k, r in runs.items()},
-            "losses": losses, "watchdog_s": watchdog_s, "trace_k3_k4": (k3, k4)}
+            "losses": losses, "watchdog_s": watchdog_s, "fault_s": fault_s,
+            "trace_k3_k4": (k3, k4)}
 
 
 def _kernel_group(name: str) -> str:
@@ -3748,7 +3757,7 @@ def main() -> int:
     streaming = stream_phase(fails, stft)
     print(f"  phase 21: {time.monotonic() - t21:.1f} s", flush=True)
 
-    print("== 22. tools: doctor, warmup and bench (3 phases) through the CLI", flush=True)
+    print("== 22. tools: doctor, warmup and bench (5 phases) through the CLI", flush=True)
     t22 = time.monotonic()
     tools = tools_phase(fails)
     print(f"  phase 22: {time.monotonic() - t22:.1f} s", flush=True)

@@ -97,10 +97,10 @@ class FeatureDataset:
         from ..utils import native
         if self.cache is not None:
             return "cache", f"packed cache {self.cache.bin_path} ({self.cache.dtype.name})"
-        if native.available():
-            if self.num_frames is not None and self.num_spks is not None:
-                return "native", "npz members inflated into the batch by csrc/sepio.cpp"
+        if self.num_frames is None or self.num_spks is None:
             return "numpy", "np.load (no utt2num_frames/utt2num_spk)"
+        if native.available():
+            return "native", "npz members inflated into the batch by csrc/sepio.cpp"
         return "numpy", f"np.load (native loader {native.status()})"
 
     def _per_utt(self, data_dir: str, name: str) -> np.ndarray | None:
@@ -197,35 +197,40 @@ def collate_mixed_batch(dataset: FeatureDataset, idxs: list[int], plan: BatchPla
             for s in sorted(groups)]
 
 
+def padded_batch(n: int, rows: int, frames: int, feat_dim: int, n_src: int,
+                 time_pad_multiple: int, dtype=np.float32) -> dict:
+    """The zeroed buffers of a padded batch of ``n`` utterances that every
+    collation fills: {'mix': (rows, T, F), 'lengths': (rows,) int32,
+    'row_mask': (rows,) float32, 1 on the first ``n`` rows, 'names': ``n``
+    empty strings}, plus 'sources' (rows, n_src, T, F) when ``n_src``; T is
+    ``frames`` rounded up to ``time_pad_multiple``."""
+    if n > rows:
+        raise ValueError(f"{n} samples for a batch of {rows}")
+    T = _round_up(frames, time_pad_multiple)
+    out = {"mix": np.zeros((rows, T, feat_dim), dtype), "lengths": np.zeros((rows,), np.int32),
+           "row_mask": np.zeros((rows,), np.float32), "names": [""] * n}
+    out["row_mask"][:n] = 1.0
+    if n_src:
+        out["sources"] = np.zeros((rows, n_src, T, feat_dim), dtype)
+    return out
+
+
 def make_device_batch(samples: list[dict], plan: BatchPlan,
                       pad_rows_to: int | None = None) -> dict:
-    """Collate loaded samples into padded numpy arrays: {'mix': (B, T, F),
-    'lengths': (B,) int32, 'row_mask': (B,) float32, 'names'}, plus
-    'sources' (B, S, T, F) when the samples have sources (training
-    features); B is ``pad_rows_to`` (default the plan's batch size) and T
-    the longest length rounded up to time_pad_multiple."""
-    B = pad_rows_to or plan.batch_size
-    if len(samples) > B:
-        raise ValueError(f"{len(samples)} samples for a batch of {B}")
-    F = samples[0]["mix"].shape[1]
+    """Collate loaded samples into padded numpy arrays (padded_batch's, in
+    float32), 'sources' when the samples have sources (training features);
+    the rows are ``pad_rows_to`` (default the plan's batch size)."""
     S = max(s["sources"].shape[0] for s in samples) if "sources" in samples[0] else 0
-    T = _round_up(max(s["mix"].shape[0] for s in samples), plan.time_pad_multiple)
-    mix = np.zeros((B, T, F), np.float32)
-    sources = np.zeros((B, S, T, F), np.float32) if S else None
-    lengths = np.zeros((B,), np.int32)
-    row_mask = np.zeros((B,), np.float32)
-    names = []
+    out = padded_batch(len(samples), pad_rows_to or plan.batch_size,
+                       max(s["mix"].shape[0] for s in samples), samples[0]["mix"].shape[1],
+                       S, plan.time_pad_multiple)
     for i, s in enumerate(samples):
         t = s["mix"].shape[0]
-        mix[i, :t] = s["mix"]
+        out["mix"][i, :t] = s["mix"]
         if S:
-            sources[i, :s["sources"].shape[0], :t] = s["sources"]
-        lengths[i] = t
-        row_mask[i] = 1.0
-        names.append(s.get("name", str(i)))
-    out = {"mix": mix, "lengths": lengths, "row_mask": row_mask, "names": names}
-    if S:
-        out["sources"] = sources
+            out["sources"][i, :s["sources"].shape[0], :t] = s["sources"]
+        out["lengths"][i] = t
+        out["names"][i] = s.get("name", str(i))
     return out
 
 
@@ -235,19 +240,15 @@ def collate_native(dataset: FeatureDataset, idxs: list[int], plan: BatchPlan) ->
     batch is bit-equal to the numpy path's). Needs the dataset's
     ``num_frames`` and ``num_spks``."""
     from ..utils import native
-    B, F = plan.batch_size, dataset.feat_dim
-    T = _round_up(max(int(dataset.num_frames[i]) for i in idxs), plan.time_pad_multiple)
     n_spk = [max(1, int(dataset.num_spks[i])) for i in idxs]
-    mix = np.zeros((B, T, F), np.float32)
-    sources = np.zeros((B, max(n_spk), T, F), np.float32)
-    lengths = np.zeros((B,), np.int32)
-    row_mask = np.zeros((B,), np.float32)
-    names = []
+    out = padded_batch(len(idxs), plan.batch_size,
+                       max(int(dataset.num_frames[i]) for i in idxs), dataset.feat_dim,
+                       max(n_spk), plan.time_pad_multiple)
+    mix, sources = out["mix"], out["sources"]
     for row, i in enumerate(idxs):
         utt, path = dataset.entries[i]
-        lengths[row], _ = native.load_npz_2d_transposed(path, "mix", mix[row])
-        row_mask[row] = 1.0
-        names.append(utt)
+        out["lengths"][row], _ = native.load_npz_2d_transposed(path, "mix", mix[row])
+        out["names"][row] = utt
         for s in range(n_spk[row]):
             try:
                 native.load_npz_2d_transposed(path, f"s{s + 1}", sources[row, s])
@@ -255,8 +256,7 @@ def collate_native(dataset: FeatureDataset, idxs: list[int], plan: BatchPlan) ->
                 if s:
                     raise
                 sources[row, 0] = mix[row]      # no sources: source 1 is the mixture
-    return {"mix": mix, "sources": sources, "lengths": lengths, "row_mask": row_mask,
-            "names": names}
+    return out
 
 
 def collate(dataset: FeatureDataset, idxs: list[int], plan: BatchPlan) -> dict:

@@ -32,6 +32,7 @@ import warnings
 import numpy as np
 
 from ..datadir.scp import read_scp
+from .data import padded_batch
 
 _MAGIC = "SEPSEP_FEATURE_CACHE_V1"
 
@@ -157,19 +158,12 @@ class FeatureCache:
         return {"mix": rec[0], "sources": rec[1:], "name": self.ids[i]}
 
     def collate(self, idxs: list[int], time_pad_multiple: int, pad_rows_to: int) -> dict:
-        """The padded batch of ``idxs`` read straight into its buffers, in
-        the cache's dtype: {'mix': (B, T, F), 'sources': (B, S, T, F),
-        'lengths', 'row_mask', 'names'}, B = ``pad_rows_to``, T the longest
-        length rounded up to ``time_pad_multiple``."""
-        F = self.feat_dim
-        T = max(int(self.num_frames[i]) for i in idxs)
-        T = -(-T // time_pad_multiple) * time_pad_multiple
-        S = max(int(self.num_spk[i]) for i in idxs)
-        mix = np.zeros((pad_rows_to, T, F), self.dtype)
-        sources = np.zeros((pad_rows_to, S, T, F), self.dtype)
-        lengths = np.zeros((pad_rows_to,), np.int32)
-        row_mask = np.zeros((pad_rows_to,), np.float32)
-        names = [""] * len(idxs)
+        """The padded batch of ``idxs`` (data.padded_batch's, ``pad_rows_to``
+        rows) read straight into its buffers, in the cache's dtype."""
+        out = padded_batch(len(idxs), pad_rows_to, max(int(self.num_frames[i]) for i in idxs),
+                           self.feat_dim, max(int(self.num_spk[i]) for i in idxs),
+                           time_pad_multiple, self.dtype)
+        mix, sources = out["mix"], out["sources"]
         # one preadv a record scatters its bytes into the mixture's row and
         # each source's row; records in file order, for the readahead
         for row in sorted(range(len(idxs)), key=lambda r: int(self.offsets[idxs[r]])):
@@ -178,11 +172,9 @@ class FeatureCache:
             bufs = [mix[row, :t]] + [sources[row, s, :t] for s in range(int(self.num_spk[i]))]
             if os.preadv(self._fd, bufs, int(self.offsets[i])) != self._record_bytes(i):
                 raise IOError(f"short read at record {i} of {self.bin_path}")
-            lengths[row] = t
-            row_mask[row] = 1.0
-            names[row] = self.ids[i]
-        return {"mix": mix, "sources": sources, "lengths": lengths,
-                "row_mask": row_mask, "names": names}
+            out["lengths"][row] = t
+            out["names"][row] = self.ids[i]
+        return out
 
 
 def open_cache(data_dir: str, kind: str) -> FeatureCache | None:

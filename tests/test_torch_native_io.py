@@ -178,12 +178,15 @@ def test_native_collation_equals_the_pure_python_ones(tmp_path, idxs):
             np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
 
 
-def test_without_counts_the_dataset_collates_by_numpy(tmp_path):
+def test_without_counts_the_dataset_collates_by_numpy(tmp_path, monkeypatch):
     d = _feature_dir(str(tmp_path / "d"), with_counts=False)
-    logs = []
+    logs, asked = [], []
+    # a dataset that cannot collate natively does not build the library
+    monkeypatch.setattr(native, "available", lambda: asked.append(1) or True)
     assert tdata.FeatureDataset(d, log=logs.append).collation == "numpy"
     assert logs == [f"feature collation for {d}: numpy, np.load (no "
                     "utt2num_frames/utt2num_spk)"]
+    assert asked == []
 
 
 def _run(code, env=None):

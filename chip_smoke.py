@@ -3,7 +3,8 @@
 evaluation paths (uPIT, SepFormer, RSH, DPRNN, TCN, Conv-TasNet; the
 float64 device scorer, the oracle, the JAX package's checkpoints; the
 training extras: the packed feature cache, the native loader, the hang
-watchdog, the profiler) on one CUDA card and check them.
+watchdog, the profiler; data-parallel training, separation and scoring)
+on one CUDA card and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -174,7 +175,25 @@ Phases, in order; any failure exits non-zero without the final line:
    control whose child is stopped after its epoch-5 checkpoint, killed by
    the watchdog and restarted from it (1 restart, the same final.mdl);
    phase 22's doctor reports the native loader loaded;
-26. one JSON line with every kernel and its numbers (with the recipe's
+26. data parallel on one card (two ranks on cuda:0 over gloo; two pipeline
+   replicas on cuda:0, run in turn): (a) phase 5's uPIT training (2x600
+   bf16, B=100, 5 epochs) over two ranks, its losses against phase 5's, each
+   step's wall beside phase 5's, final.mdl separating a wav; (b) one uPIT
+   step over two ranks against one process on 100 rows of phase 5's corpus
+   (same weights, batch and initial states: loss, every gradient as reduced,
+   BN's running statistics, within DP_TOL), and the three fault controls (BN
+   statistics per rank, T per rank, gradients averaged under per-rank
+   norms), each of which must fail those bounds; (c) one RSH step of a mixed
+   batch whose sub-batches (3, 5 and 1 rows of 1, 2 and 3 speakers) do not
+   divide over the ranks; (d) one full-width bf16 SepFormer step with fused
+   attention at B=8 (K5 on each rank); (e) 20 requests through a pipeline of
+   two replicas (batch_size 15 -> 16 with the note) against one device; (f)
+   `separate --data-parallel` through the CLI (the one-device note, wavs
+   bit-identical to the run without it) and `score --device-scoring` over a
+   two-entry mesh on phase 10's test set, rows within 1e-9 dB of one
+   device's; (g) rank 1 raising at its second step, the run ending non-zero
+   at once; every kernel's launches in the phase (summed over the ranks);
+27. one JSON line with every kernel and its numbers (with the recipe's
    launch counts, each LSTM kernel's numbers at DPRNN's shapes and its
    launches on each RSH, DPRNN, remat, SEPTPU01 and phase 25 path, K2's on
    the TCN and oracle paths, the launches of each bench phase of phase 22), then
@@ -3523,6 +3542,300 @@ def extras_phase(fails: Failures, counters, train_dir: str) -> dict:
             "trace_k3_k4": (k3, k4)}
 
 
+# ---------------------------------------------------------- data parallel
+
+# Phase 26 runs the data-parallel paths on one card: two ranks on cuda:0
+# (gloo: NCCL refuses two ranks on one device; without MPS their kernels
+# take the card in turns), and two pipeline replicas on cuda:0 (in turn:
+# the LSTM kernels' grid barrier needs every CTA resident). A data-parallel
+# step is held to the one-process step on the same weights, batch and
+# initial states by relative L2 (step_errs: loss, every gradient as reduced
+# over the ranks, BN's running statistics), within DP_TOL, and each fault
+# control (parallel/ranks.FAULTS: BN statistics per rank, T per rank,
+# gradients averaged under per-rank norms) must fail those bounds. Each bound
+# is derived as RECURRENT_TOL's: the geometric mean of the largest sound
+# reading (uPIT, RSH's mixed batch and SepFormer in bf16; uPIT in f32) and
+# the smallest fault reading of the same dtype (BN's only over the two faults
+# that touch BN), on an NVIDIA H100 80GB HBM3 at 700 W. In bf16 every weight
+# gradient leaves a bf16 product rounded to bf16 on each rank, so the two
+# ranks' sum carries a bf16 rounding that one process's does not (about 2e-3
+# of every gradient); in f32 the step moves by the order of sums alone.
+# Readings (sound -> bound <- fault): bf16 loss 1.7e-7 -> 4.9e-6 <- 1.4e-4,
+# worst gradient 4.7e-3 -> 8.4e-3 <- 1.5e-2, median 4.4e-3 -> 6.6e-3 <-
+# 9.9e-3, BN 4.1e-5 -> 1.3e-3 <- 4.3e-2; f32 loss 0 (taken as one f32
+# rounding, 6e-8) -> 2.9e-6 <- 1.4e-4, worst gradient 3.3e-6 -> 1.8e-4 <-
+# 1.0e-2, median 3.9e-7 -> 6.0e-5 <- 9.1e-3, BN 9.1e-8 -> 6.3e-5 <- 4.3e-2.
+# In bf16 the averaged gradients stand 1.5x clear of the sound step in the
+# median gradient and 29x in the loss.
+DP_MESH = ["cuda:0", "cuda:0"]
+DP_TOL = {"bf16": {"loss": 4.9e-6, "grad": 8.4e-3, "grad_median": 6.6e-3, "bn": 1.3e-3},
+          "f32": {"loss": 2.9e-6, "grad": 1.8e-4, "grad_median": 6.0e-5, "bn": 6.3e-5}}
+# phase 26 (a)'s epoch losses against phase 5's (the same run in one
+# process), relative: ten times the first reading (4.6e-5)
+DP_TRAIN_RTOL = 5e-4
+# separated tracks, two replicas against one device: max |difference| over
+# the tracks' peak, thirty times the first reading (3.3e-7)
+DP_TRACK_TOL = 1e-5
+DP_SCORE_DB = 1e-9
+
+
+def _dp_result(r: dict) -> dict:
+    """A steps_over_ranks result in step_errs's form."""
+    out = {"loss": torch.tensor(r["loss"]), "grads": r["grads"]}
+    if "bn.running_mean" in r["buffers"]:
+        out["bn"] = [r["buffers"]["bn.running_mean"], r["buffers"]["bn.running_var"]]
+    return out
+
+
+def _dp_weights(model, seed: int) -> dict:
+    from speech_separation_tpu_torch.utils.weights import fold_lstm_biases
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    fold_lstm_biases(model)
+    return model.state_dict()
+
+
+def _dp_step_jobs(train_dir: str, sf_train_dir: str) -> dict:
+    """Phase 26 (b)-(d)'s step jobs at full width: uPIT 2x600 in bf16 and in
+    f32 on 100 rows of phase 5's corpus sorted by length with T padded to a
+    multiple of 32 (so rank 0's rows, the shortest, pad to less than the
+    batch's T), each with the three fault controls ("<job>/<fault>"); RSH 2x600 bf16 on a mixed batch of 3, 5 and 1 rows
+    of 1, 2 and 3 speakers (no sub-batch divides over two ranks); SepFormer
+    bf16 with fused attention on 8 rows of phase 8's wavs."""
+    from speech_separation_tpu_torch.models import rsh, sepformer, upit
+    from speech_separation_tpu_torch.train.data import (BatchPlan, FeatureDataset,
+                                                        make_device_batch)
+    from speech_separation_tpu_torch.train.wav_data import WavDataset, collate_wav_batch
+    ds = FeatureDataset(train_dir, log=quiet)
+    samples = sorted((ds.load(i) for i in range(len(ds))), key=lambda s: s["mix"].shape[0])
+    batch = make_device_batch(samples[:100], BatchPlan(batch_size=100, time_pad_multiple=32))
+    bf16 = {"compute_dtype": "bfloat16"}
+    upit_job = {"arch": "uPIT", "model_kwargs": bf16, "batch": batch, "seed": SEED,
+                "time_pad_multiple": 32,
+                "weights": _dp_weights(upit.UPIT(upit.Config(compute_dtype="bfloat16")),
+                                       SEED + 26)}
+    rng = np.random.default_rng(SEED + 26)
+
+    def sub(n, S):
+        lengths = rng.integers(280, 385, size=n).astype(np.int32)
+        mix = np.abs(rng.standard_normal((n, 384, 257))).astype(np.float32)
+        sources = np.abs(rng.standard_normal((n, S, 384, 257))).astype(np.float32)
+        for b, t in enumerate(lengths):
+            mix[b, t:] = 0.0
+            sources[b, :, t:] = 0.0
+        return {"mix": mix, "sources": sources, "lengths": lengths,
+                "row_mask": np.ones((n,), np.float32)}
+
+    upit_f32 = dict(upit_job, model_kwargs={})
+    jobs = {"upit": upit_job, "upit_f32": upit_f32,
+            **{f"{n}/{f}": dict(job, faults=(f,)) for n, job in
+               (("upit", upit_job), ("upit_f32", upit_f32))
+               for f in ("bn_per_rank", "time_per_rank", "mean_grads")},
+            "rsh_mixed": {"arch": "RSH", "model_kwargs": bf16, "seed": SEED,
+                          "batch": [sub(3, 1), sub(5, 2), sub(1, 3)],
+                          "weights": _dp_weights(rsh.RSH(rsh.Config(
+                              compute_dtype="bfloat16")), SEED + 27)},
+            "sepformer": {"arch": "SepFormer", "model_kwargs": SEPFORMER_KW, "seed": SEED,
+                          "batch": collate_wav_batch(WavDataset(sf_train_dir), list(range(8)),
+                                                     8),
+                          "weights": sepformer.SepFormer(sepformer.Config.from_kwargs(
+                              **SEPFORMER_KW), torch.Generator().manual_seed(SEED + 28))
+                          .state_dict()}}
+    return jobs
+
+
+def data_parallel_phase(fails: Failures, counters, train_dir: str, sf_train_dir: str,
+                        phase5: dict) -> dict:
+    """Phase 26: data-parallel training, separation and scoring on one card
+    (module docstring, item 26)."""
+    from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
+    from speech_separation_tpu_torch.eval.score import evaluate_sources
+    from speech_separation_tpu_torch.parallel import ranks
+    from speech_separation_tpu_torch.parallel.mesh import make_mesh, pad_rows
+    from speech_separation_tpu_torch.train.loop import (TrainLoopConfig, steps_over_ranks,
+                                                        train)
+    from speech_separation_tpu_torch.utils.audio import load_wav, write_wav_int16
+
+    mesh = make_mesh(devices=DP_MESH)
+    out, launches = {}, {c.__name__: 0 for c in counters}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    # (a) uPIT trained over two ranks, as phase 5 trained it in one process
+    work = os.path.join(REPO, "build", "chip_smoke_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    exp = os.path.join(work, "exp")
+    cfg = TrainLoopConfig(batch_size=100, num_epochs=5, time_pad_multiple=128, seed=SEED)
+    t0 = time.monotonic()
+    res = train(train_dir, exp, cfg, cv_data_dir=os.path.join(os.path.dirname(train_dir), "cv"),
+                model_kwargs={"compute_dtype": "bfloat16"}, mesh=mesh,
+                log=lambda m: print("  " + m, flush=True))
+    wall = time.monotonic() - t0
+    got = ranks.launch.kernel_launches
+    add(got)
+    losses = check_trained(fails, res, exp)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, phase5["epoch_losses"])]
+    fails.check(len(losses) == len(phase5["epoch_losses"]) and max(rel) <= DP_TRAIN_RTOL,
+                f"(a) epoch losses over two ranks against phase 5's one process: worst rel "
+                f"diff {max(rel):.3e} <= {DP_TRAIN_RTOL}")
+    for name in ("lstm_seq_fwd", "lstm_seq_bwd"):
+        fails.check(got[name] == 40, f"(a) {name} launched {got[name]} times over the ranks "
+                                     "(2 layers x 10 steps x 2 ranks)")
+    fails.check(got["lstm_seq_infer"] == 4, f"(a) lstm_seq_infer launched "
+                f"{got['lstm_seq_infer']} times in the CV pass (2 layers x 2 ranks)")
+    ms = [m for m, _ in res["steps"][1:]]
+    print(f"  (a) two ranks on one card (NVIDIA H100, gloo): {wall:.1f} s in train(); steps "
+          f"after the first {np.mean(ms):.2f} ms (min {min(ms):.2f}, max {max(ms):.2f}); "
+          f"phase 5's one process {phase5['ms_per_step']:.2f} ms (full batches); first step "
+          f"{res['steps'][0][0]:.1f} ms; losses {losses} against phase 5's "
+          f"{phase5['epoch_losses']}", flush=True)
+    rng = np.random.default_rng(SEED + 29)
+    wav = os.path.join(work, "mix.wav")
+    write_wav_int16(wav, 8000, mixture(5 * 8000, rng))
+    pipe = SeparationPipeline(os.path.join(exp, "final.mdl"),
+                              model_kwargs={"compute_dtype": "bfloat16"}, device="cuda")
+    tracks = pipe.separate([load_wav(wav)[0]])[0]
+    fails.check(len(tracks) == 2 and all(np.all(np.isfinite(t)) for t in tracks),
+                "(a) the two ranks' final.mdl separates a wav on the card into finite tracks")
+    out["train"] = {"wall_s": wall, "ms_per_step": float(np.mean(ms)), "losses": losses,
+                    "loss_rel_diff": max(rel), "launches": got}
+
+    # (b)-(d) one step of each job over two ranks against one process
+    jobs = _dp_step_jobs(train_dir, sf_train_dir)
+    names = list(jobs)
+    t0 = time.monotonic()
+    over = dict(zip(names, steps_over_ranks([jobs[n] for n in names], mesh=mesh)))
+    got = ranks.launch.kernel_launches
+    add(got)
+    print(f"  (b)-(d) {len(names)} steps over two ranks: {time.monotonic() - t0:.1f} s, "
+          f"launches {got}", flush=True)
+    sound = [n for n in names if "/" not in n]
+    t0 = time.monotonic()
+    single = dict(zip(sound, steps_over_ranks(
+        [dict(jobs[n], batch=[pad_rows(sb, 2) for sb in jobs[n]["batch"]]
+              if isinstance(jobs[n]["batch"], list) else pad_rows(jobs[n]["batch"], 2))
+         for n in sound], device="cuda")))
+    print(f"  the same {len(sound)} steps in one process: {time.monotonic() - t0:.1f} s",
+          flush=True)
+    for name in ("chunk_attention_fwd", "chunk_attention_bwd"):
+        fails.check(got[name] == 16, f"(d) {name} launched {got[name]} times over the ranks "
+                                     "(8 layers x 2 ranks)")
+    errs = {}
+    for n in names:
+        sound_name, _, fault = n.partition("/")
+        tol = DP_TOL["f32" if sound_name == "upit_f32" else "bf16"]
+        e = step_errs(_dp_result(over[n]), _dp_result(single[sound_name]), tol)
+        errs[n] = e
+        part = {"rsh_mixed": "c", "sepformer": "d"}.get(sound_name, "b")
+        if fault:
+            check_fault(fails, f"({part}) {sound_name}: fault control {fault}", e, tol)
+        else:
+            check_step(fails, f"({part}) {n} over two ranks against one process", e, tol,
+                       len(single[n]["grads"]))
+    out["steps"] = errs
+
+    # (g) rank 1 raises at its second step, while rank 0 waits in the
+    # step's collectives; run beside (e) and (f)
+    failing = {}
+
+    def fail_rank():
+        t = time.monotonic()
+        try:
+            steps_over_ranks([jobs["upit"], dict(jobs["upit"], raise_on_rank=1)], mesh=mesh)
+            failing["error"] = None
+        except ranks.RankFailed as e:
+            failing["error"] = str(e)
+        failing["wall_s"] = time.monotonic() - t
+
+    thread = threading.Thread(target=fail_rank)
+    thread.start()
+
+    # (e) serving through two replicas on cuda:0 against one device
+    for c in counters:
+        c.launches = 0
+    sigs = [mixture(int(n), rng) for n in rng.integers(3 * 8000, 8 * 8000, size=20)]
+    model = os.path.join(exp, "final.mdl")
+    bf16 = {"compute_dtype": "bfloat16"}
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dp = SeparationPipeline(model, model_kwargs=bf16, batch_size=15, device="cuda",
+                                mesh=mesh)
+    fails.check(dp.batch_size == 16 and "batch_size 15 -> 16" in buf.getvalue(),
+                f"(e) pipeline batch_size 15 -> {dp.batch_size} with the note: "
+                f"{buf.getvalue().strip()!r}")
+    t0 = time.monotonic()
+    got_tracks = dp.separate(sigs)
+    torch.cuda.synchronize()
+    dp_s = time.monotonic() - t0
+    served = {c.__name__: c.launches for c in counters}
+    add(served)
+    single_pipe = SeparationPipeline(model, model_kwargs=bf16, batch_size=16, device="cuda")
+    want = [None] * len(sigs)
+    t0 = time.monotonic()
+    for i, t in single_pipe.separate_stream(sigs.__getitem__, [len(s) for s in sigs],
+                                            pad_batches=True):
+        want[i] = t
+    one_s = time.monotonic() - t0
+    d = max(float(np.max(np.abs(a - b))) / max(float(np.max(np.abs(b))), 1e-12)
+            for g, w in zip(got_tracks, want) for a, b in zip(g, w))
+    fails.check(d <= DP_TRACK_TOL, f"(e) 20 requests through two replicas against one device: "
+                                   f"max |difference| / peak {d:.3e} <= {DP_TRACK_TOL}")
+    fails.check(served["stft"] == 4 and served["lstm_seq_infer"] == 8,
+                f"(e) stft {served['stft']} and lstm_seq_infer {served['lstm_seq_infer']} "
+                "launches (2 batches x 2 replicas; 2 layers each)")
+    print(f"  (e) two replicas {dp_s:.2f} s, one device {one_s:.2f} s for 20 requests of "
+          f"3-8 s", flush=True)
+    out["serve"] = {"max_rel_diff": d, "replicas_s": dp_s, "one_device_s": one_s,
+                    "launches": served}
+
+    # (f) the CLI: separate --data-parallel on one card, then the device
+    # scorer over a two-entry mesh on phase 10's test set
+    for c in counters:
+        c.launches = 0
+    sep = os.path.join(work, "sep")
+    code1, _ = _cli(["separate", model, os.path.join(sep, "one"), wav])
+    code2, said = _cli(["separate", model, os.path.join(sep, "dp"), wav, "--data-parallel"])
+    add({c.__name__: c.launches for c in counters})
+    names_one = sorted(os.listdir(os.path.join(sep, "one")))
+    same = code1 == code2 == 0 and names_one == sorted(os.listdir(os.path.join(sep, "dp"))) \
+        and all(open(os.path.join(sep, "one", n), "rb").read()
+                == open(os.path.join(sep, "dp", n), "rb").read() for n in names_one)
+    fails.check(same and "note: --data-parallel with one visible device; running "
+                "single-device" in said,
+                f"(f) separate --data-parallel on one card: the note, and {len(names_one)} "
+                "wavs bit-identical to the run without it")
+    recipe = os.path.join(REPO, "build", "chip_smoke_recipe")
+    tracks_dir = os.path.join(recipe, "exp", "uPIT_rtr", "output_final", "rtt")
+    rows = {}
+    t0 = time.monotonic()
+    for tag, m in (("one", None), ("two", mesh)):
+        dst = os.path.join(work, f"score_{tag}")
+        _copy_wavs(tracks_dir, dst)
+        evaluate_sources(os.path.join(recipe, "data", "rtt"), dst, device_scoring=True,
+                         device="cuda", mesh=m, log=quiet)
+        rows[tag] = _result_rows(dst)
+    d = row_diff(rows["two"], rows["one"])
+    fails.check(d <= DP_SCORE_DB, f"(f) score --device-scoring over a two-entry mesh "
+                                  f"({len(rows['one']['SDR'])} utterances): max |difference| "
+                                  f"{d:.3e} dB <= {DP_SCORE_DB}")
+    out["score"] = {"max_diff_db": d, "wall_s": time.monotonic() - t0}
+
+    thread.join()
+    fails.check(failing.get("error") is not None and "rank 1 of 2 exited with code 1"
+                in failing["error"] and failing["wall_s"] < ranks.TIMEOUT_S,
+                f"(g) rank 1 raising at step 2 ends the run: {failing.get('error')!r} after "
+                f"{failing.get('wall_s', float('nan')):.1f} s (the group's timeout "
+                f"{ranks.TIMEOUT_S:.0f} s)")
+    out["failing_rank"] = failing
+    for name, n in launches.items():
+        fails.check(n > 0, f"{name} launched {n} times in phase 26")
+    out["launches"] = launches
+    return out
+
+
 def _kernel_group(name: str) -> str:
     if "attn_fwd_" in name:                 # attn_fwd_kernel (f32), _rows, _passes (bf16)
         return "K5 forward"
@@ -3779,6 +4092,15 @@ def main() -> int:
     t25 = time.monotonic()
     extras = extras_phase(fails, lstm_counters, trained["train_dir"])
     print(f"  phase 25: {time.monotonic() - t25:.1f} s", flush=True)
+
+    print("== 26. data parallel on one card: uPIT trained over two ranks; uPIT, RSH "
+          "(mixed) and SepFormer steps over two ranks against one process, with fault "
+          "controls; two pipeline replicas; the CLI; the scorer over a mesh; a failing rank",
+          flush=True)
+    t26 = time.monotonic()
+    dp = data_parallel_phase(fails, [stft, *lstm_counters, *attn_counters],
+                             trained["train_dir"], trained_sf["train_dir"], trained)
+    print(f"  phase 26: {time.monotonic() - t26:.1f} s", flush=True)
     paths = {"rsh_train": trained_rsh["launches"], "rsh_mixed": trained_rsh["mixed_launches"],
              "rsh_masks": eval_rsh["launches"]["masks"], "rsh_serve": eval_rsh["serve_launches"],
              "dprnn_train": trained_dprnn["launches"], "dprnn_serve": served_dprnn["launches"],
@@ -3796,6 +4118,7 @@ def main() -> int:
                 "launches": launches[name], **{k: nums[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                 "recipe_launches": recipe["launches"][name],
+                "data_parallel_launches": dp["launches"][name],
                 "bench_launches": {p: c[name] for p, c in tools["launches"].items()
                                    if c.get(name)}, **extra, **lstm_extra}
 
@@ -3858,6 +4181,7 @@ def main() -> int:
     print(f"  device scoring: {scoring}", flush=True)
     print(f"  oracle: {oracle}", flush=True)
     print(f"  training extras: {extras}", flush=True)
+    print(f"  data parallel: {dp}", flush=True)
     print(f"  total {time.monotonic() - t_start:.1f} s", flush=True)
     if fails:
         print("chip_smoke FAILED:\n  " + "\n  ".join(fails), file=sys.stderr)

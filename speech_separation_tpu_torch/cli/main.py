@@ -20,8 +20,12 @@ supervised child, restarted from the newest checkpoint when it stops
 beating; train/watchdog.py), ``--profile-dir`` (a torch.profiler trace of
 the steps after the first), ``--train-copy-location`` (the features staged
 there first) and draw the reference's plots unless ``--no-plots`` (or
-matplotlib is missing). The one flag of the JAX CLI left out, so argparse
-refuses it, is ``--data-parallel`` (ROADMAP.md). Every command that runs
+matplotlib is missing). Every flag of the JAX CLI parses. ``--data-parallel``
+on ``separate``, ``serve``, ``score``, ``oracle`` and ``run-eval`` splits each
+batch or scoring slab over every visible card (parallel/mesh.py; with one
+card a note says so and the run is the single-device one), and ``train`` /
+``run-train`` train over every visible card when there is more than one, as
+the JAX package does. Every command that runs
 a model or a kernel takes ``--device`` (default ``cuda``; without a card it
 fails; ``cpu`` runs the plain PyTorch versions of the kernels).
 ``--device-scoring`` on ``score``, ``oracle`` and ``run-eval`` runs BSS-eval
@@ -175,7 +179,8 @@ def cmd_reconstruct(args):
 def cmd_score(args):
     from ..eval.score import evaluate_sources
     evaluate_sources(args.data_dir, args.exp_dir, num_workers=args.nj,
-                     device_scoring=args.device_scoring, device=args.device)
+                     device_scoring=args.device_scoring, device=args.device,
+                     data_parallel=args.data_parallel)
 
 
 def cmd_oracle(args):
@@ -188,7 +193,8 @@ def cmd_oracle(args):
     from ..eval.oracle import evaluate_oracle, merge_oracle_shards
     resolve_device(args.device)          # no card: fail before any shard is written
     cfg = _stft_cfg(args)
-    kw = {"device_scoring": args.device_scoring, "device": args.device}
+    kw = {"device_scoring": args.device_scoring, "device": args.device,
+          "data_parallel": args.data_parallel}
     if args.nj > 1:
         validate_data_dir(args.data_dir)
         split_dir = split_data_dir(args.data_dir, args.nj)
@@ -228,12 +234,22 @@ def cmd_export_model(args):
     export_reference_model(args.ckpt_path, args.out_path)
 
 
+def _data_mesh(args):
+    """The mesh of ``--data-parallel``, or None when the flag is off (or
+    fewer than two cards are visible, with a note)."""
+    if not getattr(args, "data_parallel", False):
+        return None
+    from ..parallel.mesh import data_parallel_mesh
+    return data_parallel_mesh(device=args.device)
+
+
 def _pipeline(args):
     from ..eval.pipeline import SeparationPipeline
     return SeparationPipeline(args.model, arch_name=args.arch,
                               model_kwargs=read_model_config(args.model_config),
                               stft_cfg=_stft_cfg(args), batch_size=args.batch_size,
-                              num_spk=args.num_spk or None, device=args.device)
+                              num_spk=args.num_spk or None, device=args.device,
+                              mesh=_data_mesh(args))
 
 
 def _separate_via_server(args):
@@ -249,6 +265,7 @@ def _separate_via_server(args):
         ("--step-size", args.step_size, 128),
         ("--sample-rate", args.sample_rate, 8000),
         ("--device", args.device, "cuda"),
+        ("--data-parallel", args.data_parallel, False),
     ) if v != d]
     if ignored:
         print("note: --server forwards only wavs/out_dir/num_spk/long-form; "
@@ -448,7 +465,7 @@ def _run_eval_fused(args, test_sets, model, model_path, model_config):
     cfg = _stft_cfg(args)
     pipe = SeparationPipeline(model_path, model_kwargs=read_model_config(model_config),
                               stft_cfg=cfg, batch_size=min(args.batch_size, 32),
-                              device=args.device)
+                              device=args.device, mesh=_data_mesh(args))
     for ds in test_sets:
         data_dir = os.path.join(args.data_root, ds)
         out_dir = os.path.join(args.model_dir, f"output_{model}", ds)
@@ -574,7 +591,8 @@ def cmd_run_eval(args):
                     _ensure_utt2num_spk(data_dir)
                 means = evaluate_sources(data_dir, out_dirs[ds], num_workers=args.nj,
                                          device_scoring=args.device_scoring,
-                                         device=args.device)
+                                         device=args.device,
+                                         data_parallel=args.data_parallel)
                 print(f"{ds} mean SDR: {means['SDR']:.2f}")
                 results[ds].append((model, means))
 
@@ -723,6 +741,10 @@ def _add_device(p):
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch versions "
                         "of the kernels")
+
+
+def _add_data_parallel(p, help):
+    p.add_argument("--data-parallel", action="store_true", help=help)
 
 
 def _add_device_scoring(p):
@@ -898,6 +920,8 @@ def build_parser():
                         "request there instead of loading the model")
     p.add_argument("--server-wait", type=float, default=60.0,
                    help="seconds to wait for the server socket to appear")
+    _add_data_parallel(p, "shard each batch over all visible devices (params "
+                          "replicated); batch-size is rounded up to a device multiple")
     p.set_defaults(fn=cmd_separate)
 
     p = sub.add_parser("serve", help="resident separation server (warm model "
@@ -920,6 +944,8 @@ def build_parser():
     p.add_argument("--warmup-sec", default="",
                    help="comma-separated audio lengths (seconds) to run "
                         "once at startup, e.g. '4,8'")
+    _add_data_parallel(p, "shard each device batch over all visible devices (params "
+                          "replicated); batch-size is rounded up to a device multiple")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("score", help="BSS-eval + SI-SDR scoring (float64; host, or "
@@ -928,6 +954,8 @@ def build_parser():
     p.add_argument("exp_dir")
     p.add_argument("--nj", type=int, default=0, help="scoring worker processes")
     _add_device_scoring(p)
+    _add_data_parallel(p, "(with --device-scoring) shard each scoring slab over all "
+                          "visible devices")
     _add_device(p)
     p.set_defaults(fn=cmd_score)
 
@@ -935,6 +963,8 @@ def build_parser():
     p.add_argument("data_dir")
     p.add_argument("--hard-mask", action="store_true")
     _add_device_scoring(p)
+    _add_data_parallel(p, "(with --device-scoring) shard each scoring slab over all "
+                          "visible devices")
     _add_stft(p)
     _add_device(p)
     p.set_defaults(fn=cmd_oracle)
@@ -984,6 +1014,8 @@ def build_parser():
     p.add_argument("--on-device-features", action="store_true",
                    help="fused wav->wav separation (no feature or mask files)")
     _add_device_scoring(p)
+    _add_data_parallel(p, "shard device batches over all visible devices (applies to "
+                          "--on-device-features separation and --device-scoring)")
     _add_common(p)
     _add_stft(p)
     _add_device(p)

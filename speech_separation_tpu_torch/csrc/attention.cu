@@ -356,23 +356,31 @@ int threads_for(int Tn) {
   return t < MAX_THREADS ? t : MAX_THREADS;
 }
 
-// Opt a kernel into more than 48 KB of dynamic shared memory, once per size.
+// Devices whose shared-memory opt-in is cached; others opt in on every launch.
+constexpr int MAX_DEVICES = 64;
+
+// Opt a kernel into more than 48 KB of dynamic shared memory, once per size
+// and device (``allowed`` holds MAX_DEVICES entries).
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes, size_t* allowed) {
-  if (bytes <= 48 * 1024 || bytes <= *allowed) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) *allowed = bytes;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  // the opt-in holds for the current device only: one entry per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && bytes <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < MAX_DEVICES) allowed[dev] = bytes;
   return err;
 }
 
 template <typename T, int DH>
 int launch_fwd(const void* q, const void* k, const void* v, const float* mask, void* o, int N,
                int Tn, float scale, cudaStream_t stream) {
-  static size_t allowed = 0;
+  static size_t allowed[MAX_DEVICES] = {};
   const int kt = Tn < TILE_ELEMS / DH ? Tn : TILE_ELEMS / DH;
   const size_t smem = (size_t)(2 * kt * DH + kt) * sizeof(float);
-  cudaError_t err = allow_smem(attn_fwd_kernel<T, DH>, smem, &allowed);
+  cudaError_t err = allow_smem(attn_fwd_kernel<T, DH>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   attn_fwd_kernel<T, DH><<<N, threads_for(Tn), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
@@ -383,10 +391,10 @@ int launch_fwd(const void* q, const void* k, const void* v, const float* mask, v
 template <typename T, int DH>
 int launch_bwd(const void* q, const void* k, const void* v, const float* mask, const void* dout,
                void* dq, void* dk, void* dv, int N, int Tn, float scale, cudaStream_t stream) {
-  static size_t allowed = 0;
+  static size_t allowed[MAX_DEVICES] = {};
   const int kt = Tn < TILE_ELEMS / DH ? Tn : TILE_ELEMS / DH;
   const size_t smem = (size_t)(2 * kt * DH + kt + 3 * Tn) * sizeof(float);
-  cudaError_t err = allow_smem(attn_bwd_kernel<T, DH>, smem, &allowed);
+  cudaError_t err = allow_smem(attn_bwd_kernel<T, DH>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   attn_bwd_kernel<T, DH><<<N, threads_for(Tn), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,

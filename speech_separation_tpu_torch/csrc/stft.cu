@@ -483,15 +483,24 @@ stft_fft_kernel(const float* __restrict__ xp, const float* __restrict__ table,
   }
 }
 
+// devices whose shared-memory opt-in is cached; others opt in on every launch
+constexpr int MAX_DEVICES = 64;
+
 template <int LM, bool MAG>
 int launch_fft(int smem, int ctas, const float* xp, const float* table, float* out_a,
                float* out_b, int Lp, int n_t, int hop, cudaStream_t s) {
-  static int smem_set = 0;
-  if (smem > 48 * 1024 && smem > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stft_fft_kernel<LM, MAG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the opt-in holds for the current device only: one entry per device
+  static int smem_set[MAX_DEVICES] = {};
+  if (smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
+    if (dev >= MAX_DEVICES || smem > smem_set[dev]) {
+      e = cudaFuncSetAttribute(stft_fft_kernel<LM, MAG>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      if (dev < MAX_DEVICES) smem_set[dev] = smem;
+    }
   }
   constexpr int F = Tile<LM>::F;
   stft_fft_kernel<LM, MAG><<<ctas, Tile<LM>::NT, smem, s>>>(

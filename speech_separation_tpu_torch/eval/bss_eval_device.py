@@ -214,7 +214,7 @@ def _effective_length(x: np.ndarray) -> int:
 
 def bss_eval_sources_batch(reference_sources, estimated_sources, compute_permutation=True,
                            flen: int = FLEN, max_batch: int | None = None, device=None,
-                           stats: dict | None = None):
+                           stats: dict | None = None, mesh=None):
     """BSS-eval of a batch of utterances on ``device`` (CUDA by default),
     float64 throughout.
 
@@ -232,21 +232,29 @@ def bss_eval_sources_batch(reference_sources, estimated_sources, compute_permuta
         first-order error estimate among the trusted ones) and
         ``fallback_s`` (the host seconds those rescorings took).
 
+      mesh: a mesh (parallel/mesh.py) of more than one entry splits the
+        utterances over its devices in order, each part scored there (the
+        parts of distinct devices at once) and merged back in order, with no
+        collectives: every quantity is per utterance. ``device`` then does
+        not apply.
+
     Returns (sdr, sir, sar, perm) numpy arrays, each (B, n); perm[b, k] is
     the reference source assigned to estimate k.
     """
-    from .infer import resolve_device
-    dev = resolve_device(device)
-    refs = np.asarray(reference_sources)
-    ests = np.asarray(estimated_sources)
-    assert refs.shape == ests.shape and refs.ndim == 3, (refs.shape, ests.shape)
-    B, n, L = refs.shape
-    out = [np.zeros((B, n)) for _ in range(3)] + [np.zeros((B, n), np.int64)]
     if stats is not None:
         stats.setdefault("fallbacks", 0)
         stats.setdefault("reasons", [])
         stats.setdefault("gate_db_max", 0.0)
         stats.setdefault("fallback_s", 0.0)
+    refs = np.asarray(reference_sources)
+    ests = np.asarray(estimated_sources)
+    if mesh is not None and mesh.size > 1:
+        return _over_mesh(refs, ests, compute_permutation, flen, max_batch, stats, mesh)
+    from .infer import resolve_device
+    dev = resolve_device(device)
+    assert refs.shape == ests.shape and refs.ndim == 3, (refs.shape, ests.shape)
+    B, n, L = refs.shape
+    out = [np.zeros((B, n)) for _ in range(3)] + [np.zeros((B, n), np.int64)]
     if B == 0:
         return tuple(out)
     lengths = np.array([max(_effective_length(refs[b]), _effective_length(ests[b]), 1)
@@ -286,3 +294,20 @@ def bss_eval_sources_batch(reference_sources, estimated_sources, compute_permuta
             for o, v in zip(out, res):
                 o[b] = v
     return tuple(out)
+
+
+def _over_mesh(refs, ests, compute_permutation, flen, max_batch, stats, mesh):
+    """bss_eval_sources_batch with its utterances split over ``mesh``."""
+    from ..parallel.mesh import run_replicas
+    parts = np.array_split(np.arange(refs.shape[0]), mesh.size)
+    part_stats = [{} for _ in parts]
+    outs = run_replicas(mesh, lambda i: bss_eval_sources_batch(
+        refs[parts[i]], ests[parts[i]], compute_permutation, flen, max_batch,
+        device=mesh.devices[i], stats=part_stats[i]))
+    if stats is not None:
+        for rows, st in zip(parts, part_stats):
+            stats["fallbacks"] += st["fallbacks"]
+            stats["reasons"] += [(int(rows[b]), why) for b, why in st["reasons"]]
+            stats["gate_db_max"] = max(stats["gate_db_max"], st["gate_db_max"])
+            stats["fallback_s"] += st["fallback_s"]
+    return tuple(np.concatenate(x) for x in zip(*outs))

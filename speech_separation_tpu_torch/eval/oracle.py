@@ -70,9 +70,10 @@ def _oracle_estimates(signals: list, cfg: STFTConfig, hard_mask: bool, dev) -> n
     return y[:, half:half + istft_output_length(T, cfg.hop)].cpu().numpy()
 
 
-def _score_slab(pending: list, dev, log) -> dict:
-    """No-permutation BSS-eval of [(seg_id, oracle, est)] on the card, by
-    source count. Returns {seg_id: (sdr, sir, sar)}."""
+def _score_slab(pending: list, dev, log, mesh=None) -> dict:
+    """No-permutation BSS-eval of [(seg_id, oracle, est)] on the card (or
+    split over ``mesh``), by source count. Returns {seg_id: (sdr, sir,
+    sar)}."""
     from .bss_eval_device import bss_eval_sources_batch
     results, stats, why = {}, {}, []
     by_count: dict[int, list] = {}
@@ -82,7 +83,7 @@ def _score_slab(pending: list, dev, log) -> dict:
         seen = len(stats.get("reasons", []))
         sdr, sir, sar, _ = bss_eval_sources_batch(
             pack_signals([c[1] for c in group], n), pack_signals([c[2] for c in group], n),
-            compute_permutation=False, device=dev, stats=stats)
+            compute_permutation=False, device=dev, stats=stats, mesh=mesh)
         why += [f"{group[b][0]} {reason}" for b, reason in stats["reasons"][seen:]]
         for i, (sid, _o, _e) in enumerate(group):
             results[sid] = (sdr[i], sir[i], sar[i])
@@ -93,13 +94,19 @@ def _score_slab(pending: list, dev, log) -> dict:
 
 def evaluate_oracle(data_dir: str, hard_mask: bool = False, cfg: STFTConfig = STFTConfig(),
                     job_suffix: str = "", device_scoring: bool = False, device=None,
-                    slab: int = 32, log=print) -> None:
+                    slab: int = 32, log=print, data_parallel: bool = False,
+                    mesh=None) -> None:
     """Write the oracle-mask scores of ``data_dir/wav.scp<job_suffix>`` (and
     its ``segments<job_suffix>`` when there is one). The STFT and the
     resynthesis run on ``device`` (CUDA by default; it raises when no card
     is visible); ``device_scoring`` scores there too, in slabs of ``slab``
-    utterances."""
+    utterances; with it, ``data_parallel`` splits each slab over every
+    visible card (parallel/mesh.data_parallel_mesh), or over ``mesh`` when
+    given."""
     dev = resolve_device(device)
+    if device_scoring and mesh is None and data_parallel:
+        from ..parallel.mesh import data_parallel_mesh
+        mesh = data_parallel_mesh(log, device)
     kind = "hard" if hard_mask else "soft"
     dir_out = os.path.join(data_dir, f"oracle_{kind}_mask_eval")
     os.makedirs(dir_out, exist_ok=True)
@@ -116,7 +123,7 @@ def evaluate_oracle(data_dir: str, hard_mask: bool = False, cfg: STFTConfig = ST
 
     def flush():
         if pending:
-            results = _score_slab(pending, dev, log)
+            results = _score_slab(pending, dev, log, mesh)
             for sid, oracle, _est in pending:
                 emit(sid, oracle.shape[0], *results[sid])
             pending.clear()

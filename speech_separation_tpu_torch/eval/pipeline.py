@@ -14,8 +14,15 @@ Audio is bucketed by padded length; the pipeline counts the buckets it has
 run, (frame count or padded sample count, num_spk), which the server
 reports.
 
-This is the serving API. Data-parallel separation over several cards is not
-ported yet (ROADMAP.md).
+This is the serving API. With a ``mesh`` (parallel/mesh.py) of more than
+one entry it separates data-parallel, as the JAX package's pipeline does:
+one model replica a mesh entry, every batch padded to ``batch_size``
+(rounded up to a multiple of the mesh's size) and its rows split over the
+replicas in order, the initial states drawn for the whole batch and split,
+so each row's tracks are the single-device pipeline's (inference is
+row-independent: eval-mode BN uses the running statistics). Replicas on
+distinct devices run at once; replicas on one device in turn
+(``mesh.run_replicas``).
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import torch
 
 from ..dsp.stft import (STFTConfig, istft_batch, istft_output_length,
                         num_frames, reflect_pad_center, stft_centered_batch)
+from ..models.upit import initial_state
+from ..parallel.mesh import replicate_module, run_replicas
 from .infer import load_model
 
 
@@ -68,10 +77,21 @@ class SeparationPipeline:
                  model_kwargs: dict | None = None,
                  stft_cfg: STFTConfig = STFTConfig(),
                  batch_size: int = 16, length_quantum: int = 16384,
-                 num_spk: int | None = None, seed: int = 0, device=None):
+                 num_spk: int | None = None, seed: int = 0, device=None, mesh=None):
+        if mesh is not None and mesh.size < 2:
+            mesh = None                      # one device: no replicas
         self.arch, self.cfg, self.model = load_model(
-            model_path, arch_name, model_kwargs, device)
+            model_path, arch_name, model_kwargs, device if mesh is None else mesh.devices[0])
         self.device = next(self.model.parameters()).device
+        self.mesh = mesh
+        if mesh is not None:
+            n = mesh.size
+            if batch_size % n:
+                rounded = -(-batch_size // n) * n
+                print(f"note: pipeline batch_size {batch_size} -> {rounded} "
+                      f"(must divide over {n} data-parallel devices)")
+                batch_size = rounded
+            self.replicas = replicate_module(self.model, mesh)
         self.domain = self.arch.DOMAIN
         # the one place the port sets this process-wide flag: every f32
         # product of the path in full f32, as the reference's
@@ -90,24 +110,43 @@ class SeparationPipeline:
                         num_spk: int) -> np.ndarray:
         """(B, Lp) padded rows -> (B, S, n_fft + hop*(n_t-1)) untrimmed tracks
         (spectral), or (B, S, Lp) (time domain, n_t = Lp)."""
-        xp_d = torch.from_numpy(xp).to(self.device)
-        counts_d = torch.from_numpy(counts).to(self.device)
         self.buckets.add((n_t, num_spk))
+        if self.mesh is None:
+            return self._separate_rows(self.model, self.device, xp, counts, n_t, num_spk)
+        per = xp.shape[0] // self.mesh.size
+        state = None
+        if self.arch.NAME in ("uPIT", "RSH"):
+            # the whole batch's draw, as one device makes it, then split
+            state = initial_state(self.cfg, xp.shape[0], self.generator, self.device)
+
+        def replica(i):
+            rows, dev = slice(i * per, (i + 1) * per), self.mesh.devices[i]
+            st = None if state is None else tuple(s[:, :, rows].to(dev) for s in state)
+            return self._separate_rows(self.replicas[i], dev, xp[rows], counts[rows], n_t,
+                                       num_spk, st)
+        return np.concatenate(run_replicas(self.mesh, replica))
+
+    def _separate_rows(self, model, dev, xp, counts, n_t, num_spk, state=None):
+        """_separate_batch's rows on one device, with ``model`` there; the
+        initial states drawn here, or ``state`` (their rows of a batch's)."""
+        xp_d = torch.from_numpy(xp).to(dev)
+        counts_d = torch.from_numpy(counts).to(dev)
         if self.domain == "time":
-            return self.arch.separate(self.model, xp_d, counts_d).cpu().numpy()
+            return self.arch.separate(model, xp_d, counts_d).cpu().numpy()
         scfg = self.stft_cfg
         F = scfg.num_bins
         B = xp.shape[0]
         re, im = stft_centered_batch(xp_d, scfg.n_fft, scfg.hop, n_t)
-        tmask = (torch.arange(n_t, device=self.device)[None, :]
+        tmask = (torch.arange(n_t, device=dev)[None, :]
                  < counts_d[:, None]).to(torch.float32)[:, :, None]
         mag = torch.sqrt(re * re + im * im) * tmask
         batch = {"mix": mag, "lengths": counts_d,
-                 "row_mask": torch.ones((B,), dtype=torch.float32, device=self.device)}
+                 "row_mask": torch.ones((B,), dtype=torch.float32, device=dev)}
+        given = {} if state is None else {"state": state}
         if self.arch.NAME == "RSH":
-            masks = self.arch.infer_masks(self.model, batch, self.generator, num_spk)
+            masks = self.arch.infer_masks(model, batch, self.generator, num_spk, **given)
         else:
-            flat = self.arch.infer_masks(self.model, batch, self.generator)
+            flat = self.arch.infer_masks(model, batch, self.generator, **given)
             masks = flat.reshape(B, n_t, num_spk, F).permute(0, 2, 1, 3)
         # masked iSTFT over (B*S) rows
         re_s = (re[:, None] * masks).reshape(B * num_spk, n_t, F)
@@ -138,6 +177,9 @@ class SeparationPipeline:
                 f"this {self.arch.NAME} model separates exactly {self.cfg.num_spk} "
                 f"speakers (num_spk={S} requested); per-request speaker "
                 "counts need an RSH model")
+        # with a mesh every batch is padded to batch_size, as the JAX
+        # package's pipeline pads it, so it divides over the replicas
+        pad_batches = pad_batches or self.mesh is not None
         order = sorted(range(len(lengths)), key=lambda i: lengths[i])
         groups = [order[s: s + self.batch_size]
                   for s in range(0, len(order), self.batch_size)]

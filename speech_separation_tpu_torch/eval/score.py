@@ -90,14 +90,16 @@ def pack_signals(signals, num_src: int) -> np.ndarray:
     return out
 
 
-def _score_device(jobs, log, device, slab: int = 64):
+def _score_device(jobs, log, device, slab: int = 64, mesh=None):
     """BSS-eval on the card in float64 (eval/bss_eval_device.py), the
     counterpart of the JAX package's slab path. Utterances are grouped by
     source count, length-sorted by their RIFF headers (no audio read) and
     scored in slabs; two loader threads read the next slabs while one scores
     on the card; SI-SDR stays on the host. Utterances the scorer's trust
     gate rejects are rescored by the host f64 scorer, counted and logged.
-    Returns (results in wav.scp order, fallback count)."""
+    With a ``mesh`` each slab's utterances are split over its devices and
+    merged back in order (bss_eval_device.bss_eval_sources_batch). Returns
+    (results in wav.scp order, fallback count)."""
     import time
     from concurrent.futures import ThreadPoolExecutor
 
@@ -137,7 +139,8 @@ def _score_device(jobs, log, device, slab: int = 64):
             t_pack += time.monotonic() - t0
             n_before, fb_before = stats.get("fallbacks", 0), stats.get("fallback_s", 0.0)
             t0 = time.monotonic()
-            sdr, sir, sar, perm = bss_eval_sources_batch(refs, ests, device=dev, stats=stats)
+            sdr, sir, sar, perm = bss_eval_sources_batch(refs, ests, device=dev, stats=stats,
+                                                         mesh=mesh)
             fb_s = stats["fallback_s"] - fb_before
             t_dev += time.monotonic() - t0 - fb_s
             t0 = time.monotonic()
@@ -168,12 +171,15 @@ def _write_stats(path: str, values: np.ndarray) -> None:
 
 
 def evaluate_sources(data_dir: str, exp_dir: str, num_workers: int = 0,
-                     device_scoring: bool = False, device=None, log=print) -> dict:
+                     device_scoring: bool = False, device=None, log=print,
+                     data_parallel: bool = False, mesh=None) -> dict:
     """Score exp_dir/wav against the oracle sources of data_dir. Returns
     the mean of each metric: {'SDR': ..., 'SIR', 'SAR', 'SI-SDR',
     'SI-SDRi'}. ``device_scoring`` runs BSS-eval batched in float64 on
     ``device`` (CUDA by default; it raises when no card is visible), held
-    to the host scorer; ``num_workers`` then does not apply."""
+    to the host scorer; ``num_workers`` then does not apply. With it,
+    ``data_parallel`` splits each slab over every visible card
+    (parallel/mesh.data_parallel_mesh), or over ``mesh`` when given."""
     results_dir = os.path.join(exp_dir, "results")
     num_src = read_utt2num_spk(os.path.join(data_dir, "utt2num_spk"))
     entries = read_scp(os.path.join(data_dir, "wav.scp"))
@@ -181,7 +187,10 @@ def evaluate_sources(data_dir: str, exp_dir: str, num_workers: int = 0,
     jobs = [(utt, path, num_src[utt], est_dir) for utt, path in entries]
     fallbacks = None
     if device_scoring:
-        results, fallbacks = _score_device(jobs, log, device)
+        if mesh is None and data_parallel:
+            from ..parallel.mesh import data_parallel_mesh
+            mesh = data_parallel_mesh(log, device)
+        results, fallbacks = _score_device(jobs, log, device, mesh=mesh)
     elif num_workers and num_workers > 1:
         import multiprocessing as mp
         # spawn: the parent may hold an initialized CUDA context

@@ -32,16 +32,26 @@ import torch
 from torch import nn
 
 from ..ops.lstm_kernel import lstm_seq, lstm_seq_infer
+from ..parallel import ranks
 
 
 def random_hidden(generator: torch.Generator, num_layers: int, batch: int,
                   hidden: int):
     """Reference quirk: initial (h0, c0) ~ N(0, 1) per batch, drawn from
-    ``generator`` on its device. Shapes: (num_layers, 2, B, H) each."""
-    shape = (num_layers, 2, batch, hidden)
+    ``generator`` on its device. Shapes: (num_layers, 2, B, H) each. Over
+    data-parallel ranks, whose batch is a rank's ``batch`` rows of the
+    global one, every rank draws the global batch's states from the same
+    generator and keeps its own rows: the generators stay in step, and each
+    row gets the state one device would give it."""
+    r = ranks.current()
+    world, rank = (r.world, r.rank) if r is not None else (1, 0)
+    shape = (num_layers, 2, batch * world, hidden)
     h0 = torch.randn(shape, generator=generator, device=generator.device)
     c0 = torch.randn(shape, generator=generator, device=generator.device)
-    return h0, c0
+    if world == 1:
+        return h0, c0
+    rows = slice(rank * batch, (rank + 1) * batch)
+    return h0[:, :, rows].contiguous(), c0[:, :, rows].contiguous()
 
 
 class BLSTM(nn.Module):

@@ -50,6 +50,7 @@ from .upit import _coerce_kwargs
 from ..dsp.stft import _overlap_add, frame_signal
 from ..ops.mxu import head_dot
 from ..ops.pit import permutation_min_loss
+from ..parallel.ranks import global_sum
 
 NAME = "ConvTasNet"
 DOMAIN = "time"
@@ -165,7 +166,8 @@ def pit_si_snr_loss(est: torch.Tensor, batch: dict, num_spk: int):
     pair = pairwise_neg_si_snr(est * smask[:, None, :], batch["source_wavs"], smask)
     min_losses, best_perm = permutation_min_loss(pair, num_spk)
     total = torch.sum(min_losses * row_mask) / num_spk
-    norm = torch.sum(row_mask)
+    # over data-parallel ranks: this rank's total over the global norm
+    norm = global_sum(torch.sum(row_mask), "norm")
     return total / norm, {"norm": norm, "total": total, "best_perm": best_perm}
 
 

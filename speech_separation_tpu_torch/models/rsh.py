@@ -36,6 +36,7 @@ import torch
 
 from .upit import UPIT, _coerce_kwargs, initial_state
 from ..ops.batchnorm import remat_checkpoint
+from ..parallel.ranks import global_sum
 
 NAME = "RSH"
 DOMAIN = "spectrum"
@@ -116,7 +117,9 @@ def loss_fn(model: RSH, batch: dict, generator: torch.Generator, train: bool):
         masks.append(mask)
         # the loss path relus the residual, CV included
         combo = torch.relu(combo - torch.cat([torch.zeros_like(mask), mask], dim=-1))
-    norm = S * torch.sum(lengths.to(torch.float32) * row_mask) * cfg.feat_dim
+    # over data-parallel ranks: this rank's total over the global norm
+    norm = global_sum(S * torch.sum(lengths.to(torch.float32) * row_mask) * cfg.feat_dim,
+                      "norm")
     return total / norm, {"norm": norm, "total": total,
                           "assignments": torch.stack(assignments, dim=1),
                           "masks": torch.stack(masks, dim=1)}
@@ -124,13 +127,14 @@ def loss_fn(model: RSH, batch: dict, generator: torch.Generator, train: bool):
 
 @torch.inference_mode()
 def infer_masks(model: RSH, batch: dict, generator: torch.Generator,
-                num_spk: int) -> torch.Tensor:
+                num_spk: int, state=None) -> torch.Tensor:
     """Eval-mode masks (B, num_spk, T, F) in pass order (saved as s1..sN)
     for a batch dict with ``mix`` (B, T, F), ``lengths`` and ``row_mask``.
-    The residual is subtracted without a relu."""
+    The residual is subtracted without a relu. The initial (h0, c0) is
+    drawn from ``generator``, or ``state`` when given."""
     mix = batch["mix"]
     combo = _make_combo(mix, batch["lengths"])
-    state = initial_state(model.cfg, mix.shape[0], generator, mix.device)
+    state = state or initial_state(model.cfg, mix.shape[0], generator, mix.device)
     masks = []
     for _ in range(num_spk):
         mask, state = model(combo, batch["lengths"], batch["row_mask"], *state,

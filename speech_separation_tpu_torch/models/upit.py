@@ -37,6 +37,7 @@ from .blstm import BLSTM, random_hidden
 from ..ops.batchnorm import BatchNorm, remat_checkpoint
 from ..ops.mxu import head_dot
 from ..ops.pit import pairwise_mse, permutation_min_loss
+from ..parallel.ranks import global_sum
 
 NAME = "uPIT"
 DOMAIN = "spectrum"
@@ -157,7 +158,8 @@ def contract_loss(model: nn.Module, batch: dict, *state: torch.Tensor, train: bo
     min_losses, best_perm = permutation_min_loss(pairwise_mse(masked, sources),
                                                  cfg.num_spk)
     total = torch.sum(min_losses * row_mask) / cfg.num_spk
-    norm = torch.sum(lengths.to(torch.float32) * row_mask) * cfg.feat_dim
+    # over data-parallel ranks: this rank's total over the global norm
+    norm = global_sum(torch.sum(lengths.to(torch.float32) * row_mask) * cfg.feat_dim, "norm")
     return total / norm, {"norm": norm, "total": total, "best_perm": best_perm,
                           "masked": masked}
 
@@ -171,11 +173,14 @@ def loss_fn(model: UPIT, batch: dict, generator: torch.Generator, train: bool):
 
 
 @torch.inference_mode()
-def infer_masks(model: UPIT, batch: dict, generator: torch.Generator) -> torch.Tensor:
+def infer_masks(model: UPIT, batch: dict, generator: torch.Generator,
+                state=None) -> torch.Tensor:
     """Eval-mode masks (B, T, feat_dim*num_spk) for a batch dict with
-    ``mix`` (B, T, F), ``lengths`` (B,) and ``row_mask`` (B,)."""
+    ``mix`` (B, T, F), ``lengths`` (B,) and ``row_mask`` (B,); the initial
+    (h0, c0) drawn from ``generator``, or ``state`` when given (a replica's
+    rows of a whole batch's draw)."""
     mix = batch["mix"]
-    h0, c0 = initial_state(model.cfg, mix.shape[0], generator, mix.device)
+    h0, c0 = state or initial_state(model.cfg, mix.shape[0], generator, mix.device)
     return model(mix, batch["lengths"], batch["row_mask"], h0, c0, train=False)
 
 

@@ -221,10 +221,12 @@ def chunk_attention_fwd(q, k, v, key_mask, scale=None):
     _check_cuda("chunk_attention_fwd", {"q": q, "k": k, "v": v, "key_mask": key_mask})
     attention_plan(N, T, dh, q.dtype)
     o = torch.empty_like(q)
-    err = _lib().sep_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(),
-        int(q.dtype == torch.bfloat16), N, T, dh, _scale(dh, scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    # the launch and its shared-memory opt-in act on the current device
+    with torch.cuda.device(q.device):
+        err = _lib().sep_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(),
+            int(q.dtype == torch.bfloat16), N, T, dh, _scale(dh, scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "chunk_attention_fwd")
     chunk_attention_fwd.launches += 1
     return o
@@ -239,10 +241,11 @@ def chunk_attention_bwd(q, k, v, key_mask, do, scale=None):
                 {"q": q, "k": k, "v": v, "key_mask": key_mask, "do": do})
     attention_plan(N, T, dh, q.dtype, backward=True)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    err = _lib().sep_attn_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
-        N, T, dh, _scale(dh, scale), torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        err = _lib().sep_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
+            N, T, dh, _scale(dh, scale), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "chunk_attention_bwd")
     chunk_attention_bwd.launches += 1
     return dq, dk, dv

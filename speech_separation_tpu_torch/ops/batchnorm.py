@@ -3,7 +3,10 @@
 The counterpart of speech_separation_tpu/ops/batchnorm.py. The reference
 applies ``nn.BatchNorm1d(1200)`` to the *padded* BLSTM output, so padding
 frames (exact zeros) count in the batch statistics; that is reproduced here.
-``row_mask`` excludes shape-padding dummy rows from the statistics.
+``row_mask`` excludes shape-padding dummy rows from the statistics. Over
+data-parallel ranks (parallel/ranks.py) the statistics are the global
+batch's: each sum and the count are summed over the ranks, differentiably,
+also when a remat forward is recomputed in the backward.
 
 torch semantics: normalization uses the biased variance, the running
 variance update the unbiased one (n/(n-1)); running = (1 - momentum) *
@@ -24,6 +27,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.ranks import global_sum
+
 
 def batchnorm_apply(params: dict, state: dict, x: torch.Tensor,
                     row_mask: torch.Tensor, train: bool,
@@ -36,9 +41,11 @@ def batchnorm_apply(params: dict, state: dict, x: torch.Tensor,
     B, T, C = x.shape
     if train:
         rm = row_mask[:, None, None]
-        n = torch.sum(row_mask) * T
-        mean = torch.sum(x * rm, dim=(0, 1)) / n
-        var = torch.sum(torch.square(x - mean) * rm, dim=(0, 1)) / n
+        # over data-parallel ranks the sums and the count are the whole
+        # batch's (parallel/ranks.global_sum; each rank's own otherwise)
+        n = global_sum(torch.sum(row_mask) * T, "bn")
+        mean = global_sum(torch.sum(x * rm, dim=(0, 1)), "bn") / n
+        var = global_sum(torch.sum(torch.square(x - mean) * rm, dim=(0, 1)), "bn") / n
         new_state = {
             "mean": (1.0 - momentum) * state["mean"] + momentum * mean,
             "var": (1.0 - momentum) * state["var"] + momentum * var * n / (n - 1.0),

@@ -235,21 +235,24 @@ def _launch_fwd(xw, w_hh, h0, c0, lengths, suffix_dirs, save_dtype):
     stream = torch.cuda.current_stream(dev).cuda_stream
     if save_dtype is None:
         ys = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
-        err = lib.sep_lstm_infer(
-            xw.data_ptr(), w_hh.data_ptr(), bf16, h0.data_ptr(), c0.data_ptr(),
-            lengths.data_ptr(), ys.data_ptr(), h_last.data_ptr(), c_last.data_ptr(),
-            hbuf.data_ptr(), barrier.data_ptr(), T, D, B, H, _suffix_bits(suffix_dirs),
-            stream)
+        # the launch plans on, and launches to, the current device
+        with torch.cuda.device(dev):
+            err = lib.sep_lstm_infer(
+                xw.data_ptr(), w_hh.data_ptr(), bf16, h0.data_ptr(), c0.data_ptr(),
+                lengths.data_ptr(), ys.data_ptr(), h_last.data_ptr(), c_last.data_ptr(),
+                hbuf.data_ptr(), barrier.data_ptr(), T, D, B, H, _suffix_bits(suffix_dirs),
+                stream)
         _raise_on(err, lib.sep_lstm_error_string, "lstm_infer")
         return ys, h_last, c_last
     ys = torch.empty((T, D, B, H), dtype=save_dtype, device=dev)
     cs = torch.empty_like(ys)
     gates = torch.empty((T, D, B, 4 * H), dtype=save_dtype, device=dev)
-    err = lib.sep_lstm_fwd(
-        xw.data_ptr(), w_hh.data_ptr(), bf16, h0.data_ptr(), c0.data_ptr(),
-        lengths.data_ptr(), ys.data_ptr(), cs.data_ptr(), gates.data_ptr(),
-        h_last.data_ptr(), c_last.data_ptr(), hbuf.data_ptr(), barrier.data_ptr(),
-        T, D, B, H, _suffix_bits(suffix_dirs), stream)
+    with torch.cuda.device(dev):
+        err = lib.sep_lstm_fwd(
+            xw.data_ptr(), w_hh.data_ptr(), bf16, h0.data_ptr(), c0.data_ptr(),
+            lengths.data_ptr(), ys.data_ptr(), cs.data_ptr(), gates.data_ptr(),
+            h_last.data_ptr(), c_last.data_ptr(), hbuf.data_ptr(), barrier.data_ptr(),
+            T, D, B, H, _suffix_bits(suffix_dirs), stream)
     _raise_on(err, lib.sep_lstm_error_string, "lstm_fwd")
     return ys, cs, gates, h_last, c_last
 
@@ -387,12 +390,13 @@ def lstm_seq_bwd(w_hh, c0, lengths, cs, gates, dys, dh_last, dc_last,
     dc0 = torch.empty_like(dh0)
     barrier = torch.zeros((1,), dtype=torch.int32, device=dev)
     lib = _lib("lstm_bwd")
-    err = lib.sep_lstm_bwd(
-        w_hh.data_ptr(), int(w_hh.dtype == torch.bfloat16), c0.data_ptr(),
-        lengths.data_ptr(), cs.data_ptr(), gates.data_ptr(), dys.data_ptr(),
-        dh_last.data_ptr(), dc_last.data_ptr(), dxw.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), barrier.data_ptr(), T, D, B, H, _suffix_bits(suffix_dirs),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.sep_lstm_bwd(
+            w_hh.data_ptr(), int(w_hh.dtype == torch.bfloat16), c0.data_ptr(),
+            lengths.data_ptr(), cs.data_ptr(), gates.data_ptr(), dys.data_ptr(),
+            dh_last.data_ptr(), dc_last.data_ptr(), dxw.data_ptr(), dh0.data_ptr(),
+            dc0.data_ptr(), barrier.data_ptr(), T, D, B, H, _suffix_bits(suffix_dirs),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib.sep_lstm_bwd_error_string, "lstm_bwd")
     lstm_seq_bwd.launches += 1
     return dxw, dh0, dc0

@@ -169,9 +169,11 @@ def stft(xp: torch.Tensor, n_fft: int, hop: int, n_t: int,
     out_a = torch.empty((B, n_t, n_bins), dtype=torch.float32, device=xp.device)
     out_b = out_a if magnitude else torch.empty_like(out_a)
     lib = _lib()
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
-    err = lib.sep_stft(xp.data_ptr(), table.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
-                       B, Lp, n_t, n_fft, hop, int(magnitude), stream)
+    # the launch and its shared-memory opt-in act on the current device
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        err = lib.sep_stft(xp.data_ptr(), table.data_ptr(), out_a.data_ptr(),
+                           out_b.data_ptr(), B, Lp, n_t, n_fft, hop, int(magnitude), stream)
     if err != 0:
         raise RuntimeError(f"stft kernel launch failed: "
                            f"{lib.sep_stft_error_string(err).decode()}")

@@ -42,12 +42,22 @@ def _save_atomic(obj, path: str) -> None:
     os.replace(tmp, path)  # a crash never leaves a torn file
 
 
+def unwrap(model: torch.nn.Module) -> torch.nn.Module:
+    """The module a DistributedDataParallel (or DataParallel) wraps, else
+    ``model``."""
+    wrappers = (torch.nn.parallel.DistributedDataParallel, torch.nn.DataParallel)
+    return model.module if isinstance(model, wrappers) else model
+
+
 def save_checkpoint(mdl_path: str, model: torch.nn.Module, *, optimizer=None,
                     generator: torch.Generator | None = None, epoch: int = 0,
                     meta: dict | None = None) -> None:
     """Write the model's state dict to ``mdl_path`` and the training state
-    to ``state_path(mdl_path)``."""
+    to ``state_path(mdl_path)``. A wrapped model (DistributedDataParallel's
+    ``module``) is saved unwrapped: no ``module.`` prefix reaches a
+    ``.mdl``."""
     os.makedirs(os.path.dirname(os.path.abspath(mdl_path)), exist_ok=True)
+    model = unwrap(model)
     _save_atomic({k: v.detach().cpu() for k, v in model.state_dict().items()}, mdl_path)
     _save_atomic({"epoch": int(epoch), "meta": meta or {},
                   "optimizer": optimizer.state_dict() if optimizer is not None else None,

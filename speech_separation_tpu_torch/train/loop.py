@@ -44,7 +44,17 @@ extras, as in the JAX package:
 - ``heartbeat_file``: touched after every optimizer step, CV batch and
   checkpoint, for the hang watchdog (train/watchdog.py).
 
-Not ported yet (ROADMAP.md): data parallelism over several cards.
+Data parallelism, as the JAX package shards every batch over its mesh:
+with more than one visible card (``use_mesh``, the default), or over a
+given ``mesh`` (tests and chip_smoke.py give two entries on one device),
+``train`` runs one spawned process a mesh entry (parallel/ranks.py). Each
+rank collates the global batch and keeps its rows, so T is the global
+batch's; BN's statistics, the loss's norm and the gradients are summed over
+the ranks, and the initial states drawn for the global batch, so a step
+computes what one device computes on the whole batch, up to the order of
+sums. Rank 0 alone writes the checkpoints, loss files, plots, heartbeat and
+profiler trace; ``train`` returns on the caller what it returns on one
+device.
 """
 
 from __future__ import annotations
@@ -60,10 +70,13 @@ import torch
 
 from ..eval.infer import resolve_device
 from ..models.registry import get_arch
+from ..parallel import ranks
+from ..parallel.mesh import Mesh, get_mesh
 from ..utils.weights import fold_lstm_biases
 from .checkpoint import (final_model_path, intermediate_model_path, load_checkpoint,
                          save_checkpoint)
-from .data import BatchPlan, FeatureDataset, collate_mixed_batch, iter_batches, iter_epochs
+from .data import (BatchPlan, FeatureDataset, collate, collate_mixed_batch, iter_batches,
+                   iter_epochs)
 from .wav_data import (STFT, WavDataset, audio_to_feature_batch, audio_to_wave_batch,
                        collate_wav_batch)
 
@@ -126,6 +139,10 @@ class Optimizer:
         self.lr0, self.decay = cfg.learning_rate, cfg.lr_decay
         self.steps_per_epoch = steps_per_epoch
         self.count = 0
+        # keep a copy of the gradients as reduced, before the clip
+        # (``reduced_grads``, aligned with ``params``)
+        self.keep_grads = False
+        self.reduced_grads: list = []
 
     def lr(self) -> float:
         if self.decay != 1.0 and self.steps_per_epoch:
@@ -146,7 +163,12 @@ class Optimizer:
         return norm
 
     def step(self) -> None:
-        """Clip, then one Adam update at the schedule's lr."""
+        """Sum the gradients over data-parallel ranks (parallel/ranks.py),
+        clip, then one Adam update at the schedule's lr."""
+        ranks.reduce_gradients(self.params)
+        if self.keep_grads:
+            self.reduced_grads = [None if p.grad is None else p.grad.detach().clone()
+                                  for p in self.params]
         self.clip()
         for group in self.adam.param_groups:
             group["lr"] = self.lr()
@@ -165,12 +187,12 @@ def update_step(arch, model, optimizer: Optimizer, batch: dict,
                 generator: torch.Generator):
     """One training step: gradients of loss / norm, clip, Adam; BN's
     running statistics update in the forward. Returns (loss, norm) as
-    device scalars."""
+    device scalars, the whole batch's over data-parallel ranks."""
     optimizer.zero_grad()
     loss, aux = arch.loss_fn(model, batch, generator, True)
     loss.backward()
     optimizer.step()
-    return loss.detach(), aux["norm"]
+    return ranks.loss_over_ranks(loss.detach()), aux["norm"]
 
 
 def accumulate_step(arch, model, optimizer: Optimizer, subs: list[dict],
@@ -192,7 +214,7 @@ def accumulate_step(arch, model, optimizer: Optimizer, subs: list[dict],
             if p.grad is not None:
                 p.grad.div_(norm)
     optimizer.step()
-    return total / norm, norm
+    return ranks.loss_over_ranks(total / norm), norm
 
 
 def to_device(batch: dict, dev: torch.device, copy_stream=None,
@@ -211,8 +233,9 @@ def to_device(batch: dict, dev: torch.device, copy_stream=None,
         with torch.cuda.stream(copy_stream):
             out = {k: v.pin_memory().to(dev, non_blocking=True) for k, v in host.items()}
             out["ready"] = copy_stream.record_event()
-    out["n_real"] = int(batch["row_mask"].sum())
-    out["names"] = batch["names"]
+    # a rank's rows carry the whole batch's real rows (ranks.rows_of)
+    out["n_real"] = batch.get("n_real", int(batch["row_mask"].sum()))
+    out["names"] = batch.get("names", [])
     out["h2d_bytes"] = sum(v.nbytes for v in host.values())
     return out
 
@@ -241,9 +264,10 @@ def _wait_for_copy(batch: dict) -> dict:
 
 @torch.no_grad()
 def eval_step(arch, model, batch: dict, generator: torch.Generator):
-    """CV loss of one batch in eval mode: (loss, norm) device scalars."""
+    """CV loss of one batch in eval mode: (loss, norm) device scalars, the
+    whole batch's over data-parallel ranks."""
     loss, aux = arch.loss_fn(model, batch, generator, False)
-    return loss, aux["norm"]
+    return ranks.loss_over_ranks(loss), aux["norm"]
 
 
 def _truncate_loss_file(path: str, max_epoch: int) -> list[tuple[int, float]]:
@@ -363,18 +387,51 @@ def train_with_restarts(data_dir: str, exp_dir: str, loop_cfg: TrainLoopConfig,
 
 def train(data_dir: str, exp_dir: str, loop_cfg: TrainLoopConfig,
           cv_data_dir: str = "", model_kwargs: dict | None = None, device=None,
-          log=print) -> dict:
+          log=print, mesh: Mesh | None = None, use_mesh: bool = True) -> dict:
     """Run the training loop on ``device`` (CUDA by default; it raises when
     no card is visible). Returns {'model', 'model_cfg', 'epoch_losses',
     'cv_losses', 'steps', 'epoch_times', 'utts_per_sec'}; steps holds (ms,
     real rows) of each step, the ms on the host clock up to the loss's
     read-back, which waits for the device; epoch_times holds (epoch, wall s,
     summed step s) of each epoch, its wall from the wait for its first batch
-    to its last step."""
-    dev = resolve_device(device)
+    to its last step.
+
+    Data parallel (module docstring) over ``mesh`` when it has more than one
+    entry, or, with ``use_mesh`` and ``device`` left to the default, over
+    every visible card when there is more than one; the returned model is
+    then on the mesh's first device and the steps' rows are the whole
+    batch's."""
+    if mesh is None and use_mesh and device in (None, "cuda") and \
+            torch.cuda.device_count() > 1:
+        mesh = get_mesh()
+    if mesh is not None and mesh.size > 1:
+        with _ExpLock(exp_dir):
+            out = ranks.launch(mesh, _train_rank, (data_dir, exp_dir, loop_cfg, cv_data_dir,
+                                                   model_kwargs), log=log)
+        model = get_arch(loop_cfg.arch).Model(out["model_cfg"])
+        fold_lstm_biases(model)
+        model.load_state_dict(out["model"])
+        out["model"] = model.to(mesh.devices[0])
+        return out
+    dev = resolve_device(device if mesh is None else mesh.devices[0])
     with _ExpLock(exp_dir):
         return _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs,
                              dev, log)
+
+
+def _train_rank(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs) -> dict:
+    """A rank of a data-parallel ``train``: the loop on the rank's device
+    and rows; rank 0 logs, and returns the result with the model's state
+    dict on the CPU."""
+    r = ranks.current()
+    out = _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, r.device,
+                        print if r.rank == 0 else _quiet)
+    out["model"] = {k: v.detach().cpu() for k, v in out["model"].state_dict().items()}
+    return out
+
+
+def _quiet(*_):
+    pass
 
 
 def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, log):
@@ -398,6 +455,8 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
     # f32 products in full f32, as the JAX package's f32 path
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    # over data-parallel ranks rank 0 alone writes files
+    lead = ranks.current() is None or ranks.current().rank == 0
     stats_dir = os.path.join(exp_dir, "train_stats")
     os.makedirs(stats_dir, exist_ok=True)
     loss_file = os.path.join(stats_dir, "train_loss.txt")
@@ -415,7 +474,7 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
         prepare = functools.partial(to_arch, cfg=STFT)
 
         def collate_for(ds):
-            return lambda idxs: collate_wav_batch(ds, idxs, loop_cfg.batch_size)
+            return rank_rows(lambda idxs: collate_wav_batch(ds, idxs, loop_cfg.batch_size))
     else:
         dataset = FeatureDataset(data_dir, copy_location=loop_cfg.train_copy_location,
                                  log=log)
@@ -425,8 +484,22 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
 
         def collate_for(ds):
             if mixed:
-                return lambda idxs: collate_mixed_batch(ds, idxs, plan, spk_counts[ds])
-            return None                     # the loader's npz collation
+                return rank_rows(lambda idxs: collate_mixed_batch(ds, idxs, plan,
+                                                                  spk_counts[ds]))
+            return rank_rows(lambda idxs: collate(ds, idxs, plan))
+
+    def rank_rows(collate_fn):
+        """The collation, then this rank's rows of each (sub-)batch."""
+        r = ranks.current()
+        if r is None:
+            return collate_fn
+
+        def rows(idxs):
+            batch = collate_fn(idxs)
+            if isinstance(batch, list):
+                return [ranks.rows_of(sb, r) for sb in batch]
+            return ranks.rows_of(batch, r)
+        return rows
 
     # RSH: each utterance's speaker count, from utt2num_spk or else the
     # sources in its npz file
@@ -463,12 +536,13 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
     if loop_cfg.start_epoch == 0:
         fold_lstm_biases(model)
         optimizer = Optimizer(model.parameters(), loop_cfg, steps_per_epoch)
-        save_checkpoint(intermediate_model_path(exp_dir, "init"), model,
-                        optimizer=optimizer, generator=generator, epoch=0, meta=meta)
-        # a fresh run starts the logs; a resumed one continues them
-        open(loss_file, "w").close()
-        if cv_dataset:
-            open(cv_loss_file, "w").close()
+        if lead:
+            save_checkpoint(intermediate_model_path(exp_dir, "init"), model,
+                            optimizer=optimizer, generator=generator, epoch=0, meta=meta)
+            # a fresh run starts the logs; a resumed one continues them
+            open(loss_file, "w").close()
+            if cv_dataset:
+                open(cv_loss_file, "w").close()
     else:
         ckpt = load_checkpoint(intermediate_model_path(exp_dir, loop_cfg.start_epoch),
                                reference_resume=loop_cfg.reference_resume)
@@ -479,16 +553,18 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
             optimizer.load_state_dict(ckpt["optimizer"])
         if ckpt["generator"] is not None:
             generator.set_state(ckpt["generator"])
-        epoch_losses = _truncate_loss_file(loss_file, loop_cfg.start_epoch)
-        cv_losses = _truncate_loss_file(cv_loss_file, loop_cfg.start_epoch)
+        if lead:
+            epoch_losses = _truncate_loss_file(loss_file, loop_cfg.start_epoch)
+            cv_losses = _truncate_loss_file(cv_loss_file, loop_cfg.start_epoch)
 
     plot_dir = os.path.join(stats_dir, "plots")
-    plots = loop_cfg.make_plots and _plots_available(log)
-    beat = _heartbeat(loop_cfg.heartbeat_file)
-    profiler = _StepProfiler(loop_cfg.profile_dir, loop_cfg.profile_steps, dev, log)
+    plots = lead and loop_cfg.make_plots and _plots_available(log)
+    beat = _heartbeat(loop_cfg.heartbeat_file if lead else "")
+    profiler = _StepProfiler(loop_cfg.profile_dir if lead else "", loop_cfg.profile_steps,
+                             dev, log)
 
-    lossF = open(loss_file, "a")
-    cv_lossF = open(cv_loss_file, "a") if cv_dataset else None
+    lossF = open(loss_file, "a") if lead else None
+    cv_lossF = open(cv_loss_file, "a") if cv_dataset and lead else None
     steps: list[tuple[float, int]] = []
     h2d_bytes: list[int] = []
     epoch_times: list[tuple[int, float, float]] = []
@@ -544,17 +620,19 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
                             first = False
                 cv_avg = cv_loss_sum / cv_norm_sum
                 log(f"For epoch: {epoch + 1:03d} cv set loss is: {cv_avg}")
-                cv_lossF.write(f"{epoch + 1:03d} {cv_avg}\n")
-                cv_lossF.flush()
+                if cv_lossF:
+                    cv_lossF.write(f"{epoch + 1:03d} {cv_avg}\n")
+                    cv_lossF.flush()
                 cv_losses.append((epoch + 1, cv_avg))
 
             avg = epoch_loss / epoch_norm
             log(f"For epoch: {epoch + 1:03d} loss is: {avg}")
-            lossF.write(f"{epoch + 1:03d} {avg}\n")
-            lossF.flush()
+            if lossF:
+                lossF.write(f"{epoch + 1:03d} {avg}\n")
+                lossF.flush()
             epoch_losses.append((epoch + 1, avg))
 
-            if (epoch + 1) % CHECKPOINT_EVERY == 0:
+            if lead and (epoch + 1) % CHECKPOINT_EVERY == 0:
                 log(f"Saving model for epoch {epoch + 1:03d}")
                 save_checkpoint(intermediate_model_path(exp_dir, epoch + 1), model,
                                 optimizer=optimizer, generator=generator,
@@ -567,12 +645,14 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
             sys.stdout.flush()
     finally:
         profiler.stop()
-        lossF.close()
+        if lossF:
+            lossF.close()
         if cv_lossF:
             cv_lossF.close()
 
-    save_checkpoint(final_model_path(exp_dir), model, optimizer=optimizer,
-                    generator=generator, epoch=loop_cfg.num_epochs, meta=meta)
+    if lead:
+        save_checkpoint(final_model_path(exp_dir), model, optimizer=optimizer,
+                        generator=generator, epoch=loop_cfg.num_epochs, meta=meta)
     beat()
     if plots and epoch_losses:
         _plot_losses(epoch_losses, cv_losses, os.path.join(
@@ -584,6 +664,66 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
             "cv_losses": cv_losses, "steps": steps, "h2d_bytes": h2d_bytes,
             "epoch_times": epoch_times, "utts_per_sec": utts_seen / max(wall, 1e-9),
             "collation": getattr(dataset, "collation", "wav")}
+
+
+def steps_over_ranks(jobs: list[dict], mesh: Mesh | None = None, device=None) -> list[dict]:
+    """One optimizer step for each job, over ``mesh``'s ranks (each its
+    rows of the batch, parallel/ranks.py) or, without a mesh of more than
+    one entry, in this process on ``device``: what the tests and
+    chip_smoke.py hold a data-parallel step to a single-device one with.
+    A job is {"arch", "model_kwargs", "weights" (a state dict of a model
+    whose LSTM biases are folded), "batch" (a collated numpy batch, or a
+    list of a mixed batch's sub-batches), "seed" (the initial states'
+    generator), "faults" (parallel/ranks.FAULTS, default none),
+    "time_pad_multiple", "raise_on_rank" (that rank raises before its step:
+    the failing-rank control)}. Returns, for each job, {"loss", "norm", "grads"
+    (every gradient as reduced over the ranks, before the clip), "params"
+    (after the Adam update), "buffers" (BN's running statistics)}, on the
+    CPU."""
+    if mesh is not None and mesh.size > 1:
+        return ranks.launch(mesh, _steps_here, (jobs,))
+    return _steps_here(jobs, device if mesh is None else mesh.devices[0])
+
+
+def _steps_here(jobs: list[dict], device=None) -> list[dict]:
+    r = ranks.current()
+    dev = r.device if r is not None else resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return [_one_step(dev, r, **job) for job in jobs]
+
+
+def _one_step(dev, r, arch, model_kwargs, weights, batch, seed=0, faults=(),
+              time_pad_multiple=128, raise_on_rank=None) -> dict:
+    if r is not None and r.rank == raise_on_rank:
+        raise RuntimeError(f"rank {r.rank} raises before its step, as the job asks")
+    arch = get_arch(arch)
+    model = arch.Model(arch.Config.from_kwargs(**model_kwargs))
+    fold_lstm_biases(model)
+    model.load_state_dict(weights)
+    model.to(dev)
+    optimizer = Optimizer(model.parameters(), TrainLoopConfig())
+    optimizer.keep_grads = True
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    subs = batch if isinstance(batch, list) else [batch]
+    keys = AUDIO_KEYS if "audio" in subs[0] else FEATURE_KEYS
+    if keys == AUDIO_KEYS:
+        to_arch = audio_to_wave_batch if arch.DOMAIN == "time" else audio_to_feature_batch
+        prepare = functools.partial(to_arch, cfg=STFT)
+    else:
+        prepare = upcast_features
+    with ranks.with_faults(faults):
+        subs = [prepare(to_device(ranks.rows_of(sb, r, time_pad_multiple), dev, keys=keys))
+                for sb in subs]
+        if isinstance(batch, list):
+            loss, norm = accumulate_step(arch, model, optimizer, subs, generator)
+        else:
+            loss, norm = update_step(arch, model, optimizer, subs[0], generator)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    return {"loss": float(loss), "norm": float(norm),
+            "grads": {n: g.cpu() for n, g in zip(names, optimizer.reduced_grads)
+                      if g is not None},
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+            "buffers": {n: b.cpu() for n, b in model.named_buffers()}}
 
 
 def _heartbeat(path: str):
@@ -673,7 +813,8 @@ def _plot_cv_batch(arch, model, batch: dict, generator: torch.Generator, plot_di
     try:
         g = torch.Generator(device=generator.device)
         g.set_state(generator.get_state())
-        with torch.no_grad():
+        # rank 0 alone plots: no collective may run here
+        with torch.no_grad(), ranks.alone():
             _, aux = arch.loss_fn(model, batch, g, False)
         mix = batch["mix"][0].float().cpu().numpy()
         sources = batch["sources"][0].float().cpu().numpy()          # (S, T, F)

@@ -10,6 +10,10 @@ that touches a heartbeat file after every optimizer step, CV batch and
 checkpoint; the supervisor kills the child when the heartbeat goes stale and
 starts a new one from the newest intermediate checkpoint, as after a crash.
 
+Under data parallelism (train/loop.py over more than one card) the child is
+the launcher of the ranks: rank 0 beats, and a kill of the child ends every
+rank (a rank exits when its parent is gone, parallel/ranks.py).
+
 Two allowances: before an attempt's first beat the child builds its kernels
 and reads its first batch, which may take minutes (``first_timeout_s``);
 after it, a silence longer than ``hang_timeout_s`` is a hang. Enable with

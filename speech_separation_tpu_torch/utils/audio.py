@@ -18,7 +18,6 @@ from math import gcd
 
 import numpy as np
 from scipy.io import wavfile
-from scipy.signal import resample_poly
 
 
 def load_wav(path: str, sr: int | None = None,
@@ -60,6 +59,8 @@ def load_wav(path: str, sr: int | None = None,
 
     if sr is not None and sr != file_sr:
         g = gcd(sr, file_sr)
+        # scipy.signal takes seconds to import: only a resampling load pays it
+        from scipy.signal import resample_poly
         x = resample_poly(x, sr // g, file_sr // g).astype(np.float32)
         file_sr = sr
     return x, file_sr

@@ -208,7 +208,7 @@ def test_evaluate_sources_on_the_device_path_matches_the_host(e2e):
     assert summary["n_utts"] == 4
 
 
-def test_cli_score_device_scoring(e2e):
+def test_cli_score_device_scoring(e2e, capsys):
     from speech_separation_tpu_torch.cli.main import main
     tt, exp = e2e
     main(["score", tt, exp, "--nj", "2"])
@@ -217,5 +217,11 @@ def test_cli_score_device_scoring(e2e):
     for (u, g), (v, w) in zip(_rows(exp, "SDR"), host):
         assert u == v
         np.testing.assert_allclose(g, w, rtol=0, atol=E2E_DB)
-    with pytest.raises(SystemExit):
-        main(["score", tt, exp, "--device-scoring", "--data-parallel"])
+    device_rows = _rows(exp, "SDR")
+    # --data-parallel with one device (the CPU): the JAX package's note, and
+    # the rows of the run without it
+    capsys.readouterr()
+    main(["score", tt, exp, "--device-scoring", "--data-parallel", "--device", "cpu"])
+    assert "note: --data-parallel with one visible device" in capsys.readouterr().out
+    for (u, g), (v, w) in zip(_rows(exp, "SDR"), device_rows, strict=True):
+        assert u == v and np.array_equal(g, w)

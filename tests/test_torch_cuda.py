@@ -713,3 +713,69 @@ def test_attention_bf16_backward_refuses_above_its_cap(cuda):
     big = torch.zeros((1, MAX_T_BWD + 1, 16), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=str(MAX_T_BWD)):
         chunk_attention_bwd(big, big, big, torch.ones((1, MAX_T_BWD + 1), device=cuda), big)
+
+
+# ------------------------------------------- the launch's device (K2, K5, K1)
+
+def _on_device(dev):
+    """K2, K5 (bf16 and f32, forward and backward) and K1 on ``dev``, at
+    shapes whose launches opt in to more than 48 KB of shared memory
+    (STFT n_fft=8192: 67600 bytes; bf16 attention backward at T=1230:
+    58112; the f32 attention backward at T=4096: over 49152)."""
+    from speech_separation_tpu_torch.ops.attention_kernel import (chunk_attention_bwd,
+                                                                  chunk_attention_fwd)
+    g = torch.Generator(device=dev).manual_seed(7)
+    out = {"stft": stft(torch.randn((4, 32768), generator=g, device=dev), 8192, 2048, 13)}
+    for dtype, N, T in ((torch.bfloat16, 8, 1230), (torch.float32, 2, 4096)):
+        q, k, v, do = (torch.randn((N, T, 16), generator=g, device=dev).to(dtype)
+                       for _ in range(4))
+        mask = torch.ones((N, T), device=dev)
+        out[f"attn_fwd_{dtype}"] = chunk_attention_fwd(q, k, v, mask)
+        out[f"attn_bwd_{dtype}"] = chunk_attention_bwd(q, k, v, mask, do)
+    xw = torch.randn((9, 2, 5, 96), generator=g, device=dev)
+    w = 0.3 * torch.randn((2, 24, 96), generator=g, device=dev)
+    h0, c0 = (torch.randn((2, 5, 24), generator=g, device=dev) for _ in range(2))
+    out["lstm"] = lstm_seq_infer(xw, w, h0, c0, torch.full((5,), 9, dtype=torch.int32,
+                                                           device=dev))
+    torch.cuda.synchronize(dev)
+    return out
+
+
+def _same_outputs(a, b):
+    for name in a:
+        for x, y in zip(*(t if isinstance(t, tuple) else (t,) for t in (a[name], b[name]))):
+            assert torch.equal(x.cpu(), y.cpu()), name
+
+
+def test_kernels_launch_on_the_tensors_card_not_the_current_one(cuda):
+    """With cuda:0 current, K2, K5 and K1 on cuda:1 tensors launch there
+    (each launch under its tensor's device, the shared-memory opt-in made
+    for that device too) and give cuda:0's outputs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    first = _on_device(torch.device("cuda", 1))     # cuda:1's opt-ins before cuda:0's
+    ref = _on_device(torch.device("cuda", 0))
+    again = _on_device(torch.device("cuda", 1))
+    assert torch.cuda.current_device() == 0
+    _same_outputs(first, ref)
+    _same_outputs(again, ref)
+
+
+def test_kernels_give_one_result_under_any_current_device_context(cuda):
+    """On one card: the launches made from a new thread (whose current
+    device is the default) and inside a device context give the outputs of
+    a plain call, bit for bit."""
+    import threading
+    ref = _on_device(torch.device("cuda", 0))
+    got = {}
+
+    def in_thread():
+        with torch.cuda.device(0):
+            got["ctx"] = _on_device(torch.device("cuda", 0))
+        got["bare"] = _on_device(torch.device("cuda", 0))
+    t = threading.Thread(target=in_thread)
+    t.start()
+    t.join()
+    _same_outputs(got["ctx"], ref)
+    _same_outputs(got["bare"], ref)

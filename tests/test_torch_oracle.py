@@ -129,5 +129,13 @@ def test_cli_oracle_in_shards(data_dir, capsys):
     for i in (1, 2):
         assert os.path.isfile(os.path.join(data_dir, "oracle_soft_mask_eval",
                                            f"source_SDRs.txt.{i}"))
-    with pytest.raises(SystemExit):
-        main(["oracle", data_dir, "--data-parallel"])
+    # --data-parallel with one device (the CPU): the JAX package's note, and
+    # the rows of the run without it
+    main(["oracle", data_dir, "--data-parallel", "--device", "cpu"])
+    assert "note: --data-parallel with one visible device" not in capsys.readouterr().out
+    _close(_all_rows(data_dir, "soft"), single, 0.0)
+    main(["oracle", data_dir, "--device-scoring", "--device", "cpu"])
+    device_rows = _all_rows(data_dir, "soft")
+    main(["oracle", data_dir, "--device-scoring", "--data-parallel", "--device", "cpu"])
+    assert "note: --data-parallel with one visible device" in capsys.readouterr().out
+    _close(_all_rows(data_dir, "soft"), device_rows, 0.0)

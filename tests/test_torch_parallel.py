@@ -194,6 +194,24 @@ def test_server_over_the_data_parallel_pipeline(served, tmp_path):
         t.join(10)
 
 
+@pytest.mark.parametrize("argv", [
+    ["separate", "m", "o", "a.wav"], ["serve", "m", "s.sock"],
+    ["score", "d", "e", "--device-scoring"], ["oracle", "d", "--device-scoring"],
+    ["run-eval", "--model-dir", "x", "--test-sets", "y", "--on-device-features"],
+], ids=lambda a: a[0])
+def test_every_command_takes_the_one_device_path_with_the_note(argv, capsys):
+    """Each of the five commands' --data-parallel gives no mesh on one
+    device (here the CPU), with the JAX package's note: the run is the
+    single-device one."""
+    from speech_separation_tpu_torch.cli.main import _data_mesh, build_parser
+    args = build_parser().parse_args(argv + ["--data-parallel", "--device", "cpu"])
+    assert _data_mesh(args) is None
+    assert capsys.readouterr().out == ("note: --data-parallel with one visible device; "
+                                       "running single-device\n")
+    assert _data_mesh(build_parser().parse_args(argv + ["--device", "cpu"])) is None
+    assert capsys.readouterr().out == ""
+
+
 def test_separate_data_parallel_on_one_device(served, tmp_path, capsys):
     """--data-parallel with one device: the JAX package's note, and wavs
     bit-identical to the run without it."""

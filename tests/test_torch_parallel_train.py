@@ -120,6 +120,9 @@ def _jobs():
         "upit_ragged": dict(base, batch=ragged),
         "upit_zero_init": dict(base, model_kwargs={**UPIT_KW, "zero_init_hidden": "1"},
                                weights=_jax_upit()[1], batch=ragged),
+        "upit_zero_init_divisible": dict(base, model_kwargs={**UPIT_KW, "zero_init_hidden": "1"},
+                                         weights=_jax_upit()[1],
+                                         batch=_features(4, ragged=False, seed=2)),
         "upit_remat": dict(base, model_kwargs={**UPIT_KW, "remat": "1"}, batch=ragged),
         "rsh_grouped": dict(base, arch="RSH", model_kwargs=RSH_KW,
                             weights=_weights(trsh.RSH(trsh.Config.from_kwargs(**RSH_KW))),
@@ -175,8 +178,8 @@ def steps(tmp_path_factory):
     return _jobs(), over, single
 
 
-SOUND = ["upit_divisible", "upit_ragged", "upit_zero_init", "upit_remat", "rsh_grouped",
-         "rsh_mixed", "convtasnet"]
+SOUND = ["upit_divisible", "upit_ragged", "upit_zero_init", "upit_zero_init_divisible",
+         "upit_remat", "rsh_grouped", "rsh_mixed", "convtasnet"]
 
 
 @pytest.mark.parametrize("name", SOUND)
@@ -213,19 +216,21 @@ def test_fault_controls_fail_the_comparison(steps, fault):
     assert grad > 100 * STEP_GRAD, grad
 
 
-def test_two_ranks_match_the_jax_mesh_step(steps):
-    """B=5 with ragged lengths: the JAX package's step on its 8-device mesh
-    (rows padded 5 -> 8) against the port's two ranks (5 -> 6)."""
+@pytest.mark.parametrize("name", ["upit_zero_init_divisible", "upit_zero_init"])
+def test_two_ranks_match_the_jax_mesh_step(steps, name):
+    """B=4 of equal lengths, then B=5 with ragged lengths: the JAX package's
+    step on its 8-device mesh (rows padded to 8) against the port's two
+    ranks (B=5: 5 -> 6)."""
     jobs, over, _ = steps
     cfg, _ = _jax_upit()
     params, state = jupit.init(jax.random.PRNGKey(0), cfg)
     optimizer = make_optimizer(JaxLoopConfig())
     step = make_update_step(jupit, cfg, optimizer)
-    batch = jax_shard(jobs["upit_zero_init"]["batch"], jax_mesh())
+    batch = jax_shard(jobs[name]["batch"], jax_mesh())
     with jax_mesh():
         p8, s8, _, loss8, norm8 = step(params, state, optimizer.init(params), batch,
                                        jax.random.PRNGKey(1))
-    got = over["upit_zero_init"]
+    got = over[name]
     np.testing.assert_allclose(got["loss"], float(loss8), rtol=JAX_LOSS)
     np.testing.assert_allclose(got["norm"], float(norm8), rtol=1e-6)
     ref = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, p8),

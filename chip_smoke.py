@@ -177,7 +177,8 @@ Phases, in order; any failure exits non-zero without the final line:
    phase 22's doctor reports the native loader loaded;
 26. data parallel on one card (two ranks on cuda:0 over gloo; two pipeline
    replicas on cuda:0, run in turn): (a) phase 5's uPIT training (2x600
-   bf16, B=100, 5 epochs) over two ranks, its losses against phase 5's, each
+   bf16, B=100, 5 epochs) over two ranks, each rank's native loader reading
+   its own rows of phase 25's copy of the set, its losses against phase 5's, each
    step's wall beside phase 5's, final.mdl separating a wav; (b) one uPIT
    step over two ranks against one process on 100 rows of phase 5's corpus
    (same weights, batch and initial states: loss, every gradient as reduced,
@@ -3539,7 +3540,7 @@ def extras_phase(fails: Failures, counters, train_dir: str) -> dict:
             "readings": {k: r["reading"] for k, r in runs.items()},
             "launches": {k: r["launches"] for k, r in runs.items()},
             "losses": losses, "watchdog_s": watchdog_s, "fault_s": fault_s,
-            "trace_k3_k4": (k3, k4)}
+            "trace_k3_k4": (k3, k4), "native_dir": dirs["native"]}
 
 
 # ---------------------------------------------------------- data parallel
@@ -3644,9 +3645,11 @@ def _dp_step_jobs(train_dir: str, sf_train_dir: str) -> dict:
 
 
 def data_parallel_phase(fails: Failures, counters, train_dir: str, sf_train_dir: str,
-                        phase5: dict) -> dict:
+                        phase5: dict, native_dir: str) -> dict:
     """Phase 26: data-parallel training, separation and scoring on one card
-    (module docstring, item 26)."""
+    (module docstring, item 26). (a) trains from ``native_dir``, phase 25's
+    copy of phase 5's training set with its per-utterance counts, so each
+    rank's native loader collates its own rows at the whole batch's T."""
     from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
     from speech_separation_tpu_torch.eval.score import evaluate_sources
     from speech_separation_tpu_torch.parallel import ranks
@@ -3668,10 +3671,12 @@ def data_parallel_phase(fails: Failures, counters, train_dir: str, sf_train_dir:
     exp = os.path.join(work, "exp")
     cfg = TrainLoopConfig(batch_size=100, num_epochs=5, time_pad_multiple=128, seed=SEED)
     t0 = time.monotonic()
-    res = train(train_dir, exp, cfg, cv_data_dir=os.path.join(os.path.dirname(train_dir), "cv"),
+    res = train(native_dir, exp, cfg, cv_data_dir=os.path.join(os.path.dirname(train_dir), "cv"),
                 model_kwargs={"compute_dtype": "bfloat16"}, mesh=mesh,
                 log=lambda m: print("  " + m, flush=True))
     wall = time.monotonic() - t0
+    fails.check(res["collation"] == "native", f"(a) each rank collated its rows with the "
+                                              f"{res['collation']} loader (native)")
     got = ranks.launch.kernel_launches
     add(got)
     losses = check_trained(fails, res, exp)
@@ -4099,7 +4104,8 @@ def main() -> int:
           flush=True)
     t26 = time.monotonic()
     dp = data_parallel_phase(fails, [stft, *lstm_counters, *attn_counters],
-                             trained["train_dir"], trained_sf["train_dir"], trained)
+                             trained["train_dir"], trained_sf["train_dir"], trained,
+                             extras["native_dir"])
     print(f"  phase 26: {time.monotonic() - t26:.1f} s", flush=True)
     paths = {"rsh_train": trained_rsh["launches"], "rsh_mixed": trained_rsh["mixed_launches"],
              "rsh_masks": eval_rsh["launches"]["masks"], "rsh_serve": eval_rsh["serve_launches"],

@@ -141,9 +141,16 @@ def split_rows(arrays: dict, n: int) -> list[dict]:
     """``shard_batch`` over ``n`` entries."""
     arrays = pad_rows(arrays, n)
     B = _rows(arrays["row_mask"])
-    per = B // n
-    return [{k: v[i * per:(i + 1) * per] if _rows(v) == B else v
+    return [{k: v[rows_of_entry(B, n, i)] if _rows(v) == B else v
              for k, v in arrays.items()} for i in range(n)]
+
+
+def rows_of_entry(n_rows: int, n: int, i: int) -> slice:
+    """The rows entry ``i`` of ``n`` takes of a batch of ``n_rows`` rows
+    (padded to a multiple of ``n``): a collation that knows the batch's
+    shape can make one entry's rows alone."""
+    per = -(-n_rows // n)
+    return slice(i * per, (i + 1) * per)
 
 
 def replicate_module(model: torch.nn.Module, mesh: Mesh) -> list[torch.nn.Module]:

@@ -5,9 +5,9 @@ joins them into one ``torch.distributed`` process group and runs
 ``target(*args)`` in each; it returns rank 0's result. A step over the
 ranks computes what one device computes on the whole batch:
 
-- each rank takes its rows of every collated batch (``rows_of``: the rows
-  padded to a multiple of the ranks, then split in order), so the batch's
-  time axis is the global batch's;
+- each rank takes its rows of every batch (the rows padded to a multiple of
+  the ranks, then split in order: ``mesh.rows_of_entry``; ``rows_of`` cuts
+  them from a collated batch), at the global batch's time axis;
 - BatchNorm sums its statistics' sums and count over the ranks
   (``global_sum``, differentiable, so BN's gradient is the single-device
   one; every rank updates the running statistics from the global values);

@@ -48,9 +48,11 @@ Data parallelism, as the JAX package shards every batch over its mesh:
 with more than one visible card (``use_mesh``, the default), or over a
 given ``mesh`` (tests and chip_smoke.py give two entries on one device),
 ``train`` runs one spawned process a mesh entry (parallel/ranks.py). Each
-rank collates the global batch and keeps its rows, so T is the global
-batch's; BN's statistics, the loss's norm and the gradients are summed over
-the ranks, and the initial states drawn for the global batch, so a step
+rank collates its rows of every batch at the whole batch's T (the cache, the
+native loader and the waveform collation read only the rank's rows; numpy
+and RSH's mixed batches collate the whole batch and keep the rows); BN's
+statistics, the loss's norm and the gradients are summed over the ranks,
+and the initial states drawn for the global batch, so a step
 computes what one device computes on the whole batch, up to the order of
 sums. Rank 0 alone writes the checkpoints, loss files, plots, heartbeat and
 profiler trace; ``train`` returns on the caller what it returns on one
@@ -455,8 +457,11 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
     # f32 products in full f32, as the JAX package's f32 path
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # over data-parallel ranks rank 0 alone writes files
-    lead = ranks.current() is None or ranks.current().rank == 0
+    # over data-parallel ranks each collates its rows of every batch, and
+    # rank 0 alone writes files
+    r = ranks.current()
+    share = None if r is None else (r.world, r.rank)
+    lead = r is None or r.rank == 0
     stats_dir = os.path.join(exp_dir, "train_stats")
     os.makedirs(stats_dir, exist_ok=True)
     loss_file = os.path.join(stats_dir, "train_loss.txt")
@@ -474,7 +479,7 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
         prepare = functools.partial(to_arch, cfg=STFT)
 
         def collate_for(ds):
-            return rank_rows(lambda idxs: collate_wav_batch(ds, idxs, loop_cfg.batch_size))
+            return lambda idxs: collate_wav_batch(ds, idxs, loop_cfg.batch_size, share=share)
     else:
         dataset = FeatureDataset(data_dir, copy_location=loop_cfg.train_copy_location,
                                  log=log)
@@ -484,22 +489,10 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
 
         def collate_for(ds):
             if mixed:
-                return rank_rows(lambda idxs: collate_mixed_batch(ds, idxs, plan,
-                                                                  spk_counts[ds]))
-            return rank_rows(lambda idxs: collate(ds, idxs, plan))
-
-    def rank_rows(collate_fn):
-        """The collation, then this rank's rows of each (sub-)batch."""
-        r = ranks.current()
-        if r is None:
-            return collate_fn
-
-        def rows(idxs):
-            batch = collate_fn(idxs)
-            if isinstance(batch, list):
-                return [ranks.rows_of(sb, r) for sb in batch]
-            return ranks.rows_of(batch, r)
-        return rows
+                # each speaker-count sub-batch split over the ranks
+                return lambda idxs: [ranks.rows_of(sb, r) for sb in collate_mixed_batch(
+                    ds, idxs, plan, spk_counts[ds])]
+            return lambda idxs: collate(ds, idxs, plan, share)
 
     # RSH: each utterance's speaker count, from utt2num_spk or else the
     # sources in its npz file

@@ -11,6 +11,7 @@ within 1e-9 dB (float64 on each part, the same per-utterance sums).
 """
 
 import os
+import shutil
 import threading
 import time
 
@@ -36,7 +37,14 @@ from speech_separation_tpu_torch.parallel.mesh import (data_parallel_mesh, make_
                                                        pad_rows, replicate_module,
                                                        run_replicas, shard_batch)
 from speech_separation_tpu_torch.train.checkpoint import save_checkpoint
+from speech_separation_tpu_torch.train.data import BatchPlan, FeatureDataset, collate
+from speech_separation_tpu_torch.train.feature_cache import pack_features
+from speech_separation_tpu_torch.train.wav_data import WavDataset, collate_wav_batch
 from speech_separation_tpu_torch.utils.audio import load_wav, write_wav_int16
+
+from test_torch_feature_cache import _build as _build_fc
+from test_torch_feature_cache import _copy as _copy_fc
+from torch_session import built_once
 
 torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, for life
 
@@ -104,6 +112,42 @@ def test_replicas_on_one_device_share_a_copy_and_run_in_turn():
     assert seen == [threading.get_ident()] * 2          # in turn, on the caller's thread
     with pytest.raises(ValueError, match="boom"):
         run_replicas(CPU2, lambda i: (_ for _ in ()).throw(ValueError("boom")))
+
+
+@pytest.fixture(scope="module")
+def fc_corpus(tmp_path_factory):
+    """tests/test_torch_feature_cache.py's npz corpus (6 utterances)."""
+    return str(built_once(tmp_path_factory, "torch_feature_cache", _build_fc) / "data" / "fc")
+
+
+@pytest.mark.parametrize("collation", ["numpy", "native", "cache", "wav"])
+def test_each_rank_collates_its_rows_of_the_whole_batch(fc_corpus, tmp_path, collation):
+    """A rank's share of a batch of 3 utterances in 5 rows (padded to 6,
+    3 a rank) equals its rows of the whole batch, T and sources included,
+    whether its collation reads only its rows (cache, native, wav) or the
+    whole batch (numpy)."""
+    d = _copy_fc(fc_corpus, str(tmp_path / "d"), counts=collation != "numpy")
+    idxs = [4, 0, 2]
+    if collation == "wav":
+        shutil.copy(os.path.join(fc_corpus, "wav.scp"), d)
+        ds = WavDataset(d)
+        whole = collate_wav_batch(ds, idxs, 5)
+        parts = [collate_wav_batch(ds, idxs, 5, share=(2, r)) for r in (0, 1)]
+    else:
+        if collation == "cache":
+            pack_features(d, "train", cache_path=str(tmp_path / "c.bin"), log=lambda *_: None)
+        ds = FeatureDataset(d, log=lambda *_: None)
+        assert ds.collation == collation
+        plan = BatchPlan(batch_size=5, time_pad_multiple=8)
+        whole = collate(ds, idxs, plan)
+        parts = [collate(ds, idxs, plan, share=(2, r)) for r in (0, 1)]
+    names = whole["names"] + [""] * 3
+    for r, (got, want) in enumerate(zip(parts, shard_batch(whole, CPU2))):
+        assert got["n_real"] == 3 and got["names"] == names[3 * r:3 * r + 3][:len(got["names"])]
+        for k, v in want.items():
+            if k != "names":
+                assert got[k].dtype == v.dtype, k
+                np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 # --------------------------------------------------------------- pipeline

@@ -193,7 +193,8 @@ Phases, in order; any failure exits non-zero without the final line:
    bit-identical to the run without it) and `score --device-scoring` over a
    two-entry mesh on phase 10's test set, rows within 1e-9 dB of one
    device's; (g) rank 1 raising at its second step, the run ending non-zero
-   at once; every kernel's launches in the phase (summed over the ranks);
+   at once ((b)-(d)'s ranks and (g)'s run beside the one-process steps, (e)
+   and (f)); every kernel's launches in the phase (summed over the ranks);
 27. one JSON line with every kernel and its numbers (with the recipe's
    launch counts, each LSTM kernel's numbers at DPRNN's shapes and its
    launches on each RSH, DPRNN, remat, SEPTPU01 and phase 25 path, K2's on
@@ -3658,6 +3659,7 @@ def data_parallel_phase(fails: Failures, counters, train_dir: str, sf_train_dir:
                                                         train)
     from speech_separation_tpu_torch.utils.audio import load_wav, write_wav_int16
 
+    torch.cuda.empty_cache()          # the ranks need the card's memory
     mesh = make_mesh(devices=DP_MESH)
     out, launches = {}, {c.__name__: 0 for c in counters}
 
@@ -3706,43 +3708,24 @@ def data_parallel_phase(fails: Failures, counters, train_dir: str, sf_train_dir:
     out["train"] = {"wall_s": wall, "ms_per_step": float(np.mean(ms)), "losses": losses,
                     "loss_rel_diff": max(rel), "launches": got}
 
-    # (b)-(d) one step of each job over two ranks against one process
+    # (b)-(d) one step of each job over two ranks, and (g) rank 1 raising at
+    # its second step while rank 0 waits in the step's collectives, each in a
+    # thread of its own while this process runs the same steps alone, then
+    # (e) and (f): the spawned ranks' start-ups overlap
     jobs = _dp_step_jobs(train_dir, sf_train_dir)
     names = list(jobs)
-    t0 = time.monotonic()
-    over = dict(zip(names, steps_over_ranks([jobs[n] for n in names], mesh=mesh)))
-    got = ranks.launch.kernel_launches
-    add(got)
-    print(f"  (b)-(d) {len(names)} steps over two ranks: {time.monotonic() - t0:.1f} s, "
-          f"launches {got}", flush=True)
-    sound = [n for n in names if "/" not in n]
-    t0 = time.monotonic()
-    single = dict(zip(sound, steps_over_ranks(
-        [dict(jobs[n], batch=[pad_rows(sb, 2) for sb in jobs[n]["batch"]]
-              if isinstance(jobs[n]["batch"], list) else pad_rows(jobs[n]["batch"], 2))
-         for n in sound], device="cuda")))
-    print(f"  the same {len(sound)} steps in one process: {time.monotonic() - t0:.1f} s",
-          flush=True)
-    for name in ("chunk_attention_fwd", "chunk_attention_bwd"):
-        fails.check(got[name] == 16, f"(d) {name} launched {got[name]} times over the ranks "
-                                     "(8 layers x 2 ranks)")
-    errs = {}
-    for n in names:
-        sound_name, _, fault = n.partition("/")
-        tol = DP_TOL["f32" if sound_name == "upit_f32" else "bf16"]
-        e = step_errs(_dp_result(over[n]), _dp_result(single[sound_name]), tol)
-        errs[n] = e
-        part = {"rsh_mixed": "c", "sepformer": "d"}.get(sound_name, "b")
-        if fault:
-            check_fault(fails, f"({part}) {sound_name}: fault control {fault}", e, tol)
-        else:
-            check_step(fails, f"({part}) {n} over two ranks against one process", e, tol,
-                       len(single[n]["grads"]))
-    out["steps"] = errs
+    spawned, failing = {}, {}
 
-    # (g) rank 1 raises at its second step, while rank 0 waits in the
-    # step's collectives; run beside (e) and (f)
-    failing = {}
+    def over_ranks():
+        t = time.monotonic()
+        try:
+            spawned["results"] = dict(zip(names, steps_over_ranks([jobs[n] for n in names],
+                                                                  mesh=mesh)))
+            # read at once; (g)'s launch raises before it would set it
+            spawned["launches"] = dict(ranks.launch.kernel_launches)
+        except Exception as e:
+            spawned["error"] = repr(e)
+        spawned["wall_s"] = time.monotonic() - t
 
     def fail_rank():
         t = time.monotonic()
@@ -3753,8 +3736,17 @@ def data_parallel_phase(fails: Failures, counters, train_dir: str, sf_train_dir:
             failing["error"] = str(e)
         failing["wall_s"] = time.monotonic() - t
 
-    thread = threading.Thread(target=fail_rank)
-    thread.start()
+    threads = [threading.Thread(target=over_ranks), threading.Thread(target=fail_rank)]
+    for th in threads:
+        th.start()
+    sound = [n for n in names if "/" not in n]
+    t0 = time.monotonic()
+    single = dict(zip(sound, steps_over_ranks(
+        [dict(jobs[n], batch=[pad_rows(sb, 2) for sb in jobs[n]["batch"]]
+              if isinstance(jobs[n]["batch"], list) else pad_rows(jobs[n]["batch"], 2))
+         for n in sound], device="cuda")))
+    print(f"  the same {len(sound)} steps in one process: {time.monotonic() - t0:.1f} s",
+          flush=True)
 
     # (e) serving through two replicas on cuda:0 against one device
     for c in counters:
@@ -3828,7 +3820,31 @@ def data_parallel_phase(fails: Failures, counters, train_dir: str, sf_train_dir:
                                   f"{d:.3e} dB <= {DP_SCORE_DB}")
     out["score"] = {"max_diff_db": d, "wall_s": time.monotonic() - t0}
 
-    thread.join()
+    for th in threads:
+        th.join()
+    fails.check("results" in spawned, f"(b)-(d) {len(names)} steps over two ranks ran "
+                                      f"({spawned.get('error')})")
+    over = spawned.get("results", {})
+    got = spawned.get("launches", {})
+    add(got)
+    print(f"  (b)-(d) {len(names)} steps over two ranks: {spawned['wall_s']:.1f} s, "
+          f"launches {got}", flush=True)
+    for name in ("chunk_attention_fwd", "chunk_attention_bwd"):
+        fails.check(got.get(name) == 16, f"(d) {name} launched {got.get(name)} times over the "
+                                         "ranks (8 layers x 2 ranks)")
+    errs = {}
+    for n in over:
+        sound_name, _, fault = n.partition("/")
+        tol = DP_TOL["f32" if sound_name == "upit_f32" else "bf16"]
+        e = step_errs(_dp_result(over[n]), _dp_result(single[sound_name]), tol)
+        errs[n] = e
+        part = {"rsh_mixed": "c", "sepformer": "d"}.get(sound_name, "b")
+        if fault:
+            check_fault(fails, f"({part}) {sound_name}: fault control {fault}", e, tol)
+        else:
+            check_step(fails, f"({part}) {n} over two ranks against one process", e, tol,
+                       len(single[n]["grads"]))
+    out["steps"] = errs
     fails.check(failing.get("error") is not None and "rank 1 of 2 exited with code 1"
                 in failing["error"] and failing["wall_s"] < ranks.TIMEOUT_S,
                 f"(g) rank 1 raising at step 2 ends the run: {failing.get('error')!r} after "

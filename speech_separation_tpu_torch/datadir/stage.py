@@ -3,8 +3,10 @@
 The port's own copy of speech_separation_tpu/datadir/stage.py. Each file
 lands under the target dir at its own absolute path
 (``<target>/<original-absolute-path>``); a file already staged at the same
-size is skipped. ``bwlimit_kbps`` (KiB/s, None = unlimited) paces the
-copies.
+size is skipped. Each copy is written to a name of its own and renamed into
+place, so processes staging one scp at once (the ranks of a data-parallel
+run) never read a partly written file. ``bwlimit_kbps`` (KiB/s, None =
+unlimited) paces the copies.
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ def stage_scp_data(scp_path: str, target_dir: str,
         if os.path.isfile(dst) and os.path.getsize(dst) == os.path.getsize(src):
             continue
         os.makedirs(os.path.dirname(dst), exist_ok=True)
-        shutil.copyfile(src, dst)
+        tmp = f"{dst}.{os.getpid()}.tmp"
+        shutil.copyfile(src, tmp)
+        os.replace(tmp, dst)
         copied += 1
         bytes_copied += os.path.getsize(src)
         if bwlimit_kbps:

@@ -251,12 +251,14 @@ def corpus(tmp_path_factory):
 def test_train_over_two_ranks_equals_the_single_process_run(corpus, tmp_path):
     """The 10-epoch CLI run of tests/test_torch_train_cli.py (B=4 of 6
     utterances: a full batch, then 2 real rows and 2 dummies), trained again
-    over two ranks: the same loss files, a final.mdl with the single run's
-    keys (no ``module.`` prefix) that ``separate`` reads."""
+    over two ranks, both staging the features into one directory at once:
+    the same loss files, a final.mdl with the single run's keys (no
+    ``module.`` prefix) that ``separate`` reads."""
     root, data_dir, conf = corpus
     exp = str(tmp_path / "exp")
+    stage = tmp_path / "stage"
     cfg = TrainLoopConfig(batch_size=4, num_epochs=10, time_pad_multiple=32, seed=3,
-                          make_plots=False)
+                          make_plots=False, train_copy_location=str(stage))
     assert TRAIN[TRAIN.index("--seed") + 1] == "3"
     out = train(data_dir, exp, cfg, cv_data_dir=data_dir,
                 model_kwargs=read_model_config(conf), mesh=make_mesh(devices=CPU2))
@@ -267,6 +269,8 @@ def test_train_over_two_ranks_equals_the_single_process_run(corpus, tmp_path):
         np.testing.assert_array_equal(got[:, 0], want[:, 0])
         np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=TRAIN_RTOL, err_msg=name)
     assert [e for e, _ in out["epoch_losses"]] == list(range(1, 11))
+    staged = [p.name for p in stage.rglob("*") if p.is_file()]
+    assert len(staged) == 6 and not any(n.endswith(".tmp") for n in staged)
     assert sum(n for _, n in out["steps"]) == 60        # 6 real rows an epoch
     sd = torch.load(os.path.join(exp, "final.mdl"))
     assert sorted(sd) == sorted(torch.load(os.path.join(full, "final.mdl")))

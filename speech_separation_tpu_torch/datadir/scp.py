@@ -31,10 +31,15 @@ def read_scp(path: str) -> list[tuple[str, str]]:
 
 
 def write_scp(path: str, entries) -> None:
+    """Write ``key value`` lines to a name of this process's own, then
+    rename it into place: a reader (another rank of a data-parallel run
+    caching ``utt2num_samples``) finds the whole file or none."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
         for key, value in entries:
             f.write(f"{key} {value}\n")
+    os.replace(tmp, path)
 
 
 def read_utt2num_spk(path: str) -> dict[str, int]:

@@ -177,8 +177,9 @@ Phases, in order; any failure exits non-zero without the final line:
    phase 22's doctor reports the native loader loaded;
 26. data parallel on one card (two ranks on cuda:0 over gloo; two pipeline
    replicas on cuda:0, run in turn): (a) phase 5's uPIT training (2x600
-   bf16, B=100, 5 epochs) over two ranks, each rank's native loader reading
-   its own rows of phase 25's copy of the set, its losses against phase 5's, each
+   bf16, B=100, 5 epochs) over two ranks, each rank collating the whole batch
+   from phase 25's copy of the set with the native loader and keeping its
+   rows, its losses against phase 5's, each
    step's wall beside phase 5's, final.mdl separating a wav; (b) one uPIT
    step over two ranks against one process on 100 rows of phase 5's corpus
    (same weights, batch and initial states: loss, every gradient as reduced,
@@ -3649,14 +3650,14 @@ def data_parallel_phase(fails: Failures, counters, train_dir: str, sf_train_dir:
                         phase5: dict, native_dir: str) -> dict:
     """Phase 26: data-parallel training, separation and scoring on one card
     (module docstring, item 26). (a) trains from ``native_dir``, phase 25's
-    copy of phase 5's training set with its per-utterance counts, so each
-    rank's native loader collates its own rows at the whole batch's T."""
+    copy of phase 5's training set with its per-utterance counts: each rank
+    collates every batch with the native loader and keeps its rows."""
     from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
     from speech_separation_tpu_torch.eval.score import evaluate_sources
     from speech_separation_tpu_torch.parallel import ranks
+    from speech_separation_tpu_torch.parallel.checks import steps_over_ranks
     from speech_separation_tpu_torch.parallel.mesh import make_mesh, pad_rows
-    from speech_separation_tpu_torch.train.loop import (TrainLoopConfig, steps_over_ranks,
-                                                        train)
+    from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
     from speech_separation_tpu_torch.utils.audio import load_wav, write_wav_int16
 
     torch.cuda.empty_cache()          # the ranks need the card's memory
@@ -3677,7 +3678,7 @@ def data_parallel_phase(fails: Failures, counters, train_dir: str, sf_train_dir:
                 model_kwargs={"compute_dtype": "bfloat16"}, mesh=mesh,
                 log=lambda m: print("  " + m, flush=True))
     wall = time.monotonic() - t0
-    fails.check(res["collation"] == "native", f"(a) each rank collated its rows with the "
+    fails.check(res["collation"] == "native", f"(a) each rank collated its batches with the "
                                               f"{res['collation']} loader (native)")
     got = ranks.launch.kernel_launches
     add(got)
@@ -3696,7 +3697,8 @@ def data_parallel_phase(fails: Failures, counters, train_dir: str, sf_train_dir:
           f"after the first {np.mean(ms):.2f} ms (min {min(ms):.2f}, max {max(ms):.2f}); "
           f"phase 5's one process {phase5['ms_per_step']:.2f} ms (full batches); first step "
           f"{res['steps'][0][0]:.1f} ms; losses {losses} against phase 5's "
-          f"{phase5['epoch_losses']}", flush=True)
+          f"{phase5['epoch_losses']}; epoch walls against summed steps (s) "
+          f"{[(round(w, 3), round(st, 3)) for _, w, st in res['epoch_times']]}", flush=True)
     rng = np.random.default_rng(SEED + 29)
     wav = os.path.join(work, "mix.wav")
     write_wav_int16(wav, 8000, mixture(5 * 8000, rng))

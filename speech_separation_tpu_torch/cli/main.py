@@ -180,7 +180,7 @@ def cmd_score(args):
     from ..eval.score import evaluate_sources
     evaluate_sources(args.data_dir, args.exp_dir, num_workers=args.nj,
                      device_scoring=args.device_scoring, device=args.device,
-                     data_parallel=args.data_parallel)
+                     mesh=_scoring_mesh(args))
 
 
 def cmd_oracle(args):
@@ -194,7 +194,7 @@ def cmd_oracle(args):
     resolve_device(args.device)          # no card: fail before any shard is written
     cfg = _stft_cfg(args)
     kw = {"device_scoring": args.device_scoring, "device": args.device,
-          "data_parallel": args.data_parallel}
+          "mesh": _scoring_mesh(args)}
     if args.nj > 1:
         validate_data_dir(args.data_dir)
         split_dir = split_data_dir(args.data_dir, args.nj)
@@ -241,6 +241,12 @@ def _data_mesh(args):
         return None
     from ..parallel.mesh import data_parallel_mesh
     return data_parallel_mesh(device=args.device)
+
+
+def _scoring_mesh(args):
+    """The mesh that splits each scoring slab: ``--data-parallel``'s, with
+    ``--device-scoring`` only (the host scorer runs on the CPU)."""
+    return _data_mesh(args) if args.device_scoring else None
 
 
 def _pipeline(args):
@@ -591,8 +597,7 @@ def cmd_run_eval(args):
                     _ensure_utt2num_spk(data_dir)
                 means = evaluate_sources(data_dir, out_dirs[ds], num_workers=args.nj,
                                          device_scoring=args.device_scoring,
-                                         device=args.device,
-                                         data_parallel=args.data_parallel)
+                                         device=args.device, mesh=_scoring_mesh(args))
                 print(f"{ds} mean SDR: {means['SDR']:.2f}")
                 results[ds].append((model, means))
 

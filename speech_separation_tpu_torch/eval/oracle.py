@@ -94,19 +94,14 @@ def _score_slab(pending: list, dev, log, mesh=None) -> dict:
 
 def evaluate_oracle(data_dir: str, hard_mask: bool = False, cfg: STFTConfig = STFTConfig(),
                     job_suffix: str = "", device_scoring: bool = False, device=None,
-                    slab: int = 32, log=print, data_parallel: bool = False,
-                    mesh=None) -> None:
+                    slab: int = 32, log=print, mesh=None) -> None:
     """Write the oracle-mask scores of ``data_dir/wav.scp<job_suffix>`` (and
     its ``segments<job_suffix>`` when there is one). The STFT and the
     resynthesis run on ``device`` (CUDA by default; it raises when no card
     is visible); ``device_scoring`` scores there too, in slabs of ``slab``
-    utterances; with it, ``data_parallel`` splits each slab over every
-    visible card (parallel/mesh.data_parallel_mesh), or over ``mesh`` when
-    given."""
+    utterances; with it, a ``mesh`` (parallel/mesh.py) splits each slab over
+    its devices."""
     dev = resolve_device(device)
-    if device_scoring and mesh is None and data_parallel:
-        from ..parallel.mesh import data_parallel_mesh
-        mesh = data_parallel_mesh(log, device)
     kind = "hard" if hard_mask else "soft"
     dir_out = os.path.join(data_dir, f"oracle_{kind}_mask_eval")
     os.makedirs(dir_out, exist_ok=True)

@@ -172,14 +172,13 @@ def _write_stats(path: str, values: np.ndarray) -> None:
 
 def evaluate_sources(data_dir: str, exp_dir: str, num_workers: int = 0,
                      device_scoring: bool = False, device=None, log=print,
-                     data_parallel: bool = False, mesh=None) -> dict:
+                     mesh=None) -> dict:
     """Score exp_dir/wav against the oracle sources of data_dir. Returns
     the mean of each metric: {'SDR': ..., 'SIR', 'SAR', 'SI-SDR',
     'SI-SDRi'}. ``device_scoring`` runs BSS-eval batched in float64 on
     ``device`` (CUDA by default; it raises when no card is visible), held
-    to the host scorer; ``num_workers`` then does not apply. With it,
-    ``data_parallel`` splits each slab over every visible card
-    (parallel/mesh.data_parallel_mesh), or over ``mesh`` when given."""
+    to the host scorer; ``num_workers`` then does not apply. With it, a
+    ``mesh`` (parallel/mesh.py) splits each slab over its devices."""
     results_dir = os.path.join(exp_dir, "results")
     num_src = read_utt2num_spk(os.path.join(data_dir, "utt2num_spk"))
     entries = read_scp(os.path.join(data_dir, "wav.scp"))
@@ -187,9 +186,6 @@ def evaluate_sources(data_dir: str, exp_dir: str, num_workers: int = 0,
     jobs = [(utt, path, num_src[utt], est_dir) for utt, path in entries]
     fallbacks = None
     if device_scoring:
-        if mesh is None and data_parallel:
-            from ..parallel.mesh import data_parallel_mesh
-            mesh = data_parallel_mesh(log, device)
         results, fallbacks = _score_device(jobs, log, device, mesh=mesh)
     elif num_workers and num_workers > 1:
         import multiprocessing as mp

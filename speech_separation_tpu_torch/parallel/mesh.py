@@ -86,17 +86,6 @@ def data_parallel_mesh(log=print, device=None) -> Mesh | None:
     return make_mesh()
 
 
-_default_mesh: Mesh | None = None
-
-
-def get_mesh() -> Mesh:
-    """The process-wide mesh over every visible card."""
-    global _default_mesh
-    if _default_mesh is None or _default_mesh.size != torch.cuda.device_count():
-        _default_mesh = make_mesh()
-    return _default_mesh
-
-
 def _rows(v) -> int | None:
     shape = getattr(v, "shape", None)
     return int(shape[0]) if shape else None
@@ -128,29 +117,17 @@ def pad_rows(arrays: dict, n_data: int) -> dict:
     return {k: _pad(v, Bp - B) if _rows(v) == B else v for k, v in arrays.items()}
 
 
-def shard_batch(arrays: dict, mesh: Mesh) -> list[dict]:
-    """The batch split over the mesh, one dict per entry, in order: rows
-    padded as ``pad_rows`` does, then the leading axis of each array of the
-    batch's row count cut into ``mesh.size`` equal slices; other arrays and
-    values are replicated. Values keep their type (numpy stays numpy, a
-    tensor stays on its device)."""
-    return split_rows(arrays, mesh.size)
-
-
-def split_rows(arrays: dict, n: int) -> list[dict]:
-    """``shard_batch`` over ``n`` entries."""
+def shard_batch(arrays: dict, mesh: Mesh | int) -> list[dict]:
+    """The batch split over ``mesh`` (or that many entries), one dict per
+    entry, in order: rows padded as ``pad_rows`` does, then the leading axis
+    of each array of the batch's row count cut into equal slices; other
+    arrays and values are replicated. Values keep their type (numpy stays
+    numpy, a tensor stays on its device)."""
+    n = mesh if isinstance(mesh, int) else mesh.size
     arrays = pad_rows(arrays, n)
-    B = _rows(arrays["row_mask"])
-    return [{k: v[rows_of_entry(B, n, i)] if _rows(v) == B else v
+    per = _rows(arrays["row_mask"]) // n
+    return [{k: v[i * per:(i + 1) * per] if _rows(v) == per * n else v
              for k, v in arrays.items()} for i in range(n)]
-
-
-def rows_of_entry(n_rows: int, n: int, i: int) -> slice:
-    """The rows entry ``i`` of ``n`` takes of a batch of ``n_rows`` rows
-    (padded to a multiple of ``n``): a collation that knows the batch's
-    shape can make one entry's rows alone."""
-    per = -(-n_rows // n)
-    return slice(i * per, (i + 1) * per)
 
 
 def replicate_module(model: torch.nn.Module, mesh: Mesh) -> list[torch.nn.Module]:

@@ -5,9 +5,9 @@ joins them into one ``torch.distributed`` process group and runs
 ``target(*args)`` in each; it returns rank 0's result. A step over the
 ranks computes what one device computes on the whole batch:
 
-- each rank takes its rows of every batch (the rows padded to a multiple of
-  the ranks, then split in order: ``mesh.rows_of_entry``; ``rows_of`` cuts
-  them from a collated batch), at the global batch's time axis;
+- each rank collates the whole of every batch and keeps its rows (the rows
+  padded to a multiple of the ranks, then split in order: ``rows_of``), so
+  its time axis is the global batch's;
 - BatchNorm sums its statistics' sums and count over the ranks
   (``global_sum``, differentiable, so BN's gradient is the single-device
   one; every rank updates the running statistics from the global values);
@@ -49,7 +49,7 @@ import time
 import numpy as np
 import torch
 
-from .mesh import Mesh, split_rows
+from .mesh import Mesh, shard_batch
 
 # seconds a collective may wait for the other ranks before it raises
 TIMEOUT_S = 600.0
@@ -125,23 +125,8 @@ def global_sum(t: torch.Tensor, kind: str) -> torch.Tensor:
     local. The sum is taken in float32."""
     if not _spread() or _local(kind):
         return t
-    return _SumOverRanks.apply(t.float()).to(t.dtype)
-
-
-class _SumOverRanks(torch.autograd.Function):
-    """all_reduce(SUM) with its adjoint: the gradient of a rank's input is
-    the sum over ranks of the gradients of their outputs."""
-
-    @staticmethod
-    def forward(ctx, t):
-        import torch.distributed as dist
-        out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _SumOverRanks.apply(grad)
+    from torch.distributed.nn.functional import all_reduce
+    return all_reduce(t.float()).to(t.dtype)
 
 
 def _local(kind: str) -> bool:
@@ -181,15 +166,19 @@ def rows_of(batch: dict, r: Ranks | None, time_pad_multiple: int = 1) -> dict:
     """Rank ``r``'s rows of a collated batch (numpy arrays, ``row_mask``
     and ``names``), as ``mesh.shard_batch`` splits them, with ``n_real`` the
     batch's real rows over all ranks; the batch itself for None (outside a
-    data-parallel run). Under ``time_per_rank`` a feature batch's time axis
-    is cut to the rank's own longest row, rounded up to
+    data-parallel run). Every rank collates the whole batch, so its T and
+    source count are the whole batch's. Under ``time_per_rank`` a feature
+    batch's time axis is cut to the rank's own longest row, rounded up to
     ``time_pad_multiple``. (The caller passes ``current()``: a loader
     thread's collation must not see ``alone``.)"""
     if r is None or r.world == 1:
         return batch
     n_real = int(np.sum(batch["row_mask"]))
-    out = split_rows(batch, r.world)[r.rank]
+    out = shard_batch(batch, r.world)[r.rank]
     out["n_real"] = n_real
+    if "names" in batch:
+        per = len(out["row_mask"])
+        out["names"] = list(batch["names"])[r.rank * per:(r.rank + 1) * per]
     if "time_per_rank" in _faults and "mix" in out:
         t = max(1, int(np.max(out["lengths"])))
         T = -(-t // time_pad_multiple) * time_pad_multiple

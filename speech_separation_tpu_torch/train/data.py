@@ -234,21 +234,16 @@ def make_device_batch(samples: list[dict], plan: BatchPlan,
     return out
 
 
-def collate_native(dataset: FeatureDataset, idxs: list[int], plan: BatchPlan,
-                   rows: int | None = None, shape_of: list[int] | None = None) -> dict:
+def collate_native(dataset: FeatureDataset, idxs: list[int], plan: BatchPlan) -> dict:
     """make_device_batch's batch of a training dataset's ``idxs``, each npz
     member inflated by the native runtime straight into its padded row (the
     batch is bit-equal to the numpy path's). Needs the dataset's
-    ``num_frames`` and ``num_spks``. The batch has ``rows`` rows (default
-    the plan's batch size) and the T and source count of the utterances
-    ``shape_of`` (default ``idxs``)."""
+    ``num_frames`` and ``num_spks``."""
     from ..utils import native
-    shape_of = idxs if shape_of is None else shape_of
     n_spk = [max(1, int(dataset.num_spks[i])) for i in idxs]
-    out = padded_batch(len(idxs), rows or plan.batch_size,
-                       max(int(dataset.num_frames[i]) for i in shape_of), dataset.feat_dim,
-                       max(max(1, int(dataset.num_spks[i])) for i in shape_of),
-                       plan.time_pad_multiple)
+    out = padded_batch(len(idxs), plan.batch_size,
+                       max(int(dataset.num_frames[i]) for i in idxs), dataset.feat_dim,
+                       max(n_spk), plan.time_pad_multiple)
     mix, sources = out["mix"], out["sources"]
     for row, i in enumerate(idxs):
         utt, path = dataset.entries[i]
@@ -264,37 +259,13 @@ def collate_native(dataset: FeatureDataset, idxs: list[int], plan: BatchPlan,
     return out
 
 
-def collate(dataset: FeatureDataset, idxs: list[int], plan: BatchPlan,
-            share: tuple[int, int] | None = None) -> dict:
-    """The padded batch of ``idxs`` by the dataset's ``collation``. With
-    ``share`` (ranks, rank), that data-parallel rank's rows of it
-    (parallel/mesh.shard_batch's split), with ``n_real`` the whole batch's
-    real rows: the cache and the native loader read the rank's rows alone,
-    at the whole batch's T and source count, which their per-utterance
-    counts give; numpy collates the whole batch and keeps the rows."""
-    if share is not None and dataset.collation in ("cache", "native"):
-        from ..parallel.mesh import rows_of_entry
-        sl = rows_of_entry(plan.batch_size, *share)
-        rows = sl.stop - sl.start
-        if dataset.collation == "cache":
-            out = dataset.cache.collate(idxs[sl], plan.time_pad_multiple, pad_rows_to=rows,
-                                        shape_of=idxs)
-        else:
-            out = collate_native(dataset, idxs[sl], plan, rows=rows, shape_of=idxs)
-    elif dataset.collation == "cache":
-        out = dataset.cache.collate(idxs, plan.time_pad_multiple, pad_rows_to=plan.batch_size)
-    elif dataset.collation == "native":
-        out = collate_native(dataset, idxs, plan)
-    else:
-        out = make_device_batch([dataset.load(i) for i in idxs], plan)
-    if share is None:
-        return out
-    if dataset.collation == "numpy":
-        from ..parallel.mesh import rows_of_entry, split_rows
-        out = split_rows(out, share[0])[share[1]]
-        out["names"] = out["names"][rows_of_entry(plan.batch_size, *share)]
-    out["n_real"] = len(idxs)
-    return out
+def collate(dataset: FeatureDataset, idxs: list[int], plan: BatchPlan) -> dict:
+    """The padded batch of ``idxs`` by the dataset's ``collation``."""
+    if dataset.collation == "cache":
+        return dataset.cache.collate(idxs, plan.time_pad_multiple, pad_rows_to=plan.batch_size)
+    if dataset.collation == "native":
+        return collate_native(dataset, idxs, plan)
+    return make_device_batch([dataset.load(i) for i in idxs], plan)
 
 
 class _EpochEnd:

@@ -157,17 +157,12 @@ class FeatureCache:
         rec = np.asarray(self.record(i), dtype=np.float32)
         return {"mix": rec[0], "sources": rec[1:], "name": self.ids[i]}
 
-    def collate(self, idxs: list[int], time_pad_multiple: int, pad_rows_to: int,
-                shape_of: list[int] | None = None) -> dict:
+    def collate(self, idxs: list[int], time_pad_multiple: int, pad_rows_to: int) -> dict:
         """The padded batch of ``idxs`` (data.padded_batch's, ``pad_rows_to``
-        rows) read straight into its buffers, in the cache's dtype; its T
-        and source count those of the utterances ``shape_of`` (default
-        ``idxs``)."""
-        shape_of = idxs if shape_of is None else shape_of
-        out = padded_batch(len(idxs), pad_rows_to,
-                           max(int(self.num_frames[i]) for i in shape_of), self.feat_dim,
-                           max(int(self.num_spk[i]) for i in shape_of), time_pad_multiple,
-                           self.dtype)
+        rows) read straight into its buffers, in the cache's dtype."""
+        out = padded_batch(len(idxs), pad_rows_to, max(int(self.num_frames[i]) for i in idxs),
+                           self.feat_dim, max(int(self.num_spk[i]) for i in idxs),
+                           time_pad_multiple, self.dtype)
         mix, sources = out["mix"], out["sources"]
         # one preadv a record scatters its bytes into the mixture's row and
         # each source's row; records in file order, for the readahead

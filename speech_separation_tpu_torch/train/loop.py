@@ -45,16 +45,14 @@ extras, as in the JAX package:
   checkpoint, for the hang watchdog (train/watchdog.py).
 
 Data parallelism, as the JAX package shards every batch over its mesh:
-with more than one visible card (``use_mesh``, the default), or over a
-given ``mesh`` (tests and chip_smoke.py give two entries on one device),
-``train`` runs one spawned process a mesh entry (parallel/ranks.py). Each
-rank collates its rows of every batch at the whole batch's T (the cache, the
-native loader and the waveform collation read only the rank's rows; numpy
-and RSH's mixed batches collate the whole batch and keep the rows); BN's
-statistics, the loss's norm and the gradients are summed over the ranks,
-and the initial states drawn for the global batch, so a step
-computes what one device computes on the whole batch, up to the order of
-sums. Rank 0 alone writes the checkpoints, loss files, plots, heartbeat and
+with more than one visible card, or over a given ``mesh`` (tests and
+chip_smoke.py give two entries on one device), ``train`` runs one spawned
+process a mesh entry (parallel/ranks.py). Each rank collates the whole of
+every batch and keeps its rows (``ranks.rows_of``; of RSH's mixed batches,
+each sub-batch's), so T is the whole batch's; BN's statistics, the loss's
+norm and the gradients are summed over the ranks, and the initial states
+drawn for the global batch, so a step computes what one device computes on
+the whole batch, up to the order of sums. Rank 0 alone writes the checkpoints, loss files, plots, heartbeat and
 profiler trace; ``train`` returns on the caller what it returns on one
 device.
 """
@@ -73,7 +71,7 @@ import torch
 from ..eval.infer import resolve_device
 from ..models.registry import get_arch
 from ..parallel import ranks
-from ..parallel.mesh import Mesh, get_mesh
+from ..parallel.mesh import Mesh, make_mesh
 from ..utils.weights import fold_lstm_biases
 from .checkpoint import (final_model_path, intermediate_model_path, load_checkpoint,
                          save_checkpoint)
@@ -141,10 +139,6 @@ class Optimizer:
         self.lr0, self.decay = cfg.learning_rate, cfg.lr_decay
         self.steps_per_epoch = steps_per_epoch
         self.count = 0
-        # keep a copy of the gradients as reduced, before the clip
-        # (``reduced_grads``, aligned with ``params``)
-        self.keep_grads = False
-        self.reduced_grads: list = []
 
     def lr(self) -> float:
         if self.decay != 1.0 and self.steps_per_epoch:
@@ -168,9 +162,6 @@ class Optimizer:
         """Sum the gradients over data-parallel ranks (parallel/ranks.py),
         clip, then one Adam update at the schedule's lr."""
         ranks.reduce_gradients(self.params)
-        if self.keep_grads:
-            self.reduced_grads = [None if p.grad is None else p.grad.detach().clone()
-                                  for p in self.params]
         self.clip()
         for group in self.adam.param_groups:
             group["lr"] = self.lr()
@@ -389,7 +380,7 @@ def train_with_restarts(data_dir: str, exp_dir: str, loop_cfg: TrainLoopConfig,
 
 def train(data_dir: str, exp_dir: str, loop_cfg: TrainLoopConfig,
           cv_data_dir: str = "", model_kwargs: dict | None = None, device=None,
-          log=print, mesh: Mesh | None = None, use_mesh: bool = True) -> dict:
+          log=print, mesh: Mesh | None = None) -> dict:
     """Run the training loop on ``device`` (CUDA by default; it raises when
     no card is visible). Returns {'model', 'model_cfg', 'epoch_losses',
     'cv_losses', 'steps', 'epoch_times', 'utts_per_sec'}; steps holds (ms,
@@ -399,13 +390,11 @@ def train(data_dir: str, exp_dir: str, loop_cfg: TrainLoopConfig,
     to its last step.
 
     Data parallel (module docstring) over ``mesh`` when it has more than one
-    entry, or, with ``use_mesh`` and ``device`` left to the default, over
-    every visible card when there is more than one; the returned model is
-    then on the mesh's first device and the steps' rows are the whole
-    batch's."""
-    if mesh is None and use_mesh and device in (None, "cuda") and \
-            torch.cuda.device_count() > 1:
-        mesh = get_mesh()
+    entry, or, with ``device`` left to the default, over every visible card
+    when there is more than one; the returned model is then on the mesh's
+    first device and the steps' rows are the whole batch's."""
+    if mesh is None and device in (None, "cuda") and torch.cuda.device_count() > 1:
+        mesh = make_mesh()
     if mesh is not None and mesh.size > 1:
         with _ExpLock(exp_dir):
             out = ranks.launch(mesh, _train_rank, (data_dir, exp_dir, loop_cfg, cv_data_dir,
@@ -457,10 +446,9 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
     # f32 products in full f32, as the JAX package's f32 path
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # over data-parallel ranks each collates its rows of every batch, and
-    # rank 0 alone writes files
+    # over data-parallel ranks each keeps its rows of every batch, and rank
+    # 0 alone writes files
     r = ranks.current()
-    share = None if r is None else (r.world, r.rank)
     lead = r is None or r.rank == 0
     stats_dir = os.path.join(exp_dir, "train_stats")
     os.makedirs(stats_dir, exist_ok=True)
@@ -479,7 +467,8 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
         prepare = functools.partial(to_arch, cfg=STFT)
 
         def collate_for(ds):
-            return lambda idxs: collate_wav_batch(ds, idxs, loop_cfg.batch_size, share=share)
+            return lambda idxs: ranks.rows_of(
+                collate_wav_batch(ds, idxs, loop_cfg.batch_size), r)
     else:
         dataset = FeatureDataset(data_dir, copy_location=loop_cfg.train_copy_location,
                                  log=log)
@@ -492,7 +481,7 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
                 # each speaker-count sub-batch split over the ranks
                 return lambda idxs: [ranks.rows_of(sb, r) for sb in collate_mixed_batch(
                     ds, idxs, plan, spk_counts[ds])]
-            return lambda idxs: collate(ds, idxs, plan, share)
+            return lambda idxs: ranks.rows_of(collate(ds, idxs, plan), r)
 
     # RSH: each utterance's speaker count, from utt2num_spk or else the
     # sources in its npz file
@@ -657,66 +646,6 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
             "cv_losses": cv_losses, "steps": steps, "h2d_bytes": h2d_bytes,
             "epoch_times": epoch_times, "utts_per_sec": utts_seen / max(wall, 1e-9),
             "collation": getattr(dataset, "collation", "wav")}
-
-
-def steps_over_ranks(jobs: list[dict], mesh: Mesh | None = None, device=None) -> list[dict]:
-    """One optimizer step for each job, over ``mesh``'s ranks (each its
-    rows of the batch, parallel/ranks.py) or, without a mesh of more than
-    one entry, in this process on ``device``: what the tests and
-    chip_smoke.py hold a data-parallel step to a single-device one with.
-    A job is {"arch", "model_kwargs", "weights" (a state dict of a model
-    whose LSTM biases are folded), "batch" (a collated numpy batch, or a
-    list of a mixed batch's sub-batches), "seed" (the initial states'
-    generator), "faults" (parallel/ranks.FAULTS, default none),
-    "time_pad_multiple", "raise_on_rank" (that rank raises before its step:
-    the failing-rank control)}. Returns, for each job, {"loss", "norm", "grads"
-    (every gradient as reduced over the ranks, before the clip), "params"
-    (after the Adam update), "buffers" (BN's running statistics)}, on the
-    CPU."""
-    if mesh is not None and mesh.size > 1:
-        return ranks.launch(mesh, _steps_here, (jobs,))
-    return _steps_here(jobs, device if mesh is None else mesh.devices[0])
-
-
-def _steps_here(jobs: list[dict], device=None) -> list[dict]:
-    r = ranks.current()
-    dev = r.device if r is not None else resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return [_one_step(dev, r, **job) for job in jobs]
-
-
-def _one_step(dev, r, arch, model_kwargs, weights, batch, seed=0, faults=(),
-              time_pad_multiple=128, raise_on_rank=None) -> dict:
-    if r is not None and r.rank == raise_on_rank:
-        raise RuntimeError(f"rank {r.rank} raises before its step, as the job asks")
-    arch = get_arch(arch)
-    model = arch.Model(arch.Config.from_kwargs(**model_kwargs))
-    fold_lstm_biases(model)
-    model.load_state_dict(weights)
-    model.to(dev)
-    optimizer = Optimizer(model.parameters(), TrainLoopConfig())
-    optimizer.keep_grads = True
-    generator = torch.Generator(device=dev).manual_seed(seed)
-    subs = batch if isinstance(batch, list) else [batch]
-    keys = AUDIO_KEYS if "audio" in subs[0] else FEATURE_KEYS
-    if keys == AUDIO_KEYS:
-        to_arch = audio_to_wave_batch if arch.DOMAIN == "time" else audio_to_feature_batch
-        prepare = functools.partial(to_arch, cfg=STFT)
-    else:
-        prepare = upcast_features
-    with ranks.with_faults(faults):
-        subs = [prepare(to_device(ranks.rows_of(sb, r, time_pad_multiple), dev, keys=keys))
-                for sb in subs]
-        if isinstance(batch, list):
-            loss, norm = accumulate_step(arch, model, optimizer, subs, generator)
-        else:
-            loss, norm = update_step(arch, model, optimizer, subs[0], generator)
-    names = [n for n, p in model.named_parameters() if p.requires_grad]
-    return {"loss": float(loss), "norm": float(norm),
-            "grads": {n: g.cpu() for n, g in zip(names, optimizer.reduced_grads)
-                      if g is not None},
-            "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
-            "buffers": {n: b.cpu() for n, b in model.named_buffers()}}
 
 
 def _heartbeat(path: str):

@@ -67,23 +67,15 @@ class WavDataset:
 
 
 def collate_wav_batch(dataset: WavDataset, idxs: list[int], batch_size: int,
-                      sample_pad_multiple: int = 16384,
-                      share: tuple[int, int] | None = None) -> dict:
+                      sample_pad_multiple: int = 16384) -> dict:
     """One shipped batch of the utterances ``idxs``, padded to
     ``batch_size`` rows (``row_mask`` 0 on the dummies), the normalized
-    audio quantized to int16 for the copy. With ``share`` (ranks, rank),
-    that data-parallel rank's rows alone (parallel/mesh.shard_batch's
-    split), at the whole batch's length and source count, with ``n_real``
-    the whole batch's real rows."""
+    audio quantized to int16 for the copy."""
     cfg = STFT
+    B = batch_size
     S = max(int(dataset.num_spks[i]) for i in idxs)
     max_len = _round_up(max(int(dataset.num_samples[i]) for i in idxs), sample_pad_multiple)
     Lp = max_len + cfg.n_fft
-    n_real, B = len(idxs), batch_size
-    if share is not None:
-        from ..parallel.mesh import rows_of_entry
-        sl = rows_of_entry(batch_size, *share)
-        idxs, B = idxs[sl], sl.stop - sl.start
 
     audio = np.zeros((B, 1 + S, Lp), np.float32)
     sample_lengths = np.zeros((B,), np.int32)
@@ -104,11 +96,8 @@ def collate_wav_batch(dataset: WavDataset, idxs: list[int], batch_size: int,
         row_mask[row] = 1.0
         names.append(utt)
     audio = np.round(audio * 32768.0).clip(-32768, 32767).astype(np.int16)
-    out = {"audio": audio, "sample_lengths": sample_lengths, "lengths": lengths,
-           "row_mask": row_mask, "names": names}
-    if share is not None:
-        out["n_real"] = n_real
-    return out
+    return {"audio": audio, "sample_lengths": sample_lengths, "lengths": lengths,
+            "row_mask": row_mask, "names": names}
 
 
 def audio_to_wave_batch(batch: dict, cfg: STFTConfig) -> dict:

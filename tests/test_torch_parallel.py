@@ -36,6 +36,7 @@ from speech_separation_tpu_torch.parallel import mesh as pmesh
 from speech_separation_tpu_torch.parallel.mesh import (data_parallel_mesh, make_mesh,
                                                        pad_rows, replicate_module,
                                                        run_replicas, shard_batch)
+from speech_separation_tpu_torch.parallel.ranks import Ranks, rows_of
 from speech_separation_tpu_torch.train.checkpoint import save_checkpoint
 from speech_separation_tpu_torch.train.data import BatchPlan, FeatureDataset, collate
 from speech_separation_tpu_torch.train.feature_cache import pack_features
@@ -123,31 +124,29 @@ def fc_corpus(tmp_path_factory):
 @pytest.mark.parametrize("collation", ["numpy", "native", "cache", "wav"])
 def test_each_rank_collates_its_rows_of_the_whole_batch(fc_corpus, tmp_path, collation):
     """A rank's share of a batch of 3 utterances in 5 rows (padded to 6,
-    3 a rank) equals its rows of the whole batch, T and sources included,
-    whether its collation reads only its rows (cache, native, wav) or the
-    whole batch (numpy)."""
+    3 a rank), through each collation: its rows of the whole batch, at the
+    whole batch's T and source count, with its names and the whole batch's
+    real-row count."""
     d = _copy_fc(fc_corpus, str(tmp_path / "d"), counts=collation != "numpy")
     idxs = [4, 0, 2]
     if collation == "wav":
         shutil.copy(os.path.join(fc_corpus, "wav.scp"), d)
-        ds = WavDataset(d)
-        whole = collate_wav_batch(ds, idxs, 5)
-        parts = [collate_wav_batch(ds, idxs, 5, share=(2, r)) for r in (0, 1)]
+        whole = collate_wav_batch(WavDataset(d), idxs, 5)
     else:
         if collation == "cache":
             pack_features(d, "train", cache_path=str(tmp_path / "c.bin"), log=lambda *_: None)
         ds = FeatureDataset(d, log=lambda *_: None)
         assert ds.collation == collation
-        plan = BatchPlan(batch_size=5, time_pad_multiple=8)
-        whole = collate(ds, idxs, plan)
-        parts = [collate(ds, idxs, plan, share=(2, r)) for r in (0, 1)]
+        whole = collate(ds, idxs, BatchPlan(batch_size=5, time_pad_multiple=8))
+    parts = [rows_of(whole, Ranks(r, 2, torch.device("cpu"))) for r in (0, 1)]
     names = whole["names"] + [""] * 3
-    for r, (got, want) in enumerate(zip(parts, shard_batch(whole, CPU2))):
+    for r, got in enumerate(parts):
         assert got["n_real"] == 3 and got["names"] == names[3 * r:3 * r + 3][:len(got["names"])]
-        for k, v in want.items():
+        for k, v in whole.items():
             if k != "names":
-                assert got[k].dtype == v.dtype, k
-                np.testing.assert_array_equal(got[k], v, err_msg=k)
+                want = np.concatenate([v, np.zeros((1,) + v.shape[1:], v.dtype)])[3 * r:3 * r + 3]
+                assert got[k].dtype == v.dtype and got[k].shape == want.shape, k
+                np.testing.assert_array_equal(got[k], want, err_msg=k)
 
 
 # --------------------------------------------------------------- pipeline

@@ -1,4 +1,4 @@
-"""Data-parallel training of the port (parallel/ranks.py, train/loop.py's
+"""Data-parallel training of the port (parallel/ranks.py, parallel/checks.py's
 ``steps_over_ranks`` and ``train(mesh=...)``) on the CPU: two gloo ranks,
 each its rows of every batch, against the port's single-process step on the
 same (row-padded) batch and against the JAX package's step on its 8-device
@@ -42,9 +42,10 @@ from speech_separation_tpu_torch.cli.main import main, read_model_config
 from speech_separation_tpu_torch.models import convtasnet as tct
 from speech_separation_tpu_torch.models import rsh as trsh
 from speech_separation_tpu_torch.models import upit as tupit
+from speech_separation_tpu_torch.parallel.checks import steps_over_ranks
 from speech_separation_tpu_torch.parallel.mesh import make_mesh, pad_rows
 from speech_separation_tpu_torch.parallel.ranks import RankFailed
-from speech_separation_tpu_torch.train.loop import TrainLoopConfig, steps_over_ranks, train
+from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
 from speech_separation_tpu_torch.utils.weights import fold_lstm_biases, state_dict_from_jax
 
 from test_torch_train_cli import TRAIN, _build_corpus
@@ -128,7 +129,7 @@ def _jobs():
                             weights=_weights(trsh.RSH(trsh.Config.from_kwargs(**RSH_KW))),
                             batch=_features(5, S=2, seed=3)),
         "convtasnet": {"arch": "ConvTasNet", "model_kwargs": CT_KW, "seed": 1,
-                       "weights": tct.ConvTasNet(tct.Config.from_kwargs(**CT_KW)).state_dict(),
+                       "weights": _weights(tct.ConvTasNet(tct.Config.from_kwargs(**CT_KW))),
                        "batch": _audio(5)},
     }
     # the reference's mixed batch: speaker-count sub-batches of 3, 1 and 2

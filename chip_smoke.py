@@ -3,8 +3,8 @@
 evaluation paths (uPIT, SepFormer, RSH, DPRNN, TCN, Conv-TasNet; the
 float64 device scorer, the oracle, the JAX package's checkpoints; the
 training extras: the packed feature cache, the native loader, the hang
-watchdog, the profiler; data-parallel training, separation and scoring)
-on one CUDA card and check them.
+watchdog, the profiler; data-parallel training, separation and scoring;
+tensor-parallel training steps) on one CUDA card and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -196,11 +196,26 @@ Phases, in order; any failure exits non-zero without the final line:
    device's; (g) rank 1 raising at its second step, the run ending non-zero
    at once ((b)-(d)'s ranks and (g)'s run beside the one-process steps, (e)
    and (f)); every kernel's launches in the phase (summed over the ranks);
-27. one JSON line with every kernel and its numbers (with the recipe's
+27. tensor parallel on one card (four ranks on cuda:0 over gloo, data 2 x
+   model 2, spawned once for every job): one step of phase 26 (b)'s 2x600
+   uPIT job (100 rows of phase 5's corpus, the same weights and initial
+   states) with the head split over the model group and with the LSTM's gate
+   rows split too (lstm_gates), and one step of the default Conv-TasNet with
+   Megatron blocks on 8 of phase 8's 4 s wavs, each in bf16 and f32, against
+   the same step in one process (phase 26's for uPIT): the loss, the clip's
+   norm (one value on every rank), every gradient as reduced and assembled,
+   BN's running statistics and the parameters' updates, within TP_TOL; the
+   four fault controls (a gather's backward summing its blocks, a replicated
+   input's gradient not summed over the model group, the gradients and the
+   loss's norm summed over every rank, gLN's statistics over the rank's block)
+   in both dtypes, each of which must fail those bounds; the uPIT bf16 step's
+   time under each placement beside phase 26 (a)'s and phase 5's; every
+   kernel's launches in the phase (summed over the ranks);
+28. one JSON line with every kernel and its numbers (with the recipe's
    launch counts, each LSTM kernel's numbers at DPRNN's shapes and its
    launches on each RSH, DPRNN, remat, SEPTPU01 and phase 25 path, K2's on
-   the TCN and oracle paths, the launches of each bench phase of phase 22), then
-   {"ok": true, "device": {...}} as the last line.
+   the TCN and oracle paths, the launches of each bench phase of phase 22 and
+   of phases 26 and 27), then {"ok": true, "device": {...}} as the last line.
 
 ``python3 chip_smoke.py --profile`` traces full-width SepFormer training
 steps with torch.profiler and prints where their time goes.
@@ -3856,7 +3871,213 @@ def data_parallel_phase(fails: Failures, counters, train_dir: str, sf_train_dir:
     for name, n in launches.items():
         fails.check(n > 0, f"{name} launched {n} times in phase 26")
     out["launches"] = launches
-    return out
+    # phase 27 holds its uPIT steps to these one-process steps (same jobs)
+    reused = {n: {"job": jobs[n], "single": single[n]} for n in ("upit", "upit_f32")}
+    return out, reused
+
+
+# -------------------------------------------------------- tensor parallel
+
+# Phase 27 runs tensor parallelism on one card: four ranks on cuda:0 over
+# gloo, data 2 x model 2 (parallel/mesh.make_mesh(data=2, model=2)), one
+# spawn for every job. Each job's step is held to the same step in one
+# process (phase 26's for uPIT: the same weights, rows and initial states):
+# the loss, the clip's global norm (every rank must see one value), every
+# gradient as reduced over the data group and assembled from its model
+# group's blocks, BN's running statistics, and each parameter's update (the
+# updated parameter less the weight it started from), by relative L2 within
+# TP_TOL; each fault control (parallel/ranks.FAULTS: gather_sums,
+# no_input_reduce and world_sums on uPIT's head placement, shard_norm_stats
+# on Conv-TasNet) must fail those bounds. TP_TOL is derived as DP_TOL is, for
+# each arch and dtype: the geometric mean of the largest sound reading and
+# the smallest fault reading, over the faults that move that quantity (a
+# sound 0 taken as one f32 rounding, 6e-8), on an NVIDIA H100 80GB HBM3 at
+# 700 W. No tensor-parallel fault moves uPIT's loss or BN's statistics (each
+# acts on gradients only), so those two keep DP_TOL's bounds for the same job.
+# Readings (sound -> bound <- fault):
+# uPIT bf16 (head-only and lstm_gates alike; every gradient one bf16 rounding
+#   off, the data axis's, as in phase 26): clip norm 4.9e-6 -> 9.4e-4 <- 1.8e-1
+#   (no_input_reduce), worst gradient 2.2e-3 -> 4.0e-2 <- 7.2e-1, median
+#   2.0e-3 -> 3.7e-2 <- 6.9e-1, updates 2.3e-2 -> 1.6e-1 <- 1.07;
+# uPIT f32: clip norm 0 -> 1.0e-4 <- 1.8e-1, worst gradient 3.3e-6 -> 1.5e-3 <-
+#   7.2e-1, median 4.4e-7 -> 5.5e-4 <- 6.9e-1, updates 1.1e-5 -> 3.5e-3 <- 1.07;
+# Conv-TasNet bf16: loss 4.9e-4 -> 2.6e-3 <- 1.4e-2, clip norm 4.3e-3 -> 2.9e-2
+#   <- 1.9e-1, worst gradient 5.8e-2 -> 1.5e-1 <- 3.7e-1, median 2.8e-2 ->
+#   8.7e-2 <- 2.7e-1, updates 3.1e-1 -> 4.8e-1 <- 7.2e-1 (2.3x);
+# Conv-TasNet f32: loss 0 -> 3.0e-5 <- 1.5e-2, clip norm 5.4e-6 -> 1.0e-3 <-
+#   2.0e-1, worst gradient 7.4e-4 -> 1.7e-2 <- 3.8e-1, median 1.7e-4 -> 6.8e-3
+#   <- 2.8e-1, updates 1.3e-1 -> 3.0e-1 <- 7.3e-1.
+# The full-width Conv-TasNet step sits near its own rounding floor: the
+# phase prints how far one process moves when its weights move by one ulp.
+# gather_sums leaves the updates as they are (Adam's first step is nearly
+# lr sign(g)) and world_sums the median gradient (it moves the split head's
+# alone); each is caught by the others.
+TP_MESH = ["cuda:0"] * 4
+TP_TOL = {"uPIT": {"bf16": {"loss": 4.9e-6, "norm": 9.4e-4, "grad": 4.0e-2,
+                            "grad_median": 3.7e-2, "bn": 1.3e-3, "param": 1.6e-1},
+                   "f32": {"loss": 2.9e-6, "norm": 1.0e-4, "grad": 1.5e-3,
+                           "grad_median": 5.5e-4, "bn": 6.3e-5, "param": 3.5e-3}},
+          "ConvTasNet": {"bf16": {"loss": 2.6e-3, "norm": 2.9e-2, "grad": 1.5e-1,
+                                  "grad_median": 8.7e-2, "param": 4.8e-1},
+                         "f32": {"loss": 3.0e-5, "norm": 1.0e-3, "grad": 1.7e-2,
+                                 "grad_median": 6.8e-3, "param": 3.0e-1}}}
+# Conv-TasNet's rows: the first 8 of phase 8's 4 s training wavs (phase 20
+# trains on batches of 32, whose one-process bf16 step peaks at 34.4 GB; four
+# ranks and the one-process reference share the card here)
+TP_CT_ROWS = 8
+TP_FAULTS = {"head": ("gather_sums", "no_input_reduce", "world_sums"),
+             "convtasnet": ("shard_norm_stats",)}
+
+
+def tp_errs(got: dict, ref: dict, weights: dict, tol: dict) -> dict:
+    """A tensor-parallel step's result against one process's
+    (``step_errs`` plus the clip's norm, the ranks' agreement on it and the
+    parameters' updates by relative L2, the worst)."""
+    e = step_errs(_dp_result(got), _dp_result(ref), tol)
+    e["norm_rel_err"] = abs(got["clip_norm"] - ref["clip_norm"]) / abs(ref["clip_norm"])
+    e["norms_agree"] = len(set(got["clip_norms"])) == 1
+    upd = {n: rel_l2(got["params"][n] - weights[n], ref["params"][n] - weights[n])
+           for n in ref["grads"]}
+    e["param_worst"] = max(upd, key=upd.get)
+    e["param_rel_err"] = upd[e["param_worst"]]
+    return e
+
+
+def check_tp_step(fails: Failures, what: str, e: dict, tol: dict, n_params: int) -> None:
+    check_step(fails, what, e, tol, n_params)
+    fails.check(e["norm_rel_err"] <= tol["norm"] and e["norms_agree"],
+                f"{what} clip norm: rel err {e['norm_rel_err']:.3e} <= {tol['norm']}, one "
+                f"value on every rank ({e['norms_agree']})")
+    fails.check(e["param_rel_err"] <= tol["param"],
+                f"{what} parameter updates: worst {e['param_worst']} rel err "
+                f"{e['param_rel_err']:.3e} <= {tol['param']}")
+
+
+def check_tp_fault(fails: Failures, what: str, e: dict, tol: dict) -> None:
+    """A fault control must fail a bound the sound step meets: its loss, the
+    clip's norm, the median gradient, most gradients, BN or the updates."""
+    bn = e.get("bn_rel_err")
+    caught = (e["loss_rel_err"] > tol["loss"] or e["norm_rel_err"] > tol["norm"]
+              or e["median_err"] > tol["grad_median"] or e["over_bound"] > e["n"] // 2
+              or (bn is not None and bn > tol["bn"]) or e["param_rel_err"] > tol["param"])
+    fails.check(caught, f"{what}: loss {e['loss_rel_err']:.3e} ({tol['loss']}), clip norm "
+                        f"{e['norm_rel_err']:.3e} ({tol['norm']}), median gradient "
+                        f"{e['median_err']:.3e} ({tol['grad_median']}), {e['over_bound']} of "
+                        f"{e['n']} gradients over {tol['grad']} (worst {e['worst']} "
+                        f"{e['worst_err']:.3e})" + (f", BN {bn:.3e} ({tol['bn']})" if bn
+                                                    is not None else "")
+                        + f", updates {e['param_rel_err']:.3e} ({tol['param']}): caught")
+
+
+def _tp_jobs(upit: dict, sf_train_dir: str) -> tuple[dict, dict]:
+    """Phase 27's jobs ("<placement>/<dtype>[/<fault>]") and Conv-TasNet's
+    one-process jobs by dtype: uPIT 2x600 on phase 26's job (100 rows of
+    phase 5's corpus), head-only and lstm_gates, the bf16 ones also timed;
+    Conv-TasNet at its defaults on TP_CT_ROWS of phase 8's wavs."""
+    from speech_separation_tpu_torch.models import convtasnet
+    from speech_separation_tpu_torch.train.wav_data import WavDataset, collate_wav_batch
+    ct = {"arch": "ConvTasNet", "model_kwargs": CONVTASNET_KW, "seed": SEED,
+          "batch": collate_wav_batch(WavDataset(sf_train_dir), list(range(TP_CT_ROWS)),
+                                     TP_CT_ROWS),
+          "weights": _dp_weights(convtasnet.ConvTasNet(convtasnet.Config.from_kwargs(
+              **CONVTASNET_KW)), SEED + 30)}
+    cts = {"bf16": ct, "f32": dict(ct, model_kwargs={**CONVTASNET_KW, "compute_dtype": "float32"})}
+    jobs = {}
+    for dt, up in (("bf16", upit["upit"]["job"]), ("f32", upit["upit_f32"]["job"])):
+        for tp in ("head", "lstm_gates"):
+            jobs[f"{tp}/{dt}"] = dict(up, tp=tp, time_steps=3 if dt == "bf16" else 0)
+        jobs[f"convtasnet/{dt}"] = dict(cts[dt], tp="convtasnet")
+        for tp, faults in TP_FAULTS.items():
+            base = up if tp == "head" else cts[dt]
+            for f in faults:
+                jobs[f"{tp}/{dt}/{f}"] = dict(base, tp=tp, faults=(f,))
+    return jobs, cts
+
+
+def tensor_parallel_phase(fails: Failures, counters, sf_train_dir: str, upit: dict,
+                          step_ms: dict) -> dict:
+    """Phase 27: tensor parallelism on one card (module docstring, item 27).
+    ``upit`` holds phase 26's uPIT jobs and their one-process results;
+    ``step_ms`` the uPIT bf16 step of phase 5 (one process) and phase 26 (a)
+    (two data-parallel ranks), printed beside the dp2 x tp2 steps."""
+    from speech_separation_tpu_torch.parallel import ranks
+    from speech_separation_tpu_torch.parallel.checks import steps_over_ranks
+    from speech_separation_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.empty_cache()          # the ranks need the card's memory
+    mesh = make_mesh(data=2, model=2, devices=TP_MESH)
+    jobs, cts = _tp_jobs(upit, sf_train_dir)
+    names = list(jobs)
+    spawned = {}
+
+    def over_ranks():
+        t = time.monotonic()
+        try:
+            spawned["results"] = dict(zip(names, steps_over_ranks([jobs[n] for n in names],
+                                                                  mesh=mesh)))
+            spawned["launches"] = dict(ranks.launch.kernel_launches)
+        except Exception as e:
+            spawned["error"] = repr(e)
+        spawned["wall_s"] = time.monotonic() - t
+
+    th = threading.Thread(target=over_ranks)
+    th.start()
+    # Conv-TasNet's one-process steps while the ranks start, and the same
+    # with its weights moved by one ulp (a random relative 1.2e-7): how far
+    # the step moves by rounding alone
+    gen = torch.Generator().manual_seed(SEED + 31)
+    nudged = {k: v * (1 + 1.2e-7 * torch.randn(v.shape, generator=gen))
+              for k, v in cts["bf16"]["weights"].items()}
+    t0 = time.monotonic()
+    runs = steps_over_ranks([*cts.values(), *(dict(j, weights=nudged) for j in cts.values())],
+                            device="cuda")
+    one_s = time.monotonic() - t0
+    single = {("convtasnet", dt): r for dt, r in zip(cts, runs)}
+    for dt, r in zip(cts, runs[len(cts):]):
+        e = step_errs(_dp_result(r), _dp_result(single["convtasnet", dt]),
+                      TP_TOL["ConvTasNet"][dt])
+        print(f"  Conv-TasNet {dt} in one process, weights moved one ulp: loss "
+              f"{e['loss_rel_err']:.3e}, gradients worst {e['worst']} {e['worst_err']:.3e} "
+              f"median {e['median_err']:.3e}", flush=True)
+    single.update({(tp, dt): upit[n]["single"] for n, dt in (("upit", "bf16"),
+                                                             ("upit_f32", "f32"))
+                   for tp in ("head", "lstm_gates")})
+    th.join()
+    fails.check("results" in spawned, f"{len(names)} steps over data 2 x model 2 ranks ran "
+                                      f"({spawned.get('error')})")
+    over = spawned.get("results", {})
+    launches = {c.__name__: spawned.get("launches", {}).get(c.__name__, 0) for c in counters}
+    print(f"  {len(names)} steps over four ranks: {spawned['wall_s']:.1f} s (Conv-TasNet's "
+          f"one-process steps beside them {one_s:.1f} s), launches {launches}; each job's "
+          f"wall (s) {({n: round(r['wall_s'], 2) for n, r in over.items()})}", flush=True)
+    errs = {}
+    for n, got in over.items():
+        tp, dt, *fault = n.split("/")
+        ref = single[tp, dt]
+        tol = TP_TOL[jobs[n]["arch"]][dt]
+        e = tp_errs(got, ref, jobs[n]["weights"], tol)
+        errs[n] = e
+        if fault:
+            check_tp_fault(fails, f"{tp} {dt}: fault control {fault[0]}", e, tol)
+        else:
+            check_tp_step(fails, f"{tp} {dt} over dp2 x tp2 against one process", e, tol,
+                          len(ref["grads"]))
+            print(f"    readings: loss {e['loss_rel_err']:.3e}, clip norm "
+                  f"{e['norm_rel_err']:.3e}, gradients worst {e['worst']} {e['worst_err']:.3e} "
+                  f"median {e['median_err']:.3e}, BN {e.get('bn_rel_err', float('nan')):.3e}, "
+                  f"updates worst {e['param_worst']} {e['param_rel_err']:.3e}", flush=True)
+    # uPIT: 10 jobs x 2 layers x 4 ranks, and 2 x 3 timed steps x 2 layers x 4 ranks
+    for name in ("lstm_seq_fwd", "lstm_seq_bwd"):
+        fails.check(launches[name] == 128, f"{name} launched {launches[name]} times over the "
+                                           "four ranks (16 uPIT steps x 2 layers x 4 ranks)")
+    timed = {tp: over[f"{tp}/bf16"]["step_ms"] for tp in ("head", "lstm_gates")
+             if f"{tp}/bf16" in over}
+    print(f"  uPIT bf16 step at B=100 on one card ({torch.cuda.get_device_name(0)}): dp2 x tp2 "
+          + ", ".join(f"{tp} {np.mean(ms):.2f} ms ({min(ms):.2f}-{max(ms):.2f})"
+                      for tp, ms in timed.items())
+          + f"; phase 26's dp2 {step_ms['dp2']:.2f} ms; phase 5's one process "
+            f"{step_ms['one']:.2f} ms", flush=True)
+    return {"steps": errs, "step_ms": timed, "wall_s": spawned["wall_s"], "launches": launches}
 
 
 def _kernel_group(name: str) -> str:
@@ -4121,10 +4342,20 @@ def main() -> int:
           "controls; two pipeline replicas; the CLI; the scorer over a mesh; a failing rank",
           flush=True)
     t26 = time.monotonic()
-    dp = data_parallel_phase(fails, [stft, *lstm_counters, *attn_counters],
-                             trained["train_dir"], trained_sf["train_dir"], trained,
-                             extras["native_dir"])
+    dp, dp_upit = data_parallel_phase(fails, [stft, *lstm_counters, *attn_counters],
+                                      trained["train_dir"], trained_sf["train_dir"], trained,
+                                      extras["native_dir"])
     print(f"  phase 26: {time.monotonic() - t26:.1f} s", flush=True)
+
+    print("== 27. tensor parallel on one card: uPIT (head-only and lstm_gates) and "
+          "Conv-TasNet steps over data 2 x model 2 ranks against one process, bf16 and f32, "
+          "with fault controls", flush=True)
+    t27 = time.monotonic()
+    tp = tensor_parallel_phase(fails, [stft, *lstm_counters, *attn_counters],
+                               trained_sf["train_dir"], dp_upit,
+                               {"one": trained["ms_per_step"], "dp2": dp["train"]["ms_per_step"]})
+    del dp_upit
+    print(f"  phase 27: {time.monotonic() - t27:.1f} s", flush=True)
     paths = {"rsh_train": trained_rsh["launches"], "rsh_mixed": trained_rsh["mixed_launches"],
              "rsh_masks": eval_rsh["launches"]["masks"], "rsh_serve": eval_rsh["serve_launches"],
              "dprnn_train": trained_dprnn["launches"], "dprnn_serve": served_dprnn["launches"],
@@ -4143,6 +4374,7 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                 "recipe_launches": recipe["launches"][name],
                 "data_parallel_launches": dp["launches"][name],
+                "tensor_parallel_launches": tp["launches"][name],
                 "bench_launches": {p: c[name] for p, c in tools["launches"].items()
                                    if c.get(name)}, **extra, **lstm_extra}
 
@@ -4206,6 +4438,7 @@ def main() -> int:
     print(f"  oracle: {oracle}", flush=True)
     print(f"  training extras: {extras}", flush=True)
     print(f"  data parallel: {dp}", flush=True)
+    print(f"  tensor parallel: {tp}", flush=True)
     print(f"  total {time.monotonic() - t_start:.1f} s", flush=True)
     if fails:
         print("chip_smoke FAILED:\n  " + "\n  ".join(fails), file=sys.stderr)

@@ -22,6 +22,15 @@ The counterpart of speech_separation_tpu/models/blstm.py:
 Parameters carry torch.nn.LSTM's names (``weight_ih_l0``, ``..._reverse``)
 so a reference ``.mdl`` state dict loads as it is. The two biases are
 summed in f32 at use, as the JAX package stores them summed.
+
+Tensor parallelism over the gate axis (``tp == "lstm_gates"``,
+parallel/mesh.shard_params): each rank holds a contiguous block of the 4H
+gate rows of every ``weight_ih``, ``weight_hh`` and bias, computes its
+columns of the input projection from the replicated input, and gathers the
+projection and ``weight_hh`` whole over the model group. The recurrence
+kernels cannot exchange state with another process at each step, so every
+rank of the group runs the whole recurrence; the gathers' backward hands
+each rank its block of the gradients.
 """
 
 from __future__ import annotations
@@ -33,30 +42,35 @@ from torch import nn
 
 from ..ops.lstm_kernel import lstm_seq, lstm_seq_infer
 from ..parallel import ranks
+from ..parallel.ranks import copy_to_model, gather_from_model
 
 
 def random_hidden(generator: torch.Generator, num_layers: int, batch: int,
                   hidden: int):
     """Reference quirk: initial (h0, c0) ~ N(0, 1) per batch, drawn from
     ``generator`` on its device. Shapes: (num_layers, 2, B, H) each. Over
-    data-parallel ranks, whose batch is a rank's ``batch`` rows of the
+    parallel ranks, whose batch is their data index's ``batch`` rows of the
     global one, every rank draws the global batch's states from the same
-    generator and keeps its own rows: the generators stay in step, and each
-    row gets the state one device would give it."""
+    generator and keeps its data index's rows: the generators stay in step,
+    each row gets the state one device would give it, and the ranks of a
+    model group get the same states."""
     r = ranks.current()
-    world, rank = (r.world, r.rank) if r is not None else (1, 0)
-    shape = (num_layers, 2, batch * world, hidden)
+    parts, i = (r.data, r.data_index) if r is not None else (1, 0)
+    shape = (num_layers, 2, batch * parts, hidden)
     h0 = torch.randn(shape, generator=generator, device=generator.device)
     c0 = torch.randn(shape, generator=generator, device=generator.device)
-    if world == 1:
+    if parts == 1:
         return h0, c0
-    rows = slice(rank * batch, (rank + 1) * batch)
+    rows = slice(i * batch, (i + 1) * batch)
     return h0[:, :, rows].contiguous(), c0[:, :, rows].contiguous()
 
 
 class BLSTM(nn.Module):
     """Multi-layer bidirectional LSTM with the BLSTM layout of the JAX
     package: outputs (B, T, 2H), forward direction first."""
+
+    # "lstm_gates": the gate rows split over the model group (parallel/mesh.place)
+    tp: str | None = None
 
     def __init__(self, input_dim: int, hidden: int, num_layers: int = 2):
         super().__init__()
@@ -94,6 +108,7 @@ class BLSTM(nn.Module):
         inference and in compute_dtype for training, (h_n, c_n) each
         (num_layers, 2, B, H) f32)."""
         train = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
+        gates = self.tp == "lstm_gates"
         out = x
         h_finals, c_finals = [], []
         for layer in range(self.num_layers):
@@ -106,13 +121,24 @@ class BLSTM(nn.Module):
                 # inputs with f32 accumulation, ROUNDED to bf16, then the
                 # bf16 bias added in bf16 (a second rounding)
                 x_pair = torch.stack([out_c, x_rev]).float()             # (2, B, T, F)
+                if gates:
+                    # the gradient of the rounded input summed in f32 over the
+                    # group, then rounded once, as one process rounds it
+                    x_pair = copy_to_model(x_pair)
                 w_pair = torch.stack([wf_ih.t(), wb_ih.t()]).to(compute_dtype).float()
                 b_pair = torch.stack([bf, bb]).to(compute_dtype)         # (2, 4H)
                 xw = torch.matmul(x_pair, w_pair[:, None]).to(compute_dtype)
                 xw = xw + b_pair[:, None, None, :]
             else:
+                if gates:
+                    out_c = copy_to_model(out_c)
+                    x_rev = torch.flip(out_c, dims=(1,))
                 xw = torch.stack([torch.matmul(out_c, wf_ih.t()) + bf,
                                   torch.matmul(x_rev, wb_ih.t()) + bb])
+            if gates:
+                # each rank's gate columns, then the whole 4H
+                xw = gather_from_model(xw, dim=-1)
+                wf_hh, wb_hh = gather_from_model(wf_hh, 0), gather_from_model(wb_hh, 0)
             xw = xw.permute(2, 0, 1, 3).contiguous()                      # (T, 2, B, 4H)
             w_hh = torch.stack([wf_hh.t(), wb_hh.t()]).to(compute_dtype).contiguous()
             state = (h0[layer].contiguous(), c0[layer].contiguous(), lengths)

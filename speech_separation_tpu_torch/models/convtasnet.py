@@ -25,6 +25,13 @@ products and the bases are torch.matmul, the depthwise convs
 torch.nn.functional.conv1d, as the JAX package leaves them to XLA outside any
 kernel; ``remat=True`` recomputes the separation in the backward.
 
+Tensor parallelism (``tp == "convtasnet"``,
+parallel/mesh.shard_params_convtasnet): the blocks run Megatron style
+(models/tcn.run_blocks with ``split``), their gLN or cLN statistics summed
+over the model group (``in_ln``, on a replicated tensor, is not), and the
+mask head is column-parallel, its logits gathered whole before the reshape
+to (S, N).
+
 Also kept here, for models/dprnn.py and sepformer.py: ``latent_frames``,
 ``valid_latent_frames``, the encoder and decoder (``encode``, ``decode``),
 the masked gLN ``_gln``, ``pairwise_neg_si_snr`` and ``pit_si_snr_loss``.
@@ -48,9 +55,9 @@ from .tcn import (Block, _cln, _cln_init, _dot, _linear_draw_, _linear_init, _pr
                   init_stream_state, run_blocks)
 from .upit import _coerce_kwargs
 from ..dsp.stft import _overlap_add, frame_signal
-from ..ops.mxu import head_dot
+from ..ops.mxu import column_dot, head_dot
 from ..ops.pit import permutation_min_loss
-from ..parallel.ranks import global_sum
+from ..parallel.ranks import gather_from_model, global_sum, sum_over_model
 
 NAME = "ConvTasNet"
 DOMAIN = "time"
@@ -115,22 +122,29 @@ def valid_latent_frames(cfg, sample_lengths: torch.Tensor, n_t: int) -> torch.Te
     return torch.clamp(c, 1, n_t).to(torch.int32)
 
 
-def _gln(x: torch.Tensor, p, mask: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def _gln(x: torch.Tensor, p, mask: torch.Tensor, eps: float = 1e-6,
+         over_model: bool = False) -> torch.Tensor:
     """Masked global layer norm over all non-batch axes: one (mu, var) per
     utterance over its true positions and all channels. x (B, ..., C); mask
     broadcasts against x with 1.0 at true positions. Statistics in float32,
-    the result stored back in x's dtype."""
+    the result stored back in x's dtype. ``over_model``: x is this rank's
+    block of a channel axis split over the model group, and the sums and
+    the count are summed over the group."""
+    total = sum_over_model if over_model else (lambda t: t)
     xf = x.float()
     axes = tuple(range(1, x.dim()))
-    cnt = torch.clamp_min(torch.sum(mask, dim=axes, keepdim=True)
-                          * x.shape[-1] / mask.shape[-1], 1.0)
-    mu = torch.sum(xf * mask, dim=axes, keepdim=True) / cnt
-    var = torch.sum(torch.square((xf - mu) * mask), dim=axes, keepdim=True) / cnt
+    cnt = torch.clamp_min(total(torch.sum(mask, dim=axes, keepdim=True)
+                                * x.shape[-1] / mask.shape[-1]), 1.0)
+    mu = total(torch.sum(xf * mask, dim=axes, keepdim=True)) / cnt
+    var = total(torch.sum(torch.square((xf - mu) * mask), dim=axes, keepdim=True)) / cnt
     return (((xf - mu) * torch.rsqrt(var + eps)) * p["g"] + p["b"]).to(x.dtype)
 
 
-def _norm(x: torch.Tensor, p, tmask: torch.Tensor, kind: str) -> torch.Tensor:
-    return _cln(x, p) if kind == "cln" else _gln(x, p, tmask)
+def _norm(x: torch.Tensor, p, tmask: torch.Tensor, kind: str,
+          over_model: bool = False) -> torch.Tensor:
+    if kind == "cln":
+        return _cln(x, p, over_model=over_model)
+    return _gln(x, p, tmask, over_model=over_model)
 
 
 def pairwise_neg_si_snr(est: torch.Tensor, ref: torch.Tensor, smask: torch.Tensor,
@@ -202,6 +216,9 @@ def decode(model, w: torch.Tensor, masks: torch.Tensor, L: int) -> torch.Tensor:
 # -------------------------------------------------------------------- model
 
 class ConvTasNet(nn.Module):
+    # "convtasnet": Megatron blocks over the model group (parallel/mesh.place)
+    tp: str | None = None
+
     def __init__(self, cfg: Config, generator: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
@@ -238,7 +255,11 @@ class ConvTasNet(nn.Module):
         """Summed skips (B, T', channels) -> masks (B, T', S, N), the head's
         logits in float32."""
         cfg = self.cfg
-        out = _dot(_prelu(skips, self.head_prelu), self.head, cfg.torch_dtype)
+        if self.tp is None:
+            out = _dot(_prelu(skips, self.head_prelu), self.head, cfg.torch_dtype)
+        else:
+            out = column_dot(_prelu(skips, self.head_prelu), self.head["w"], cfg.torch_dtype)
+            out = gather_from_model(out + self.head["b"], dim=-1)
         out = out.reshape(*out.shape[:2], cfg.num_spk, cfg.n_filters)
         return torch.relu(out) if cfg.mask_act == "relu" else torch.sigmoid(out)
 
@@ -249,11 +270,13 @@ class ConvTasNet(nn.Module):
         ad = cfg.torch_dtype
         tm = tmask.to(ad)
 
-        def norm(x, p):
-            return _norm(x, p, tmask, cfg.norm)
+        split = self.tp is not None
 
-        h = _dot(norm(w.to(ad), self.in_ln), self.bottleneck, ad, ad) * tm
-        skips, _ = run_blocks(self.blocks, cfg, h, norm, tm)
+        def block_norm(x, p):
+            return _norm(x, p, tmask, cfg.norm, over_model=split)
+
+        h = _dot(_norm(w.to(ad), self.in_ln, tmask, cfg.norm), self.bottleneck, ad, ad) * tm
+        skips, _ = run_blocks(self.blocks, cfg, h, block_norm, tm, split=split)
         return self._masks(skips) * tmask[:, :, None, :]
 
     def forward(self, wav: torch.Tensor, sample_lengths: torch.Tensor) -> torch.Tensor:

@@ -47,7 +47,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .upit import _coerce_kwargs, contract_loss
-from ..ops.mxu import head_dot
+from ..ops.mxu import column_dot, head_dot
+from ..parallel.ranks import reduce_from_model, sum_over_model
 
 NAME = "TCN"
 DOMAIN = "spectrum"
@@ -111,13 +112,19 @@ def _prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, x * alpha.to(x.dtype))
 
 
-def _cln(x: torch.Tensor, p, eps: float = 1e-6) -> torch.Tensor:
+def _cln(x: torch.Tensor, p, eps: float = 1e-6, over_model: bool = False) -> torch.Tensor:
     """Per-frame (channelwise) layer norm; statistics and normalization in
     float32 whatever x's storage dtype, the result stored back in x's
-    dtype."""
+    dtype. ``over_model``: x is this rank's block of a channel axis split
+    over the model group, and the statistics are summed over the group."""
     xf = x.float()
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    if not over_model:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    else:
+        cnt = sum_over_model(xf.new_full((), x.shape[-1]))
+        mu = sum_over_model(torch.sum(xf, dim=-1, keepdim=True)) / cnt
+        var = sum_over_model(torch.sum(torch.square(xf - mu), dim=-1, keepdim=True)) / cnt
     return (((xf - mu) * torch.rsqrt(var + eps)) * p["g"] + p["b"]).to(x.dtype)
 
 
@@ -127,6 +134,13 @@ def _dot(x: torch.Tensor, lin, dtype: torch.dtype, out_dtype: torch.dtype | None
     ``out_dtype`` sets the storage dtype of the result."""
     y = head_dot(x, lin["w"], dtype) + lin["b"]
     return y if out_dtype is None else y.to(out_dtype)
+
+
+def _row_dot(x: torch.Tensor, lin, dtype: torch.dtype, out_dtype: torch.dtype) -> torch.Tensor:
+    """``_dot`` of this rank's block of x's last axis by its block of w's
+    rows (a row-parallel product): the float32 partial products summed over
+    the model group, then the replicated bias, once."""
+    return (reduce_from_model(head_dot(x, lin["w"], dtype)) + lin["b"]).to(out_dtype)
 
 
 def _conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, dilation: int,
@@ -185,18 +199,27 @@ class Block(nn.Module):
 
 
 def run_blocks(blocks, cfg, h: torch.Tensor, norm, tm: torch.Tensor | None,
-               conv_state: list | None = None):
+               conv_state: list | None = None, split: bool = False):
     """The residual stack shared by TCN and Conv-TasNet, offline and
     streaming: h (B, T, channels) in the activation dtype; ``norm(x, p)``
     the block's norm; ``tm`` (B, T, 1) the frame mask in the activation
     dtype, or None (streaming: every frame is real). Offline, each
     depthwise conv pads as ``cfg.causal`` says; with ``conv_state`` (one
     context a block) each runs over its carried context instead. Returns the
-    summed skips and, with ``conv_state``, the new contexts."""
+    summed skips and, with ``conv_state``, the new contexts.
+
+    ``split``: the blocks hold this rank's block of H (Megatron style,
+    parallel/mesh.shard_params_convtasnet): ``expand`` column-parallel on
+    the replicated h, the PReLUs, norms (``norm`` sums their statistics
+    over the model group) and depthwise conv on the rank's H block, ``res``
+    and ``skip`` row-parallel, so h and the skips stay replicated."""
     md = ad = cfg.torch_dtype
     skips, new_state = None, []
     for i, (blk, d) in enumerate(zip(blocks, cfg.dilations())):
-        y = _dot(h, blk.expand, md, ad)
+        if split:
+            y = (column_dot(h, blk.expand["w"], md) + blk.expand["b"]).to(ad)
+        else:
+            y = _dot(h, blk.expand, md, ad)
         y = norm(_prelu(y, blk.prelu1), blk.ln1)
         if tm is not None:
             # masked before the conv: pad frames would otherwise carry bias
@@ -208,8 +231,9 @@ def run_blocks(blocks, cfg, h: torch.Tensor, norm, tm: torch.Tensor | None,
             y, ctx = stream_conv(y, blk, d, conv_state[i])
             new_state.append(ctx)
         y = norm(_prelu(y, blk.prelu2), blk.ln2)
-        h = h + _dot(y, blk.res, md, ad)
-        s = _dot(y, blk.skip, md, ad)
+        out = _row_dot if split else _dot
+        h = h + out(y, blk.res, md, ad)
+        s = out(y, blk.skip, md, ad)
         if tm is not None:
             h, s = h * tm, s * tm
         skips = s if skips is None else skips + s

@@ -23,6 +23,13 @@ BN's running statistics move once a step all the same.
 
 Parameter names follow the reference ``.mdl`` state dict: ``blstm.*``
 (torch.nn.LSTM names), ``bn.*`` (BatchNorm1d) and ``lin.*`` (Linear).
+
+Tensor parallelism (parallel/mesh.shard_params; ``tp`` "head" or
+"lstm_gates"): the head is column-parallel. Each rank of the model group
+holds a block of ``lin``'s output rows, multiplies the replicated BN output
+(``copy_to_model``) by it, adds its bias block, and the logits are gathered
+whole before the sigmoid and the loss. BN stays replicated over the model
+group, its statistics summed over the data group.
 """
 
 from __future__ import annotations
@@ -35,9 +42,9 @@ from torch import nn
 
 from .blstm import BLSTM, random_hidden
 from ..ops.batchnorm import BatchNorm, remat_checkpoint
-from ..ops.mxu import head_dot
+from ..ops.mxu import column_dot, head_dot
 from ..ops.pit import pairwise_mse, permutation_min_loss
-from ..parallel.ranks import global_sum
+from ..parallel.ranks import copy_to_model, gather_from_model, global_sum
 
 NAME = "uPIT"
 DOMAIN = "spectrum"
@@ -97,6 +104,9 @@ class UPIT(nn.Module):
     """BLSTM -> padded BN -> linear -> sigmoid, from ``cfg.input_dim`` to
     ``cfg.out_dim`` features a frame (models/rsh.py's model too)."""
 
+    # "head" or "lstm_gates": split over the model group (parallel/mesh.place)
+    tp: str | None = None
+
     def __init__(self, cfg):
         super().__init__()
         self.cfg = cfg
@@ -121,7 +131,11 @@ class UPIT(nn.Module):
         dt = self.cfg.torch_dtype
         y, state = self.blstm(x, lengths, h0, c0, compute_dtype=dt)
         y = self.bn(y, row_mask, train)
-        y = torch.sigmoid(head_dot(y, self.lin.weight.t(), dt) + self.lin.bias)
+        if self.tp is None:
+            y = torch.sigmoid(head_dot(y, self.lin.weight.t(), dt) + self.lin.bias)
+        else:
+            logits = column_dot(y, self.lin.weight.t(), dt) + self.lin.bias
+            y = torch.sigmoid(gather_from_model(logits, dim=-1))
         return (y, state) if return_state else y
 
 

@@ -150,17 +150,30 @@ class Optimizer:
 
     @torch.no_grad()
     def clip(self) -> torch.Tensor:
-        """Clip the gradients in place; returns their global norm before."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        """Clip the gradients in place; returns their global norm before.
+        Over a model axis the norm is the logical parameters': the squared
+        sums of the split parameters (``model_split``, parallel/mesh.place)
+        are summed over the model group, the replicated ones count once, so
+        every rank clips by the same norm."""
+        held = [p for p in self.params if p.grad is not None]
+        grads = [p.grad for p in held]
+        squares = [torch.sum(torch.square(g)) for g in grads]
+        split = [hasattr(p, "model_split") for p in held]
+        if any(split):
+            total = ranks.model_sum(sum(q for q, s in zip(squares, split) if s)) \
+                + sum(q for q, s in zip(squares, split) if not s)
+        else:
+            total = sum(squares)
+        norm = torch.sqrt(total)
         keep = norm < self.max_norm
         for g in grads:
             g.copy_(torch.where(keep, g, g / norm * self.max_norm))
         return norm
 
     def step(self) -> None:
-        """Sum the gradients over data-parallel ranks (parallel/ranks.py),
-        clip, then one Adam update at the schedule's lr."""
+        """Sum the gradients over the data group of parallel ranks
+        (parallel/ranks.py), clip, then one Adam update at the schedule's lr
+        (over a model axis, on each rank's blocks)."""
         ranks.reduce_gradients(self.params)
         self.clip()
         for group in self.adam.param_groups:
@@ -395,6 +408,10 @@ def train(data_dir: str, exp_dir: str, loop_cfg: TrainLoopConfig,
     first device and the steps' rows are the whole batch's."""
     if mesh is None and device in (None, "cuda") and torch.cuda.device_count() > 1:
         mesh = make_mesh()
+    if mesh is not None and mesh.shape["model"] > 1:
+        raise ValueError(f"train() splits batches over a data axis only, not over {mesh.shape}: "
+                         "as in the JAX package, no training loop runs a model axis "
+                         "(parallel/checks.steps_over_ranks takes one)")
     if mesh is not None and mesh.size > 1:
         with _ExpLock(exp_dir):
             out = ranks.launch(mesh, _train_rank, (data_dir, exp_dir, loop_cfg, cv_data_dir,

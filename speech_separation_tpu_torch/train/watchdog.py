@@ -16,8 +16,16 @@ rank (a rank exits when its parent is gone, parallel/ranks.py).
 
 Two allowances: before an attempt's first beat the child builds its kernels
 and reads its first batch, which may take minutes (``first_timeout_s``);
-after it, a silence longer than ``hang_timeout_s`` is a hang. Enable with
+after it, a silence longer than ``hang_timeout_s`` is a hang. A heartbeat
+file deleted under a running child is made again with the last beat's
+mtime, so the allowance stays the one after the first beat. Enable with
 ``train``/``run-train --hang-watchdog-sec N``.
+
+An error that a restart cannot cure ends the supervised run at once, with
+that error and no restart: another trainer's lock on the exp dir
+(``ExpDirLocked``) or a configuration ``ValueError`` (``_fatal_types``). The child
+writes the exception it died of beside the heartbeat (``.error``), and the
+supervisor raises it again; any other failure is restarted.
 """
 
 from __future__ import annotations
@@ -26,11 +34,57 @@ import dataclasses
 import json
 import multiprocessing
 import os
+import pickle
 import time
 
 
 class HangRecoveryExhausted(RuntimeError):
     """Supervised training kept hanging or crashing past max_restarts."""
+
+
+def _fatal_types() -> tuple:
+    """The errors a restart cannot cure: another trainer's lock, and a
+    configuration ValueError."""
+    from .loop import ExpDirLocked
+    return (ExpDirLocked, ValueError)
+
+
+def _child(target, error_path: str, *args) -> None:
+    """A supervised child: ``target(*args)``; the exception it dies of is
+    written to ``error_path`` (pickled) for the supervisor, then raised."""
+    try:
+        target(*args)
+    except Exception as e:
+        try:
+            with open(error_path, "wb") as f:
+                pickle.dump(e, f)
+        except (OSError, pickle.PicklingError, TypeError, AttributeError):
+            pass
+        raise
+
+
+def _child_error(error_path: str):
+    """The exception a child wrote before it died, or None."""
+    try:
+        with open(error_path, "rb") as f:
+            return pickle.load(f)
+    except (OSError, EOFError, pickle.UnpicklingError, AttributeError, ImportError, TypeError):
+        return None
+
+
+def _last_beat(heartbeat_file: str, last: float) -> float:
+    """The heartbeat's mtime, or ``last`` (the newest seen) when the file
+    is gone: it is made again with that mtime, so the child can beat on and
+    a deleted file neither reads as a beat nor as "not yet started"."""
+    try:
+        return max(last, os.path.getmtime(heartbeat_file))
+    except OSError:
+        try:
+            open(heartbeat_file, "a").close()
+            os.utime(heartbeat_file, (last, last))
+        except OSError:
+            pass
+        return last
 
 
 def _supervise(target, args_for_attempt, heartbeat_file: str, hang_timeout_s: float,
@@ -40,25 +94,28 @@ def _supervise(target, args_for_attempt, heartbeat_file: str, hang_timeout_s: fl
     one exits cleanly; returns the number of restarts used. A child whose
     heartbeat file is stale, by ``first_timeout_s`` before its first beat
     and ``hang_timeout_s`` after, is killed. Kills and crashes both count
-    against ``max_restarts``."""
+    against ``max_restarts``; a child that dies of a ``_fatal_types`` error ends
+    the run with that error at once."""
     ctx = multiprocessing.get_context("spawn")
+    error_path = heartbeat_file + ".error"
     attempt = 0
     while True:
         open(heartbeat_file, "w").close()
-        t_start = os.path.getmtime(heartbeat_file)
-        proc = ctx.Process(target=target, args=args_for_attempt(attempt))
+        t_start = last = os.path.getmtime(heartbeat_file)
+        try:
+            os.remove(error_path)
+        except FileNotFoundError:
+            pass
+        proc = ctx.Process(target=_child, args=(target, error_path, *args_for_attempt(attempt)))
         proc.start()
         killed = False
         while True:
             proc.join(timeout=poll_s)
             if proc.exitcode is not None:
                 break
-            try:
-                mtime = os.path.getmtime(heartbeat_file)
-            except OSError:      # deleted under the supervisor: stale
-                mtime = t_start
-            allowed = hang_timeout_s if mtime > t_start else first_timeout_s
-            stale = time.time() - mtime
+            last = _last_beat(heartbeat_file, last)
+            allowed = hang_timeout_s if last > t_start else first_timeout_s
+            stale = time.time() - last
             if stale > allowed:
                 log(f"watchdog: heartbeat stale {stale:.0f}s (> {allowed:.0f}s "
                     f"allowed); killing wedged child pid {proc.pid}")
@@ -66,8 +123,15 @@ def _supervise(target, args_for_attempt, heartbeat_file: str, hang_timeout_s: fl
                 proc.join(30)
                 killed = True
                 break
+        error = None if killed else _child_error(error_path)
+        if os.path.exists(error_path):
+            os.remove(error_path)
         if proc.exitcode == 0:
             return attempt
+        if isinstance(error, _fatal_types()):
+            log(f"watchdog: child failed with {type(error).__name__}: {error}; a restart "
+                "cannot cure it, so the run ends here")
+            raise error
         reason = "hang-killed" if killed else f"died rc={proc.exitcode}"
         if attempt >= max_restarts:
             raise HangRecoveryExhausted(

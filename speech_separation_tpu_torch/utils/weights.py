@@ -152,3 +152,20 @@ def fold_lstm_biases(module: torch.nn.Module) -> None:
                     getattr(m, "bias_ih_" + name[len("bias_hh_"):]).add_(p)
                     p.zero_()
                     p.requires_grad_(False)
+
+
+def shard_state_dict(sd: dict, dims: dict, m: int, k: int) -> dict:
+    """Model index k's part of a state dict over a model axis of ``m``:
+    each tensor whose ``dims`` entry is an axis cut into ``m`` contiguous
+    equal blocks and block k kept (as the JAX package's NamedSharding lays
+    a split axis over its mesh), the others whole (parallel/mesh.Placement)."""
+    return {n: v if dims.get(n) is None else v.chunk(m, dims[n])[k].clone()
+            for n, v in sd.items()}
+
+
+def assemble_state_dict(parts: list[dict], dims: dict) -> dict:
+    """The whole state dict from every model index's part, in order: split
+    tensors concatenated on their axis, the others taken from part 0."""
+    return {n: v if dims.get(n) is None else torch.cat([p[n] for p in parts], dims[n])
+            for n, v in parts[0].items()}
+

@@ -99,8 +99,23 @@ def test_one_visible_device_gives_no_mesh_with_the_note():
 
 
 def test_tensor_parallel_meshes_are_refused():
-    with pytest.raises(NotImplementedError, match="A.5.6"):
-        make_mesh(model=2, devices=["cpu", "cpu"])
+    """Once a refusal of model > 1; now the (data, model) mesh as the JAX
+    package's make_mesh lays it out: row-major (devices.reshape(data,
+    model)), data defaulting to what fills the list, and each rank's model
+    and data groups. Only an axis that does not fit is refused."""
+    mesh = make_mesh(data=2, model=2, devices=["cpu"] * 4)
+    assert mesh.shape == {"data": 2, "model": 2} and mesh.size == 4
+    coords = [(r.data_index, r.model_index) for r in
+              (Ranks(k, mesh.size, mesh.devices[k], mesh.shape["model"]) for k in range(4))]
+    assert coords == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert mesh.model_groups() == [[0, 1], [2, 3]]       # same rows
+    assert mesh.data_groups() == [[0, 2], [1, 3]]        # same shards
+    jm = jax_mesh(data=2, model=2, devices=jax.devices()[:4])
+    assert [[d.id for d in row] for row in jm.devices] == [[0, 1], [2, 3]]
+    assert make_mesh(model=2, devices=["cpu"] * 5).shape == {"data": 2, "model": 2}
+    assert make_mesh(model=4, devices=["cpu"] * 4).shape == {"data": 1, "model": 4}
+    with pytest.raises(ValueError):
+        make_mesh(data=3, model=2, devices=["cpu"] * 4)
     assert make_mesh(devices=["cpu"] * 3).shape == {"data": 3, "model": 1}
     assert make_mesh(data=2, devices=["cpu"] * 3).size == 2
 

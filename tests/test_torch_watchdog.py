@@ -1,7 +1,9 @@
 """The port's hang watchdog (speech_separation_tpu_torch/train/watchdog.py),
 as tests/test_watchdog.py holds the JAX package's: the supervisor with stub
 children in spawned processes (a clean child, a hung one, one slow to its
-first beat, one that never beats, a crash), then a supervised CPU training
+first beat, one that never beats, a crash; one that dies of another
+trainer's lock and one of a configuration error, which end the run with no
+restart; one that deletes its heartbeat and wedges), then a supervised CPU training
 of a tiny uPIT through the CLI, whose final.mdl equals the in-process run's,
 and the heartbeat the loop touches."""
 
@@ -16,7 +18,7 @@ from speech_separation_tpu_torch.cli.main import main
 from speech_separation_tpu_torch.dsp.extract import extract_features
 from speech_separation_tpu_torch.datadir.prepare import prepare_data_dir
 from speech_separation_tpu_torch.datadir.registry import DatasetRegistry
-from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
+from speech_separation_tpu_torch.train.loop import ExpDirLocked, TrainLoopConfig, train
 from speech_separation_tpu_torch.train.watchdog import HangRecoveryExhausted, _supervise
 from speech_separation_tpu_torch.utils.synthetic import make_synthetic_corpus, write_id_list
 
@@ -64,6 +66,36 @@ def test_supervise_gives_up_after_max_restarts(tmp_path):
         _supervise(stubs.never_beats, args_fn, hb, hang_timeout_s=3600, first_timeout_s=1.0,
                    max_restarts=0, poll_s=0.1, log=quiet)
     assert time.time() - t0 < 30
+
+
+@pytest.mark.parametrize("stub,error", [(stubs.locked, ExpDirLocked),
+                                         (stubs.bad_config, ValueError)],
+                         ids=["exp-dir-locked", "config-error"])
+def test_an_error_no_restart_cures_ends_the_run_at_once(tmp_path, stub, error):
+    """The child's own error surfaces in the supervisor after 0 restarts,
+    though restarts are left (not HangRecoveryExhausted)."""
+    hb, args_fn = _args(tmp_path)
+    msgs = []
+    with pytest.raises(error) as caught:
+        _supervise(stub, args_fn, hb, hang_timeout_s=30, first_timeout_s=60, max_restarts=3,
+                   poll_s=0.1, log=msgs.append)
+    assert type(caught.value) is error
+    assert not any("restart" in m and "/3" in m for m in msgs), msgs
+    assert any("a restart cannot cure it" in m for m in msgs)
+    assert not os.path.exists(hb + ".error")
+
+
+def test_a_deleted_heartbeat_keeps_the_steady_state_allowance(tmp_path):
+    """A child that beat once and then lost its heartbeat file is caught at
+    hang_timeout_s (1 s), not first_timeout_s (30 s); the file is made
+    again."""
+    hb, args_fn = _args(tmp_path)
+    t0 = time.time()
+    with pytest.raises(HangRecoveryExhausted, match="hang-killed"):
+        _supervise(stubs.beat_then_delete, args_fn, hb, hang_timeout_s=1.0,
+                   first_timeout_s=30, max_restarts=0, poll_s=0.1, log=quiet)
+    assert time.time() - t0 < 15
+    assert os.path.exists(hb)
 
 
 def _build_data(root):

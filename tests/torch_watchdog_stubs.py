@@ -44,3 +44,25 @@ def slow_first_beat(hb_path, flag_path):
     for _ in range(3):
         os.utime(hb_path, None)
         time.sleep(0.1)
+
+
+def locked(hb_path, flag_path):
+    """Dies of another trainer's lock (this child imports the port, and so
+    torch: seconds, once)."""
+    from speech_separation_tpu_torch.train.loop import ExpDirLocked
+    os.utime(hb_path, None)
+    raise ExpDirLocked("exp dir is locked by another trainer (pid 1)")
+
+
+def bad_config(hb_path, flag_path):
+    """Dies of a configuration error before its first beat."""
+    raise ValueError("mask_act must be relu|sigmoid, got 'tanh'")
+
+
+def beat_then_delete(hb_path, flag_path):
+    """Beats once, lets the supervisor see it, deletes the heartbeat file,
+    then wedges."""
+    os.utime(hb_path, None)
+    time.sleep(0.6)
+    os.remove(hb_path)
+    time.sleep(3600)

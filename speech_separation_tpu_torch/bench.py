@@ -4,16 +4,14 @@ ten phases, with its names, batches and merged JSON line.
 Run as ``python -m speech_separation_tpu_torch.cli.main bench`` (or ``python
 -m speech_separation_tpu_torch.bench``). Prints one JSON line after each
 phase; the last line is the full merge:
-  {"metric": ..., "value": N, "unit": "utts/sec/chip", "vs_baseline": N,
-   "detail": {...}}
+  {"metric": ..., "value": N, "unit": "utts/sec/chip", "detail": {...}}
 
 The headline is the reference's training hot loop at reference scale: uPIT
 BLSTM 2x600, 257 bins, 2 speakers, batch 100 of 384 frames, forward + PIT
 loss + backward + global-norm clip + Adam, through the port's hand-written
 LSTM kernels (K3, K4). The other phases time every arch's full training
 step, the STFT -> iSTFT round trip and serving, as the root bench.py does;
-together they launch all five kernels. ``vs_baseline`` divides by the
-reference implementation measured on a CPU (tools/baseline_measured.json).
+together they launch all five kernels.
 
 Each phase runs in a child process (``--phase <name>``), so a CUDA fault or
 one phase's allocator peak stays in its child. The parent never initialises
@@ -509,12 +507,13 @@ DETAIL_FIELDS = [
 IDLE_FIELDS = {k for k, *_ in DETAIL_FIELDS if k.endswith("_idle_share")}
 
 
-def merged_line(results: dict, failures: dict, baseline_utts,
-                probe_latency: float, phase_stats: dict | None = None,
-                skipped: dict | None = None, build: dict | None = None) -> str:
-    """bench.py's merged JSON line for the port: its keys and values, the
-    card (name and power limit) as ``device``, each phase's idle share, and
-    the build's ``build_s`` and ``build`` (cold or cache)."""
+def merged_line(results: dict, failures: dict, probe_latency: float,
+                phase_stats: dict | None = None, skipped: dict | None = None,
+                build: dict | None = None) -> str:
+    """bench.py's merged JSON line for the port: its keys and values but its
+    CPU baseline (``vs_baseline``, ``baseline_*``), the card (name and power
+    limit) as ``device``, each phase's idle share, and the build's
+    ``build_s`` and ``build`` (cold or cache)."""
     head = results.get("upit_bf16")
     value = round(head["utts_per_sec"], 2) if head else 0
     detail = {}
@@ -522,9 +521,6 @@ def merged_line(results: dict, failures: dict, baseline_utts,
         if phase in results and results[phase].get(raw_key) is not None:
             v = results[phase][raw_key]
             detail[out_key] = round(v, nd) if nd else round(v)
-    detail["baseline_utts_per_sec"] = baseline_utts
-    detail["baseline_hw"] = ("torch-CPU (reference semantics; no GPU here, "
-                             "no published numbers)")
     if probe_latency != float("inf"):
         detail["backend_probe_latency_s"] = round(probe_latency, 3)
     for res in results.values():
@@ -548,8 +544,6 @@ def merged_line(results: dict, failures: dict, baseline_utts,
                   "full step, bf16+CUDA kernels)",
         "value": value,
         "unit": "utts/sec/chip",
-        "vs_baseline": (round(value / baseline_utts, 2)
-                        if baseline_utts and value else None),
         "detail": detail,
     }
     return json.dumps(out)
@@ -628,11 +622,6 @@ def main(argv=None) -> int:
           file=sys.stderr, flush=True)
     budget = _env_float("SEPSEP_BENCH_BUDGET", 1700.0)
     phase_timeout = _env_float("SEPSEP_BENCH_PHASE_TIMEOUT", 900.0)
-    baseline_utts = None
-    baseline_path = os.path.join(ROOT, "tools", "baseline_measured.json")
-    if os.path.isfile(baseline_path):
-        with open(baseline_path) as f:
-            baseline_utts = json.load(f).get("utts_per_sec")
 
     if args.rsh:
         results, failures, _, _ = run_phases(names, t_start, budget, phase_timeout,
@@ -652,7 +641,7 @@ def main(argv=None) -> int:
         return 0
 
     def emit(results, failures, skipped, phase_stats):
-        print(merged_line(results, failures, baseline_utts, probe["latency_s"], phase_stats,
+        print(merged_line(results, failures, probe["latency_s"], phase_stats,
                           skipped, build), flush=True)
 
     _, failures, _, _ = run_phases(names, t_start, budget, phase_timeout, emit)

@@ -58,6 +58,7 @@ from ..dsp.stft import _overlap_add, frame_signal
 from ..ops.mxu import column_dot, head_dot
 from ..ops.pit import permutation_min_loss
 from ..parallel.ranks import gather_from_model, global_sum, sum_over_model
+from ..utils.spans import span
 
 NAME = "ConvTasNet"
 DOMAIN = "time"
@@ -174,15 +175,16 @@ def pit_si_snr_loss(est: torch.Tensor, batch: dict, num_spk: int):
     batch (``source_wavs``, ``sample_lengths``, ``row_mask``): returns
     (total / norm, aux) with norm the number of real rows, so an epoch's
     mean reads as the mean per-utterance -SI-SNR in dB."""
-    n, row_mask = batch["sample_lengths"], batch["row_mask"]
-    L = est.shape[-1]
-    smask = (torch.arange(L, device=est.device)[None, :] < n[:, None]).float()
-    pair = pairwise_neg_si_snr(est * smask[:, None, :], batch["source_wavs"], smask)
-    min_losses, best_perm = permutation_min_loss(pair, num_spk)
-    total = torch.sum(min_losses * row_mask) / num_spk
-    # over data-parallel ranks: this rank's total over the global norm
-    norm = global_sum(torch.sum(row_mask), "norm")
-    return total / norm, {"norm": norm, "total": total, "best_perm": best_perm}
+    with span("train.loss"):
+        n, row_mask = batch["sample_lengths"], batch["row_mask"]
+        L = est.shape[-1]
+        smask = (torch.arange(L, device=est.device)[None, :] < n[:, None]).float()
+        pair = pairwise_neg_si_snr(est * smask[:, None, :], batch["source_wavs"], smask)
+        min_losses, best_perm = permutation_min_loss(pair, num_spk)
+        total = torch.sum(min_losses * row_mask) / num_spk
+        # over data-parallel ranks: this rank's total over the global norm
+        norm = global_sum(torch.sum(row_mask), "norm")
+        return total / norm, {"norm": norm, "total": total, "best_perm": best_perm}
 
 
 def encode(model, wav: torch.Tensor, sample_lengths: torch.Tensor):

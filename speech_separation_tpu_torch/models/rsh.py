@@ -37,6 +37,7 @@ import torch
 from .upit import UPIT, _coerce_kwargs, initial_state
 from ..ops.batchnorm import remat_checkpoint
 from ..parallel.ranks import global_sum
+from ..utils.spans import span
 
 NAME = "RSH"
 DOMAIN = "spectrum"
@@ -96,9 +97,7 @@ def loss_fn(model: RSH, batch: dict, generator: torch.Generator, train: bool):
     S = sources.shape[1]
     combo = _make_combo(mix, lengths)
     state = initial_state(cfg, B, generator, mix.device)
-    used = torch.zeros((B, S), dtype=torch.bool, device=mix.device)
-    total = 0.0
-    assignments, masks = [], []
+    masks = []
     remat = cfg.remat and torch.is_grad_enabled()
     for _ in range(S):
         args = (combo, lengths, row_mask, *state)
@@ -106,23 +105,30 @@ def loss_fn(model: RSH, batch: dict, generator: torch.Generator, train: bool):
             mask, state = remat_checkpoint(model, *args, train=train, return_state=True)
         else:
             mask, state = model(*args, train=train, return_state=True)
-        err = torch.sum(torch.square((mask * mix)[:, None] - sources), dim=(2, 3))
-        err = torch.where(used, torch.full_like(err, float("inf")), err)
-        # the first of tied values, as jnp.argmin (pad rows tie at 0)
-        idx = torch.argmin(err, dim=1)
-        min_losses = torch.gather(err, 1, idx[:, None])[:, 0]
-        used = used | torch.nn.functional.one_hot(idx, S).bool()
-        total = total + torch.sum(min_losses * row_mask) / S
-        assignments.append(idx)
         masks.append(mask)
         # the loss path relus the residual, CV included
         combo = torch.relu(combo - torch.cat([torch.zeros_like(mask), mask], dim=-1))
-    # over data-parallel ranks: this rank's total over the global norm
-    norm = global_sum(S * torch.sum(lengths.to(torch.float32) * row_mask) * cfg.feat_dim,
-                      "norm")
-    return total / norm, {"norm": norm, "total": total,
-                          "assignments": torch.stack(assignments, dim=1),
-                          "masks": torch.stack(masks, dim=1)}
+    # the passes' inputs do not depend on the claims, so the objective
+    # follows all of them
+    with span("train.loss"):
+        used = torch.zeros((B, S), dtype=torch.bool, device=mix.device)
+        total = 0.0
+        assignments = []
+        for mask in masks:
+            err = torch.sum(torch.square((mask * mix)[:, None] - sources), dim=(2, 3))
+            err = torch.where(used, torch.full_like(err, float("inf")), err)
+            # the first of tied values, as jnp.argmin (pad rows tie at 0)
+            idx = torch.argmin(err, dim=1)
+            min_losses = torch.gather(err, 1, idx[:, None])[:, 0]
+            used = used | torch.nn.functional.one_hot(idx, S).bool()
+            total = total + torch.sum(min_losses * row_mask) / S
+            assignments.append(idx)
+        # over data-parallel ranks: this rank's total over the global norm
+        norm = global_sum(S * torch.sum(lengths.to(torch.float32) * row_mask) * cfg.feat_dim,
+                          "norm")
+        return total / norm, {"norm": norm, "total": total,
+                              "assignments": torch.stack(assignments, dim=1),
+                              "masks": torch.stack(masks, dim=1)}
 
 
 @torch.inference_mode()

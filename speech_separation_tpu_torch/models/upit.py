@@ -45,6 +45,7 @@ from ..ops.batchnorm import BatchNorm, remat_checkpoint
 from ..ops.mxu import column_dot, head_dot
 from ..ops.pit import pairwise_mse, permutation_min_loss
 from ..parallel.ranks import copy_to_model, gather_from_model, global_sum
+from ..utils.spans import span
 
 NAME = "uPIT"
 DOMAIN = "spectrum"
@@ -168,14 +169,16 @@ def contract_loss(model: nn.Module, batch: dict, *state: torch.Tensor, train: bo
         masks = remat_checkpoint(model, *args, train=train)
     else:
         masks = model(*args, train=train)
-    masked = masks.reshape(B, T, cfg.num_spk, F) * mix[:, :, None, :]
-    min_losses, best_perm = permutation_min_loss(pairwise_mse(masked, sources),
-                                                 cfg.num_spk)
-    total = torch.sum(min_losses * row_mask) / cfg.num_spk
-    # over data-parallel ranks: this rank's total over the global norm
-    norm = global_sum(torch.sum(lengths.to(torch.float32) * row_mask) * cfg.feat_dim, "norm")
-    return total / norm, {"norm": norm, "total": total, "best_perm": best_perm,
-                          "masked": masked}
+    with span("train.loss"):
+        masked = masks.reshape(B, T, cfg.num_spk, F) * mix[:, :, None, :]
+        min_losses, best_perm = permutation_min_loss(pairwise_mse(masked, sources),
+                                                     cfg.num_spk)
+        total = torch.sum(min_losses * row_mask) / cfg.num_spk
+        # over data-parallel ranks: this rank's total over the global norm
+        norm = global_sum(torch.sum(lengths.to(torch.float32) * row_mask) * cfg.feat_dim,
+                          "norm")
+        return total / norm, {"norm": norm, "total": total, "best_perm": best_perm,
+                              "masked": masked}
 
 
 def loss_fn(model: UPIT, batch: dict, generator: torch.Generator, train: bool):

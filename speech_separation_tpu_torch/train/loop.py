@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import os
 import sys
 import time
@@ -72,6 +73,7 @@ from ..eval.infer import resolve_device
 from ..models.registry import get_arch
 from ..parallel import ranks
 from ..parallel.mesh import Mesh, make_mesh
+from ..utils import spans
 from ..utils.weights import fold_lstm_biases
 from .checkpoint import (final_model_path, intermediate_model_path, load_checkpoint,
                          save_checkpoint)
@@ -174,12 +176,13 @@ class Optimizer:
         """Sum the gradients over the data group of parallel ranks
         (parallel/ranks.py), clip, then one Adam update at the schedule's lr
         (over a model axis, on each rank's blocks)."""
-        ranks.reduce_gradients(self.params)
-        self.clip()
-        for group in self.adam.param_groups:
-            group["lr"] = self.lr()
-        self.adam.step()
-        self.count += 1
+        with spans.span("train.optimizer"):
+            ranks.reduce_gradients(self.params)
+            self.clip()
+            for group in self.adam.param_groups:
+                group["lr"] = self.lr()
+            self.adam.step()
+            self.count += 1
 
     def state_dict(self) -> dict:
         return {"adam": self.adam.state_dict(), "count": self.count}
@@ -193,12 +196,18 @@ def update_step(arch, model, optimizer: Optimizer, batch: dict,
                 generator: torch.Generator):
     """One training step: gradients of loss / norm, clip, Adam; BN's
     running statistics update in the forward. Returns (loss, norm) as
-    device scalars, the whole batch's over data-parallel ranks."""
-    optimizer.zero_grad()
-    loss, aux = arch.loss_fn(model, batch, generator, True)
-    loss.backward()
-    optimizer.step()
-    return ranks.loss_over_ranks(loss.detach()), aux["norm"]
+    device scalars, the whole batch's over data-parallel ranks. Under a
+    profiler its phases are spans (utils/spans.py): ``train.step`` holding
+    ``train.forward`` (the arch's objective inside it as ``train.loss``),
+    ``train.backward`` and ``train.optimizer``."""
+    with spans.span("train.step"):
+        optimizer.zero_grad()
+        with spans.span("train.forward"):
+            loss, aux = arch.loss_fn(model, batch, generator, True)
+        with spans.span("train.backward"):
+            loss.backward()
+        optimizer.step()
+        return ranks.loss_over_ranks(loss.detach()), aux["norm"]
 
 
 def accumulate_step(arch, model, optimizer: Optimizer, subs: list[dict],
@@ -208,19 +217,22 @@ def accumulate_step(arch, model, optimizer: Optimizer, subs: list[dict],
     moving sub-batch by sub-batch), the summed gradient is divided once by
     the summed norm, then one clip and one Adam update. Returns (loss,
     norm) as device scalars, loss = summed total / summed norm."""
-    optimizer.zero_grad()
-    total = norm = 0.0
-    for sb in subs:
-        _, aux = arch.loss_fn(model, sb, generator, True)
-        aux["total"].backward()
-        total = total + aux["total"].detach()
-        norm = norm + aux["norm"]
-    with torch.no_grad():
-        for p in optimizer.params:
-            if p.grad is not None:
-                p.grad.div_(norm)
-    optimizer.step()
-    return ranks.loss_over_ranks(total / norm), norm
+    with spans.span("train.step"):
+        optimizer.zero_grad()
+        total = norm = 0.0
+        for sb in subs:
+            with spans.span("train.forward"):
+                _, aux = arch.loss_fn(model, sb, generator, True)
+            with spans.span("train.backward"):
+                aux["total"].backward()
+            total = total + aux["total"].detach()
+            norm = norm + aux["norm"]
+        with torch.no_grad():
+            for p in optimizer.params:
+                if p.grad is not None:
+                    p.grad.div_(norm)
+        optimizer.step()
+        return ranks.loss_over_ranks(total / norm), norm
 
 
 def to_device(batch: dict, dev: torch.device, copy_stream=None,
@@ -683,8 +695,10 @@ class _StepProfiler:
     """torch.profiler over the steps after the first (which builds the
     kernels and waits for the first batch), ``steps`` of them, as the JAX
     package skips its compile batch. On stop it writes ``trace.json`` (a
-    Chrome trace) and ``kernels.txt`` (device time by kernel) into
-    ``out_dir``. Without ``out_dir`` it does nothing."""
+    Chrome trace, with the step's spans that utils/spans.py recorded meanwhile
+    added as ``user_annotation`` events on their threads) and ``kernels.txt``
+    (device time by kernel) into ``out_dir``. Without ``out_dir`` it does
+    nothing."""
 
     def __init__(self, out_dir: str, steps: int, dev: torch.device, log):
         self.out_dir, self.steps, self.dev, self.log = out_dir, steps, dev, log
@@ -699,6 +713,7 @@ class _StepProfiler:
         if self.dev.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         self.prof = profile(activities=activities)
+        spans.clear()
         self.prof.__enter__()
 
     def after_step(self, n_done: int) -> None:
@@ -713,7 +728,14 @@ class _StepProfiler:
             torch.cuda.synchronize(self.dev)
         prof.__exit__(None, None, None)
         os.makedirs(self.out_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(self.out_dir, "trace.json"))
+        path = os.path.join(self.out_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+        doc["traceEvents"] += spans.chrome_events(spans.recorded(),
+                                                  doc.get("baseTimeNanoseconds", 0), os.getpid())
+        with open(path, "w") as f:
+            json.dump(doc, f)
         sort = "self_cuda_time_total" if self.dev.type == "cuda" else "self_cpu_time_total"
         with open(os.path.join(self.out_dir, "kernels.txt"), "w") as f:
             f.write(prof.key_averages().table(sort_by=sort, row_limit=60) + "\n")

@@ -59,7 +59,11 @@ def _results():
 def test_merged_line_matches_bench_py(failures):
     stats = {"upit_bf16": {"wall_s": 20.0, "compile_s": 2.3}}
     want = json.loads(jbench.merged_line(_results(), failures, 1.86, 0.5, stats))
-    got = json.loads(bench.merged_line(_results(), failures, 1.86, 0.5, stats))
+    got = json.loads(bench.merged_line(_results(), failures, 0.5, stats))
+    # the port's line leaves out bench.py's CPU baseline
+    want.pop("vs_baseline")
+    for k in ("baseline_utts_per_sec", "baseline_hw"):
+        want["detail"].pop(k)
     idle = {k for k in got["detail"] if k.endswith("_idle_share")}
     assert idle == {"upit_bf16_idle_share", "sepformer_idle_share", "serving_idle_share"}
     assert got["detail"]["upit_bf16_idle_share"] == 0.123
@@ -74,14 +78,14 @@ def test_merged_line_matches_bench_py(failures):
 
 def test_merged_line_reports_skips_and_the_build_apart_from_failures():
     line = json.loads(bench.merged_line(
-        _results(), {"dprnn": "rc=1"}, 1.86, 0.5, None,
+        _results(), {"dprnn": "rc=1"}, 0.5, None,
         skipped={"tcn": "skipped: 10s left < 120s worst-case"},
         build={"build_s": 0.0123, "build": "cache"}))
     d = line["detail"]
     assert d["failed_phases"] == {"dprnn": "rc=1"}
     assert d["skipped_phases"] == {"tcn": "skipped: 10s left < 120s worst-case"}
     assert (d["build_s"], d["build"]) == (0.01, "cache")
-    assert line["value"] == 901.23 and line["vs_baseline"] == round(901.23 / 1.86, 2)
+    assert line["value"] == 901.23
 
 
 # ------------------------------------------------------------------ batches

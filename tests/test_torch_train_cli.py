@@ -158,7 +158,8 @@ def test_reference_resume_from_a_bare_mdl(corpus, tmp_path):
 def test_profile_dir_and_train_copy_location(corpus, tmp_path):
     """--train-copy-location stages the features and trains on the copies
     (the same loss lines as exp_full's first epochs); --profile-dir writes
-    a Chrome trace and the op table of the steps after the first."""
+    a Chrome trace and the op table of the steps after the first, the trace
+    holding the steps' program spans (utils/spans.py) on the main thread."""
     from speech_separation_tpu_torch.datadir.stage import staged_path
     from speech_separation_tpu_torch.train.data import FeatureDataset
 
@@ -173,6 +174,13 @@ def test_profile_dir_and_train_copy_location(corpus, tmp_path):
     with open(os.path.join(prof, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "_LstmSeq" for e in events)
+    names = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+    assert {"train.step", "train.forward", "train.loss", "train.backward",
+            "train.optimizer"} <= names
+    ops = [e for e in events if e.get("name") == "_LstmSeq"]
+    steps = [e for e in events if e.get("name") == "train.step"]
+    assert steps and all(
+        any(s["ts"] <= o["ts"] <= s["ts"] + s["dur"] for s in steps) for o in ops)
     with open(os.path.join(prof, "kernels.txt")) as f:
         assert "_LstmSeqBackward" in f.read()
 

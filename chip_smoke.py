@@ -211,7 +211,15 @@ Phases, in order; any failure exits non-zero without the final line:
    in both dtypes, each of which must fail those bounds; the uPIT bf16 step's
    time under each placement beside phase 26 (a)'s and phase 5's; every
    kernel's launches in the phase (summed over the ranks);
-28. one JSON line with every kernel and its numbers (with the recipe's
+28. the training step's products outside the kernels (ops/mxu.py): each
+   product of a uPIT step (B=100, T=384) and of a DPRNN step (B=32, 4 s) at
+   its shape, today's float32 product of the rounded operands against
+   mxu_dot's as the step runs it (bf16 operands on the tensor cores,
+   float32 sums; float32 where ops/mxu.py's rule keeps it), each time
+   beside its bound, the kernels behind it (no float32 GEMM behind a bf16
+   product) and its gap from today's result; the counters of one step of
+   each;
+29. one JSON line with every kernel and its numbers (with the recipe's
    launch counts, each LSTM kernel's numbers at DPRNN's shapes and its
    launches on each RSH, DPRNN, remat, SEPTPU01 and phase 25 path, K2's on
    the TCN and oracle paths, the launches of each bench phase of phase 22 and
@@ -4096,6 +4104,141 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
+# The training step's products outside the kernels (phase 28): each at its
+# main shape, today's float32 product of the bf16-rounded operands (operands
+# already cast to float32, its rounding included) against ops/mxu.mxu_dot,
+# bf16 operands on the tensor cores with float32 sums, as the step now runs
+# it (uPIT's 257 bins padded to 264, the long weight-gradient sums in pieces
+# of at most mxu.SUM_TERMS), beside the least time the card could take
+# (bound_ms: the operands read once, the result written once, or the
+# operations at the peak of the product's dtype). The forward's results
+# rounded to bf16 and the float32-cotangent gradients stay in float32 by
+# rule (ops/mxu.py) and are timed as they run. Checks: no float32 GEMM
+# kernel (simt, f32f32) behind a bf16 product, each result within relative
+# L2 of today's of 1e-5 (float32) or 2**-8
+# (rounded to bf16, where another order of the sum moves some elements by a
+# step; tests/test_torch_cuda.py holds both to the float64 sum), and the
+# counters of one uPIT step (B=100, T=384) and one DPRNN step (B=32, 4 s).
+
+def _kernel_names(fn) -> list:
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_time_total > 0 and "Memset" not in e.key})
+
+
+def _step_counts(model, batch, loss_fn) -> dict:
+    from speech_separation_tpu_torch.ops.mxu import mxu_dot
+    before = (mxu_dot.tensor_core, mxu_dot.f32)
+    loss, _ = loss_fn(model, batch, torch.Generator(device="cuda").manual_seed(SEED), True)
+    loss.backward()
+    torch.cuda.synchronize()
+    return {"tensor_core": mxu_dot.tensor_core - before[0], "f32": mxu_dot.f32 - before[1]}
+
+
+def products_phase(fails: Failures) -> dict:
+    import torch.nn.functional as F
+    from speech_separation_tpu_torch.models import dprnn, upit
+    from speech_separation_tpu_torch.ops.mxu import mxu_dot
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rnd(*shape, scale=1.0, dtype=bf):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    def pad(t, dim):
+        return F.pad(t, (0, 0, 0, 7) if dim == -2 else (0, 7))
+
+    def cases(arch):
+        """(name, a, b, result dtype, uses a step): each product of one step."""
+        if arch == "upit":
+            x1, w1 = pad(rnd(2, 38400, 257, scale=0.5), -1), pad(rnd(2, 257, 2400, scale=0.06), -2)
+            x, w = rnd(2, 38400, 1200, scale=0.5), rnd(2, 1200, 2400, scale=0.03)
+            gy, hp = rnd(2, 38400, 2400, scale=1e-3), rnd(2, 38400, 600, scale=0.5)
+            y, wh = rnd(38400, 1200, scale=0.5), rnd(514, 1200, scale=0.03).t()
+            gh = rnd(38400, 514, scale=1e-3, dtype=f32)
+            return [("projection 1 (f32)", x1.float(), w1.float(), bf, 1),
+                    ("projection 1 dW", x1.transpose(1, 2), gy, bf, 1),
+                    ("projection 2 (f32)", x.float(), w.float(), bf, 1),
+                    ("projection 2 dx", gy, w.transpose(1, 2), bf, 1),
+                    ("projection 2 dW", x.transpose(1, 2), gy, bf, 1),
+                    ("dW_hh", hp.transpose(1, 2), gy, bf, 2), ("head", y, wh, f32, 1),
+                    ("head dx (f32)", gh, wh.float().t(), f32, 1),
+                    ("head dW (f32)", y.float().t(), gh, f32, 1)]
+        x, w = rnd(2, 259200, 64, scale=0.5), rnd(2, 64, 512, scale=0.1)
+        gy, hp = rnd(2, 259200, 512, scale=1e-3), rnd(2, 259200, 128, scale=0.5)
+        xl, wl, gl = rnd(259200, 256, scale=0.5), rnd(256, 64, scale=0.06), rnd(259200, 64, scale=1e-3)
+        return [("projection (f32)", x.float(), w.float(), bf, 12),
+                ("projection dx", gy, w.transpose(1, 2), bf, 12),
+                ("projection dW", x.transpose(1, 2), gy, bf, 12), ("dW_hh", hp.transpose(1, 2), gy, bf, 12),
+                ("linear 256->64 (f32)", xl.float(), wl.float(), bf, 12), ("linear dx", gl, wl.t(), bf, 12),
+                ("linear dW", xl.t(), gl, bf, 12)]
+
+    out = {}
+    for arch in ("upit", "dprnn"):
+        rows, new_sum, old_sum = {}, 0.0, 0.0
+        for name, a, b, odt, uses in cases(arch):
+            af, bf_ = a.float(), b.float()
+            new = lambda: mxu_dot(a, b, odt)
+            old = lambda: torch.matmul(af, bf_).to(odt)
+            got, ref = new().float(), old().float()
+            gap = float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+            ms, old_ms = cuda_ms(new, 10), cuda_ms(old, 10)
+            k, m, n = a.shape[-1], a.shape[-2], b.shape[-1]
+            flops = 2 * (a.numel() // (m * k)) * m * n * k
+            io = nbytes(a, b) + got.numel() * (2 if odt == bf else 4)
+            bound, by = bound_ms(io, flops, a.dtype)
+            names = _kernel_names(new)
+            fails.check(gap <= (2.0 ** -8 if odt == bf else 1e-5),
+                        f"{arch} {name}: {gap:.2e} from today's product")
+            if a.dtype == bf:
+                fails.check(not any("simt" in k_ or "f32f32_f32f32" in k_ for k_ in names),
+                            f"{arch} {name} runs no float32 GEMM kernel")
+            rows[name] = {"ms": ms, "f32_ms": old_ms, "bound_ms": bound, "bound_by": by,
+                          "gap": gap, "uses": uses, "kernels": names}
+            new_sum, old_sum = new_sum + uses * ms, old_sum + uses * old_ms
+            print(f"  {arch} {name} {tuple(a.shape)} x {tuple(b.shape)} -> {odt}: {ms:.3f} ms, "
+                  f"today's f32 {old_ms:.3f} ms, bound {bound:.3f} ms ({by}), "
+                  f"{100 * bound / ms:.1f}% of it; x{uses} a step; {names}", flush=True)
+            del af, bf_, got, ref
+        out[arch] = {"products": rows, "step_ms": new_sum, "f32_step_ms": old_sum}
+        print(f"  {arch}: the step's products {new_sum:.2f} ms against today's {old_sum:.2f} ms",
+              flush=True)
+        torch.cuda.empty_cache()
+
+    cfg = upit.Config(hidden=600, num_layers=2, zero_init_hidden=True, compute_dtype="bfloat16")
+    with torch.device("cuda"):
+        model = upit.Model(cfg)
+        B, T = 100, 384
+        mix = torch.rand((B, T, 257), generator=gen, device="cuda")
+        batch = {"mix": mix, "sources": torch.rand((B, 2, T, 257), generator=gen, device="cuda"),
+                 "lengths": torch.full((B,), T, dtype=torch.int32), "row_mask": torch.ones(B)}
+    out["upit"]["counts"] = _step_counts(model, batch, upit.loss_fn)
+    del model, batch
+    with torch.device("cuda"):
+        model = dprnn.Model(dprnn.Config(compute_dtype="bfloat16"))
+        src = 0.1 * torch.randn((32, 2, 32000), generator=gen, device="cuda")
+        batch = {"mix_wav": src.sum(1), "source_wavs": src,
+                 "sample_lengths": torch.full((32,), 32000, dtype=torch.int32),
+                 "row_mask": torch.ones(32)}
+    out["dprnn"]["counts"] = _step_counts(model, batch, dprnn.loss_fn)
+    del model, batch, src
+    torch.cuda.empty_cache()
+    # uPIT: the head forward, 3 projection gradients and 2 dW_hh on the
+    # tensor cores, the 2 projections (rounded to bf16) and the head's 2
+    # gradients in float32; DPRNN: 3 forward products (encoder, head,
+    # decoder) and 62 backward ones on the tensor cores, the 25 forward
+    # products rounded to bf16 and 5 float32-cotangent gradients in float32
+    for arch, want in (("upit", {"tensor_core": 6, "f32": 4}),
+                       ("dprnn", {"tensor_core": 65, "f32": 30})):
+        fails.check(out[arch]["counts"] == want,
+                    f"{arch} step: mxu_dot counted {out[arch]['counts']} (want {want})")
+    return out
+
+
 def profile_main() -> int:
     """Where the time of one full-width bf16 SepFormer training step goes
     (B=32, 4 s utterances padded to 32768 samples, update_step: loss,
@@ -4356,6 +4499,12 @@ def main() -> int:
                                {"one": trained["ms_per_step"], "dp2": dp["train"]["ms_per_step"]})
     del dp_upit
     print(f"  phase 27: {time.monotonic() - t27:.1f} s", flush=True)
+
+    print("== 28. the training step's products: today's f32 against the tensor cores",
+          flush=True)
+    t28 = time.monotonic()
+    products = products_phase(fails)
+    print(f"  phase 28: {time.monotonic() - t28:.1f} s", flush=True)
     paths = {"rsh_train": trained_rsh["launches"], "rsh_mixed": trained_rsh["mixed_launches"],
              "rsh_masks": eval_rsh["launches"]["masks"], "rsh_serve": eval_rsh["serve_launches"],
              "dprnn_train": trained_dprnn["launches"], "dprnn_serve": served_dprnn["launches"],
@@ -4439,6 +4588,7 @@ def main() -> int:
     print(f"  training extras: {extras}", flush=True)
     print(f"  data parallel: {dp}", flush=True)
     print(f"  tensor parallel: {tp}", flush=True)
+    print(f"  products: {products}", flush=True)
     print(f"  total {time.monotonic() - t_start:.1f} s", flush=True)
     if fails:
         print("chip_smoke FAILED:\n  " + "\n  ".join(fails), file=sys.stderr)

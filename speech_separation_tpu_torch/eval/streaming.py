@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..dsp.stft import _device_matrix, hann_periodic, istft_output_length, num_frames
-from ..ops.mxu import head_dot
+from ..ops.mxu import rounded_dot
 from .infer import load_model
 
 
@@ -80,11 +80,11 @@ def _time_chunk_program(model, conv_state: list, frames: torch.Tensor,
     and decoded frames, new conv state), causal Conv-TasNet: the offline
     ``separate`` frame for frame; the host overlap-adds."""
     md = model.cfg.torch_dtype
-    w = torch.relu(head_dot(frames, model.enc, md))
+    w = torch.relu(rounded_dot(frames, model.enc, md))
     masks, new_state = model.streaming_forward(w, conv_state)
     new_state = _frozen_where_idle(new_state, conv_state, advance)
     masked = (w[:, :, None, :] * masks).permute(0, 2, 1, 3)           # (B, S, C, N)
-    return head_dot(masked, model.dec, md), new_state
+    return rounded_dot(masked, model.dec, md), new_state
 
 
 class _StreamIO:

@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from ..ops.lstm_kernel import lstm_seq, lstm_seq_infer
+from ..ops.mxu import held_dot
 from ..parallel import ranks
 from ..parallel.ranks import copy_to_model, gather_from_model
 
@@ -120,14 +121,14 @@ class BLSTM(nn.Module):
                 # the JAX bf16 path: a direction-batched product of bf16
                 # inputs with f32 accumulation, ROUNDED to bf16, then the
                 # bf16 bias added in bf16 (a second rounding)
-                x_pair = torch.stack([out_c, x_rev]).float()             # (2, B, T, F)
+                x_pair = torch.stack([out_c, x_rev])                      # (2, B, T, F)
                 if gates:
                     # the gradient of the rounded input summed in f32 over the
                     # group, then rounded once, as one process rounds it
-                    x_pair = copy_to_model(x_pair)
-                w_pair = torch.stack([wf_ih.t(), wb_ih.t()]).to(compute_dtype).float()
+                    x_pair = copy_to_model(x_pair.float())
+                w_pair = torch.stack([wf_ih.t(), wb_ih.t()]).to(compute_dtype)
                 b_pair = torch.stack([bf, bb]).to(compute_dtype)         # (2, 4H)
-                xw = torch.matmul(x_pair, w_pair[:, None]).to(compute_dtype)
+                xw = held_dot(x_pair, w_pair[:, None], compute_dtype, compute_dtype)
                 xw = xw + b_pair[:, None, None, :]
             else:
                 if gates:

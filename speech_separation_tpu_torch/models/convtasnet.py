@@ -55,7 +55,7 @@ from .tcn import (Block, _cln, _cln_init, _dot, _linear_draw_, _linear_init, _pr
                   init_stream_state, run_blocks)
 from .upit import _coerce_kwargs
 from ..dsp.stft import _overlap_add, frame_signal
-from ..ops.mxu import column_dot, head_dot
+from ..ops.mxu import column_dot, rounded_dot
 from ..ops.pit import permutation_min_loss
 from ..parallel.ranks import gather_from_model, global_sum, sum_over_model
 from ..utils.spans import span
@@ -193,7 +193,7 @@ def encode(model, wav: torch.Tensor, sample_lengths: torch.Tensor):
     cfg = model.cfg
     n_t = latent_frames(cfg, wav.shape[1])
     frames = frame_signal(wav, cfg.filter_len, cfg.stride, n_t)
-    w = torch.relu(head_dot(frames, model.enc, cfg.torch_dtype))
+    w = torch.relu(rounded_dot(frames, model.enc, cfg.torch_dtype))
     vt = valid_latent_frames(cfg, sample_lengths, n_t)
     tmask = (torch.arange(n_t, device=wav.device)[None, :]
              < vt[:, None]).float()[:, :, None]
@@ -208,7 +208,7 @@ def decode(model, w: torch.Tensor, masks: torch.Tensor, L: int) -> torch.Tensor:
     B, n_t, N = w.shape
     S = masks.shape[2]
     masked = (w[:, :, None, :] * masks).permute(0, 2, 1, 3)            # (B, S, T', N)
-    dec_frames = head_dot(masked.reshape(B * S, n_t, N), model.dec, cfg.torch_dtype)
+    dec_frames = rounded_dot(masked.reshape(B * S, n_t, N), model.dec, cfg.torch_dtype)
     y = _overlap_add(dec_frames, cfg.stride)
     if y.shape[-1] < L:
         y = F.pad(y, (0, L - y.shape[-1]))

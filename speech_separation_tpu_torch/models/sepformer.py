@@ -21,7 +21,7 @@ the card, their plain versions on the CPU); ``fused_attention=0`` is the
 einsum path, plain torch products as the JAX package leaves them to XLA.
 
 Dtypes mirror the JAX package step by step: with ``compute_dtype=bfloat16``
-the products take bf16 inputs with float32 sums (ops/mxu.head_dot), the
+the products take bf16 inputs with float32 sums (ops/mxu.rounded_dot), the
 trunk's activations are stored in bf16, and the norm statistics, the
 biases, the head's logits, the masks and the decoder stay float32. The
 sinusoidal PE is computed in numpy. DOMAIN is 'time': the model consumes

@@ -16,7 +16,7 @@ Frames past each row's length are zeroed after the input projection, before
 every depthwise conv and after every block, so a row's masks do not depend
 on the padding of its batch. The norms are per frame (cLN): no running
 statistics. With ``compute_dtype=bfloat16`` the 1x1 products take bf16
-inputs with float32 sums (ops/mxu.head_dot) and the trunk's activations are
+inputs with float32 sums (ops/mxu.rounded_dot) and the trunk's activations are
 stored in bf16; the norm statistics and the head's logits are float32.
 
 ``causal=True`` pads every depthwise conv on the left only, so frame t
@@ -47,7 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .upit import _coerce_kwargs, contract_loss
-from ..ops.mxu import column_dot, head_dot
+from ..ops.mxu import column_dot, rounded_dot
 from ..parallel.ranks import reduce_from_model, sum_over_model
 
 NAME = "TCN"
@@ -131,16 +131,16 @@ def _cln(x: torch.Tensor, p, eps: float = 1e-6, over_model: bool = False) -> tor
 def _dot(x: torch.Tensor, lin, dtype: torch.dtype, out_dtype: torch.dtype | None = None
          ) -> torch.Tensor:
     """x @ w + b with the product's inputs in ``dtype`` and a float32 sum;
-    ``out_dtype`` sets the storage dtype of the result."""
-    y = head_dot(x, lin["w"], dtype) + lin["b"]
-    return y if out_dtype is None else y.to(out_dtype)
+    ``out_dtype`` sets the storage dtype of the result, rounded once after
+    the bias."""
+    return rounded_dot(x, lin["w"], dtype, out_dtype or torch.float32, lin["b"])
 
 
 def _row_dot(x: torch.Tensor, lin, dtype: torch.dtype, out_dtype: torch.dtype) -> torch.Tensor:
     """``_dot`` of this rank's block of x's last axis by its block of w's
     rows (a row-parallel product): the float32 partial products summed over
     the model group, then the replicated bias, once."""
-    return (reduce_from_model(head_dot(x, lin["w"], dtype)) + lin["b"]).to(out_dtype)
+    return (reduce_from_model(rounded_dot(x, lin["w"], dtype)) + lin["b"]).to(out_dtype)
 
 
 def _conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, dilation: int,

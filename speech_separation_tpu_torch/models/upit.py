@@ -42,7 +42,7 @@ from torch import nn
 
 from .blstm import BLSTM, random_hidden
 from ..ops.batchnorm import BatchNorm, remat_checkpoint
-from ..ops.mxu import column_dot, head_dot
+from ..ops.mxu import column_dot, rounded_dot
 from ..ops.pit import pairwise_mse, permutation_min_loss
 from ..parallel.ranks import copy_to_model, gather_from_model, global_sum
 from ..utils.spans import span
@@ -133,7 +133,7 @@ class UPIT(nn.Module):
         y, state = self.blstm(x, lengths, h0, c0, compute_dtype=dt)
         y = self.bn(y, row_mask, train)
         if self.tp is None:
-            y = torch.sigmoid(head_dot(y, self.lin.weight.t(), dt) + self.lin.bias)
+            y = torch.sigmoid(rounded_dot(y, self.lin.weight.t(), dt) + self.lin.bias)
         else:
             logits = column_dot(y, self.lin.weight.t(), dt) + self.lin.bias
             y = torch.sigmoid(gather_from_model(logits, dim=-1))

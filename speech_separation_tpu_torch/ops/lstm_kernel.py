@@ -18,7 +18,8 @@ reverse one:
 ``lstm_seq`` is the differentiable recurrence (the port of the JAX
 package's ``lstm_seq`` custom VJP): a ``torch.autograd.Function`` whose
 forward is ``lstm_seq_fwd`` and whose backward is ``lstm_seq_bwd`` plus
-dW_hh = sum_t h_{t-1}^T dgates_t as one plain product outside the kernel.
+dW_hh = sum_t h_{t-1}^T dgates_t as one product outside the kernel (on the
+tensor cores in bf16 on a card, ops/mxu.mxu_dot).
 
 On the H100 each recurrence is a chain of T dependent small products per
 direction, and one direction's W_hh (2.88 MB in bf16 at H=600) is far larger
@@ -41,6 +42,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from . import mxu
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -407,14 +410,15 @@ lstm_seq_bwd.launches = 0
 
 # ------------------------------------------------------- differentiable call
 
-def _h_prev(ys, h0, lengths, suffix_dirs):
-    """h_{t-1} of every step (T, D, B, H) f32, from the saved ys. ys holds
-    m * h_new, which differs from the carried state only at masked steps,
-    where dgates is zero; the initial state is patched in at t = 0 of a
-    prefix direction, and over a suffix direction's whole pad zone up to
-    and including its first valid step (t <= T - length)."""
+def _h_prev(ys, h0, lengths, suffix_dirs, dim=1):
+    """h_{t-1} of every step, (T, D, B, H) in ys's dtype (h0 rounded to it),
+    or (D, T, B, H) with ``dim=0``, from the saved ys. ys holds m * h_new,
+    which differs from the carried state only at masked steps, where dgates
+    is zero; the initial state is patched in at t = 0 of a prefix
+    direction, and over a suffix direction's whole pad zone up to and
+    including its first valid step (t <= T - length)."""
     T = ys.shape[0]
-    ys = ys.float()
+    h0 = h0.to(ys.dtype)
     shift = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
     dirs = []
     for d, suffix in enumerate(suffix_dirs):
@@ -424,7 +428,20 @@ def _h_prev(ys, h0, lengths, suffix_dirs):
             dirs.append(torch.where(zone[:, :, None], h0[d][None], shift[:, d]))
         else:
             dirs.append(torch.cat([h0[d][None], ys[:-1, d]]))
-    return torch.stack(dirs, dim=1)
+    return torch.stack(dirs, dim=dim)
+
+
+def _dw_hh(ys, h0, lengths, suffix_dirs, dxw, w_dtype):
+    """dW_hh = sum_t h_{t-1}^T dgates_t (D, H, 4H) in w_dtype: operands in
+    the save type, the sum in f32, rounded once. On a card in bf16, one
+    direction-batched product on the tensor cores (ops/mxu.mxu_dot)."""
+    if mxu.tensor_cores(dxw.device, dxw.dtype):
+        T, D, B, G = dxw.shape
+        h_prev = _h_prev(ys, h0, lengths, suffix_dirs, dim=0).reshape(D, T * B, -1)
+        g = dxw.transpose(0, 1).reshape(D, T * B, G)
+        return mxu.mxu_dot(h_prev.transpose(1, 2), g, w_dtype)
+    h_prev = _h_prev(ys, h0, lengths, suffix_dirs).to(dxw.dtype).float()
+    return torch.einsum("tdbh,tdbg->dhg", h_prev, dxw.float()).to(w_dtype)
 
 
 class _LstmSeq(torch.autograd.Function):
@@ -444,10 +461,7 @@ class _LstmSeq(torch.autograd.Function):
         dxw, dh0, dc0 = lstm_seq_bwd(w_hh, c0, lengths, cs, gates, dys.to(sd),
                                      dh_last.float(), dc_last.float(), sd,
                                      ctx.suffix_dirs)
-        # dW_hh = sum_t h_{t-1}^T dgates_t: one plain product, operands in
-        # the save type, the sum in f32, the result in w_hh's type
-        h_prev = _h_prev(ys, h0, lengths, ctx.suffix_dirs).to(sd).float()
-        dw_hh = torch.einsum("tdbh,tdbg->dhg", h_prev, dxw.float()).to(w_hh.dtype)
+        dw_hh = _dw_hh(ys, h0, lengths, ctx.suffix_dirs, dxw, w_hh.dtype)
         return dxw.to(ctx.xw_dtype), dw_hh, dh0, dc0, None, None, None
 
 

@@ -779,3 +779,139 @@ def test_kernels_give_one_result_under_any_current_device_context(cuda):
     t.join()
     _same_outputs(got["ctx"], ref)
     _same_outputs(got["bare"], ref)
+
+
+# ---------------------------------------------- ops/mxu.py's tensor-core products
+#
+# Each product of the training step's bf16-rounded operands, at the main
+# shapes (uPIT: the two BLSTM projections over 38,400 rows, the 1,200 x 514
+# head, dW_hh over 38,400 rows; DPRNN: the BLSTM projection over 259,200
+# rows, the 256 -> 64 linear layer, dW_hh over 259,200 rows), forward and
+# every gradient (a forward result rounded to bf16 is the float32 product,
+# the rest run on the tensor cores), held with today's float32 product of
+# the same rounded operands to the exact sum (a float64 product). A float32
+# result: within 1e-5 relative L2 of it. A result rounded to bf16: each element within one
+# and a half bf16 steps of the exact sum (its rounding and one more step)
+# plus 2**-15 of the sum of its terms' magnitudes (more than the worst case
+# of a float32 sum in pieces of at most 1,200 terms whose tensor-core
+# accumulation truncates; where a sum cancels, the last is what is left),
+# and off the exact sum's rounding on at most 0.1% of the elements more
+# than today's product (itself off it on up to 0.4% of a 259,200-term sum's
+# elements, H100). Both settings of allow_bf16_reduced_precision_reduction
+# give the same bits and are left as they were; the counters count each
+# product by case.
+
+def _held_to_exact(name, got, old, exact, terms, rounded):
+    if not rounded:
+        err = float((got.double() - exact).norm() / exact.norm())
+        assert err <= 1e-5, (name, err)
+        return
+    slack = (got.double() - exact).abs() - 1.5 * 2.0 ** -7 * exact.abs() - 2.0 ** -15 * terms
+    assert float(slack.max()) <= 0, (name, float(slack.max()))
+    want = exact.to(torch.bfloat16).float()
+    new_share, old_share = (float((t.float() != want).float().mean()) for t in (got, old))
+    assert new_share <= old_share + 1e-3, (name, new_share, old_share)
+
+
+def _mxu_case(case, dev):
+    """(new, old, exact) callables' leaves for one product: returns
+    (leaves, cotangent, new, old, exact outputs and gradients, rounded
+    flags, the counts (tensor_core, f32) of one forward and backward)."""
+    from speech_separation_tpu_torch.models import tcn
+    from speech_separation_tpu_torch.ops import mxu
+    g = torch.Generator(device=dev).manual_seed(len(case))
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+    bf = torch.bfloat16
+    if case in ("upit.proj1", "upit.proj2", "dprnn.proj"):
+        D, B, T, K, N = {"upit.proj1": (2, 100, 384, 257, 2400),
+                         "upit.proj2": (2, 100, 384, 1200, 2400),
+                         "dprnn.proj": (2, 2592, 100, 64, 512)}[case]
+        leaves = [rnd(D, B, T, K, scale=0.5, dtype=bf), rnd(D, 1, K, N, scale=0.04, dtype=bf)]
+        new = lambda x, w: mxu.held_dot(x, w, bf, bf)
+        old = lambda x, w: torch.matmul(x.float(), w.float()).to(bf)
+
+        def exact(x, w, gy):
+            xd, wd, gd = x.double(), w.double(), gy.double()
+            return (xd @ wd, gd @ wd.transpose(-1, -2),
+                    torch.einsum("dbtk,dbtn->dkn", xd, gd)[:, None])
+        return leaves, rnd(D, B, T, N, scale=1e-3, dtype=bf), new, old, exact, \
+            (True, True, True), (2, 1)
+    if case == "upit.head":
+        leaves = [rnd(100, 384, 1200), rnd(514, 1200, scale=0.03)]
+        new = lambda y, w: mxu.rounded_dot(y, w.t(), bf)
+        old = lambda y, w: torch.matmul(y.to(bf).float(), w.t().to(bf).float())
+
+        def exact(y, w, gy):
+            yd, wd, gd = y.to(bf).double(), w.to(bf).double(), gy.double()
+            return yd @ wd.t(), gd @ wd, torch.einsum("btk,btn->nk", yd, gd)
+        return leaves, rnd(100, 384, 514, scale=1e-3), new, old, exact, \
+            (False, True, True), (1, 2)
+    if case == "dprnn.linear":
+        leaves = [rnd(2592, 100, 256, dtype=bf), rnd(256, 64, scale=0.06), rnd(64, scale=0.06)]
+        new = lambda x, w, b: tcn._dot(x, {"w": w, "b": b}, bf, bf)
+        old = lambda x, w, b: (torch.matmul(x.float(), w.to(bf).float()) + b).to(bf)
+
+        def exact(x, w, b, gy):
+            xd, wd, gd = x.double(), w.to(bf).double(), gy.double()
+            return (xd @ wd + b.double(), gd @ wd.t(), torch.einsum("rtk,rtn->kn", xd, gd),
+                    gd.sum((0, 1)))
+        return leaves, rnd(2592, 100, 64, scale=1e-3, dtype=bf), new, old, exact, \
+            (True, True, True, False), (2, 1)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["upit.proj1", "upit.proj2", "upit.head", "dprnn.proj",
+                                  "dprnn.linear"])
+def test_mxu_products_on_the_tensor_cores(cuda, case):
+    from speech_separation_tpu_torch.ops import mxu
+    leaves, gy, new, old, exact, rounded, counts = _mxu_case(case, cuda)
+
+    def run(fn):
+        ls = [t.detach().clone().requires_grad_(True) for t in leaves]
+        y = fn(*ls)
+        y.backward(gy)
+        return [y.detach()] + [t.grad for t in ls]
+    saved = torch._C._get_cublas_allow_bf16_reduced_precision_reduction()
+    try:
+        results = []
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+            set_to = torch._C._get_cublas_allow_bf16_reduced_precision_reduction()
+            before = (mxu.mxu_dot.tensor_core, mxu.mxu_dot.f32)
+            results.append(run(new))
+            torch.cuda.synchronize()
+            assert (mxu.mxu_dot.tensor_core - before[0], mxu.mxu_dot.f32 - before[1]) == counts
+            assert torch._C._get_cublas_allow_bf16_reduced_precision_reduction() == set_to
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
+    for a, b in zip(*results):
+        assert torch.equal(a, b), case
+    ref = run(old)
+    want = exact(*[t.detach() for t in leaves], gy)
+    terms = exact(*[t.detach().abs() for t in leaves], gy.abs())
+    for name, got, o, e, m, r in zip(("out", "dx", "dw", "db"), results[0], ref, want, terms,
+                                     rounded):
+        _held_to_exact(f"{case} {name}", got, o, e.reshape(got.shape), m.reshape(got.shape), r)
+
+
+@pytest.mark.parametrize("T,B,H", [(384, 100, 600), (100, 2592, 128)])
+def test_mxu_dw_hh_on_the_tensor_cores(cuda, T, B, H):
+    """dW_hh over T*B rows (uPIT 38,400; DPRNN 259,200) against today's
+    float32 einsum, both held to the float64 sum: one tensor-core product."""
+    from speech_separation_tpu_torch.ops import lstm_kernel, mxu
+    g = torch.Generator(device=cuda).manual_seed(T)
+    bf = torch.bfloat16
+    ys = (0.5 * torch.randn((T, 2, B, H), generator=g, device=cuda)).to(bf)
+    dxw = (1e-3 * torch.randn((T, 2, B, 4 * H), generator=g, device=cuda)).to(bf)
+    h0 = torch.randn((2, B, H), generator=g, device=cuda)
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device=cuda).int()
+    before = mxu.mxu_dot.tensor_core
+    got = lstm_kernel._dw_hh(ys, h0, lengths, SFX, dxw, bf)
+    assert mxu.mxu_dot.tensor_core == before + 1 and got.dtype == bf
+    h_prev = lstm_kernel._h_prev(ys, h0, lengths, SFX)
+    old = torch.einsum("tdbh,tdbg->dhg", h_prev.float(), dxw.float()).to(bf)
+    exact = torch.einsum("tdbh,tdbg->dhg", h_prev.double(), dxw.double())
+    terms = torch.einsum("tdbh,tdbg->dhg", h_prev.double().abs(), dxw.double().abs())
+    _held_to_exact(f"dw_hh {T}x{B}", got, old, exact, terms, True)

@@ -228,11 +228,13 @@ def _dual_path(model: DPRNN, h: torch.Tensor, vt: torch.Tensor, C: int):
 
 
 def _separate_core(model, wav: torch.Tensor, sample_lengths: torch.Tensor,
-                   dual_path=_dual_path) -> torch.Tensor:
+                   dual_path=_dual_path, gate=None) -> torch.Tensor:
     """(B, L) padded waveforms -> (B, S, L) estimated sources: frame ->
     encoder -> masked gLN and bottleneck -> segment -> ``dual_path`` ->
-    PReLU and head -> merge -> masks -> decoder -> overlap-add. Rows are not
-    trimmed to their lengths."""
+    PReLU and head -> merge -> ``gate`` (if given: ``gate(model, x)`` of
+    the merged (B, T', S*N) float32 head output, SepFormer's output gate)
+    -> masks -> decoder -> overlap-add. Rows are not trimmed to their
+    lengths."""
     cfg = model.cfg
     md = cfg.torch_dtype
     w, tmask, vt = encode(model, wav, sample_lengths)
@@ -243,6 +245,8 @@ def _separate_core(model, wav: torch.Tensor, sample_lengths: torch.Tensor,
 
     out = _dot(_prelu(h, model.head_prelu), model.head, md) * cmask
     out = _merge(out, cfg.hop, n_t)
+    if gate is not None:
+        out = gate(model, out)
     out = out.reshape(B, n_t, cfg.num_spk, cfg.n_filters)
     act = torch.relu if cfg.mask_act == "relu" else torch.sigmoid
     return decode(model, w, act(out) * tmask[:, :, None, :], wav.shape[1])

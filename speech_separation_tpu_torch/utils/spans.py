@@ -20,7 +20,9 @@ The spans (train/loop.py, models/): ``train.step`` around an update,
 objective), ``train.loss`` inside it around the objective that follows the
 model's output, ``train.backward`` around each ``.backward()`` (the
 backward's kernels launch on autograd's thread while this thread waits
-inside it) and ``train.optimizer`` around ``Optimizer.step``.
+inside it) and ``train.optimizer`` around ``Optimizer.step``; inside
+``train.forward``, ``sepformer.intra`` and ``sepformer.inter`` around each
+of SepFormer's paths (models/sepformer.py), one of each a dual-path block.
 """
 
 from __future__ import annotations

@@ -109,7 +109,9 @@ def test_config_registry_and_init():
     assert tsf.Config.from_kwargs(fused_attention="0").fused_attention is False
     jfields = {f: getattr(jsf.Config(), f) for f in jsf.Config.__dataclass_fields__}
     tfields = {f: getattr(tsf.Config(), f) for f in tsf.Config.__dataclass_fields__}
-    assert tfields == jfields
+    # the port's keys of the published structure, at the defaults that give
+    # the JAX package's compact model
+    assert tfields == {**jfields, "published": False, "layers": 1}
     for bad in (dict(channels=30, heads=4), dict(chunk=7), dict(mask_act="tanh"),
                 dict(stride=32)):
         with pytest.raises(ValueError):

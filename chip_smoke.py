@@ -38,7 +38,11 @@ Phases, in order; any failure exits non-zero without the final line:
    (T=1230, a 60 s request), its bf16 kernels also launched twice on the same
    inputs (bit-identical outputs), with their launch plan (attention_plan,
    held to the library's own) and the HMMA (tensor-core) instructions that
-   cuobjdump finds in their SASS;
+   cuobjdump finds in their SASS; the channelwise LayerNorm (K6) forward and
+   backward at SepFormer's training rows (132,000 x 256, bf16) and at TCN's
+   257 bins, against its plain versions, launched twice (bit-identical), its
+   times beside the plain _cln's (forward, and its autograd backward), the
+   bytes bound and F.layer_norm's (a yardstick the port never calls);
 4. serve: a 2x600 bf16 uPIT with weights from a seed, saved as a reference
    .mdl, behind the port's SeparationServer on a Unix socket; one request,
    then two concurrent ones, then a ping; every output wav is checked, and
@@ -272,6 +276,11 @@ TRAIN_TOL = {"fwd_bf16": 4e-2, "fwd_f32": 2e-5, "bwd_bf16": 2e-2, "bwd_f32": 1.5
 # 45.0 dB; fused against einsum loss 2.7e-5, gradients 3.1e-3; card against
 # CPU loss 1.7e-4, gradients 5.6e-3.
 ATTN_TOL = {"bf16": 3e-2, "f32": 1e-5}
+# K6 (the channelwise LayerNorm) against its plain versions on the card, by
+# relative L2: y and dx are each rounded once to bf16 (an element that rounds
+# the other way differs by one ulp), dg and db are float32 sums over the rows
+# in another order.
+LN_TOL = {"y": 4e-3, "dx": 4e-3, "dg_db": 1e-5}
 SEPFORMER_TOL = {"min_snr_db": 35.0, "fused_loss": 3e-4, "fused_grad": 3e-2,
                  "cpu_loss": 2e-3, "cpu_grad": 6e-2}
 # exp runs on the SFU: 16 results per SM and clock (4 per SM sub-partition),
@@ -691,6 +700,23 @@ def attention_bound_ms(q, io_bytes: int, products: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def backward_ms(forward, leaves, dy, iters: int = 5) -> float:
+    """Mean device time of the autograd backward of ``forward(*leaves)``
+    alone (a fresh forward before each, outside the timed region)."""
+    total = 0.0
+    for i in range(iters + 1):
+        out = forward(*leaves)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out.backward(dy)
+        e1.record()
+        e1.synchronize()
+        total += e0.elapsed_time(e1) if i else 0.0      # the first is a warm-up
+        for t in leaves:
+            t.grad = None
+    return total / iters
+
+
 def sdpa_ms(q, k, v, mask, do) -> tuple[float, float]:
     """F.scaled_dot_product_attention on the same rows (heads folded into
     the batch, the mask as an additive bias): forward ms, and the backward
@@ -701,16 +727,8 @@ def sdpa_ms(q, k, v, mask, do) -> tuple[float, float]:
     with torch.no_grad():
         fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias), 10)
     leaves = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
-    bwd = 0.0
-    for i in range(6):
-        out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out.backward(do4)
-        e1.record()
-        e1.synchronize()
-        bwd += e0.elapsed_time(e1) if i else 0.0      # the first is a warm-up
-    return fwd, bwd / 5
+    return fwd, backward_ms(lambda *a: F.scaled_dot_product_attention(*a, attn_mask=bias),
+                            leaves, do4)
 
 
 def attention_sass_hmma() -> dict:
@@ -827,6 +845,79 @@ def check_attention(fails: Failures) -> dict:
     out["fwd"]["long"], out["bwd"]["long"] = f, b
     compare(attention_inputs(400, 1230, 16, torch.float32, gen), "long inter T=1230")
     torch.cuda.empty_cache()
+    return out
+
+
+def check_layernorm(fails: Failures) -> dict:
+    """K6 forward and backward against their plain versions at SepFormer's
+    training rows (16 rows x 33 chunks x 250 frames of 256 channels, bf16,
+    every 97th row zero as pad frames are) and at TCN's 257 bins, each
+    launched twice (bit-identical outputs), with times beside the plain
+    _cln's (its forward, and its autograd backward), F.layer_norm's (bf16
+    scale and shift: a yardstick the port never calls) and the bytes bound:
+    the forward reads x and writes y, the backward reads x and dy and writes
+    dx (g, b, the statistics and dg, db counted too). The plain forward is
+    _cln's body, so autograd through it is the plain _cln's backward."""
+    import torch.nn.functional as F
+
+    from speech_separation_tpu_torch.ops.layernorm_kernel import (channel_norm_bwd,
+                                                                  channel_norm_bwd_plain,
+                                                                  channel_norm_fwd,
+                                                                  channel_norm_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    out = {}
+
+    def cln_formula(x, g, b):
+        return channel_norm_fwd_plain(x, g, b)[0]
+
+    for label, R, H in (("sepformer", 132000, 256), ("tcn", 100 * 384, 257)):
+        x = (2.0 * torch.randn((R, H), generator=gen, device="cuda") + 0.5).bfloat16()
+        x[::97] = 0
+        dy = torch.randn((R, H), generator=gen, device="cuda").bfloat16()
+        g = 0.9 + 0.2 * torch.rand(H, generator=gen, device="cuda")
+        b = 0.1 * torch.rand(H, generator=gen, device="cuda") - 0.05
+        y, mu, rstd = channel_norm_fwd(x, g, b)
+        dx, dg, db = channel_norm_bwd(x, g, mu, rstd, dy)
+        again = (*channel_norm_fwd(x, g, b), *channel_norm_bwd(x, g, mu, rstd, dy))
+        y_p, mu_p, rstd_p = channel_norm_fwd_plain(x, g, b)
+        dx_p, dg_p, db_p = channel_norm_bwd_plain(x, g, mu_p, rstd_p, dy)
+        torch.cuda.synchronize()
+        errs = {"y": rel_l2(y, y_p), "dx": rel_l2(dx, dx_p),
+                "dg_db": max(rel_l2(dg, dg_p), rel_l2(db, db_p))}
+        for k, e in errs.items():
+            fails.check(e <= LN_TOL[k], f"channel_norm {label} ({R}, {H}) bf16 {k} against the "
+                                        f"plain version: rel L2 {e:.3e} <= {LN_TOL[k]}")
+        fails.check(all(torch.equal(a, r) for a, r in zip((y, mu, rstd, dx, dg, db), again)),
+                    f"channel_norm {label}: a second launch gives bit-identical y, mu, rstd, "
+                    f"dx, dg, db")
+        del again, y_p, dx_p
+        # warmed past the card's clock ramp (the first timing read 0.105 ms
+        # against 0.058 after it)
+        ms_f = cuda_ms(lambda: channel_norm_fwd(x, g, b), 50, warmup=20)
+        ms_b = cuda_ms(lambda: channel_norm_bwd(x, g, mu, rstd, dy), 50, warmup=20)
+        with torch.no_grad():
+            plain_f = cuda_ms(lambda: cln_formula(x, g, b), 10)
+            lib_f = cuda_ms(lambda: F.layer_norm(x, (H,), g.bfloat16(), b.bfloat16(), 1e-6), 10)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, g, b)]
+        plain_b = backward_ms(cln_formula, leaves, dy)
+        lib_leaves = [t.detach().clone().requires_grad_(True) for t in (x, g.bfloat16(),
+                                                                        b.bfloat16())]
+        lib_b = backward_ms(lambda xx, gg, bb: F.layer_norm(xx, (H,), gg, bb, 1e-6), lib_leaves,
+                            dy)
+        b_f = bound_ms(nbytes(x, y, g, b, mu, rstd), 0, torch.bfloat16)
+        b_b = bound_ms(nbytes(x, dy, dx, g, mu, rstd, dg, db), 0, torch.bfloat16)
+        print(f"  channel_norm {label} ({R}, {H}) bf16: fwd {ms_f:.4f} ms (plain _cln "
+              f"{plain_f:.4f}, F.layer_norm {lib_f:.4f}, bound {b_f[0]:.4f}: "
+              f"{100 * b_f[0] / ms_f:.1f}%); bwd {ms_b:.4f} ms (plain _cln's autograd "
+              f"{plain_b:.4f}, F.layer_norm's {lib_b:.4f}, bound {b_b[0]:.4f}: "
+              f"{100 * b_b[0] / ms_b:.1f}%); rel L2 {errs}", flush=True)
+        out[label] = {part: {"rel_l2_err": errs["y" if part == "fwd" else "dx"], "ms": ms,
+                             "plain_ms": plain, "bound_ms": bd[0], "bound_by": bd[1],
+                             "library_ms": lib, "R": R, "H": H}
+                      for part, ms, plain, bd, lib in (("fwd", ms_f, plain_f, b_f, lib_f),
+                                                       ("bwd", ms_b, plain_b, b_b, lib_b))}
+        del x, dy, y, dx, leaves, lib_leaves
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1174,9 +1265,8 @@ def serve_sepformer_phase(fails: Failures, counters) -> dict:
                 f"the .state meta gives {pipe.arch.NAME} {pipe.cfg}")
     replies, launches, wall_ms = serve_requests(fails, pipe, work, wavs, ([0], [1], [2]),
                                                 counters, lambda n: n)
-    fails.check(launches["chunk_attention_fwd"] > 0,
-                f"chunk_attention_fwd launched {launches['chunk_attention_fwd']} times "
-                "while serving")
+    for name in ("chunk_attention_fwd", "channel_norm_fwd"):
+        fails.check(launches[name] > 0, f"{name} launched {launches[name]} times while serving")
 
     # r1's mixture on the card (the serving pipeline) and on the CPU (plain
     # versions), as float tracks
@@ -1248,6 +1338,10 @@ def train_sepformer_phase(fails: Failures, counters) -> dict:
     fails.check(launches["chunk_attention_bwd"] == 8 * 10,
                 f"chunk_attention_bwd launched {launches['chunk_attention_bwd']} times "
                 "(8 layers x 10 steps)")
+    # two LayerNorms (K6) a layer, no path norm in the compact model
+    fails.check(launches["channel_norm_fwd"] == 16 * 11 and launches["channel_norm_bwd"] == 16 * 10,
+                f"channel_norm_fwd / _bwd launched {launches['channel_norm_fwd']} / "
+                f"{launches['channel_norm_bwd']} times (16 norms x 11 forwards / 10 backwards)")
     ms = [m for m, _ in steps[1:]]
     print(f"  steps after the first: {np.mean(ms):.2f} ms/step (min {min(ms):.2f}, max "
           f"{max(ms):.2f}); first step {steps[0][0]:.1f} ms; epochs (wall s, steps s): "
@@ -2936,13 +3030,15 @@ def _solo(sep, x) -> list:
 # sepformer, K3/K4 at H=128 dprnn, K2 dsp, K1 and K2 serving), and the
 # launches each child must report: per training step K3 and K4 twice (uPIT,
 # 2 layers) or 12 times (DPRNN, 6 blocks x 2 BLSTMs), K5 forward and backward
-# 8 times (SepFormer, 4 blocks x 2 layers); K2 in dsp's round trips. A
+# 8 times (SepFormer, 4 blocks x 2 layers) and K6 forward and backward 16
+# times (two LayerNorms a layer); K2 in dsp's round trips. A
 # training phase runs 1 + iters + 3 steps (the first, the timed loop, the
 # idle-share window); dsp a second of round trips, then 20.
 BENCH_SUBSET = ("upit_bf16", "sepformer", "dprnn", "dsp", "serving")
 BENCH_LAUNCHES = {
     "upit_bf16": {"lstm_seq_fwd": 2 * 24, "lstm_seq_bwd": 2 * 24},
-    "sepformer": {"chunk_attention_fwd": 8 * 14, "chunk_attention_bwd": 8 * 14},
+    "sepformer": {"chunk_attention_fwd": 8 * 14, "chunk_attention_bwd": 8 * 14,
+                  "channel_norm_fwd": 16 * 14, "channel_norm_bwd": 16 * 14},
     "dprnn": {"lstm_seq_fwd": 12 * 14, "lstm_seq_bwd": 12 * 14},
     "dsp": {"stft": None},
     "serving": {"lstm_seq_infer": None, "stft": None},      # None: any number above 0
@@ -2978,9 +3074,10 @@ def tools_phase(fails: Failures) -> dict:
     t0 = time.monotonic()
     code, out = _cli(["doctor"])
     print("  " + out.strip().replace("\n", "\n  "), flush=True)
+    from speech_separation_tpu_torch.ops._build import SOURCES
     fails.check(code == 0 and "PROBE FAILED" not in out
-                and out.count("built (") == 4,
-                f"doctor exits {code}, the card probed and 4 kernel sources built")
+                and out.count("built (") == len(SOURCES),
+                f"doctor exits {code}, the card probed and {len(SOURCES)} kernel sources built")
     fails.check("native io (csrc/sepio.cpp): loaded" in out,
                 "doctor reports the native loader loaded")
     doctor_s = time.monotonic() - t0
@@ -4093,6 +4190,8 @@ def _kernel_group(name: str) -> str:
         return "K5 forward"
     if "attn_bwd_" in name:
         return "K5 backward"
+    if "chan_ln_" in name:                  # chan_ln_fwd, chan_ln_bwd, chan_ln_bwd_params
+        return "K6 LayerNorm"
     if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "gemv")):
         return "products (cuBLAS)"
     if "elementwise" in name or "vectorized" in name:
@@ -4327,6 +4426,8 @@ def main() -> int:
     from speech_separation_tpu_torch.ops import _build
     from speech_separation_tpu_torch.ops.attention_kernel import (chunk_attention_bwd,
                                                                   chunk_attention_fwd)
+    from speech_separation_tpu_torch.ops.layernorm_kernel import (channel_norm_bwd,
+                                                                  channel_norm_fwd)
     from speech_separation_tpu_torch.ops.lstm_kernel import (lstm_seq_bwd, lstm_seq_fwd,
                                                              lstm_seq_infer)
     from speech_separation_tpu_torch.ops.stft_kernel import stft
@@ -4348,7 +4449,7 @@ def main() -> int:
 
     print("== 2. build", flush=True)
     t0 = time.monotonic()
-    _build.build(["lstm_fwd", "lstm_bwd", "stft", "attention", "sepio"])
+    _build.build(["lstm_fwd", "lstm_bwd", "stft", "attention", "layernorm", "sepio"])
     print(f"  nvcc and g++ (parallel): {time.monotonic() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():       # each kernel's name, then its registers and spills
@@ -4362,6 +4463,7 @@ def main() -> int:
     stft_nums = check_stft(fails)
     lstm_train = check_lstm_train(fails)
     attention = check_attention(fails)
+    layernorm = check_layernorm(fails)
     print(f"  phase 3 done at {time.monotonic() - t_start:.1f} s", flush=True)
 
     print("== 4. serve (2x600 uPIT, bf16)", flush=True)
@@ -4386,11 +4488,12 @@ def main() -> int:
     print(f"  phase 6 done at {time.monotonic() - t_start:.1f} s", flush=True)
 
     attn_counters = [chunk_attention_fwd, chunk_attention_bwd]
+    ln_counters = [channel_norm_fwd, channel_norm_bwd]
     print("== 7. serve (SepFormer, bf16, fused attention)", flush=True)
-    served_sf = serve_sepformer_phase(fails, attn_counters)
+    served_sf = serve_sepformer_phase(fails, attn_counters + ln_counters)
 
     print("== 8. train (SepFormer, bf16, fused attention, B=32, 4 s)", flush=True)
-    trained_sf = train_sepformer_phase(fails, attn_counters)
+    trained_sf = train_sepformer_phase(fails, attn_counters + ln_counters)
     launches.update(trained_sf["launches"])
 
     k5_ms = 4 * sum(attention[p][s]["ms"] for p in ("fwd", "bwd")
@@ -4558,6 +4661,14 @@ def main() -> int:
                             "hmma": nums[torch.bfloat16]["hmma"], "float32": nums[torch.float32],
                             "inter": nums["inter"], "long": nums["long"],
                             "serve_launches": served_sf["launches"][name]}))
+    for name, part in (("channel_norm_fwd", "fwd"), ("channel_norm_bwd", "bwd")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "speech_separation_tpu_torch/csrc/layernorm.cu",
+                        "replaces": "none: speech_separation_tpu/models/tcn.py:150 _cln, "
+                                    "plain jnp that XLA fuses",
+                        "launches": trained_sf["launches"][name], "dtype": "bfloat16",
+                        **layernorm["sepformer"][part], "tcn": layernorm["tcn"][part],
+                        "serve_launches": served_sf["launches"][name]})
     print(f"  serve: {served}", flush=True)
     print(f"  train: {({k: v for k, v in trained.items() if k != 'train_dir'})}", flush=True)
     print(f"  lstm_seq gradients: {lstm_train['grad']}", flush=True)

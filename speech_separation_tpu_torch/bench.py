@@ -53,7 +53,8 @@ PROFILE_STEPS = 3
 # the kernel wrappers of the port, by module: each counts its launches
 KERNEL_WRAPPERS = {"lstm_kernel": ("lstm_seq_infer", "lstm_seq_fwd", "lstm_seq_bwd"),
                    "stft_kernel": ("stft",),
-                   "attention_kernel": ("chunk_attention_fwd", "chunk_attention_bwd")}
+                   "attention_kernel": ("chunk_attention_fwd", "chunk_attention_bwd"),
+                   "layernorm_kernel": ("channel_norm_fwd", "channel_norm_bwd")}
 
 
 # --------------------------------------------------------------------------

@@ -21,13 +21,15 @@ ARCHS = {"uPIT": upit, "RSH": rsh, "TCN": tcn, "DPRNN": dprnn, "SepFormer": sepf
 # training and serving launch: the BLSTM archs the LSTM recurrences (K1, K3
 # lstm_fwd; K4 lstm_bwd), the spectral ones the STFT (K2) for on-device
 # features and serving, SepFormer the chunk attention (K5, with
-# fused_attention=1). DPRNN works on waveforms and Conv-TasNet runs no
-# hand-written kernel. warmup, doctor and bench read this map.
+# fused_attention=1), TCN and SepFormer the channelwise LayerNorm (K6,
+# layernorm). DPRNN works on waveforms and Conv-TasNet runs no hand-written
+# kernel with its default global norm (norm="cln" and the causal streaming
+# model build K6 at first use). warmup, doctor and bench read this map.
 ARCH_KERNELS = {"uPIT": ("lstm_fwd", "lstm_bwd", "stft"),
                 "RSH": ("lstm_fwd", "lstm_bwd", "stft"),
                 "DPRNN": ("lstm_fwd", "lstm_bwd"),
-                "TCN": ("stft",),
-                "SepFormer": ("attention",),
+                "TCN": ("stft", "layernorm"),
+                "SepFormer": ("attention", "layernorm"),
                 "ConvTasNet": ()}
 
 

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .upit import _coerce_kwargs, contract_loss
+from ..ops.layernorm_kernel import channel_norm, channel_norm_fwd_plain
 from ..ops.mxu import column_dot, rounded_dot
 from ..parallel.ranks import reduce_from_model, sum_over_model
 
@@ -116,15 +117,18 @@ def _cln(x: torch.Tensor, p, eps: float = 1e-6, over_model: bool = False) -> tor
     """Per-frame (channelwise) layer norm; statistics and normalization in
     float32 whatever x's storage dtype, the result stored back in x's
     dtype. ``over_model``: x is this rank's block of a channel axis split
-    over the model group, and the statistics are summed over the group."""
-    xf = x.float()
+    over the model group, and the statistics are summed over the group.
+    Unsplit, the norm is K6 (ops/layernorm_kernel.py): one kernel each way
+    on the card, its plain forward under autograd on the CPU; both raise on
+    rows the kernel does not take."""
     if not over_model:
-        mu = torch.mean(xf, dim=-1, keepdim=True)
-        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
-    else:
-        cnt = sum_over_model(xf.new_full((), x.shape[-1]))
-        mu = sum_over_model(torch.sum(xf, dim=-1, keepdim=True)) / cnt
-        var = sum_over_model(torch.sum(torch.square(xf - mu), dim=-1, keepdim=True)) / cnt
+        if x.is_cuda:
+            return channel_norm(x.contiguous(), p["g"], p["b"], eps)
+        return channel_norm_fwd_plain(x, p["g"], p["b"], eps)[0]
+    xf = x.float()
+    cnt = sum_over_model(xf.new_full((), x.shape[-1]))
+    mu = sum_over_model(torch.sum(xf, dim=-1, keepdim=True)) / cnt
+    var = sum_over_model(torch.sum(torch.square(xf - mu), dim=-1, keepdim=True)) / cnt
     return (((xf - mu) * torch.rsqrt(var + eps)) * p["g"] + p["b"]).to(x.dtype)
 
 

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 
 # every CUDA source of csrc/ with a plain C interface, one library each
-SOURCES = ("lstm_fwd", "lstm_bwd", "stft", "attention")
+SOURCES = ("lstm_fwd", "lstm_bwd", "stft", "attention", "layernorm")
 # the host C++ sources of csrc/, built with g++ (and linked with zlib)
 HOST_SOURCES = ("sepio",)
 

@@ -328,7 +328,7 @@ def test_warmup_builds_each_arch_s_sources_then_hits_the_cache(monkeypatch, caps
     assert calls == [list(ARCH_KERNELS[a]) for a in ARCHS]
     lines = {a: next(ln for ln in out if ln.startswith(f"warmup {a}:")) for a in ARCHS}
     assert "cold build of lstm_fwd, lstm_bwd, stft" in lines["uPIT"]
-    assert "cache hit" in lines["RSH"] and "cache hit" in lines["TCN"]
+    assert "cache hit" in lines["RSH"] and "cold build of layernorm" in lines["TCN"]
     assert "cold build of attention" in lines["SepFormer"]
     assert "plans: none" in lines["ConvTasNet"]
     main(["warmup", "--archs", "uPIT,SepFormer"])
@@ -353,7 +353,9 @@ def test_warmup_refuses_a_configuration_the_kernels_refuse(monkeypatch, tmp_path
 
 WRAPPER_SOURCES = {"lstm_seq_infer": "lstm_fwd", "lstm_seq_fwd": "lstm_fwd",
                    "lstm_seq_bwd": "lstm_bwd", "stft": "stft",
-                   "chunk_attention_fwd": "attention", "chunk_attention_bwd": "attention"}
+                   "chunk_attention_fwd": "attention", "chunk_attention_bwd": "attention",
+                   "channel_norm_fwd": "layernorm", "channel_norm_bwd": "layernorm",
+                   "_cln": "layernorm"}
 
 
 @pytest.mark.parametrize("arch_name", list(ARCHS))
@@ -361,7 +363,8 @@ def test_arch_kernel_map_names_what_train_and_serve_call(arch_name, monkeypatch,
     """A tiny training step (waveform input for every arch: the STFT of an
     on-device-features step) and a served batch on the CPU, each kernel
     wrapper recorded wherever a module holds it: the sources they stand for
-    are the map's."""
+    are the map's. ``models/tcn._cln`` stands for K6's wrappers: on the CPU
+    it runs its plain body and calls none."""
     from speech_separation_tpu_torch.dsp.stft import num_frames
     from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
     from speech_separation_tpu_torch.models.registry import get_arch
@@ -374,6 +377,7 @@ def test_arch_kernel_map_names_what_train_and_serve_call(arch_name, monkeypatch,
     originals = {name: getattr(importlib.import_module(
         f"speech_separation_tpu_torch.ops.{mod}"), name)
         for mod, names in bench.KERNEL_WRAPPERS.items() for name in names}
+    originals["_cln"] = importlib.import_module("speech_separation_tpu_torch.models.tcn")._cln
     for mod in [m for n, m in sys.modules.items()
                 if n.startswith("speech_separation_tpu_torch") and m is not None]:
         for name, fn in originals.items():

@@ -41,7 +41,7 @@ Phases, in order; any failure exits non-zero without the final line:
    cuobjdump finds in their SASS; the channelwise LayerNorm (K6) forward and
    backward at SepFormer's training rows (132,000 x 256, bf16) and at TCN's
    257 bins, against its plain versions, launched twice (bit-identical), its
-   times beside the plain _cln's (forward, and its autograd backward), the
+   times beside the plain cln's (forward, and its autograd backward), the
    bytes bound and F.layer_norm's (a yardstick the port never calls);
 4. serve: a 2x600 bf16 uPIT with weights from a seed, saved as a reference
    .mdl, behind the port's SeparationServer on a Unix socket; one request,
@@ -192,7 +192,7 @@ Phases, in order; any failure exits non-zero without the final line:
    norms), each of which must fail those bounds; (c) one RSH step of a mixed
    batch whose sub-batches (3, 5 and 1 rows of 1, 2 and 3 speakers) do not
    divide over the ranks; (d) one full-width bf16 SepFormer step with fused
-   attention at B=8 (K5 on each rank); (e) 20 requests through a pipeline of
+   attention at B=8 (K5 and K6 on each rank, counted over the ranks); (e) 20 requests through a pipeline of
    two replicas (batch_size 15 -> 16 with the note) against one device; (f)
    `separate --data-parallel` through the CLI (the one-device note, wavs
    bit-identical to the run without it) and `score --device-scoring` over a
@@ -853,11 +853,11 @@ def check_layernorm(fails: Failures) -> dict:
     training rows (16 rows x 33 chunks x 250 frames of 256 channels, bf16,
     every 97th row zero as pad frames are) and at TCN's 257 bins, each
     launched twice (bit-identical outputs), with times beside the plain
-    _cln's (its forward, and its autograd backward), F.layer_norm's (bf16
+    cln's (its forward, and its autograd backward), F.layer_norm's (bf16
     scale and shift: a yardstick the port never calls) and the bytes bound:
     the forward reads x and writes y, the backward reads x and dy and writes
     dx (g, b, the statistics and dg, db counted too). The plain forward is
-    _cln's body, so autograd through it is the plain _cln's backward."""
+    cln's body, so autograd through it is the plain cln's backward."""
     import torch.nn.functional as F
 
     from speech_separation_tpu_torch.ops.layernorm_kernel import (channel_norm_bwd,
@@ -906,9 +906,9 @@ def check_layernorm(fails: Failures) -> dict:
                             dy)
         b_f = bound_ms(nbytes(x, y, g, b, mu, rstd), 0, torch.bfloat16)
         b_b = bound_ms(nbytes(x, dy, dx, g, mu, rstd, dg, db), 0, torch.bfloat16)
-        print(f"  channel_norm {label} ({R}, {H}) bf16: fwd {ms_f:.4f} ms (plain _cln "
+        print(f"  channel_norm {label} ({R}, {H}) bf16: fwd {ms_f:.4f} ms (plain cln "
               f"{plain_f:.4f}, F.layer_norm {lib_f:.4f}, bound {b_f[0]:.4f}: "
-              f"{100 * b_f[0] / ms_f:.1f}%); bwd {ms_b:.4f} ms (plain _cln's autograd "
+              f"{100 * b_f[0] / ms_f:.1f}%); bwd {ms_b:.4f} ms (plain cln's autograd "
               f"{plain_b:.4f}, F.layer_norm's {lib_b:.4f}, bound {b_b[0]:.4f}: "
               f"{100 * b_b[0] / ms_b:.1f}%); rel L2 {errs}", flush=True)
         out[label] = {part: {"rel_l2_err": errs["y" if part == "fwd" else "dx"], "ms": ms,
@@ -1181,6 +1181,7 @@ def step_phase(fails: Failures, train_dir: str) -> dict:
     from unittest import mock
 
     from speech_separation_tpu_torch.models import upit
+    from speech_separation_tpu_torch.models.spectral import contract_loss
     from speech_separation_tpu_torch.train.data import (BatchPlan, FeatureDataset,
                                                         make_device_batch)
     from speech_separation_tpu_torch.utils.weights import fold_lstm_biases
@@ -1201,7 +1202,7 @@ def step_phase(fails: Failures, train_dir: str) -> dict:
         b = {k: torch.from_numpy(batch[k]).to(dev) for k in
              ("mix", "sources", "lengths", "row_mask")}
         t0 = time.monotonic()
-        loss, _ = upit.contract_loss(m, b, *(s.to(dev) for s in state), train=True)
+        loss, _ = contract_loss(m, b, *(s.to(dev) for s in state), train=True)
         loss.backward()
         if dev == "cuda":
             torch.cuda.synchronize()
@@ -1216,7 +1217,7 @@ def step_phase(fails: Failures, train_dir: str) -> dict:
     bmm = torch.bmm
     b = {k: torch.from_numpy(batch[k]) for k in ("mix", "sources", "lengths", "row_mask")}
     with mock.patch.object(torch, "bmm", lambda x, y: bmm(x.double(), y.double()).float()):
-        exact, _ = upit.contract_loss(copy.deepcopy(model), b, *state, train=True)
+        exact, _ = contract_loss(copy.deepcopy(model), b, *state, train=True)
     noise = {"cpu_vs_exact_product": rel_l2(out["cpu"][0], exact.detach()),
              "card_vs_exact_product": rel_l2(out["cuda"][0], exact.detach())}
     print(f"  loss rel err: card vs CPU {loss_err:.3e}; CPU (torch.bmm's f32 order) vs the "
@@ -3954,6 +3955,9 @@ def data_parallel_phase(fails: Failures, counters, train_dir: str, sf_train_dir:
     for name in ("chunk_attention_fwd", "chunk_attention_bwd"):
         fails.check(got.get(name) == 16, f"(d) {name} launched {got.get(name)} times over the "
                                          "ranks (8 layers x 2 ranks)")
+    for name in ("channel_norm_fwd", "channel_norm_bwd"):
+        fails.check(got.get(name) == 32, f"(d) {name} launched {got.get(name)} times over the "
+                                         "ranks (16 norms x 2 ranks)")
     errs = {}
     for n in over:
         sound_name, _, fault = n.partition("/")
@@ -4449,7 +4453,7 @@ def main() -> int:
 
     print("== 2. build", flush=True)
     t0 = time.monotonic()
-    _build.build(["lstm_fwd", "lstm_bwd", "stft", "attention", "layernorm", "sepio"])
+    _build.build(_build.TABLE)
     print(f"  nvcc and g++ (parallel): {time.monotonic() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():       # each kernel's name, then its registers and spills
@@ -4588,7 +4592,8 @@ def main() -> int:
           "controls; two pipeline replicas; the CLI; the scorer over a mesh; a failing rank",
           flush=True)
     t26 = time.monotonic()
-    dp, dp_upit = data_parallel_phase(fails, [stft, *lstm_counters, *attn_counters],
+    dp, dp_upit = data_parallel_phase(fails, [stft, *lstm_counters, *attn_counters,
+                                              *ln_counters],
                                       trained["train_dir"], trained_sf["train_dir"], trained,
                                       extras["native_dir"])
     print(f"  phase 26: {time.monotonic() - t26:.1f} s", flush=True)

@@ -50,11 +50,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESULT_TAG = "BENCH_PHASE_RESULT "
 # steps or batches in each idle-share window, after the timed loop
 PROFILE_STEPS = 3
-# the kernel wrappers of the port, by module: each counts its launches
-KERNEL_WRAPPERS = {"lstm_kernel": ("lstm_seq_infer", "lstm_seq_fwd", "lstm_seq_bwd"),
-                   "stft_kernel": ("stft",),
-                   "attention_kernel": ("chunk_attention_fwd", "chunk_attention_bwd"),
-                   "layernorm_kernel": ("channel_norm_fwd", "channel_norm_bwd")}
 
 
 # --------------------------------------------------------------------------
@@ -101,6 +96,7 @@ def _build_model(arch, cfg, dev, state_dict=None):
     import torch
 
     from .train.loop import Optimizer, TrainLoopConfig
+    from .utils.device import disable_tf32
     from .utils.weights import fold_lstm_biases
     model = arch.Model(cfg)
     model.reset_parameters(torch.Generator().manual_seed(0))
@@ -109,7 +105,7 @@ def _build_model(arch, cfg, dev, state_dict=None):
     fold_lstm_biases(model)
     model.to(dev)
     # f32 products in full f32, as the trainer and the JAX package run them
-    torch.backends.cuda.matmul.allow_tf32 = False
+    disable_tf32()
     return model, Optimizer(model.parameters(), TrainLoopConfig())
 
 
@@ -144,7 +140,7 @@ def bench_train_step(B=100, T=384, iters=20, compute_dtype="bfloat16",
     initial weights), ``loss`` the last timed step's."""
     import torch
 
-    from .eval.infer import resolve_device
+    from .utils.device import resolve_device
     from .models.registry import get_arch
     from .train.loop import update_step
 
@@ -172,7 +168,7 @@ def bench_train_step_wave(arch_name: str, B=32, n_sec=4.0, iters=10,
     (its PHASES); so does this one."""
     import torch
 
-    from .eval.infer import resolve_device
+    from .utils.device import resolve_device
     from .models.registry import get_arch
     from .train.loop import update_step
 
@@ -199,7 +195,7 @@ def bench_dsp_bandwidth(B=64, n_sec=6.0, iters=20, device="cuda", warmup_s=1.0):
     import torch
 
     from .dsp.stft import istft_batch, num_frames, stft_centered_batch
-    from .eval.infer import resolve_device
+    from .utils.device import resolve_device
 
     dev = resolve_device(device)
     xp, counts = dsp_batch(B, n_sec)
@@ -242,7 +238,7 @@ def bench_serving(B=16, n_sec=6.0, rounds=6, clients=8, reqs_per_client=4,
 
     import torch
 
-    from .eval.infer import resolve_device
+    from .utils.device import resolve_device
     from .eval.pipeline import SeparationPipeline
     from .eval.serve import SeparationServer, request
     from .models import upit
@@ -389,12 +385,6 @@ def phase_sources(names) -> list:
     return sorted(wanted)
 
 
-def _kernel_counters() -> list:
-    import importlib
-    return [getattr(importlib.import_module(f"{__package__}.ops.{mod}"), fn)
-            for mod, fns in KERNEL_WRAPPERS.items() for fn in fns]
-
-
 def card_name() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -409,10 +399,12 @@ def run_phase_child(name: str) -> int:
     result (with the card, and each kernel's launches) as one tagged JSON
     line."""
     import torch
+
+    from .ops._build import launch_counters
     if not torch.cuda.is_available():
         print("bench: no CUDA device is visible", file=sys.stderr)
         return 2
-    counters = _kernel_counters()
+    counters = launch_counters()
     for c in counters:
         c.launches = 0
     res = PHASES[name]()

@@ -134,7 +134,7 @@ def _extract(data_dir, data_type, feat_dir, args):
     from ..datadir.split import split_data_dir
     from ..datadir.validate import validate_data_dir
     from ..dsp.extract import extract_features, merge_shard_outputs
-    from ..eval.infer import resolve_device
+    from ..utils.device import resolve_device
     resolve_device(args.device)          # no card: fail before any shard is written
     cfg = _stft_cfg(args)
     kw = {"compress": not args.no_compress, "device": args.device}
@@ -189,7 +189,7 @@ def cmd_oracle(args):
     once in worker processes."""
     from ..datadir.split import split_data_dir
     from ..datadir.validate import validate_data_dir
-    from ..eval.infer import resolve_device
+    from ..utils.device import resolve_device
     from ..eval.oracle import evaluate_oracle, merge_oracle_shards
     resolve_device(args.device)          # no card: fail before any shard is written
     cfg = _stft_cfg(args)
@@ -542,7 +542,7 @@ def _write_sweep_results(model_dir, ds, rows):
 
 def cmd_run_eval(args):
     """The staged evaluation recipe (the reference's run_eval.sh)."""
-    from ..eval.infer import resolve_device
+    from ..utils.device import resolve_device
     resolve_device(args.device)          # no card: fail before anything is written
     test_sets = args.test_sets.split()
     model_config = args.model_config
@@ -659,8 +659,8 @@ def cmd_doctor(args):
 def _time_domain_framing(cfg, seconds: float) -> tuple[int, int]:
     """(latent frames, chunks) of a time-domain arch's utterance of
     ``seconds`` at 8 kHz."""
-    from ..models.convtasnet import latent_frames
-    from ..models.dprnn import num_chunks
+    from ..models.dual_path import num_chunks
+    from ..models.waveform import latent_frames
     n_t = latent_frames(cfg, int(seconds * 8000))
     return n_t, num_chunks(cfg, n_t)
 

@@ -93,7 +93,7 @@ def extract_features(data_dir: str, data_type: str, feat_dir: str,
     """Extract the features of one (possibly sharded) data dir on
     ``device`` (CUDA by default; it raises when no card is visible).
     ``compress=False`` writes stored (uncompressed) npz files."""
-    from ..eval.infer import resolve_device
+    from ..utils.device import resolve_device
     if data_type not in ("train", "test"):
         raise ValueError(f"data_type must be 'train' or 'test', got {data_type!r}")
     dev = resolve_device(device)

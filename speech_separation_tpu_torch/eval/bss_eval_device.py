@@ -250,7 +250,7 @@ def bss_eval_sources_batch(reference_sources, estimated_sources, compute_permuta
     ests = np.asarray(estimated_sources)
     if mesh is not None and mesh.size > 1:
         return _over_mesh(refs, ests, compute_permutation, flen, max_batch, stats, mesh)
-    from .infer import resolve_device
+    from ..utils.device import resolve_device
     dev = resolve_device(device)
     assert refs.shape == ests.shape and refs.ndim == 3, (refs.shape, ests.shape)
     B, n, L = refs.shape

@@ -30,17 +30,8 @@ import torch
 
 from ..models.registry import get_arch
 from ..train.checkpoint import is_septpu01, load_checkpoint, read_septpu01, state_path
+from ..utils.device import resolve_device
 from ..utils.weights import infer_model_info
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names
-    another. Without a visible card it raises; it never falls back."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is visible; the port runs on the GPU "
-                           "(pass device='cpu' for the plain PyTorch versions)")
-    return dev
 
 
 def read_checkpoint(model_path: str) -> tuple[dict, dict]:

@@ -33,8 +33,8 @@ from ..datadir.scp import read_scp, read_segments, source_wavs_for_mix
 from ..dsp.stft import (STFTConfig, istft_batch, istft_output_length, num_frames,
                         reflect_pad_center, stft_centered_batch)
 from ..utils.audio import load_wav
+from ..utils.device import resolve_device
 from .bss_eval import bss_eval_sources
-from .infer import resolve_device
 from .score import _write_stats, pack_signals
 
 METRICS = ("SDR", "SIR", "SAR")

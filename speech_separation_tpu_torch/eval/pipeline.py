@@ -37,6 +37,7 @@ from ..dsp.stft import (STFTConfig, istft_batch, istft_output_length,
                         num_frames, reflect_pad_center, stft_centered_batch)
 from ..models.upit import initial_state
 from ..parallel.mesh import replicate_module, run_replicas
+from ..utils.device import disable_tf32
 from .infer import load_model
 
 
@@ -93,10 +94,8 @@ class SeparationPipeline:
                 batch_size = rounded
             self.replicas = replicate_module(self.model, mesh)
         self.domain = self.arch.DOMAIN
-        # the one place the port sets this process-wide flag: every f32
-        # product of the path in full f32, as the reference's
-        # Precision.HIGHEST and f32 dots (TF32 keeps ~3 digits)
-        torch.backends.cuda.matmul.allow_tf32 = False
+        # every f32 product of the path in full f32
+        disable_tf32()
         self.stft_cfg = stft_cfg
         self.batch_size = batch_size
         self.length_quantum = length_quantum

@@ -35,7 +35,7 @@ def reconstruct_sources(data_dir: str, exp_dir: str, hop: int = 128,
     """Write the wavs of ``exp_dir/masks`` applied to the test spectra of
     ``data_dir``, on ``device`` (CUDA by default; it raises when no card is
     visible)."""
-    from .infer import resolve_device
+    from ..utils.device import resolve_device
     dev = resolve_device(device)
     entries = read_scp(os.path.join(data_dir, "feats_test.scp"))
     mask_dir = os.path.join(exp_dir, "masks")

@@ -105,7 +105,7 @@ def _score_device(jobs, log, device, slab: int = 64, mesh=None):
 
     from ..utils.audio import wav_num_samples
     from .bss_eval_device import bss_eval_sources_batch
-    from .infer import resolve_device
+    from ..utils.device import resolve_device
     dev = resolve_device(device)
 
     hdr_len = {job[0]: wav_num_samples(os.path.join(job[3], "s1", job[0] + ".wav"))

@@ -46,6 +46,7 @@ import torch
 
 from ..dsp.stft import _device_matrix, hann_periodic, istft_output_length, num_frames
 from ..ops.mxu import rounded_dot
+from ..utils.device import disable_tf32
 from .infer import load_model
 
 
@@ -210,7 +211,7 @@ class _TimeStreamIO:
     windows at ``stride`` with no center padding, and the decoder's frames
     overlap-add with no window normalization. Sample s is final once every
     frame touching it is in (t_done*stride > s). The frame count and the
-    tail's zero padding are convtasnet.valid_latent_frames', so the output
+    tail's zero padding are waveform.valid_latent_frames', so the output
     equals the offline ``separate`` cut to the stream's length."""
 
     def __init__(self, num_spk: int, chunk_frames: int, filter_len: int, stride: int):
@@ -305,7 +306,7 @@ class _Model:
                 "ConvTasNet (models/convtasnet.py) with causal=true; got "
                 f"arch={self.arch.NAME} causal={causal}")
         # every f32 product of the chunk in full f32, as the pipeline's
-        torch.backends.cuda.matmul.allow_tf32 = False
+        disable_tf32()
         self.domain = self.arch.DOMAIN
         if self.domain == "time":
             self.program = _time_chunk_program

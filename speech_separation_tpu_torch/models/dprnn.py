@@ -28,9 +28,9 @@ does not depend on the padding of the batch it rides in. ``remat`` recomputes
 one dual-path block at a time in the backward (torch.utils.checkpoint), as
 the JAX package checkpoints each block.
 
-Also kept here, for models/sepformer.py: ``num_chunks``, ``_segment``,
-``_merge``, ``_chunk_lengths`` and ``_separate_core`` (the encoder, head and
-decoder of models/convtasnet.py around a dual-path function).
+The segmentation, head and merge around the blocks are models/
+dual_path.py's, shared with SepFormer; the encoder, decoder and loss
+models/waveform.py's.
 
 Parameters are named as the JAX pytree's paths (``enc``, ``in_ln.g``,
 ``blocks.0.intra_proj.w``, ...) in its (in, out) layout, except the BLSTMs,
@@ -44,18 +44,19 @@ import dataclasses
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .blstm import BLSTM
-from .convtasnet import (_gln, decode, encode, latent_frames, pit_si_snr_loss,  # noqa: F401
-                         valid_latent_frames)
-from .tcn import _cln_init, _dot, _linear_draw_, _linear_init, _prelu
-from .upit import _coerce_kwargs
+from .dual_path import chunk_masks, separate_core
+from .layers import cln_init, coerce_kwargs, dot, gln, linear_draw_, linear_init
+from .waveform import pit_si_snr_loss
 
 NAME = "DPRNN"
 DOMAIN = "time"
+# the kernel sources (ops/_build.TABLE) it launches: the LSTM recurrences
+# (K1, K3; K4); it works on waveforms, without the STFT
+KERNELS = ("lstm_fwd", "lstm_bwd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +75,7 @@ class Config:
 
     @classmethod
     def from_kwargs(cls, **kwargs):
-        return cls(**_coerce_kwargs(cls, kwargs))
+        return cls(**coerce_kwargs(cls, kwargs))
 
     def __post_init__(self):
         if self.mask_act not in ("relu", "sigmoid"):
@@ -99,11 +100,11 @@ def _block(cfg: Config) -> nn.ModuleDict:
     the channels and its gLN."""
     return nn.ModuleDict({
         "intra_rnn": BLSTM(cfg.channels, cfg.rnn_hidden, 1),
-        "intra_proj": _linear_init(2 * cfg.rnn_hidden, cfg.channels),
-        "intra_ln": _cln_init(cfg.channels),
+        "intra_proj": linear_init(2 * cfg.rnn_hidden, cfg.channels),
+        "intra_ln": cln_init(cfg.channels),
         "inter_rnn": BLSTM(cfg.channels, cfg.rnn_hidden, 1),
-        "inter_proj": _linear_init(2 * cfg.rnn_hidden, cfg.channels),
-        "inter_ln": _cln_init(cfg.channels),
+        "inter_proj": linear_init(2 * cfg.rnn_hidden, cfg.channels),
+        "inter_ln": cln_init(cfg.channels),
     })
 
 
@@ -113,9 +114,9 @@ class DPRNN(nn.Module):
         self.cfg = cfg
         self.enc = nn.Parameter(torch.empty(cfg.filter_len, cfg.n_filters))
         self.dec = nn.Parameter(torch.empty(cfg.n_filters, cfg.filter_len))
-        self.in_ln = _cln_init(cfg.n_filters)
-        self.bottleneck = _linear_init(cfg.n_filters, cfg.channels)
-        self.head = _linear_init(cfg.channels, cfg.n_filters * cfg.num_spk)
+        self.in_ln = cln_init(cfg.n_filters)
+        self.bottleneck = linear_init(cfg.n_filters, cfg.channels)
+        self.head = linear_init(cfg.channels, cfg.n_filters * cfg.num_spk)
         self.head_prelu = nn.Parameter(torch.full((cfg.channels,), 0.25))
         self.blocks = nn.ModuleList(_block(cfg) for _ in range(cfg.blocks))
         self.reset_parameters(generator)
@@ -132,13 +133,13 @@ class DPRNN(nn.Module):
         self.enc.uniform_(-kb, kb, generator=generator)
         self.dec.uniform_(-kd, kd, generator=generator)
         self.head_prelu.fill_(0.25)
-        _linear_draw_(self.bottleneck, generator)
-        _linear_draw_(self.head, generator)
+        linear_draw_(self.bottleneck, generator)
+        linear_draw_(self.head, generator)
         norms = [self.in_ln]
         for blk in self.blocks:
             for path in ("intra", "inter"):
                 blk[f"{path}_rnn"].reset_parameters(generator)
-                _linear_draw_(blk[f"{path}_proj"], generator)
+                linear_draw_(blk[f"{path}_proj"], generator)
                 norms.append(blk[f"{path}_ln"])
         for p in norms:
             p["g"].fill_(1.0)
@@ -147,45 +148,10 @@ class DPRNN(nn.Module):
     def forward(self, wav: torch.Tensor, sample_lengths: torch.Tensor) -> torch.Tensor:
         """(B, L) padded waveforms -> (B, S, L) estimated sources (rows not
         trimmed to their lengths)."""
-        return _separate_core(self, wav, sample_lengths)
+        return separate_core(self, wav, sample_lengths, _dual_path)
 
 
 # ------------------------------------------------------- dual-path pieces
-
-def num_chunks(cfg, n_t: int) -> int:
-    """Chunks covering a T'-frame latent sequence after the segmentation
-    pad (front hop + back pad to a hop multiple)."""
-    P = cfg.hop
-    t_pad = P + n_t + (-(P + n_t) % P) + P
-    return t_pad // P - 1
-
-
-def _segment(x: torch.Tensor, P: int) -> torch.Tensor:
-    """(B, T, H) -> (B, C, 2P, H) overlapping chunks, hop P."""
-    B, T, H = x.shape
-    back = (-(P + T) % P) + P
-    xp = F.pad(x, (0, 0, P, back))
-    rows = xp.reshape(B, -1, P, H)                     # (B, t_pad/P, P, H)
-    return torch.cat([rows[:, :-1], rows[:, 1:]], dim=2)
-
-
-def _merge(ch: torch.Tensor, P: int, T: int) -> torch.Tensor:
-    """Inverse of _segment: averaged overlap-add of (B, C, 2P, H) chunks
-    back to (B, T, H)."""
-    B, C, _K, H = ch.shape
-    first, second = ch[:, :, :P], ch[:, :, P:]
-    rows = F.pad(first, (0, 0, 0, 0, 0, 1)) + F.pad(second, (0, 0, 0, 0, 1, 0))
-    out = rows.reshape(B, (C + 1) * P, H) * 0.5
-    return out[:, P: P + T]
-
-
-def _chunk_lengths(cfg, vt: torch.Tensor, C: int) -> torch.Tensor:
-    """Per-(row, chunk) count of valid frames: chunk c spans latent frames
-    [c*P - P, c*P + P), clipped to [0, K]."""
-    P = cfg.hop
-    starts = torch.arange(C, device=vt.device) * P - P
-    return torch.clamp(vt[:, None] - starts[None, :], 0, cfg.chunk)
-
 
 def _one_block(blk, h, cmask, klens, ilens, zeros_intra, zeros_inter):
     """One dual-path block on (B, C, K, H) chunked latents in the compute
@@ -195,12 +161,12 @@ def _one_block(blk, h, cmask, klens, ilens, zeros_intra, zeros_inter):
     cm = cmask.to(dt)
     y, _ = blk["intra_rnn"](h.reshape(B * C, K, H), klens, zeros_intra, zeros_intra,
                             compute_dtype=dt)
-    y = _dot(y, blk["intra_proj"], dt, dt).reshape(B, C, K, H)
-    h = (h + _gln(y, blk["intra_ln"], cmask)) * cm
+    y = dot(y, blk["intra_proj"], dt, dt).reshape(B, C, K, H)
+    h = (h + gln(y, blk["intra_ln"], cmask)) * cm
     y, _ = blk["inter_rnn"](h.transpose(1, 2).reshape(B * K, C, H), ilens, zeros_inter,
                             zeros_inter, compute_dtype=dt)
-    y = _dot(y, blk["inter_proj"], dt, dt).reshape(B, K, C, H).transpose(1, 2)
-    return (h + _gln(y, blk["inter_ln"], cmask)) * cm
+    y = dot(y, blk["inter_proj"], dt, dt).reshape(B, K, C, H).transpose(1, 2)
+    return (h + gln(y, blk["inter_ln"], cmask)) * cm
 
 
 def _dual_path(model: DPRNN, h: torch.Tensor, vt: torch.Tensor, C: int):
@@ -210,11 +176,7 @@ def _dual_path(model: DPRNN, h: torch.Tensor, vt: torch.Tensor, C: int):
     B = h.shape[0]
     K, hid = cfg.chunk, cfg.rnn_hidden
     dev = h.device
-    clens = _chunk_lengths(cfg, vt, C)                                   # (B, C)
-    cmask = (torch.arange(K, device=dev)[None, None, :]
-             < clens[:, :, None]).float()[..., None]                     # (B, C, K, 1)
-    n_chunks = torch.clamp_min(
-        torch.div(vt + cfg.hop - 1, cfg.hop, rounding_mode="floor") + 1, 1)   # (B,)
+    clens, cmask, n_chunks = chunk_masks(cfg, vt, C)
     klens = clens.reshape(B * C).to(torch.int32)
     ilens = n_chunks[:, None].expand(B, K).reshape(B * K).to(torch.int32)
     zeros_intra = torch.zeros((1, 2, B * C, hid), device=dev)
@@ -227,36 +189,11 @@ def _dual_path(model: DPRNN, h: torch.Tensor, vt: torch.Tensor, C: int):
     return h, cmask
 
 
-def _separate_core(model, wav: torch.Tensor, sample_lengths: torch.Tensor,
-                   dual_path=_dual_path, gate=None) -> torch.Tensor:
-    """(B, L) padded waveforms -> (B, S, L) estimated sources: frame ->
-    encoder -> masked gLN and bottleneck -> segment -> ``dual_path`` ->
-    PReLU and head -> merge -> ``gate`` (if given: ``gate(model, x)`` of
-    the merged (B, T', S*N) float32 head output, SepFormer's output gate)
-    -> masks -> decoder -> overlap-add. Rows are not trimmed to their
-    lengths."""
-    cfg = model.cfg
-    md = cfg.torch_dtype
-    w, tmask, vt = encode(model, wav, sample_lengths)
-    B, n_t, _ = w.shape
-    h = _dot(_gln(w.to(md), model.in_ln, tmask), model.bottleneck, md, md) * tmask.to(md)
-    C = num_chunks(cfg, n_t)
-    h, cmask = dual_path(model, _segment(h, cfg.hop), vt, C)
-
-    out = _dot(_prelu(h, model.head_prelu), model.head, md) * cmask
-    out = _merge(out, cfg.hop, n_t)
-    if gate is not None:
-        out = gate(model, out)
-    out = out.reshape(B, n_t, cfg.num_spk, cfg.n_filters)
-    act = torch.relu if cfg.mask_act == "relu" else torch.sigmoid
-    return decode(model, w, act(out) * tmask[:, :, None, :], wav.shape[1])
-
-
 @torch.inference_mode()
 def separate(model: DPRNN, wav: torch.Tensor, sample_lengths: torch.Tensor) -> torch.Tensor:
     """Serving entry (DOMAIN='time'): (B, L) padded waveforms and their
     (B,) sample counts -> (B, S, L) estimated sources."""
-    return _separate_core(model, wav, sample_lengths)
+    return separate_core(model, wav, sample_lengths, _dual_path)
 
 
 def loss_fn(model: DPRNN, batch: dict, generator: torch.Generator | None, train: bool):
@@ -264,7 +201,7 @@ def loss_fn(model: DPRNN, batch: dict, generator: torch.Generator | None, train:
     ``source_wavs`` (B, S, L), ``sample_lengths``, ``row_mask``). The model
     has no randomness and no mode, so ``generator`` and ``train`` are
     unused; ``remat`` acts per block inside the dual path."""
-    est = _separate_core(model, batch["mix_wav"], batch["sample_lengths"])
+    est = separate_core(model, batch["mix_wav"], batch["sample_lengths"], _dual_path)
     return pit_si_snr_loss(est, batch, model.cfg.num_spk)
 
 

@@ -1,6 +1,6 @@
 """Architecture registry of the port: the JAX package's six archs.
 
-Each arch module exposes ``NAME``, ``DOMAIN``, ``Config`` (with
+Each arch module exposes ``NAME``, ``DOMAIN``, ``KERNELS``, ``Config`` (with
 ``from_kwargs``), ``Model`` (the ``nn.Module`` built from a config, with
 ``reset_parameters(generator)``) and ``loss_fn(model, batch, generator,
 train)``. A ``DOMAIN = "spectrum"`` arch (uPIT, RSH, TCN) trains on
@@ -17,20 +17,9 @@ from . import convtasnet, dprnn, rsh, sepformer, tcn, upit
 ARCHS = {"uPIT": upit, "RSH": rsh, "TCN": tcn, "DPRNN": dprnn, "SepFormer": sepformer,
          "ConvTasNet": convtasnet}
 
-# The kernel sources (csrc/<name>.cu, ops/_build.SOURCES) each arch's
-# training and serving launch: the BLSTM archs the LSTM recurrences (K1, K3
-# lstm_fwd; K4 lstm_bwd), the spectral ones the STFT (K2) for on-device
-# features and serving, SepFormer the chunk attention (K5, with
-# fused_attention=1), TCN and SepFormer the channelwise LayerNorm (K6,
-# layernorm). DPRNN works on waveforms and Conv-TasNet runs no hand-written
-# kernel with its default global norm (norm="cln" and the causal streaming
-# model build K6 at first use). warmup, doctor and bench read this map.
-ARCH_KERNELS = {"uPIT": ("lstm_fwd", "lstm_bwd", "stft"),
-                "RSH": ("lstm_fwd", "lstm_bwd", "stft"),
-                "DPRNN": ("lstm_fwd", "lstm_bwd"),
-                "TCN": ("stft", "layernorm"),
-                "SepFormer": ("attention", "layernorm"),
-                "ConvTasNet": ()}
+# The kernel sources (ops/_build.TABLE) each arch's training and serving
+# launch, as its module declares them; warmup, doctor and bench read this map.
+ARCH_KERNELS = {name: module.KERNELS for name, module in ARCHS.items()}
 
 
 def get_arch(name: str):

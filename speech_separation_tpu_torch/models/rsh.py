@@ -34,13 +34,16 @@ import dataclasses
 
 import torch
 
-from .upit import UPIT, _coerce_kwargs, initial_state
+from .layers import coerce_kwargs
+from .upit import UPIT, initial_state
 from ..ops.batchnorm import remat_checkpoint
 from ..parallel.ranks import global_sum
 from ..utils.spans import span
 
 NAME = "RSH"
 DOMAIN = "spectrum"
+# the kernel sources (ops/_build.TABLE) it launches: uPIT's
+KERNELS = ("lstm_fwd", "lstm_bwd", "stft")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +60,7 @@ class Config:
 
     @classmethod
     def from_kwargs(cls, **kwargs):
-        return cls(**_coerce_kwargs(cls, kwargs))
+        return cls(**coerce_kwargs(cls, kwargs))
 
     @property
     def input_dim(self) -> int:

@@ -68,16 +68,18 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .convtasnet import _gln, pit_si_snr_loss
-from .dprnn import _chunk_lengths, _separate_core
-from .tcn import _cln, _cln_init, _dot, _linear_draw_, _linear_init
-from .upit import _coerce_kwargs
+from .dual_path import chunk_masks, separate_core
+from .layers import cln, cln_init, coerce_kwargs, dot, gln, linear_draw_, linear_init
+from .waveform import pit_si_snr_loss
 from ..ops.attention_kernel import chunk_attention
 from ..ops.mxu import rounded_dot
 from ..utils.spans import span
 
 NAME = "SepFormer"
 DOMAIN = "time"
+# the kernel sources (ops/_build.TABLE) it launches: the chunk attention
+# (K5, with fused_attention=1) and the channelwise LayerNorm (K6)
+KERNELS = ("attention", "layernorm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +104,7 @@ class Config:
 
     @classmethod
     def from_kwargs(cls, **kwargs):
-        return cls(**_coerce_kwargs(cls, kwargs))
+        return cls(**coerce_kwargs(cls, kwargs))
 
     def __post_init__(self):
         if self.mask_act not in ("relu", "sigmoid"):
@@ -130,12 +132,12 @@ def _layer_init(cfg: Config, generator) -> nn.ModuleDict:
     """One pre-LN transformer layer: MHA (qkv + out) + FFN."""
     H = cfg.channels
     return nn.ModuleDict({
-        "ln1": _cln_init(H),
-        "qkv": _linear_init(H, 3 * H, generator),
-        "out": _linear_init(H, H, generator),
-        "ln2": _cln_init(H),
-        "ff1": _linear_init(H, cfg.d_ff, generator),
-        "ff2": _linear_init(cfg.d_ff, H, generator),
+        "ln1": cln_init(H),
+        "qkv": linear_init(H, 3 * H, generator),
+        "out": linear_init(H, H, generator),
+        "ln2": cln_init(H),
+        "ff1": linear_init(H, cfg.d_ff, generator),
+        "ff2": linear_init(cfg.d_ff, H, generator),
     })
 
 
@@ -147,7 +149,7 @@ def _path_init(cfg: Config, generator) -> nn.ModuleDict:
         return _layer_init(cfg, generator)
     return nn.ModuleDict({"layers": nn.ModuleList(_layer_init(cfg, generator)
                                                   for _ in range(cfg.layers)),
-                          "ln": _cln_init(cfg.channels), "gln": _cln_init(cfg.channels)})
+                          "ln": cln_init(cfg.channels), "gln": cln_init(cfg.channels)})
 
 
 def _path_layers(cfg: Config, path) -> list:
@@ -164,9 +166,9 @@ class SepFormer(nn.Module):
                                 .uniform_(-kb, kb, generator=generator))
         self.dec = nn.Parameter(torch.empty(cfg.n_filters, cfg.filter_len)
                                 .uniform_(-kd, kd, generator=generator))
-        self.in_ln = _cln_init(cfg.n_filters)
-        self.bottleneck = _linear_init(cfg.n_filters, cfg.channels, generator)
-        self.head = _linear_init(cfg.channels, cfg.n_filters * cfg.num_spk, generator)
+        self.in_ln = cln_init(cfg.n_filters)
+        self.bottleneck = linear_init(cfg.n_filters, cfg.channels, generator)
+        self.head = linear_init(cfg.channels, cfg.n_filters * cfg.num_spk, generator)
         self.head_prelu = nn.Parameter(torch.full((cfg.channels,), 0.25))
         self.blocks = nn.ModuleList(
             nn.ModuleDict({"intra": _path_init(cfg, generator),
@@ -174,8 +176,8 @@ class SepFormer(nn.Module):
             for _ in range(cfg.blocks))
         if cfg.published:
             N = cfg.n_filters
-            self.gate_tanh = _linear_init(N, N, generator)
-            self.gate_sigmoid = _linear_init(N, N, generator)
+            self.gate_tanh = linear_init(N, N, generator)
+            self.gate_sigmoid = linear_init(N, N, generator)
             self.gate_end = nn.Parameter(torch.empty(N, N).uniform_(-kd, kd, generator=generator))
 
     @torch.no_grad()
@@ -203,7 +205,7 @@ class SepFormer(nn.Module):
         if cfg.published:
             lins += [self.gate_tanh, self.gate_sigmoid]
         for p in lins:
-            _linear_draw_(p, generator)
+            linear_draw_(p, generator)
         if cfg.published:
             self.gate_end.uniform_(-kd, kd, generator=generator)
         for p in norms:
@@ -252,10 +254,10 @@ def _attention(layer, x: torch.Tensor, key_mask: torch.Tensor, cfg: Config,
     ad = x.dtype
     nh, dh = cfg.heads, H // cfg.heads
     md = cfg.torch_dtype
-    y = _cln(x, layer["ln1"])
+    y = cln(x, layer["ln1"])
     if pe:
         y = y + _pe_tensor(T, H, x.device, ad)
-    qkv = _dot(y, layer["qkv"], md, ad).reshape(R, T, 3, nh, dh)
+    qkv = dot(y, layer["qkv"], md, ad).reshape(R, T, 3, nh, dh)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]       # (R, T, nh, dh)
     if cfg.fused_attention:
         def fold(t):
@@ -268,9 +270,9 @@ def _attention(layer, x: torch.Tensor, key_mask: torch.Tensor, cfg: Config,
         logits = logits + (1.0 - key_mask)[:, None, None, :] * (-1e9)
         w = torch.softmax(logits, dim=-1).to(ad)
         o = torch.einsum("rhqk,rkhd->rqhd", w.float(), v.float()).reshape(R, T, H).to(ad)
-    x = x + _dot(o, layer["out"], md, ad)
-    y = _dot(_cln(x, layer["ln2"]), layer["ff1"], md, ad)
-    return x + _dot(torch.relu(y), layer["ff2"], md, ad)
+    x = x + dot(o, layer["out"], md, ad)
+    y = dot(cln(x, layer["ln2"]), layer["ff1"], md, ad)
+    return x + dot(torch.relu(y), layer["ff2"], md, ad)
 
 
 def _path(path, x: torch.Tensor, key_mask: torch.Tensor, cfg: Config) -> torch.Tensor:
@@ -282,7 +284,7 @@ def _path(path, x: torch.Tensor, key_mask: torch.Tensor, cfg: Config) -> torch.T
         x = x + _pe_tensor(x.shape[1], x.shape[2], x.device, x.dtype)
     for layer in _path_layers(cfg, path):
         x = _attention(layer, x, km, cfg, pe=not cfg.published)
-    return _cln(x, path["ln"]) if cfg.published else x
+    return cln(x, path["ln"]) if cfg.published else x
 
 
 def _around(path, h: torch.Tensor, y: torch.Tensor, cmask: torch.Tensor, cfg: Config
@@ -290,7 +292,7 @@ def _around(path, h: torch.Tensor, y: torch.Tensor, cmask: torch.Tensor, cfg: Co
     """A path's output y (B, C, K, H) into the block's stream h:
     published, h + gLN(y) (masked statistics, eps 1e-8), else y; pad
     positions re-zeroed."""
-    out = h + _gln(y, path["gln"], cmask, eps=1e-8) if cfg.published else y
+    out = h + gln(y, path["gln"], cmask, eps=1e-8) if cfg.published else y
     return out * cmask.to(out.dtype)
 
 
@@ -301,11 +303,7 @@ def _dual_path(model: SepFormer, h: torch.Tensor, vt: torch.Tensor, C: int):
     B = h.shape[0]
     K, H = cfg.chunk, cfg.channels
     dev = h.device
-    clens = _chunk_lengths(cfg, vt, C)                                  # (B, C)
-    cmask = (torch.arange(K, device=dev)[None, None, :]
-             < clens[:, :, None]).float()[..., None]                    # (B, C, K, 1)
-    n_chunks = torch.clamp_min(
-        torch.div(vt + cfg.hop - 1, cfg.hop, rounding_mode="floor") + 1, 1)   # (B,)
+    _, cmask, n_chunks = chunk_masks(cfg, vt, C)
     kmask_intra = cmask[..., 0].reshape(B * C, K)
     kmask_inter = ((torch.arange(C, device=dev)[None, :] < n_chunks[:, None]).float()
                    [:, None, :].expand(B, K, C).reshape(B * K, C))
@@ -327,14 +325,14 @@ def _out_gate(model: SepFormer, x: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
     md = cfg.torch_dtype
     x = x.reshape(*x.shape[:-1], cfg.num_spk, cfg.n_filters)
-    g = torch.tanh(_dot(x, model.gate_tanh, md)) * torch.sigmoid(_dot(x, model.gate_sigmoid, md))
+    g = torch.tanh(dot(x, model.gate_tanh, md)) * torch.sigmoid(dot(x, model.gate_sigmoid, md))
     return rounded_dot(g, model.gate_end, md).flatten(-2)
 
 
 def _separate(model: SepFormer, wav: torch.Tensor, sample_lengths: torch.Tensor
               ) -> torch.Tensor:
     gate = _out_gate if model.cfg.published else None
-    return _separate_core(model, wav, sample_lengths, _dual_path, gate)
+    return separate_core(model, wav, sample_lengths, _dual_path, gate)
 
 
 @torch.inference_mode()

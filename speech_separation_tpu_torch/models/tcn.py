@@ -9,7 +9,7 @@ head:
          residual blocks (1x1 -> PReLU -> cLN -> depthwise dilated conv,
          dilation 2^x -> PReLU -> cLN -> 1x1 residual + 1x1 skip) -> PReLU
          over the summed skips -> 1x1 head (-> S*F) -> sigmoid.
-  loss:  uPIT's (models/upit.contract_loss, one implementation for both).
+  loss:  uPIT's (models/spectral.contract_loss, one implementation for both).
   infer: the same forward; it has no mode and draws nothing.
 
 Frames past each row's length are zeroed after the input projection, before
@@ -26,15 +26,13 @@ one chunk of it with each block's conv context carried as state
 
 The 1x1 products are torch.matmul and the depthwise convs
 torch.nn.functional.conv1d (groups = hidden), as the JAX package leaves them
-to XLA outside any kernel.
+to XLA outside any kernel; the norms, products and PReLU are models/
+layers.py's.
 
-Also kept here, for models/convtasnet.py, dprnn.py and sepformer.py: the
-linear and channelwise-LN parameter initialisers, ``_dot``, ``_cln`` and
-``_prelu``. Parameters keep the JAX package's pytree layout: a linear layer
-is a ``ParameterDict`` with ``w`` (in, out) and ``b`` (out,), a norm one with
-``g`` and ``b``, so a module's parameter names read as the JAX pytree's paths
-(``in_proj.w``, ``blocks.3.dw``; utils/weights.pytree_state_dict_from_jax
-carries weights across).
+Also here, for models/convtasnet.py, whose separator is this stack: the
+residual ``Block``, ``run_blocks`` and the streaming conv state. Parameter
+names read as the JAX pytree's paths (``in_proj.w``, ``blocks.3.dw``;
+utils/weights.pytree_state_dict_from_jax carries weights across).
 """
 
 from __future__ import annotations
@@ -46,13 +44,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .upit import _coerce_kwargs, contract_loss
-from ..ops.layernorm_kernel import channel_norm, channel_norm_fwd_plain
-from ..ops.mxu import column_dot, rounded_dot
-from ..parallel.ranks import reduce_from_model, sum_over_model
+from .layers import cln, cln_init, coerce_kwargs, dot, linear_draw_, linear_init, prelu, row_dot
+from .spectral import contract_loss
+from ..ops.mxu import column_dot
 
 NAME = "TCN"
 DOMAIN = "spectrum"
+# the kernel sources (ops/_build.TABLE) it launches: the STFT (K2) for
+# on-device features and serving, the channelwise LayerNorm (K6)
+KERNELS = ("stft", "layernorm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +70,7 @@ class Config:
 
     @classmethod
     def from_kwargs(cls, **kwargs):
-        return cls(**_coerce_kwargs(cls, kwargs))
+        return cls(**coerce_kwargs(cls, kwargs))
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -85,67 +85,7 @@ class Config:
         return 1 + (self.kernel - 1) * sum(self.dilations())
 
 
-# ------------------------------------------------------------ layer helpers
-
-def _linear_init(n_in: int, n_out: int, generator: torch.Generator | None = None
-                 ) -> nn.ParameterDict:
-    """{'w': (n_in, n_out), 'b': (n_out,)}, drawn by ``_linear_draw_``."""
-    p = nn.ParameterDict({"w": nn.Parameter(torch.empty(n_in, n_out)),
-                          "b": nn.Parameter(torch.empty(n_out))})
-    _linear_draw_(p, generator)
-    return p
-
-
-@torch.no_grad()
-def _linear_draw_(p, generator: torch.Generator | None = None) -> None:
-    """Redraw a linear layer in place: w then b, U(-1/sqrt(n_in), 1/sqrt(n_in))."""
-    kb = 1.0 / math.sqrt(p["w"].shape[0])
-    p["w"].uniform_(-kb, kb, generator=generator)
-    p["b"].uniform_(-kb, kb, generator=generator)
-
-
-def _cln_init(dim: int) -> nn.ParameterDict:
-    return nn.ParameterDict({"g": nn.Parameter(torch.ones(dim)),
-                             "b": nn.Parameter(torch.zeros(dim))})
-
-
-def _prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    return torch.where(x >= 0, x, x * alpha.to(x.dtype))
-
-
-def _cln(x: torch.Tensor, p, eps: float = 1e-6, over_model: bool = False) -> torch.Tensor:
-    """Per-frame (channelwise) layer norm; statistics and normalization in
-    float32 whatever x's storage dtype, the result stored back in x's
-    dtype. ``over_model``: x is this rank's block of a channel axis split
-    over the model group, and the statistics are summed over the group.
-    Unsplit, the norm is K6 (ops/layernorm_kernel.py): one kernel each way
-    on the card, its plain forward under autograd on the CPU; both raise on
-    rows the kernel does not take."""
-    if not over_model:
-        if x.is_cuda:
-            return channel_norm(x.contiguous(), p["g"], p["b"], eps)
-        return channel_norm_fwd_plain(x, p["g"], p["b"], eps)[0]
-    xf = x.float()
-    cnt = sum_over_model(xf.new_full((), x.shape[-1]))
-    mu = sum_over_model(torch.sum(xf, dim=-1, keepdim=True)) / cnt
-    var = sum_over_model(torch.sum(torch.square(xf - mu), dim=-1, keepdim=True)) / cnt
-    return (((xf - mu) * torch.rsqrt(var + eps)) * p["g"] + p["b"]).to(x.dtype)
-
-
-def _dot(x: torch.Tensor, lin, dtype: torch.dtype, out_dtype: torch.dtype | None = None
-         ) -> torch.Tensor:
-    """x @ w + b with the product's inputs in ``dtype`` and a float32 sum;
-    ``out_dtype`` sets the storage dtype of the result, rounded once after
-    the bias."""
-    return rounded_dot(x, lin["w"], dtype, out_dtype or torch.float32, lin["b"])
-
-
-def _row_dot(x: torch.Tensor, lin, dtype: torch.dtype, out_dtype: torch.dtype) -> torch.Tensor:
-    """``_dot`` of this rank's block of x's last axis by its block of w's
-    rows (a row-parallel product): the float32 partial products summed over
-    the model group, then the replicated bias, once."""
-    return (reduce_from_model(rounded_dot(x, lin["w"], dtype)) + lin["b"]).to(out_dtype)
-
+# ------------------------------------------------------------ depthwise conv
 
 def _conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, dilation: int,
           pad: tuple[int, int]) -> torch.Tensor:
@@ -174,15 +114,15 @@ class Block(nn.Module):
 
     def __init__(self, channels: int, hidden: int, kernel: int):
         super().__init__()
-        self.expand = _linear_init(channels, hidden)
+        self.expand = linear_init(channels, hidden)
         self.prelu1 = nn.Parameter(torch.full((hidden,), 0.25))
-        self.ln1 = _cln_init(hidden)
+        self.ln1 = cln_init(hidden)
         self.dw = nn.Parameter(torch.empty(kernel, hidden))
         self.dw_b = nn.Parameter(torch.empty(hidden))
         self.prelu2 = nn.Parameter(torch.full((hidden,), 0.25))
-        self.ln2 = _cln_init(hidden)
-        self.res = _linear_init(hidden, channels)
-        self.skip = _linear_init(hidden, channels)
+        self.ln2 = cln_init(hidden)
+        self.res = linear_init(hidden, channels)
+        self.skip = linear_init(hidden, channels)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -190,11 +130,11 @@ class Block(nn.Module):
         the depthwise kernel and its bias U(+-1/sqrt(K)), norms at identity,
         PReLU 0.25."""
         kd = 1.0 / math.sqrt(self.dw.shape[0])
-        _linear_draw_(self.expand, generator)
+        linear_draw_(self.expand, generator)
         self.dw.uniform_(-kd, kd, generator=generator)
         self.dw_b.uniform_(-kd, kd, generator=generator)
-        _linear_draw_(self.res, generator)
-        _linear_draw_(self.skip, generator)
+        linear_draw_(self.res, generator)
+        linear_draw_(self.skip, generator)
         for p in (self.prelu1, self.prelu2):
             p.fill_(0.25)
         for ln in (self.ln1, self.ln2):
@@ -223,8 +163,8 @@ def run_blocks(blocks, cfg, h: torch.Tensor, norm, tm: torch.Tensor | None,
         if split:
             y = (column_dot(h, blk.expand["w"], md) + blk.expand["b"]).to(ad)
         else:
-            y = _dot(h, blk.expand, md, ad)
-        y = norm(_prelu(y, blk.prelu1), blk.ln1)
+            y = dot(h, blk.expand, md, ad)
+        y = norm(prelu(y, blk.prelu1), blk.ln1)
         if tm is not None:
             # masked before the conv: pad frames would otherwise carry bias
             # and norm constants into real frames' windows
@@ -234,8 +174,8 @@ def run_blocks(blocks, cfg, h: torch.Tensor, norm, tm: torch.Tensor | None,
         else:
             y, ctx = stream_conv(y, blk, d, conv_state[i])
             new_state.append(ctx)
-        y = norm(_prelu(y, blk.prelu2), blk.ln2)
-        out = _row_dot if split else _dot
+        y = norm(prelu(y, blk.prelu2), blk.ln2)
+        out = row_dot if split else dot
         h = h + out(y, blk.res, md, ad)
         s = out(y, blk.skip, md, ad)
         if tm is not None:
@@ -265,9 +205,9 @@ class TCN(nn.Module):
     def __init__(self, cfg: Config, generator: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
-        self.in_ln = _cln_init(cfg.feat_dim)
-        self.in_proj = _linear_init(cfg.feat_dim, cfg.channels)
-        self.head = _linear_init(cfg.channels, cfg.feat_dim * cfg.num_spk)
+        self.in_ln = cln_init(cfg.feat_dim)
+        self.in_proj = linear_init(cfg.feat_dim, cfg.channels)
+        self.head = linear_init(cfg.channels, cfg.feat_dim * cfg.num_spk)
         self.head_prelu = nn.Parameter(torch.full((cfg.channels,), 0.25))
         self.blocks = nn.ModuleList(Block(cfg.channels, cfg.hidden, cfg.kernel)
                                     for _ in range(cfg.repeats * cfg.blocks))
@@ -278,8 +218,8 @@ class TCN(nn.Module):
         """Draw every parameter in place from the JAX package's
         distributions (the input projection, the head, then each block). The
         parameters and ``generator`` must be on one device."""
-        _linear_draw_(self.in_proj, generator)
-        _linear_draw_(self.head, generator)
+        linear_draw_(self.in_proj, generator)
+        linear_draw_(self.head, generator)
         self.head_prelu.fill_(0.25)
         self.in_ln["g"].fill_(1.0)
         self.in_ln["b"].zero_()
@@ -288,7 +228,7 @@ class TCN(nn.Module):
 
     def _head(self, skips: torch.Tensor) -> torch.Tensor:
         # the head's logits back in float32
-        return torch.sigmoid(_dot(_prelu(skips, self.head_prelu), self.head,
+        return torch.sigmoid(dot(prelu(skips, self.head_prelu), self.head,
                                   self.cfg.torch_dtype))
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, row_mask: torch.Tensor,
@@ -303,8 +243,8 @@ class TCN(nn.Module):
         tmask = (torch.arange(T, device=x.device)[None, :]
                  < lengths[:, None]).float()[:, :, None]
         tm = tmask.to(ad)
-        h = _dot(_cln(x, self.in_ln), self.in_proj, ad, ad) * tm
-        skips, _ = run_blocks(self.blocks, cfg, h, _cln, tm)
+        h = dot(cln(x, self.in_ln), self.in_proj, ad, ad) * tm
+        skips, _ = run_blocks(self.blocks, cfg, h, cln, tm)
         return self._head(skips) * tmask
 
     def streaming_forward(self, x: torch.Tensor, conv_state: list):
@@ -316,13 +256,13 @@ class TCN(nn.Module):
         if not self.cfg.causal:
             raise ValueError("streaming_forward needs a causal config")
         ad = self.cfg.torch_dtype
-        h = _dot(_cln(x, self.in_ln), self.in_proj, ad, ad)
-        skips, new_state = run_blocks(self.blocks, self.cfg, h, _cln, None, conv_state)
+        h = dot(cln(x, self.in_ln), self.in_proj, ad, ad)
+        skips, new_state = run_blocks(self.blocks, self.cfg, h, cln, None, conv_state)
         return self._head(skips), new_state
 
 
 def loss_fn(model: TCN, batch: dict, generator: torch.Generator | None, train: bool):
-    """uPIT's objective (models/upit.contract_loss) on a feature batch; the
+    """uPIT's objective (models/spectral.contract_loss) on a feature batch; the
     forward draws nothing, so ``generator`` is unused."""
     return contract_loss(model, batch, train=train)
 

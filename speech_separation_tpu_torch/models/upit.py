@@ -11,7 +11,7 @@ The counterpart of speech_separation_tpu/models/upit.py:
   loss:   min over speaker permutations of the summed elementwise MSE
           between mask * mixture and the permuted source magnitudes;
           scalar = (sum_b min_perm * row_mask / num_spk) /
-          (sum lengths * row_mask * feat_dim) (``contract_loss``).
+          (sum lengths * row_mask * feat_dim) (models/spectral.contract_loss).
   infer:  the same forward in eval mode; source s is the feat_dim-sized
           slice [s*feat_dim : (s+1)*feat_dim] of the output.
 
@@ -41,14 +41,18 @@ import torch
 from torch import nn
 
 from .blstm import BLSTM, random_hidden
-from ..ops.batchnorm import BatchNorm, remat_checkpoint
+from .layers import coerce_kwargs
+from .spectral import contract_loss
+from ..ops.batchnorm import BatchNorm
 from ..ops.mxu import column_dot, rounded_dot
-from ..ops.pit import pairwise_mse, permutation_min_loss
-from ..parallel.ranks import copy_to_model, gather_from_model, global_sum
-from ..utils.spans import span
+from ..parallel.ranks import copy_to_model, gather_from_model
 
 NAME = "uPIT"
 DOMAIN = "spectrum"
+# the kernel sources (ops/_build.TABLE) its training and serving launch: the
+# LSTM recurrences (K1, K3; K4), and the STFT (K2) for on-device features
+# and serving
+KERNELS = ("lstm_fwd", "lstm_bwd", "stft")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +72,7 @@ class Config:
     @classmethod
     def from_kwargs(cls, **kwargs):
         """Accept the reference's key=value model-config strings."""
-        return cls(**_coerce_kwargs(cls, kwargs))
+        return cls(**coerce_kwargs(cls, kwargs))
 
     @property
     def input_dim(self) -> int:
@@ -81,24 +85,6 @@ class Config:
     @property
     def torch_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
-
-
-def _coerce_kwargs(cls, kwargs: dict) -> dict:
-    """Coerce the reference's all-string key=value config values onto the
-    dataclass field types; unknown keys are dropped."""
-    fields = {f.name: str(f.type) for f in dataclasses.fields(cls)}
-    clean = {}
-    for k, v in kwargs.items():
-        if k not in fields:
-            continue
-        t = fields[k]
-        if "bool" in t:
-            clean[k] = str(v).lower() in ("1", "true", "yes")
-        elif "int" in t:
-            clean[k] = int(v)
-        else:
-            clean[k] = str(v)
-    return clean
 
 
 class UPIT(nn.Module):
@@ -148,37 +134,6 @@ def initial_state(cfg: Config, batch: int, generator: torch.Generator,
         zeros = torch.zeros(shape, dtype=torch.float32, device=device)
         return zeros, zeros
     return random_hidden(generator, cfg.num_layers, batch, cfg.hidden)
-
-
-def contract_loss(model: nn.Module, batch: dict, *state: torch.Tensor, train: bool):
-    """The uPIT-contract objective, one implementation for every arch whose
-    forward ``model(mix, lengths, row_mask, *state, train=train)`` gives
-    (B, T, feat_dim*num_spk) sigmoid masks (uPIT with its initial (h0, c0),
-    TCN with none), as speech_separation_tpu/models/upit.py::contract_loss:
-    for a batch dict with ``mix`` (B, T, F), ``sources`` (B, S, T, F),
-    ``lengths`` (B,) and ``row_mask`` (B,), returns (total / norm, aux) with
-    aux ``norm`` (for the norm-weighted epoch average), ``total``,
-    ``best_perm`` and ``masked`` (B, T, S, F). With ``cfg.remat`` and grad
-    enabled the forward is recomputed in the backward."""
-    cfg = model.cfg
-    mix, sources = batch["mix"], batch["sources"]
-    lengths, row_mask = batch["lengths"], batch["row_mask"]
-    B, T, F = mix.shape
-    args = (mix, lengths, row_mask, *state)
-    if cfg.remat and torch.is_grad_enabled():
-        masks = remat_checkpoint(model, *args, train=train)
-    else:
-        masks = model(*args, train=train)
-    with span("train.loss"):
-        masked = masks.reshape(B, T, cfg.num_spk, F) * mix[:, :, None, :]
-        min_losses, best_perm = permutation_min_loss(pairwise_mse(masked, sources),
-                                                     cfg.num_spk)
-        total = torch.sum(min_losses * row_mask) / cfg.num_spk
-        # over data-parallel ranks: this rank's total over the global norm
-        norm = global_sum(torch.sum(lengths.to(torch.float32) * row_mask) * cfg.feat_dim,
-                          "norm")
-        return total / norm, {"norm": norm, "total": total, "best_perm": best_perm,
-                              "masked": masked}
 
 
 def loss_fn(model: UPIT, batch: dict, generator: torch.Generator, train: bool):

@@ -41,6 +41,8 @@ import ctypes
 import numpy as np
 import torch
 
+from ._build import check_launch, cuda_device, library
+
 DH_SUPPORTED = (4, 8, 16, 32, 64)
 MAX_T_BWD = 8192
 REG_CAP = 256              # T up to which a bf16 warp keeps whole logit rows in registers
@@ -51,26 +53,6 @@ SMEM_MAX = 232448          # 227 KB, the most shared memory one CTA may take on 
 # CTA that stores its weights for the key phase
 _WARPS_REG, _WARPS_PASS, _ROWS_MAX, _ROW_BUDGET = 4, 8, 8, 57344
 _WARPS_STORE, _STORE_BUDGET = 8, 115712
-
-_lib_handle = None
-
-
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        from ._build import load
-        lib = load("attention")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sep_attn_fwd.argtypes = [p] * 5 + [i, i, i, i, f, p]
-        lib.sep_attn_fwd.restype = i
-        lib.sep_attn_bwd.argtypes = [p] * 8 + [i, i, i, i, f, p]
-        lib.sep_attn_bwd.restype = i
-        lib.sep_attn_plan.argtypes = [i, i, i, i] + [ctypes.POINTER(i)] * 5
-        lib.sep_attn_plan.restype = i
-        lib.sep_attn_error_string.argtypes = [i]
-        lib.sep_attn_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
 
 
 def _scale(dh: int, scale) -> float:
@@ -155,30 +137,10 @@ def card_plan(N, T, dh, backward=False):
     """The bf16 plan as the built library computes it (``sep_attn_plan``),
     in attention_plan's keys: what a card run holds attention_plan to."""
     vals = [ctypes.c_int(0) for _ in range(5)]
-    _lib().sep_attn_plan(int(backward), N, T, dh, *vals)
+    library("attention").sep_attn_plan(int(backward), N, T, dh, *vals)
     path, rows, warps, smem, ctas = (v.value for v in vals)
     return {"path": ("registers", "passes", "stored")[path], "rows": rows, "warps": warps,
             "smem": smem, "ctas": ctas, "cap": REG_CAP}
-
-
-def _check_cuda(name, tensors):
-    dev = tensors["q"].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
-    dh = tensors["q"].shape[-1]
-    if dh not in DH_SUPPORTED:
-        raise ValueError(f"the {name} kernel takes dh in {DH_SUPPORTED}, got {dh}")
-    for n, t in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{n} is on {t.device}, not {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} takes contiguous tensors; {n} is not")
-
-
-def _raise_on(err, what):
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{_lib().sep_attn_error_string(err).decode()}")
 
 
 def _weights(q, k, key_mask, scale):
@@ -218,16 +180,16 @@ def chunk_attention_fwd(q, k, v, key_mask, scale=None):
     if q.device.type == "cpu":
         return chunk_attention_fwd_plain(q, k, v, key_mask, scale)
     N, T, dh = _check(q, k, v, key_mask)
-    _check_cuda("chunk_attention_fwd", {"q": q, "k": k, "v": v, "key_mask": key_mask})
+    cuda_device("chunk_attention_fwd", q=q, k=k, v=v, key_mask=key_mask)
     attention_plan(N, T, dh, q.dtype)
     o = torch.empty_like(q)
     # the launch and its shared-memory opt-in act on the current device
     with torch.cuda.device(q.device):
-        err = _lib().sep_attn_fwd(
+        err = library("attention").sep_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(),
             int(q.dtype == torch.bfloat16), N, T, dh, _scale(dh, scale),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "chunk_attention_fwd")
+    check_launch(err, "attention", "chunk_attention_fwd")
     chunk_attention_fwd.launches += 1
     return o
 
@@ -237,16 +199,15 @@ def chunk_attention_bwd(q, k, v, key_mask, do, scale=None):
     if q.device.type == "cpu":
         return chunk_attention_bwd_plain(q, k, v, key_mask, do, scale)
     N, T, dh = _check(q, k, v, key_mask, do)
-    _check_cuda("chunk_attention_bwd",
-                {"q": q, "k": k, "v": v, "key_mask": key_mask, "do": do})
+    cuda_device("chunk_attention_bwd", q=q, k=k, v=v, key_mask=key_mask, do=do)
     attention_plan(N, T, dh, q.dtype, backward=True)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     with torch.cuda.device(q.device):
-        err = _lib().sep_attn_bwd(
+        err = library("attention").sep_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
             N, T, dh, _scale(dh, scale), torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "chunk_attention_bwd")
+    check_launch(err, "attention", "chunk_attention_bwd")
     chunk_attention_bwd.launches += 1
     return dq, dk, dv
 

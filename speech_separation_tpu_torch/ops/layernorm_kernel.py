@@ -2,8 +2,9 @@
 
 Replaces no TPU kernel: the JAX package's channelwise norm
 (speech_separation_tpu/models/tcn.py ``_cln``) is plain jnp that XLA fuses.
-On the card the port's ``_cln`` in plain PyTorch is about ten float32 passes
-forward and two dozen backward over every value; SepFormer runs 68 a step.
+On the card the port's ``cln`` (models/layers.py) in plain PyTorch is about
+ten float32 passes forward and two dozen backward over every value;
+SepFormer runs 68 a step.
 Over the last axis of x (..., H), per row:
 
 - ``mu = mean(x)`` and ``var = mean((x - mu)^2)`` in float32 (two passes, not
@@ -30,32 +31,12 @@ the parameter gradients' sums have one owner and a fixed order.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from ._build import check_launch, cuda_device, library
 
 MAX_H = 1024
 DTYPES = (torch.float32, torch.bfloat16)
-
-_lib_handle = None
-
-
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        from ._build import load
-        lib = load("layernorm")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sep_ln_fwd.argtypes = [p] * 6 + [i, i, i, f, p]
-        lib.sep_ln_fwd.restype = i
-        lib.sep_ln_bwd.argtypes = [p] * 9 + [i, i, i, p]
-        lib.sep_ln_bwd.restype = i
-        lib.sep_ln_part_rows.argtypes = [i]
-        lib.sep_ln_part_rows.restype = i
-        lib.sep_ln_error_string.argtypes = [i]
-        lib.sep_ln_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
 
 
 def _check(x, g=None, b=None, stats=(), dy=None) -> int:
@@ -78,26 +59,9 @@ def _check(x, g=None, b=None, stats=(), dy=None) -> int:
     return H
 
 
-def _check_cuda(name, tensors):
-    dev = tensors["x"].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
-    for n, t in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{n} is on {t.device}, not {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} takes contiguous tensors; {n} is not")
-
-
-def _raise_on(err, what):
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{_lib().sep_ln_error_string(err).decode()}")
-
-
 def channel_norm_fwd_plain(x, g, b, eps=1e-6):
     """The forward in plain PyTorch: (y in x's dtype, mu, rstd float32 of
-    x.shape[:-1]); y is bit for bit models/tcn.py ``_cln``'s on the CPU."""
+    x.shape[:-1]); y is bit for bit models/layers.py ``cln``'s on the CPU."""
     _check(x, g, b)
     xf = x.float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
@@ -125,16 +89,17 @@ def channel_norm_fwd(x, g, b, eps=1e-6):
     if x.device.type == "cpu":
         return channel_norm_fwd_plain(x, g, b, eps)
     H = _check(x, g, b)
-    _check_cuda("channel_norm_fwd", {"x": x, "g": g, "b": b})
+    cuda_device("channel_norm_fwd", x=x, g=g, b=b)
     R = x.numel() // H
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     mu, rstd = (torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
                 for _ in range(2))
+    lib = library("layernorm")
     with torch.cuda.device(x.device):
-        err = _lib().sep_ln_fwd(x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
-                                mu.data_ptr(), rstd.data_ptr(), int(x.dtype == torch.bfloat16),
-                                R, H, eps, torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "channel_norm_fwd")
+        err = lib.sep_ln_fwd(x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+                             mu.data_ptr(), rstd.data_ptr(), int(x.dtype == torch.bfloat16),
+                             R, H, eps, torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(err, "layernorm", "channel_norm_fwd")
     channel_norm_fwd.launches += 1
     return y, mu, rstd
 
@@ -144,19 +109,20 @@ def channel_norm_bwd(x, g, mu, rstd, dy):
     if x.device.type == "cpu":
         return channel_norm_bwd_plain(x, g, mu, rstd, dy)
     H = _check(x, g, stats=(mu, rstd), dy=dy)
-    _check_cuda("channel_norm_bwd", {"x": x, "g": g, "mu": mu, "rstd": rstd, "dy": dy})
+    cuda_device("channel_norm_bwd", x=x, g=g, mu=mu, rstd=rstd, dy=dy)
     R = x.numel() // H
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     dg, db = (torch.empty(H, dtype=torch.float32, device=x.device) for _ in range(2))
     # each CTA's partial dg and db, summed in order by the second launch
-    part = torch.empty((_lib().sep_ln_part_rows(R), 2 * H), dtype=torch.float32,
+    lib = library("layernorm")
+    part = torch.empty((lib.sep_ln_part_rows(R), 2 * H), dtype=torch.float32,
                        device=x.device)
     with torch.cuda.device(x.device):
-        err = _lib().sep_ln_bwd(x.data_ptr(), dy.data_ptr(), g.data_ptr(), mu.data_ptr(),
+        err = lib.sep_ln_bwd(x.data_ptr(), dy.data_ptr(), g.data_ptr(), mu.data_ptr(),
                                 rstd.data_ptr(), dx.data_ptr(), dg.data_ptr(), db.data_ptr(),
                                 part.data_ptr(), int(x.dtype == torch.bfloat16), R, H,
                                 torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "channel_norm_bwd")
+    check_launch(err, "layernorm", "channel_norm_bwd")
     channel_norm_bwd.launches += 1
     return dx, dg, db
 

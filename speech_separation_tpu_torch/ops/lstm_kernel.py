@@ -44,34 +44,7 @@ import ctypes
 import torch
 
 from . import mxu
-
-_libs: dict[str, ctypes.CDLL] = {}
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    if lib is None:
-        from ._build import load
-        lib = load(name)
-        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        if name == "lstm_fwd":
-            lib.sep_lstm_infer.argtypes = [p, p, i] + [p] * 8 + [i, i, i, i, u, p]
-            lib.sep_lstm_infer.restype = i
-            lib.sep_lstm_fwd.argtypes = [p, p, i] + [p] * 10 + [i, i, i, i, u, p]
-            lib.sep_lstm_fwd.restype = i
-            lib.sep_lstm_fwd_plan.argtypes = [i, i, i, i] + [ctypes.POINTER(i)] * 5
-            lib.sep_lstm_fwd_plan.restype = i
-            lib.sep_lstm_error_string.argtypes = [i]
-            lib.sep_lstm_error_string.restype = ctypes.c_char_p
-        else:
-            lib.sep_lstm_bwd.argtypes = [p, i] + [p] * 11 + [i, i, i, i, u, p]
-            lib.sep_lstm_bwd.restype = i
-            lib.sep_lstm_bwd_plan.argtypes = [i, i, i, i] + [ctypes.POINTER(i)] * 5
-            lib.sep_lstm_bwd_plan.restype = i
-            lib.sep_lstm_bwd_error_string.argtypes = [i]
-            lib.sep_lstm_bwd_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
-    return lib
+from ._build import check_launch, cuda_device, library
 
 
 def _check_state(name, s, D, B, H):
@@ -115,19 +88,8 @@ def _kernel_types(w_hh, *pairs):
                              f"got {dtype}")
 
 
-def _on_device(dev, **tensors):
-    for name, t in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, not {dev}")
-
-
 def _suffix_bits(suffix_dirs) -> int:
     return sum(1 << d for d, s in enumerate(suffix_dirs) if s)
-
-
-def _raise_on(err, fn, what):
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: {fn(err).decode()}")
 
 
 def _step_mask(lengths, t, T, suffix_dirs):
@@ -183,13 +145,10 @@ def _plan(kernel, what, D, B, H, dtype):
     key = (kernel, torch.cuda.current_device(), D, B, H, dtype)
     if key in _plans:
         return _plans[key]
-    lib = _lib(kernel)
     vals = [ctypes.c_int(0) for _ in range(5)]
-    fn = lib.sep_lstm_fwd_plan if kernel == "lstm_fwd" else lib.sep_lstm_bwd_plan
-    err_string = (lib.sep_lstm_error_string if kernel == "lstm_fwd"
-                  else lib.sep_lstm_bwd_error_string)
+    fn = getattr(library(kernel), f"sep_{kernel}_plan")
     err = fn(int(dtype == torch.bfloat16), D, B, H, *(ctypes.byref(v) for v in vals))
-    _raise_on(err, err_string, f"{kernel} plan")
+    check_launch(err, kernel, f"{kernel} plan")
     ctas, per_sm, sms, smem, rows = (v.value for v in vals)
     plan = {"ctas": ctas, "per_sm": per_sm, "sms": sms, "cap": per_sm * sms,
             "smem": smem, "rows": rows}
@@ -222,7 +181,6 @@ def _launch_fwd(xw, w_hh, h0, c0, lengths, suffix_dirs, save_dtype):
     _kernel_types(w_hh, ("xw", xw.dtype),
                   *(() if save_dtype is None else (("save_dtype", save_dtype),)))
     dev = xw.device
-    _on_device(dev, w_hh=w_hh, h0=h0, c0=c0, lengths=lengths)
     with torch.cuda.device(dev):
         lstm_fwd_plan(D, B, H, w_hh.dtype)
     xw, w_hh = xw.contiguous(), w_hh.contiguous()
@@ -234,7 +192,7 @@ def _launch_fwd(xw, w_hh, h0, c0, lengths, suffix_dirs, save_dtype):
     hbuf = torch.empty((2, D, B, -(-H // 8) * 8), dtype=w_hh.dtype, device=dev)
     barrier = torch.zeros((1,), dtype=torch.int32, device=dev)
     bf16 = int(w_hh.dtype == torch.bfloat16)
-    lib = _lib("lstm_fwd")
+    lib = library("lstm_fwd")
     stream = torch.cuda.current_stream(dev).cuda_stream
     if save_dtype is None:
         ys = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
@@ -245,7 +203,7 @@ def _launch_fwd(xw, w_hh, h0, c0, lengths, suffix_dirs, save_dtype):
                 lengths.data_ptr(), ys.data_ptr(), h_last.data_ptr(), c_last.data_ptr(),
                 hbuf.data_ptr(), barrier.data_ptr(), T, D, B, H, _suffix_bits(suffix_dirs),
                 stream)
-        _raise_on(err, lib.sep_lstm_error_string, "lstm_infer")
+        check_launch(err, "lstm_fwd", "lstm_infer")
         return ys, h_last, c_last
     ys = torch.empty((T, D, B, H), dtype=save_dtype, device=dev)
     cs = torch.empty_like(ys)
@@ -256,13 +214,8 @@ def _launch_fwd(xw, w_hh, h0, c0, lengths, suffix_dirs, save_dtype):
             lengths.data_ptr(), ys.data_ptr(), cs.data_ptr(), gates.data_ptr(),
             h_last.data_ptr(), c_last.data_ptr(), hbuf.data_ptr(), barrier.data_ptr(),
             T, D, B, H, _suffix_bits(suffix_dirs), stream)
-    _raise_on(err, lib.sep_lstm_error_string, "lstm_fwd")
+    check_launch(err, "lstm_fwd", "lstm_fwd")
     return ys, cs, gates, h_last, c_last
-
-
-def _cuda_or_raise(name, t):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, not {t.device}")
 
 
 def lstm_seq_infer(xw, w_hh, h0, c0, lengths, suffix_dirs=None):
@@ -276,7 +229,8 @@ def lstm_seq_infer(xw, w_hh, h0, c0, lengths, suffix_dirs=None):
     direction, True for a time-flipped input (suffix mask)."""
     if xw.device.type == "cpu":
         return lstm_seq_infer_plain(xw, w_hh, h0, c0, lengths, suffix_dirs)
-    _cuda_or_raise("lstm_seq_infer", xw)
+    cuda_device("lstm_seq_infer", contiguous=False, xw=xw, w_hh=w_hh, h0=h0, c0=c0,
+                lengths=lengths)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xw, w_hh, h0, c0)):
         raise RuntimeError("lstm_seq_infer gives no gradient (its kernel records no "
                            "autograd graph); use lstm_seq for a differentiable "
@@ -293,7 +247,8 @@ def lstm_seq_fwd(xw, w_hh, h0, c0, lengths, save_dtype=torch.bfloat16,
     dtype (bf16 or f32)."""
     if xw.device.type == "cpu":
         return lstm_seq_fwd_plain(xw, w_hh, h0, c0, lengths, save_dtype, suffix_dirs)
-    _cuda_or_raise("lstm_seq_fwd", xw)
+    cuda_device("lstm_seq_fwd", contiguous=False, xw=xw, w_hh=w_hh, h0=h0, c0=c0,
+                lengths=lengths)
     out = _launch_fwd(xw, w_hh, h0, c0, lengths, suffix_dirs, save_dtype)
     lstm_seq_fwd.launches += 1
     return out
@@ -375,14 +330,12 @@ def lstm_seq_bwd(w_hh, c0, lengths, cs, gates, dys, dh_last, dc_last,
     if gates.device.type == "cpu":
         return lstm_seq_bwd_plain(w_hh, c0, lengths, cs, gates, dys, dh_last,
                                   dc_last, save_dtype, suffix_dirs)
-    _cuda_or_raise("lstm_seq_bwd", gates)
+    dev = cuda_device("lstm_seq_bwd", contiguous=False, gates=gates, w_hh=w_hh, c0=c0,
+                      lengths=lengths, cs=cs, dys=dys, dh_last=dh_last, dc_last=dc_last)
     T, D, B, H, suffix_dirs = _bwd_dims(w_hh, c0, lengths, cs, gates, dys,
                                         dh_last, dc_last, suffix_dirs)
     _kernel_types(w_hh, ("save_dtype", save_dtype), ("cs", cs.dtype),
                   ("gates", gates.dtype), ("dys", dys.dtype))
-    dev = gates.device
-    _on_device(dev, w_hh=w_hh, c0=c0, lengths=lengths, cs=cs, dys=dys,
-               dh_last=dh_last, dc_last=dc_last)
     with torch.cuda.device(dev):
         lstm_bwd_plan(D, B, H, w_hh.dtype)
     w_hh, cs, gates, dys = (t.contiguous() for t in (w_hh, cs, gates, dys))
@@ -392,15 +345,14 @@ def lstm_seq_bwd(w_hh, c0, lengths, cs, gates, dys, dh_last, dc_last,
     dh0 = torch.empty((D, B, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty_like(dh0)
     barrier = torch.zeros((1,), dtype=torch.int32, device=dev)
-    lib = _lib("lstm_bwd")
     with torch.cuda.device(dev):
-        err = lib.sep_lstm_bwd(
+        err = library("lstm_bwd").sep_lstm_bwd(
             w_hh.data_ptr(), int(w_hh.dtype == torch.bfloat16), c0.data_ptr(),
             lengths.data_ptr(), cs.data_ptr(), gates.data_ptr(), dys.data_ptr(),
             dh_last.data_ptr(), dc_last.data_ptr(), dxw.data_ptr(), dh0.data_ptr(),
             dc0.data_ptr(), barrier.data_ptr(), T, D, B, H, _suffix_bits(suffix_dirs),
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, lib.sep_lstm_bwd_error_string, "lstm_bwd")
+    check_launch(err, "lstm_bwd", "lstm_bwd")
     lstm_seq_bwd.launches += 1
     return dxw, dh0, dc0
 

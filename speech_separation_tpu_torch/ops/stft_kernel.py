@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..dsp.stft import _device_matrix, hann_periodic
+from ._build import check_launch, cuda_device, library
 
 N_FFT_CAP = 8192     # largest n_fft the FFT path takes
 FFT_MIN = 32         # smallest power of two on the FFT path
@@ -34,24 +35,6 @@ _DIRECT = {"frames": 128, "warps": 8, "bins": 32, "smem": 4 * 16 * (132 + 64)}
 # y tiles of 32
 DIRECT_N_FFT_CAP = 2 * (65535 * _DIRECT["bins"] - 1)
 _INT_MAX = 2 ** 31 - 1
-
-_lib_handle = None
-
-
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        from ._build import load
-        lib = load("stft")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sep_stft.argtypes = [p] * 4 + [i] * 6 + [p]
-        lib.sep_stft.restype = i
-        lib.sep_stft_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 6
-        lib.sep_stft_plan.restype = i
-        lib.sep_stft_error_string.argtypes = [i]
-        lib.sep_stft_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
 
 
 def _check(xp: torch.Tensor, n_fft: int, hop: int, n_t: int) -> None:
@@ -108,7 +91,7 @@ def card_plan(B, Lp, n_t, n_fft, hop, magnitude=False):
     stft_plan's keys, or None where the library refuses the shape: what a
     card run holds stft_plan to."""
     vals = [ctypes.c_int(0) for _ in range(6)]
-    refused = _lib().sep_stft_plan(B, Lp, n_t, n_fft, hop, int(magnitude), *vals)
+    refused = library("stft").sep_stft_plan(B, Lp, n_t, n_fft, hop, int(magnitude), *vals)
     path, frames, warps, smem, ctas, cap = (v.value for v in vals)
     if refused:
         return None
@@ -155,8 +138,7 @@ def stft(xp: torch.Tensor, n_fft: int, hop: int, n_t: int,
     (B, n_t, n_bins) when ``magnitude``."""
     if xp.device.type == "cpu":
         return stft_plain(xp, n_fft, hop, n_t, magnitude)
-    if xp.device.type != "cuda":
-        raise ValueError(f"stft runs on cuda or cpu tensors, not {xp.device}")
+    cuda_device("stft", contiguous=False, xp=xp)
     _check(xp, n_fft, hop, n_t)
     xp = xp.contiguous()
     B, Lp = xp.shape
@@ -168,15 +150,13 @@ def stft(xp: torch.Tensor, n_fft: int, hop: int, n_t: int,
         table = _device_matrix("rdft", n_fft, xp.device)
     out_a = torch.empty((B, n_t, n_bins), dtype=torch.float32, device=xp.device)
     out_b = out_a if magnitude else torch.empty_like(out_a)
-    lib = _lib()
+    lib = library("stft")
     # the launch and its shared-memory opt-in act on the current device
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = lib.sep_stft(xp.data_ptr(), table.data_ptr(), out_a.data_ptr(),
                            out_b.data_ptr(), B, Lp, n_t, n_fft, hop, int(magnitude), stream)
-    if err != 0:
-        raise RuntimeError(f"stft kernel launch failed: "
-                           f"{lib.sep_stft_error_string(err).decode()}")
+    check_launch(err, "stft", "stft")
     stft.launches += 1
     return out_a if magnitude else (out_a, out_b)
 

@@ -20,11 +20,11 @@ import time
 
 import torch
 
-from ..eval.infer import resolve_device
 from ..models.registry import get_arch
 from ..train.loop import (AUDIO_KEYS, FEATURE_KEYS, Optimizer, TrainLoopConfig,
                           accumulate_step, to_device, update_step, upcast_features)
 from ..train.wav_data import STFT, audio_to_feature_batch, audio_to_wave_batch
+from ..utils.device import disable_tf32, resolve_device
 from ..utils.weights import fold_lstm_biases
 from . import ranks
 from .mesh import Mesh, place, shard_params, shard_params_convtasnet
@@ -85,8 +85,7 @@ def _steps_here(jobs: list[dict], device=None, mesh: Mesh | None = None) -> list
     r = ranks.current()
     dev = r.device if r is not None else resolve_device(device)
     # full float32 products and convolutions, in every process alike
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    disable_tf32(cudnn=True)
     return [_one_step(dev, r, mesh, **job) for job in jobs]
 
 

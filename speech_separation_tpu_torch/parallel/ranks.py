@@ -82,6 +82,7 @@ import time
 import numpy as np
 import torch
 
+from ..ops._build import launch_counters
 from .mesh import Mesh, shard_batch
 
 # seconds a collective may wait for the other ranks before it raises
@@ -414,7 +415,7 @@ def _rank_main(ranks: Ranks, mesh: Mesh, backend: str, init_file: str, timeout_s
     _groups = _make_groups(mesh, ranks.rank) if ranks.model > 1 else {}
     _current = ranks
     out = target(*args)
-    counters = _kernel_counters()
+    counters = launch_counters()
     counts = torch.tensor([f.launches for f in counters], dtype=torch.int64,
                           device=ranks.device)
     dist.all_reduce(counts)
@@ -423,15 +424,6 @@ def _rank_main(ranks: Ranks, mesh: Mesh, backend: str, init_file: str, timeout_s
                                                 zip(counters, counts.tolist())}},
                    result_path)
     dist.destroy_process_group()
-
-
-def _kernel_counters() -> list:
-    """The hand-written kernels' wrappers, each counting its launches."""
-    from ..ops.attention_kernel import chunk_attention_bwd, chunk_attention_fwd
-    from ..ops.lstm_kernel import lstm_seq_bwd, lstm_seq_fwd, lstm_seq_infer
-    from ..ops.stft_kernel import stft
-    return [stft, lstm_seq_infer, lstm_seq_fwd, lstm_seq_bwd, chunk_attention_fwd,
-            chunk_attention_bwd]
 
 
 def launch(mesh: Mesh, target, args=(), timeout_s: float = TIMEOUT_S, log=print):

@@ -69,11 +69,11 @@ import time
 import numpy as np
 import torch
 
-from ..eval.infer import resolve_device
 from ..models.registry import get_arch
 from ..parallel import ranks
 from ..parallel.mesh import Mesh, make_mesh
 from ..utils import spans
+from ..utils.device import disable_tf32, resolve_device
 from ..utils.weights import fold_lstm_biases
 from .checkpoint import (final_model_path, intermediate_model_path, load_checkpoint,
                          save_checkpoint)
@@ -473,7 +473,7 @@ def _train_locked(data_dir, exp_dir, loop_cfg, cv_data_dir, model_kwargs, dev, l
     for k, v in (model_kwargs or {}).items():
         log(f"modelparam: {k} {v}")
     # f32 products in full f32, as the JAX package's f32 path
-    torch.backends.cuda.matmul.allow_tf32 = False
+    disable_tf32()
 
     # over data-parallel ranks each keeps its rows of every batch, and rank
     # 0 alone writes files

@@ -2,12 +2,12 @@
 
 The port's counterpart of speech_separation_tpu/utils/native.py. The
 library is built from the port's own source at first use, with g++ and
-zlib, through ops/_build.py (hash-named under ``build/torch_kernels/``,
-written to a name of its own and renamed into place, so processes that
-build it at once are safe). Every entry point has a pure-Python
-counterpart that gives the same arrays: the collation in train/data.py and
-``load_wav`` in utils/audio.py use the native path when it is available
-and numpy otherwise.
+zlib, and its functions typed, through ops/_build.py (hash-named under
+``build/torch_kernels/``, written to a name of its own and renamed into
+place, so processes that build it at once are safe). Every entry point has
+a pure-Python counterpart that gives the same arrays: the collation in
+train/data.py and ``load_wav`` in utils/audio.py use the native path when it
+is available and numpy otherwise.
 
 ``SEPSEP_NATIVE=0`` turns it off, as in the JAX package. ``status()`` says
 whether it loaded, and why not.
@@ -27,7 +27,6 @@ _tried = False
 _why_not = ""
 
 _FLOAT_P = ctypes.POINTER(ctypes.c_float)
-_LONG_P = ctypes.POINTER(ctypes.c_long)
 
 
 def _load_library():
@@ -41,20 +40,9 @@ def _load_library():
             return None
         from ..ops import _build
         try:
-            lib = _build.load("sepio")
+            _lib = _build.library("sepio")
         except (RuntimeError, OSError) as e:
             _why_not = f"build or load failed: {e}"
-            return None
-        lib.sepio_load_npz_2d_transposed.restype = ctypes.c_int
-        lib.sepio_load_npz_2d_transposed.argtypes = [
-            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, _FLOAT_P, _FLOAT_P,
-            ctypes.c_long, ctypes.c_long, _LONG_P, _LONG_P]
-        lib.sepio_npz_members.restype = ctypes.c_int
-        lib.sepio_npz_members.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_long]
-        lib.sepio_read_wav_f32.restype = ctypes.c_long
-        lib.sepio_read_wav_f32.argtypes = [ctypes.c_char_p, _FLOAT_P, ctypes.c_long,
-                                           ctypes.POINTER(ctypes.c_int)]
-        _lib = lib
         return _lib
 
 

@@ -161,11 +161,3 @@ def shard_state_dict(sd: dict, dims: dict, m: int, k: int) -> dict:
     a split axis over its mesh), the others whole (parallel/mesh.Placement)."""
     return {n: v if dims.get(n) is None else v.chunk(m, dims[n])[k].clone()
             for n, v in sd.items()}
-
-
-def assemble_state_dict(parts: list[dict], dims: dict) -> dict:
-    """The whole state dict from every model index's part, in order: split
-    tensors concatenated on their axis, the others taken from part 0."""
-    return {n: v if dims.get(n) is None else torch.cat([p[n] for p in parts], dims[n])
-            for n, v in parts[0].items()}
-

@@ -351,20 +351,18 @@ def test_warmup_refuses_a_configuration_the_kernels_refuse(monkeypatch, tmp_path
 
 # --------------------------------------------- the arch -> kernel source map
 
-WRAPPER_SOURCES = {"lstm_seq_infer": "lstm_fwd", "lstm_seq_fwd": "lstm_fwd",
-                   "lstm_seq_bwd": "lstm_bwd", "stft": "stft",
-                   "chunk_attention_fwd": "attention", "chunk_attention_bwd": "attention",
-                   "channel_norm_fwd": "layernorm", "channel_norm_bwd": "layernorm",
-                   "_cln": "layernorm"}
+# each kernel wrapper of the table, and its plain twin, by the source it stands for
+WRAPPER_SOURCES = {fn + twin: name for name, src in _build.TABLE.items()
+                   for _, fn in src.wrappers for twin in ("", "_plain")}
 
 
 @pytest.mark.parametrize("arch_name", list(ARCHS))
 def test_arch_kernel_map_names_what_train_and_serve_call(arch_name, monkeypatch, tmp_path):
     """A tiny training step (waveform input for every arch: the STFT of an
     on-device-features step) and a served batch on the CPU, each kernel
-    wrapper recorded wherever a module holds it: the sources they stand for
-    are the map's. ``models/tcn._cln`` stands for K6's wrappers: on the CPU
-    it runs its plain body and calls none."""
+    wrapper and its plain twin recorded wherever a module holds it: the
+    sources they stand for are the map's. On the CPU ``models/layers.cln``
+    calls K6's plain forward, not its wrapper."""
     from speech_separation_tpu_torch.dsp.stft import num_frames
     from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
     from speech_separation_tpu_torch.models.registry import get_arch
@@ -373,11 +371,8 @@ def test_arch_kernel_map_names_what_train_and_serve_call(arch_name, monkeypatch,
     from speech_separation_tpu_torch.train.wav_data import (STFT, audio_to_feature_batch,
                                                             audio_to_wave_batch)
     called = set()
-    import importlib
-    originals = {name: getattr(importlib.import_module(
-        f"speech_separation_tpu_torch.ops.{mod}"), name)
-        for mod, names in bench.KERNEL_WRAPPERS.items() for name in names}
-    originals["_cln"] = importlib.import_module("speech_separation_tpu_torch.models.tcn")._cln
+    originals = {fn.__name__ + twin: getattr(sys.modules[fn.__module__], fn.__name__ + twin)
+                 for fn in _build.launch_counters() for twin in ("", "_plain")}
     for mod in [m for n, m in sys.modules.items()
                 if n.startswith("speech_separation_tpu_torch") and m is not None]:
         for name, fn in originals.items():

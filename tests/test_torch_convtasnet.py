@@ -41,6 +41,7 @@ from speech_separation_tpu_torch.cli.main import main
 from speech_separation_tpu_torch.eval.infer import generate_masks
 from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
 from speech_separation_tpu_torch.models import convtasnet as tct
+from speech_separation_tpu_torch.models.waveform import latent_frames
 from speech_separation_tpu_torch.models.registry import get_arch
 from speech_separation_tpu_torch.train.checkpoint import save_checkpoint
 from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
@@ -193,7 +194,7 @@ def test_cln_variant_and_causal_receptive_field():
     pert = wav.clone()
     pert[0, -cfg.stride:] += 1.0
     out = tct.separate(model, pert, n)
-    safe = (tct.latent_frames(cfg, 256) - 3) * cfg.stride
+    safe = (latent_frames(cfg, 256) - 3) * cfg.stride
     np.testing.assert_allclose(out[:, :, :safe].numpy(), base[:, :, :safe].numpy(), atol=1e-6)
     assert not torch.equal(out, base)
 

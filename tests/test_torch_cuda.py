@@ -817,7 +817,7 @@ def _mxu_case(case, dev):
     """(new, old, exact) callables' leaves for one product: returns
     (leaves, cotangent, new, old, exact outputs and gradients, rounded
     flags, the counts (tensor_core, f32) of one forward and backward)."""
-    from speech_separation_tpu_torch.models import tcn
+    from speech_separation_tpu_torch.models import layers
     from speech_separation_tpu_torch.ops import mxu
     g = torch.Generator(device=dev).manual_seed(len(case))
 
@@ -850,7 +850,7 @@ def _mxu_case(case, dev):
             (False, True, True), (1, 2)
     if case == "dprnn.linear":
         leaves = [rnd(2592, 100, 256, dtype=bf), rnd(256, 64, scale=0.06), rnd(64, scale=0.06)]
-        new = lambda x, w, b: tcn._dot(x, {"w": w, "b": b}, bf, bf)
+        new = lambda x, w, b: layers.dot(x, {"w": w, "b": b}, bf, bf)
         old = lambda x, w, b: (torch.matmul(x.float(), w.to(bf).float()) + b).to(bf)
 
         def exact(x, w, b, gy):

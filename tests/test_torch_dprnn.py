@@ -34,6 +34,7 @@ from speech_separation_tpu.utils.synthetic import make_synthetic_corpus, write_i
 from speech_separation_tpu_torch.cli.main import main
 from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
 from speech_separation_tpu_torch.models import dprnn as tdp
+from speech_separation_tpu_torch.models import dual_path, waveform
 from speech_separation_tpu_torch.models.registry import get_arch
 from speech_separation_tpu_torch.train.checkpoint import save_checkpoint
 from speech_separation_tpu_torch.utils.audio import load_wav
@@ -87,10 +88,10 @@ def test_config_checks_and_registry():
 def test_chunk_lengths_have_all_padding_chunks():
     batch = _wav_batch()
     cfg = tdp.Config(**TINY)
-    n_t = tdp.latent_frames(cfg, 400)
-    vt = tdp.valid_latent_frames(cfg, torch.from_numpy(batch["sample_lengths"]), n_t)
-    C = tdp.num_chunks(cfg, n_t)
-    clens = tdp._chunk_lengths(cfg, vt, C)
+    n_t = waveform.latent_frames(cfg, 400)
+    vt = waveform.valid_latent_frames(cfg, torch.from_numpy(batch["sample_lengths"]), n_t)
+    C = dual_path.num_chunks(cfg, n_t)
+    clens = dual_path.chunk_lengths(cfg, vt, C)
     np.testing.assert_array_equal(
         clens.numpy(), np.asarray(jdp._chunk_lengths(jdp.Config(**TINY), jnp.asarray(vt.numpy()),
                                                       C)))

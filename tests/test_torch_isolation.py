@@ -116,10 +116,11 @@ def test_the_trainer_and_the_cli_do_not_import_matplotlib():
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     from speech_separation_tpu_torch.cli.main import main
     from speech_separation_tpu_torch.dsp.extract import extract_features
-    from speech_separation_tpu_torch.eval.infer import generate_masks, resolve_device
+    from speech_separation_tpu_torch.eval.infer import generate_masks
     from speech_separation_tpu_torch.eval.pipeline import SeparationPipeline
     from speech_separation_tpu_torch.eval.reconstruct import reconstruct_sources
     from speech_separation_tpu_torch.train.loop import TrainLoopConfig, train
+    from speech_separation_tpu_torch.utils.device import resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()

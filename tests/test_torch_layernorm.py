@@ -1,8 +1,8 @@
-"""The channelwise LayerNorm: ``models/tcn._cln`` and K6 (ops/layernorm_kernel.py).
+"""The channelwise LayerNorm: ``models/layers.cln`` and K6 (ops/layernorm_kernel.py).
 
-On the CPU: ``_cln`` is bit for bit the formula it always ran (also with
+On the CPU: ``cln`` is bit for bit the formula it always ran (also with
 ``over_model``), the plain forward and backward equal autograd through that
-formula, and the wrappers and ``_cln`` refuse what the kernel does not take.
+formula, and the wrappers and ``cln`` refuse what the kernel does not take.
 On the card (marked ``cuda``; they skip without one, and import no JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_layernorm.py
@@ -20,7 +20,7 @@ over the rows) within 1e-5; mu and rstd within 1e-6.
 import pytest
 import torch
 
-from speech_separation_tpu_torch.models.tcn import _cln
+from speech_separation_tpu_torch.models.layers import cln
 from speech_separation_tpu_torch.ops.layernorm_kernel import (MAX_H, channel_norm,
                                                               channel_norm_bwd,
                                                               channel_norm_bwd_plain,
@@ -31,7 +31,7 @@ torch.set_num_threads(1)  # six xdist workers share the cores: one thread each, 
 
 
 def _cln_before(x, p, eps=1e-6):
-    """``_cln``'s body as it stood before K6 (unsplit)."""
+    """``cln``'s body as it stood before K6 (unsplit)."""
     xf = x.float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
@@ -64,7 +64,7 @@ def test_cln_on_cpu_is_bit_for_bit_the_formula(dtype, H, over_model):
     x = x.reshape(4, 10, H)
     leaves = [t.clone().requires_grad_(True) for t in (x, g, b)]
     ref = [t.clone().requires_grad_(True) for t in (x, g, b)]
-    y = _cln(leaves[0], {"g": leaves[1], "b": leaves[2]}, over_model=over_model)
+    y = cln(leaves[0], {"g": leaves[1], "b": leaves[2]}, over_model=over_model)
     y_ref = _cln_before(ref[0], {"g": ref[1], "b": ref[2]})
     y.backward(dy.reshape(x.shape))
     y_ref.backward(dy.reshape(x.shape))
@@ -114,15 +114,15 @@ def test_channel_norm_on_cpu_runs_the_plain_pair_and_launches_nothing():
                                            (torch.float16, 256, False),
                                            (torch.float64, 256, False)])
 def test_cln_takes_the_dtypes_and_widths_the_kernel_takes(dtype, H, takes):
-    """``_cln`` unsplit on the CPU runs K6's plain forward, which refuses
+    """``cln`` unsplit on the CPU runs K6's plain forward, which refuses
     what the kernel would: the same rows pass or raise on either device."""
     x = torch.zeros((2, H), dtype=dtype)
     p = {"g": torch.ones(H), "b": torch.zeros(H)}
     if takes:
-        assert torch.equal(_cln(x, p), x)
+        assert torch.equal(cln(x, p), x)
     else:
         with pytest.raises(ValueError, match="float32 or bfloat16|widths 1 to"):
-            _cln(x, p)
+            cln(x, p)
 
 
 def _bad(case):
@@ -224,7 +224,7 @@ def test_cln_on_the_card_runs_k6_unless_split(cuda):
     ref_p = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
     before = (channel_norm_fwd.launches, channel_norm_bwd.launches)
     xl = x.clone().requires_grad_(True)
-    y = _cln(xl, p)
+    y = cln(xl, p)
     y.backward(dy)
     torch.cuda.synchronize()
     assert (channel_norm_fwd.launches, channel_norm_bwd.launches) == (before[0] + 1,
@@ -240,8 +240,8 @@ def test_cln_on_the_card_runs_k6_unless_split(cuda):
     assert _rel_l2(p["b"].grad, ref_p["b"].grad) <= 1e-5
     # split over the model group: the plain body; a dtype the kernel does not
     # take: refused, as on the CPU
-    _cln(x, p, over_model=True)
+    cln(x, p, over_model=True)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        _cln(x.half(), p)
+        cln(x.half(), p)
     torch.cuda.synchronize()
     assert channel_norm_fwd.launches == before[0] + 1

@@ -5,7 +5,7 @@ On the CPU every call site keeps the plain product, the operands rounded to
 the compute dtype and multiplied in float32, bit for bit as the code before
 ``rounded_dot`` computed it: the mask head (``rounded_dot``), the
 column-parallel head (``column_dot``), the linear layers of TCN, Conv-TasNet,
-SepFormer and DPRNN (``tcn._dot``), the BLSTM's direction-batched input
+SepFormer and DPRNN (``layers.dot``), the BLSTM's direction-batched input
 projection and the recurrence's dW_hh. Those old expressions are written out
 here as the references.
 
@@ -23,7 +23,7 @@ follows by about one bf16 step).
 import pytest
 import torch
 
-from speech_separation_tpu_torch.models import blstm, dprnn, tcn, upit
+from speech_separation_tpu_torch.models import blstm, dprnn, layers, tcn, upit
 from speech_separation_tpu_torch.ops import lstm_kernel, mxu
 from speech_separation_tpu_torch.parallel.ranks import copy_to_model
 
@@ -112,7 +112,7 @@ def test_linear_dot_on_the_cpu_is_the_plain_product(dtype, out_dtype):
     def old(x, w, b):
         y = torch.matmul(x.to(dtype).float(), w.to(dtype).float()) + b
         return y if out_dtype is None else y.to(out_dtype)
-    got = _grads(lambda x, w, b: tcn._dot(x, {"w": w, "b": b}, dtype, out_dtype), x, w, b)
+    got = _grads(lambda x, w, b: layers.dot(x, {"w": w, "b": b}, dtype, out_dtype), x, w, b)
     ref = _grads(old, x, w, b)
     _same(got[0], ref[0])
     for a, c in zip(got[1], ref[1]):

@@ -219,7 +219,7 @@ def test_two_processes_build_the_library_at_once(tmp_path):
             f"_build.BUILD_DIR = Path({str(build_dir)!r})\n"
             f"while not os.path.exists({str(go)!r}):\n"
             "    time.sleep(0.01)\n"
-            "lib = _build.load('sepio')\n"
+            "lib = _build.library('sepio')\n"
             "assert lib.sepio_npz_members is not None\n"
             "print(os.path.basename(lib._name))\n")
     env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"}, "PYTHONPATH": REPO}

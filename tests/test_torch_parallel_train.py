@@ -42,6 +42,8 @@ from speech_separation_tpu_torch.cli.main import main, read_model_config
 from speech_separation_tpu_torch.models import convtasnet as tct
 from speech_separation_tpu_torch.models import rsh as trsh
 from speech_separation_tpu_torch.models import upit as tupit
+from speech_separation_tpu_torch.ops._build import launch_counters
+from speech_separation_tpu_torch.parallel import ranks
 from speech_separation_tpu_torch.parallel.checks import steps_over_ranks
 from speech_separation_tpu_torch.parallel.mesh import make_mesh, pad_rows
 from speech_separation_tpu_torch.parallel.ranks import RankFailed
@@ -165,9 +167,11 @@ def _run_steps(root):
     jobs = _jobs()
     names = list(jobs)
     over = steps_over_ranks([jobs[n] for n in names], mesh=make_mesh(devices=CPU2))
+    launches = dict(ranks.launch.kernel_launches)
     single = steps_over_ranks([dict(jobs[n], batch=_padded(jobs[n]["batch"]), faults=())
                                for n in names], device="cpu")
     torch.save((dict(zip(names, over)), dict(zip(names, single))), root / "steps.pt")
+    torch.save(launches, root / "launches.pt")
 
 
 @pytest.fixture(scope="module")
@@ -181,6 +185,15 @@ def steps(tmp_path_factory):
 
 SOUND = ["upit_divisible", "upit_ragged", "upit_zero_init", "upit_zero_init_divisible",
          "upit_remat", "rsh_grouped", "rsh_mixed", "convtasnet"]
+
+
+def test_the_ranks_report_every_kernel_s_launches(steps, tmp_path_factory):
+    """The launches summed over the ranks name every wrapper of the kernel
+    table, K6's too (none launches on the CPU: the plain versions run)."""
+    root = built_once(tmp_path_factory, "torch_parallel_steps", _run_steps)
+    launches = torch.load(root / "launches.pt")
+    assert launches == {f.__name__: 0 for f in launch_counters()}
+    assert {"channel_norm_fwd", "channel_norm_bwd"} <= set(launches)
 
 
 @pytest.mark.parametrize("name", SOUND)

@@ -16,7 +16,7 @@ value on the other side of a bf16 rounding boundary moves by one bf16 step
 against the JAX package's at the f32 limit, 2e-5. Causality and the
 mode-free forward exactly (the causal conv reads no frame to its right, and
 the forward has no mode); padding invariance atol 1e-6 (exact in the JAX
-package; torch's CPU mean in ``_cln`` sums a frame's channels in a grouping
+package; torch's CPU mean in ``cln`` (models/layers.py) sums a frame's channels in a grouping
 that depends on the batch's frame count, ~2e-7), frames past a row's length
 exact zeros; the stream against the offline causal forward atol 2e-6 (a
 VALID conv over the carried context and a padded conv over the whole
@@ -171,7 +171,7 @@ def test_padding_invariance_and_mode_free():
     """A row's masks are the same however much time padding its batch
     carries; frames past each row's length are exact zeros; the train-mode
     forward equals the eval one. The JAX package holds the padding
-    invariance bit for bit; torch's CPU mean over the channels (in ``_cln``)
+    invariance bit for bit; torch's CPU mean over the channels (in ``cln`` (models/layers.py))
     groups a row's sums by the batch's frame count, which moves a mask by
     ~2e-7, so the port holds 1e-6."""
     model = ttcn.TCN(ttcn.Config(**TINY), torch.Generator().manual_seed(0))

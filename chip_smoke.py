@@ -219,10 +219,13 @@ Phases, in order; any failure exits non-zero without the final line:
    product of a uPIT step (B=100, T=384) and of a DPRNN step (B=32, 4 s) at
    its shape, today's float32 product of the rounded operands against
    mxu_dot's as the step runs it (bf16 operands on the tensor cores,
-   float32 sums; float32 where ops/mxu.py's rule keeps it), each time
-   beside its bound, the kernels behind it (no float32 GEMM behind a bf16
-   product) and its gap from today's result; the counters of one step of
-   each;
+   float32 sums; float32 where ops/mxu.py's rule keeps it), and the four
+   transformer-layer products of the published SepFormer's step (132,000
+   rows of sepformer-train-b16: 256->768, 256->256, 256->1024, 1024->256,
+   with bias, rounded to bf16) through rounded_dot (the float32 product)
+   against any_order_dot (the tensor cores), each time beside its bound,
+   the kernels behind it (no float32 GEMM behind a bf16 product) and its
+   gap from today's result; the counters of one step of each;
 29. one JSON line with every kernel and its numbers (with the recipe's
    launch counts, each LSTM kernel's numbers at DPRNN's shapes and its
    launches on each RSH, DPRNN, remat, SEPTPU01 and phase 25 path, K2's on
@@ -1238,6 +1241,10 @@ def step_phase(fails: Failures, train_dir: str) -> dict:
 # ------------------------------------------------------------- SepFormer
 
 SEPFORMER_KW = {"compute_dtype": "bfloat16", "fused_attention": "1"}
+# the published structure at the paper's widths, as sepformer-train-b16 runs it
+SEPFORMER_PUBLISHED = {**SEPFORMER_KW, "n_filters": "256", "channels": "256", "heads": "8",
+                       "d_ff": "1024", "chunk": "250", "blocks": "2", "published": "1",
+                       "layers": "8"}
 
 
 def serve_sepformer_phase(fails: Failures, counters) -> dict:
@@ -4215,13 +4222,20 @@ def _kernel_group(name: str) -> str:
 # of at most mxu.SUM_TERMS), beside the least time the card could take
 # (bound_ms: the operands read once, the result written once, or the
 # operations at the peak of the product's dtype). The forward's results
-# rounded to bf16 and the float32-cotangent gradients stay in float32 by
-# rule (ops/mxu.py) and are timed as they run. Checks: no float32 GEMM
-# kernel (simt, f32f32) behind a bf16 product, each result within relative
-# L2 of today's of 1e-5 (float32) or 2**-8
-# (rounded to bf16, where another order of the sum moves some elements by a
-# step; tests/test_torch_cuda.py holds both to the float64 sum), and the
-# counters of one uPIT step (B=100, T=384) and one DPRNN step (B=32, 4 s).
+# rounded to bf16 (uPIT's and DPRNN's BLSTM projections, DPRNN's linear
+# layers and the dual-path bottleneck) and the float32-cotangent gradients
+# stay in float32 by rule (ops/mxu.py) and are timed as they run.
+# SepFormer's four transformer-layer products (qkv, out, ff1, ff2 at the
+# 132,000 rows of a sepformer-train-b16 path, with their float32 bias) are
+# timed as rounded_dot runs them by that rule, the operands' float32 copies
+# included, against any_order_dot, which sums them on the tensor cores.
+# Checks: no float32 GEMM kernel (simt, f32f32) behind a bf16 product, each
+# result within relative L2 of today's of 1e-5 (float32) or 2**-8 (rounded
+# to bf16, where another order of the sum moves some elements by a step;
+# tests/test_torch_cuda.py holds uPIT's and DPRNN's to the float64 sum),
+# and the counters of one uPIT step (B=100, T=384), one DPRNN step (B=32,
+# 4 s) and one published SepFormer step (B=4, 4 s; the counts do not
+# depend on the batch).
 
 def _kernel_names(fn) -> list:
     from torch.profiler import ProfilerActivity, profile
@@ -4234,17 +4248,18 @@ def _kernel_names(fn) -> list:
 
 def _step_counts(model, batch, loss_fn) -> dict:
     from speech_separation_tpu_torch.ops.mxu import mxu_dot
-    before = (mxu_dot.tensor_core, mxu_dot.f32)
+    keys = ("tensor_core", "f32", "any_order")
+    before = {k: getattr(mxu_dot, k) for k in keys}
     loss, _ = loss_fn(model, batch, torch.Generator(device="cuda").manual_seed(SEED), True)
     loss.backward()
     torch.cuda.synchronize()
-    return {"tensor_core": mxu_dot.tensor_core - before[0], "f32": mxu_dot.f32 - before[1]}
+    return {k: getattr(mxu_dot, k) - before[k] for k in keys}
 
 
 def products_phase(fails: Failures) -> dict:
     import torch.nn.functional as F
-    from speech_separation_tpu_torch.models import dprnn, upit
-    from speech_separation_tpu_torch.ops.mxu import mxu_dot
+    from speech_separation_tpu_torch.models import dprnn, sepformer, upit
+    from speech_separation_tpu_torch.ops.mxu import any_order_dot, mxu_dot, rounded_dot
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
     bf, f32 = torch.bfloat16, torch.float32
@@ -4256,7 +4271,14 @@ def products_phase(fails: Failures) -> dict:
         return F.pad(t, (0, 0, 0, 7) if dim == -2 else (0, 7))
 
     def cases(arch):
-        """(name, a, b, result dtype, uses a step): each product of one step."""
+        """(name, a, b, result dtype, uses a step, bias): each product of one
+        step; a bias marks SepFormer's transformer-layer products."""
+        if arch == "sepformer":
+            # LayerNorm'd rows (or ReLU'd for ff2) by U(+-1/sqrt(k)) weights and biases
+            return [(name, rnd(132000, k), rnd(k, n, scale=(3 * k) ** -0.5),
+                     bf, 32, rnd(n, scale=(3 * k) ** -0.5, dtype=f32))
+                    for name, k, n in (("qkv", 256, 768), ("out", 256, 256),
+                                       ("ff1", 256, 1024), ("ff2", 1024, 256))]
         if arch == "upit":
             x1, w1 = pad(rnd(2, 38400, 257, scale=0.5), -1), pad(rnd(2, 257, 2400, scale=0.06), -2)
             x, w = rnd(2, 38400, 1200, scale=0.5), rnd(2, 1200, 2400, scale=0.03)
@@ -4281,18 +4303,22 @@ def products_phase(fails: Failures) -> dict:
                 ("linear dW", xl.t(), gl, bf, 12)]
 
     out = {}
-    for arch in ("upit", "dprnn"):
+    for arch in ("upit", "dprnn", "sepformer"):
         rows, new_sum, old_sum = {}, 0.0, 0.0
-        for name, a, b, odt, uses in cases(arch):
-            af, bf_ = a.float(), b.float()
-            new = lambda: mxu_dot(a, b, odt)
-            old = lambda: torch.matmul(af, bf_).to(odt)
+        for name, a, b, odt, uses, *bias in cases(arch):
+            if bias:
+                new = lambda: any_order_dot(a, b, bf, odt, bias[0])
+                old = lambda: rounded_dot(a, b, bf, odt, bias[0])
+            else:
+                af, bf_ = a.float(), b.float()
+                new = lambda: mxu_dot(a, b, odt)
+                old = lambda: torch.matmul(af, bf_).to(odt)
             got, ref = new().float(), old().float()
             gap = float((got - ref).norm() / ref.norm().clamp_min(1e-30))
             ms, old_ms = cuda_ms(new, 10), cuda_ms(old, 10)
             k, m, n = a.shape[-1], a.shape[-2], b.shape[-1]
             flops = 2 * (a.numel() // (m * k)) * m * n * k
-            io = nbytes(a, b) + got.numel() * (2 if odt == bf else 4)
+            io = nbytes(a, b, *bias) + got.numel() * (2 if odt == bf else 4)
             bound, by = bound_ms(io, flops, a.dtype)
             names = _kernel_names(new)
             fails.check(gap <= (2.0 ** -8 if odt == bf else 1e-5),
@@ -4306,7 +4332,8 @@ def products_phase(fails: Failures) -> dict:
             print(f"  {arch} {name} {tuple(a.shape)} x {tuple(b.shape)} -> {odt}: {ms:.3f} ms, "
                   f"today's f32 {old_ms:.3f} ms, bound {bound:.3f} ms ({by}), "
                   f"{100 * bound / ms:.1f}% of it; x{uses} a step; {names}", flush=True)
-            del af, bf_, got, ref
+            del got, ref
+            af = bf_ = None     # the float32 copies, freed before the next case
         out[arch] = {"products": rows, "step_ms": new_sum, "f32_step_ms": old_sum}
         print(f"  {arch}: the step's products {new_sum:.2f} ms against today's {old_sum:.2f} ms",
               flush=True)
@@ -4329,14 +4356,30 @@ def products_phase(fails: Failures) -> dict:
                  "row_mask": torch.ones(32)}
     out["dprnn"]["counts"] = _step_counts(model, batch, dprnn.loss_fn)
     del model, batch, src
+    with torch.device("cuda"):
+        model = sepformer.Model(sepformer.Config.from_kwargs(**SEPFORMER_PUBLISHED))
+        src = 0.1 * torch.randn((4, 2, 32000), generator=gen, device="cuda")
+        batch = {"mix_wav": src.sum(1), "source_wavs": src,
+                 "sample_lengths": torch.full((4,), 32000, dtype=torch.int32),
+                 "row_mask": torch.ones(4)}
+    out["sepformer"]["counts"] = _step_counts(model, batch, sepformer.loss_fn)
+    del model, batch, src
     torch.cuda.empty_cache()
     # uPIT: the head forward, 3 projection gradients and 2 dW_hh on the
     # tensor cores, the 2 projections (rounded to bf16) and the head's 2
     # gradients in float32; DPRNN: 3 forward products (encoder, head,
     # decoder) and 62 backward ones on the tensor cores, the 25 forward
-    # products rounded to bf16 and 5 float32-cotangent gradients in float32
-    for arch, want in (("upit", {"tensor_core": 6, "f32": 4}),
-                       ("dprnn", {"tensor_core": 65, "f32": 30})):
+    # products rounded to bf16 and 5 float32-cotangent gradients in float32;
+    # neither takes any_order_dot. SepFormer (2 blocks x 2 paths x 8 layers):
+    # any_order_dot's 128 forward products (4 a layer) and their 256
+    # gradients, the forward's 6 float32 results (encoder, head, the gate's
+    # three, decoder) and the bottleneck's 2 gradients on the tensor cores;
+    # the bottleneck's forward (rounded to bf16) and 11 float32-cotangent
+    # gradients (the encoder's dW; the head's, the gate's three and the
+    # decoder's dx and dW) in float32
+    for arch, want in (("upit", {"tensor_core": 6, "f32": 4, "any_order": 0}),
+                       ("dprnn", {"tensor_core": 65, "f32": 30, "any_order": 0}),
+                       ("sepformer", {"tensor_core": 392, "f32": 12, "any_order": 128})):
         fails.check(out[arch]["counts"] == want,
                     f"{arch} step: mxu_dot counted {out[arch]['counts']} (want {want})")
     return out

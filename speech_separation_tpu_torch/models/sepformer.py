@@ -36,7 +36,9 @@ the card, their plain versions on the CPU); ``fused_attention=0`` is the
 einsum path, plain torch products as the JAX package leaves them to XLA.
 
 Dtypes mirror the JAX package step by step: with ``compute_dtype=bfloat16``
-the products take bf16 inputs with float32 sums (ops/mxu.rounded_dot), the
+the products take bf16 inputs with float32 sums (ops/mxu.rounded_dot; the
+transformer layers' four, whose roundings no recurrence carries, through
+ops/mxu.any_order_dot, summed on the tensor cores on the card), the
 trunk's activations are stored in bf16, and the norm statistics, the
 biases, the head's logits, the gate, the masks and the decoder stay
 float32. The sinusoidal PE is computed in numpy. DOMAIN is 'time': the
@@ -72,7 +74,7 @@ from .dual_path import chunk_masks, separate_core
 from .layers import cln, cln_init, coerce_kwargs, dot, gln, linear_draw_, linear_init
 from .waveform import pit_si_snr_loss
 from ..ops.attention_kernel import chunk_attention
-from ..ops.mxu import rounded_dot
+from ..ops.mxu import any_order_dot, rounded_dot
 from ..utils.spans import span
 
 NAME = "SepFormer"
@@ -254,10 +256,13 @@ def _attention(layer, x: torch.Tensor, key_mask: torch.Tensor, cfg: Config,
     ad = x.dtype
     nh, dh = cfg.heads, H // cfg.heads
     md = cfg.torch_dtype
+
+    def lin(t, name):
+        return any_order_dot(t, layer[name]["w"], md, ad, layer[name]["b"])
     y = cln(x, layer["ln1"])
     if pe:
         y = y + _pe_tensor(T, H, x.device, ad)
-    qkv = dot(y, layer["qkv"], md, ad).reshape(R, T, 3, nh, dh)
+    qkv = lin(y, "qkv").reshape(R, T, 3, nh, dh)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]       # (R, T, nh, dh)
     if cfg.fused_attention:
         def fold(t):
@@ -270,9 +275,9 @@ def _attention(layer, x: torch.Tensor, key_mask: torch.Tensor, cfg: Config,
         logits = logits + (1.0 - key_mask)[:, None, None, :] * (-1e9)
         w = torch.softmax(logits, dim=-1).to(ad)
         o = torch.einsum("rhqk,rkhd->rqhd", w.float(), v.float()).reshape(R, T, H).to(ad)
-    x = x + dot(o, layer["out"], md, ad)
-    y = dot(cln(x, layer["ln2"]), layer["ff1"], md, ad)
-    return x + dot(torch.relu(y), layer["ff2"], md, ad)
+    x = x + lin(o, "out")
+    y = lin(cln(x, layer["ln2"]), "ff1")
+    return x + lin(torch.relu(y), "ff2")
 
 
 def _path(path, x: torch.Tensor, key_mask: torch.Tensor, cfg: Config) -> torch.Tensor:

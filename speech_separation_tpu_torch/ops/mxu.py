@@ -33,22 +33,37 @@ with the accumulator's own rounding. ``mxu_dot`` is that one product:
 
 ``mxu_dot`` runs on CUDA tensors only: every CPU path below is the plain
 product. ``mxu_dot.tensor_core`` and ``mxu_dot.f32`` count the products
-by case.
+by case, and ``mxu_dot.any_order`` the forward products that
+``any_order_dot`` sums on the tensor cores (each of those is also one of
+``tensor_core``'s).
 
-``rounded_dot`` is the differentiable product of the models: on a CUDA
-tensor with a bf16 compute dtype it is ``_RoundedDot``, whose forward and
-backward both run on ``mxu_dot``, each product's case following the
-dtypes, never the values:
+``rounded_dot`` and ``any_order_dot`` are the differentiable products of
+the models: on a CUDA tensor with a bf16 compute dtype each is
+``_RoundedDot``, whose forward and backward both run on ``mxu_dot``, each
+product's case following the dtypes and the function called, never the
+values:
 
 - the forward: a float32 result (a head under its sigmoid, an encoder) on
-  the tensor cores; a result rounded to bf16 (the BLSTM's input
-  projection, the linear layers of the trunks) the float32 product of the
-  same operands, so that its roundings are the ones the plain product
-  makes. Any other order of the sum, a more exact one too, rounds about
-  0.1% of the elements to the other neighbour, and a recurrence carries
-  those whole bf16 steps to the loss: a 2x600 uPIT step's loss moves
-  6.9e-6 relative on the tensor cores and 1.5e-5 with sums of 8 terms,
-  against 6.6e-7 between the float32 product and the CPU (H100);
+  the tensor cores. A result rounded to bf16 takes one of two cases, by the
+  function its call site calls:
+
+  - ``rounded_dot`` (``held_dot``, ``column_dot``, ``models/layers.dot``
+    and ``row_dot``): the float32 product of the same operands, so that its
+    roundings are the ones the plain product makes. These are the BLSTM's
+    input projections and DPRNN's intra and inter projections, which feed
+    a recurrence, and the trunks' products: the dual-path bottleneck (DPRNN
+    runs it too) and TCN's and Conv-TasNet's linear layers. Any other order
+    of the sum, a more exact one too, rounds about 0.1% of the elements to
+    the other neighbour, and a recurrence carries those whole bf16 steps to
+    the loss: a 2x600 uPIT step's loss moves 6.9e-6 relative on the tensor
+    cores and 1.5e-5 with sums of 8 terms, against 6.6e-7 between the
+    float32 product and the CPU (H100), where the card-against-CPU check
+    holds it to 1.5e-6;
+  - ``any_order_dot`` (SepFormer's transformer layers, ``qkv``, ``out``,
+    ``ff1`` and ``ff2``, and no other call site): on the tensor cores, the
+    bf16 operands summed in float32, the bias added to that sum, then the
+    one rounding. No recurrence consumes these results, and SepFormer's
+    checks hold its step to bounds that another order of the sum passes;
 - the backward: a result rounded to bf16 gets a bf16 cotangent, so both
   gradient products run on the tensor cores; a float32 result gets a
   float32 cotangent (a sigmoid's, a loss's), which is not rounded, so both
@@ -127,6 +142,7 @@ def mxu_dot(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.T
 
 mxu_dot.tensor_core = 0
 mxu_dot.f32 = 0
+mxu_dot.any_order = 0
 
 
 def _mt(t: torch.Tensor) -> torch.Tensor:
@@ -139,13 +155,16 @@ class _RoundedDot(torch.autograd.Function):
     bf16 values (bf16 tensors, or float32 ones of bf16 values); the float32
     bias is added to the float32 sum before the one rounding to
     ``out_dtype``; the forward product on the tensor cores for a float32
-    result, in float32 for one rounded to bf16. A K that is not a multiple
+    result. For one rounded to bf16, ``any_order`` (set by the function
+    called, ``any_order_dot`` or ``held_dot``) chooses the case: on the
+    tensor cores (counted in ``mxu_dot.any_order``), else the float32
+    product. The backward is the same in both. A K that is not a multiple
     of 8 (257 STFT bins) is padded with zeros, which add nothing, so that
     every operand's rows, and dW's, start 16-byte aligned, as cuBLAS's fast
     kernels need."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, out_dtype):
+    def forward(ctx, x, w, bias, out_dtype, any_order):
         K, N = w.shape[-2:]
         batched = w.dim() > 2
         a = x.to(torch.bfloat16).reshape((x.shape[0], -1, K) if batched else (-1, K))
@@ -154,6 +173,9 @@ class _RoundedDot(torch.autograd.Function):
             a, b = F.pad(a, (0, -K % 8)), F.pad(b, (0, 0, 0, -K % 8))
         if out_dtype == torch.float32:
             y = mxu_dot(a, b, torch.float32)
+        elif any_order:
+            mxu_dot.any_order += 1
+            y = mxu_dot(a, b, torch.float32 if bias is not None else out_dtype)
         else:
             # rounded as the plain product rounds it: the float32 product
             y = mxu_dot(a.float(), b.float(), torch.float32 if bias is not None else out_dtype)
@@ -180,7 +202,7 @@ class _RoundedDot(torch.autograd.Function):
             dw = mxu_dot(_mt(a), g, w_dtype)[..., :K, :].reshape(w_shape)
         if ctx.needs_input_grad[2]:
             db = g.reshape(-1, g.shape[-1]).sum(0, dtype=torch.float32).to(ctx.bias_dtype)
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
 def tensor_cores(device: torch.device, dtype: torch.dtype) -> bool:
@@ -197,7 +219,7 @@ def held_dot(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype,
     the float32 sum, unrounded (the tensor-parallel paths round it after
     the reduce over the model group)."""
     if tensor_cores(x.device, dtype) and out_dtype in (torch.float32, torch.bfloat16):
-        return _RoundedDot.apply(x, w, bias, out_dtype)
+        return _RoundedDot.apply(x, w, bias, out_dtype, False)
     y = torch.matmul(x.float(), w.float())
     if bias is not None:
         y = y + bias
@@ -211,6 +233,21 @@ def rounded_dot(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype,
     the bias) in float32, the result in ``out_dtype`` (rounded once). w is
     (K, N), or (D, 1, ..., 1, K, N) for an x of (D, ..., K)."""
     return held_dot(x.to(dtype), w.to(dtype), dtype, out_dtype, bias)
+
+
+def any_order_dot(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype,
+                  out_dtype: torch.dtype = torch.float32,
+                  bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``rounded_dot`` whose result rounded to bf16 is summed on the tensor
+    cores on the card, in their order of the sum, not the float32
+    product's: for products whose roundings no recurrence carries to the
+    loss (SepFormer's transformer layers, the module docstring). The same
+    backward, saved tensors and gradient dtypes as ``rounded_dot``; on the
+    CPU, or in float32, the plain product, bit for bit."""
+    x, w = x.to(dtype), w.to(dtype)
+    if tensor_cores(x.device, dtype) and out_dtype in (torch.float32, torch.bfloat16):
+        return _RoundedDot.apply(x, w, bias, out_dtype, True)
+    return held_dot(x, w, dtype, out_dtype, bias)
 
 
 def column_dot(y: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -7,7 +7,8 @@ the compute dtype and multiplied in float32, bit for bit as the code before
 column-parallel head (``column_dot``), the linear layers of TCN, Conv-TasNet,
 SepFormer and DPRNN (``layers.dot``), the BLSTM's direction-batched input
 projection and the recurrence's dW_hh. Those old expressions are written out
-here as the references.
+here as the references. SepFormer's transformer layers take ``any_order_dot``,
+which on the CPU is that same plain product.
 
 The card's path (``_RoundedDot`` on ``mxu_dot``) runs here too where a test
 lets the CPU stand in for the card (``as_card``): ``mxu_dot`` then forms each
@@ -23,7 +24,7 @@ follows by about one bf16 step).
 import pytest
 import torch
 
-from speech_separation_tpu_torch.models import blstm, dprnn, layers, tcn, upit
+from speech_separation_tpu_torch.models import blstm, dprnn, layers, sepformer, tcn, upit
 from speech_separation_tpu_torch.ops import lstm_kernel, mxu
 from speech_separation_tpu_torch.parallel.ranks import copy_to_model
 
@@ -78,6 +79,7 @@ def as_card(monkeypatch):
     monkeypatch.setattr(torch, "bmm", _fake_cublas(torch.bmm))
     monkeypatch.setattr(mxu.mxu_dot, "tensor_core", 0)
     monkeypatch.setattr(mxu.mxu_dot, "f32", 0)
+    monkeypatch.setattr(mxu.mxu_dot, "any_order", 0)
 
 
 # ------------------------------------------------- the plain path, bit for bit
@@ -235,26 +237,35 @@ def _close(got, ref, dtype):
         assert float((got - ref).norm() / ref.norm().clamp_min(1e-30)) <= 1e-5
 
 
-@pytest.mark.parametrize("case", ["f32_out", "bf16_out_bias", "batched_bf16_out", "k257"])
+@pytest.mark.parametrize("case", ["f32_out", "bf16_out_bias", "batched_bf16_out", "k257",
+                                  "any_order", "any_order_bias", "batched_any_order"])
 def test_rounded_dot_function_matches_the_plain_product(as_card, case):
     """_RoundedDot (forward, both gradients, the bias's) against the plain
-    product of the same rounded operands; the case's counts."""
+    product of the same rounded operands; the case's counts. rounded_dot's
+    forward rounded to bf16 is the float32 product; any_order_dot's runs on
+    the tensor cores, with the same backward."""
     B, K, N, out, bias, batched = 40, 16, 24, F32, False, False
-    if case == "bf16_out_bias":
+    any_order = "any_order" in case
+    if case in ("bf16_out_bias", "any_order_bias"):
         out, bias = BF16, True
-    elif case == "batched_bf16_out":
+    elif case in ("batched_bf16_out", "batched_any_order"):
         out, batched = BF16, True
     elif case == "k257":
         K, N, out = 257, 16, BF16
+    elif case == "any_order":
+        out = BF16
+    dot = mxu.any_order_dot if any_order else mxu.rounded_dot
     x = _rand(2, 4, B // 4, K, dtype=BF16)
     w = _rand(*((2, 1, K, N) if batched else (K, N)), seed=1)
     b = _rand(N, seed=2) if bias else None
     leaves = (x, w) + ((b,) if bias else ())
 
     def run(*leaves):
-        return mxu.rounded_dot(leaves[0], leaves[1], BF16, out, leaves[2] if bias else None)
+        return dot(leaves[0], leaves[1], BF16, out, leaves[2] if bias else None)
     got = _grads(run, *leaves)
-    assert (mxu.mxu_dot.tensor_core, mxu.mxu_dot.f32) == ((2, 1) if out == BF16 else (1, 2))
+    want = (1, 2) if out == F32 else (3, 0) if any_order else (2, 1)
+    assert (mxu.mxu_dot.tensor_core, mxu.mxu_dot.f32, mxu.mxu_dot.any_order) == \
+        (*want, int(any_order))
     with pytest.MonkeyPatch.context() as m:
         m.setattr(mxu, "tensor_cores", lambda device, dtype: False)
         ref = _grads(run, *leaves)
@@ -349,6 +360,45 @@ def test_dprnn_step_through_the_card_path_is_the_plain_step(as_card):
     # rounded to bf16 (bottleneck, the block's 2 projections and 2 linear
     # layers), the encoder's dW, the head's and the decoder's dx and dW
     assert (mxu.mxu_dot.tensor_core, mxu.mxu_dot.f32) == (3 + 12, 5 + 5)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(mxu, "tensor_cores", lambda device, dtype: False)
+        ref = step()
+    _step_close(got, ref)
+
+
+def test_sepformer_step_through_the_card_path_is_the_plain_step(as_card):
+    """A bf16 published SepFormer step (one block of 2 intra and 2 inter
+    layers, K5's plain versions) with the CPU standing in for the card
+    against the plain step: the same loss and gradients; its products'
+    counts by case."""
+    layers_, blocks = 2, 1
+    cfg = sepformer.Config(n_filters=8, filter_len=4, stride=2, channels=8, heads=2, d_ff=16,
+                           chunk=8, blocks=blocks, published=True, layers=layers_,
+                           compute_dtype="bfloat16", fused_attention=True)
+
+    def step():
+        model = sepformer.Model(cfg, torch.Generator().manual_seed(3))
+        g = torch.Generator().manual_seed(4)
+        L = 64
+        src = 0.1 * torch.randn((2, 2, L), generator=g)
+        lens = torch.tensor([64, 40], dtype=torch.int32)
+        src = src * (torch.arange(L)[None, :] < lens[:, None])[:, None, :]
+        batch = {"mix_wav": src.sum(1), "source_wavs": src, "sample_lengths": lens,
+                 "row_mask": torch.ones(2)}
+        loss, _ = sepformer.loss_fn(model, batch, None, True)
+        loss.backward()
+        return loss.detach(), {n: p.grad for n, p in model.named_parameters()
+                               if p.grad is not None}
+    got = step()
+    # the transformer layers' 4 products a layer, each path's stack, each
+    # block: any_order_dot's forward on the tensor cores, its dx and dW too;
+    # on the tensor cores besides: the forward's float32 results (encoder,
+    # head, the gate's three, decoder) and the bottleneck's dx and dW; in
+    # float32: the bottleneck's forward (rounded to bf16, by rule), the
+    # encoder's dW, and the head's, the gate's and the decoder's dx and dW
+    n = 4 * layers_ * 2 * blocks
+    assert (mxu.mxu_dot.tensor_core, mxu.mxu_dot.f32, mxu.mxu_dot.any_order) == \
+        (6 + 2 + 3 * n, 1 + 11, n)
     with pytest.MonkeyPatch.context() as m:
         m.setattr(mxu, "tensor_cores", lambda device, dtype: False)
         ref = step()
